@@ -1,0 +1,513 @@
+"""Whole-body MPC with joint-space reference — the main controller.
+
+Counterpart of ``mmmpc_tpu/controllers/wholebody_qref.py``: 9-state / 5-input
+MPC with
+
+- state / input / input-rate quadratic tracking costs (Q, R, W), terminal P,
+- ground circles, half-plane-union link obstacles and self-collision spheres
+  folded into the exact slack penalty S * relu(max g)^2,
+- hard state boxes, input boxes (clamped in every rollout) and input-rate
+  boxes, plus a runtime-maskable terminal position equality,
+- the reference's terminal-block bug (terminal self-collision constrained
+  against the stale stage slack s[N-1]), as the JAX controller's default
+  ``replicate_terminal_selfcol_bug=True`` has it: the self-collision values
+  of x_N = f(x_{N-1}, u_{N-1}) ride stage N-1's slack group, and the
+  terminal slack group has no self-collision rows.  The other setting is
+  not ported.
+
+The JAX controller differentiates the slack group with ``jax.value_and_grad``;
+here its gradient is closed form (world-point Jacobians of the FK, the even
+tie split of the max as in the VJP of ``jnp.max``), the same algebra as the
+fused backward kernel.  ``tests/test_torch_qref.py`` holds it against JAX and
+against ``torch.func.jacfwd``.
+
+The moving-obstacle variant (``moving_obstacles=True``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from mmmpc_tpu_torch.controllers.common import (
+    ControllerBase, as_weight_matrix, finite_bound_masks, scalar_weight,
+    weight_sqrt,
+)
+from mmmpc_tpu_torch.models.arm import A2, A3, A5, A6, A7
+from mmmpc_tpu_torch.models.mobile_manipulator import (
+    wholebody_fk, wholebody_jacobians, wholebody_step,
+)
+from mmmpc_tpu_torch.models.obstacles import ground_obstacle_array
+from mmmpc_tpu_torch.ocp.constraints import (
+    NEG_BIG, OBSTACLE_EXPAND_DIST, SELF_COLLISION_RADIUS, box_g,
+    ground_circle_g, halfplane_union_g, manipulator_sample_points, relu_max,
+    self_collision_g,
+)
+from mmmpc_tpu_torch.ocp.spec import OCP
+from mmmpc_tpu_torch.ops.wholebody_bwd import BwdFused
+from mmmpc_tpu_torch.ops.wholebody_fwd import FwdLinesearch
+from mmmpc_tpu_torch.utils.configs import (
+    BASELINK2JOINT1_X, BASELINK2JOINT1_Z, SolverConfig,
+)
+
+PI = math.pi
+
+_DEFAULT_Q = 5 * np.diag([5, 5, 0, 0, 0, 1, 1, 1, 1.0])
+_DEFAULT_R = np.diag([0.1, 0.1, 0.0, 0.0, 0.0])
+_DEFAULT_S = np.diag([1e5])
+_DEFAULT_W = np.diag([0, 0, 1e-1, 1e-1, 1e-1])
+_DEFAULT_ULIM = np.array([[-2, -PI, -1, -1, -1], [2, PI, 1, 1, 1.0]])
+_DEFAULT_XLIM = np.array([
+    [-100, -100, -np.inf, -2, -2, -PI, -PI / 2, -PI, 0],
+    [100, 100, np.inf, 2, 2, PI, PI / 2, 0, 3 * PI / 2],
+])
+_DEFAULT_DULIM = np.array([
+    [-np.inf, -np.inf, -0.5, -0.5, -0.5],
+    [np.inf, np.inf, 0.5, 0.5, 0.5],
+])
+
+# Rows of coefficients over the world points (j2, j3, ee).  Self-collision:
+# check point minus ee, for the checks [world origin, j2/2, j2, (j2+j3)/2].
+_SELF_DIFF = ((0.0, 0.0, -1.0), (0.5, 0.0, -1.0), (1.0, 0.0, -1.0),
+              (0.5, 0.5, -1.0))
+# The six sampled link points [j2/2, j2, (j2+j3)/2, j3, (j3+ee)/2, ee].
+_HP_POINTS = ((0.5, 0.0, 0.0), (1.0, 0.0, 0.0), (0.5, 0.5, 0.0),
+              (0.0, 1.0, 0.0), (0.0, 0.5, 0.5), (0.0, 0.0, 1.0))
+
+
+def _world_points_jacobian(x):
+    """World (j2, j3, ee) as (..., 3, 3) and their Jacobians w.r.t. the state
+    (..., 3, 3, 9): the angle-sum FK of models/arm.py differentiated in
+    closed form (only px, py, psi and q enter)."""
+    px, py, psi = x[..., 0], x[..., 1], x[..., 2]
+    q1 = x[..., 6]
+    th = q1 - x[..., 7]
+    be = th - x[..., 8]
+    s1, c1 = torch.sin(q1), torch.cos(q1)
+    st, ct = torch.sin(th), torch.cos(th)
+    sb, cb = torch.sin(be), torch.cos(be)
+
+    ax2 = A2 * s1 + A3 * c1
+    az2 = A2 * c1 - A3 * s1
+    D3 = A3 * st + A5 * ct              # d(-A3 ct + A5 st)/d th
+    E3 = A3 * ct - A5 * st              # d( A3 st + A5 ct)/d th
+    ax3 = ax2 - A3 * ct + A5 * st
+    az3 = az2 + A3 * st + A5 * ct
+    P6 = -A6 * sb - A7 * cb             # d( A6 cb - A7 sb)/d be
+    Q6 = -A6 * cb + A7 * sb             # d(-A6 sb - A7 cb)/d be
+    axe = ax3 + A6 * cb - A7 * sb
+    aze = az3 - A6 * sb - A7 * cb
+
+    z = torch.zeros_like(px)
+    ax = torch.stack([ax2, ax3, axe], dim=-1)
+    az = torch.stack([az2, az3, aze], dim=-1)
+    # q-partials of the arm-frame coordinates, (..., point, q)
+    ax_q = torch.stack([torch.stack([az2, z, z], -1),
+                        torch.stack([az2 + D3, -D3, z], -1),
+                        torch.stack([az2 + D3 + P6, -(D3 + P6), -P6], -1)], -2)
+    az_q = torch.stack([torch.stack([-ax2, z, z], -1),
+                        torch.stack([-ax2 + E3, -E3, z], -1),
+                        torch.stack([-ax2 + E3 + Q6, -(E3 + Q6), -Q6], -1)], -2)
+
+    r = ax + BASELINK2JOINT1_X
+    cp = torch.cos(psi)[..., None]
+    sp = torch.sin(psi)[..., None]
+    pts = torch.stack([px[..., None] + r * cp, py[..., None] + r * sp,
+                       az + BASELINK2JOINT1_Z], dim=-1)
+    one, zr = torch.ones_like(r), torch.zeros_like(r)
+    jx = torch.cat([torch.stack([one, zr, -r * sp, zr, zr, zr], -1),
+                    cp[..., None] * ax_q], -1)
+    jy = torch.cat([torch.stack([zr, one, r * cp, zr, zr, zr], -1),
+                    sp[..., None] * ax_q], -1)
+    jz = torch.cat([torch.stack([zr] * 6, -1), az_q], -1)
+    return pts, torch.stack([jx, jy, jz], dim=-2)
+
+
+def _combine(coefs, pts, jac):
+    """Linear combinations of the world points and of their Jacobians."""
+    C = torch.tensor(coefs, dtype=pts.dtype, device=pts.device)
+    return (torch.einsum("rk,...kc->...rc", C, pts),
+            torch.einsum("rk,...kcj->...rcj", C, jac))
+
+
+def _slack_rows_with_grad(x, p, base_radius, ground=True, selfcol=True,
+                          hp=True):
+    """Slack-group values (..., G) and their state gradients (..., G, 9),
+    rows ordered [ground circles, self-collision, half-plane unions]."""
+    pts, J = _world_points_jacobian(x)
+    vals, grads = [], []
+    if ground:
+        obs = p["obstacles"]
+        dx = x[..., 0, None] - obs[:, 0]
+        dy = x[..., 1, None] - obs[:, 1]
+        d = torch.sqrt(dx * dx + dy * dy + 1e-9)
+        vals.append((obs[:, 2] + base_radius) - d)
+        g = torch.zeros(d.shape + (9,), dtype=x.dtype, device=x.device)
+        g[..., 0] = -dx / d
+        g[..., 1] = -dy / d
+        grads.append(g)
+    if selfcol:
+        v, Jv = _combine(_SELF_DIFF, pts, J)
+        n = torch.sqrt(torch.sum(v * v, dim=-1) + 1e-9)
+        vals.append(SELF_COLLISION_RADIUS - n)
+        grads.append(-torch.einsum("...rc,...rcj->...rj", v / n[..., None],
+                                   Jv))
+    if hp:
+        q, Jq = _combine(_HP_POINTS, pts, J)
+        nrm = p["hp_normals"]
+        o = p["hp_points"] - OBSTACLE_EXPAND_DIST * nrm
+        d = torch.sum(nrm * (o - q[..., :, None, :]), dim=-1)
+        d = torch.where(p["hp_mask"] > 0, d, NEG_BIG)        # (..., 6, n_hp)
+        dmax = torch.amax(d, dim=-1)
+        live = torch.sum(p["hp_mask"]) > 0
+        vals.append(torch.where(live, -dmax, NEG_BIG))
+        # d(-max_f d_f)/dq = the tie-split average of the maximal normals
+        tie = (d == dmax[..., None]).to(x.dtype)
+        n_eff = (tie / torch.sum(tie, dim=-1, keepdim=True)) @ nrm
+        grads.append(torch.where(
+            live, torch.einsum("...rc,...rcj->...rj", n_eff, Jq), 0.0))
+    return torch.cat(vals, dim=-1), torch.cat(grads, dim=-2)
+
+
+def _relu_max_grad(vals, grads):
+    """(relu(max vals), its gradient) with the even tie split of the VJPs of
+    jnp.max and jnp.maximum(0, .) (half a gradient at exactly 0)."""
+    gmax = torch.amax(vals, dim=-1)
+    tie = (vals == gmax[..., None]).to(vals.dtype)
+    live = torch.where(gmax > 0, 1.0,
+                       torch.where(gmax == 0, 0.5, 0.0)).to(vals.dtype)
+    live = live / torch.sum(tie, dim=-1)
+    sgrad = torch.einsum("...g,...gn->...n", tie, grads) * live[..., None]
+    return torch.clamp(gmax, min=0.0), sgrad
+
+
+def _outer(a, b):
+    return a[..., :, None] * b[..., None, :]
+
+
+def _mv(M, v):
+    """M @ v for a shared matrix M and batched vectors v (..., n)."""
+    return v @ M.mT
+
+
+class MPCWholeBody(ControllerBase):
+    NX, NU = 9, 5
+
+    def __init__(self, robot, obstacle_list, obstacle_manipulation_list,
+                 N=10, Q=_DEFAULT_Q, P=_DEFAULT_Q, R=_DEFAULT_R,
+                 S=_DEFAULT_S, W=_DEFAULT_W,
+                 ulim=_DEFAULT_ULIM, xlim=_DEFAULT_XLIM, dulim=_DEFAULT_DULIM,
+                 solver_config: SolverConfig | None = None):
+        self.robot_model = robot
+        self.dt = robot.dt
+        self.base_radius = robot.base.base_radius()
+
+        # runtime weight state (reference setWeight mechanism)
+        self.Q_value = as_weight_matrix(Q, self.NX)
+        self.P_value = as_weight_matrix(P, self.NX)
+        self.R_value = as_weight_matrix(R, self.NU)
+        self.W_value = as_weight_matrix(W, self.NU)
+        self.S_value = scalar_weight(S)
+
+        self.ulim = np.asarray(ulim, dtype=float)
+        self.xlim = np.asarray(xlim, dtype=float)
+        self.dulim = np.asarray(dulim, dtype=float)
+
+        self.obstacles_value = ground_obstacle_array(obstacle_list)
+        self.n_obs = self.obstacles_value.shape[0]
+        self.n_hp = max(len(obstacle_manipulation_list), 1)
+        self.hp_points_value = np.zeros((self.n_hp, 3))
+        self.hp_normals_value = np.zeros((self.n_hp, 3))
+        self.hp_mask_value = np.zeros((self.n_hp,))
+        for j, (pt, nvec) in enumerate(obstacle_manipulation_list):
+            self.hp_points_value[j] = np.asarray(pt, dtype=float).reshape(3)
+            self.hp_normals_value[j] = np.asarray(nvec, dtype=float).reshape(3)
+            self.hp_mask_value[j] = 1.0
+
+        # FSM-injected terminal position equality, off by default
+        self.terminal_eq_mask = 0.0
+
+        self.x_bounds = finite_bound_masks(self.xlim)
+        self.du_bounds = finite_bound_masks(self.dulim)
+        super().__init__(self._build_ocp(N), solver_config or SolverConfig())
+
+    # ------------------------------------------------------------------
+    def _build_ocp(self, N):
+        dt = self.dt
+        base_radius = self.base_radius
+        nx, nu = self.NX, self.NU
+        x_lo, x_hi, x_mlo, x_mhi = self.x_bounds
+        du_lo, du_hi, du_mlo, du_mhi = self.du_bounds
+
+        def dynamics(x, u):
+            return wholebody_step(x, u, dt)
+
+        def last_stage(k, x):
+            """k == N-1 as a bool tensor with a trailing unit axis."""
+            k = torch.as_tensor(k, dtype=torch.long, device=x.device)
+            return (k == N - 1)[..., None]
+
+        def slack_group(x, p):
+            pose_ee, j2, j3 = wholebody_fk(x)
+            ee = pose_ee[..., :3]
+            return (ground_circle_g(x[..., 0], x[..., 1], p["obstacles"],
+                                    base_radius),
+                    self_collision_g(ee, j2, j3),
+                    halfplane_union_g(manipulator_sample_points(ee, j2, j3),
+                                      p["hp_points"], p["hp_normals"],
+                                      p["hp_mask"]))
+
+        def terminal_selfcol(x):
+            pose_ee, j2, j3 = wholebody_fk(x)
+            return self_collision_g(pose_ee[..., :3], j2, j3)
+
+        def stage_slack_g(x, u, k, p):
+            # terminal self-collision rides stage N-1's slack (the
+            # reference's stale loop index)
+            g_term = torch.where(last_stage(k, x),
+                                 terminal_selfcol(dynamics(x, u)), NEG_BIG)
+            return torch.cat(slack_group(x, p) + (g_term,), dim=-1)
+
+        def terminal_slack_g(x, p):
+            g_ground, _, g_hp = slack_group(x, p)
+            return torch.cat([g_ground, g_hp], dim=-1)
+
+        def stage_slack_grad(x, u, k, p):
+            """(smax, d smax / d[x; u]) of the stage slack group."""
+            vals, gx = _slack_rows_with_grad(x, p, base_radius)
+            gu = torch.zeros(gx.shape[:-1] + (nu,), dtype=x.dtype,
+                             device=x.device)
+            tv, tg = _slack_rows_with_grad(dynamics(x, u), p, base_radius,
+                                           ground=False, hp=False)
+            A, Bm = wholebody_jacobians(x, u, dt)
+            last = last_stage(k, x)
+            vals = torch.cat([vals, torch.where(last, tv, NEG_BIG)], -1)
+            # chain rule through the dynamics step
+            gx = torch.cat([gx, torch.where(last[..., None], tg @ A, 0.0)], -2)
+            gu = torch.cat([gu, torch.where(last[..., None], tg @ Bm, 0.0)], -2)
+            return _relu_max_grad(vals, torch.cat([gx, gu], dim=-1))
+
+        def terminal_slack_grad(x, p):
+            vals, gx = _slack_rows_with_grad(x, p, base_radius, selfcol=False)
+            return _relu_max_grad(vals, gx)
+
+        def quad(e, M):
+            return torch.sum(_mv(M, e) * e, dim=-1)
+
+        def errors(x, u, k, p):
+            return x - p["X_ref"][k], u - p["U_ref"][k], u - p["U_last"][k]
+
+        def stage_cost(x, u, k, p):
+            ex, eu, edu = errors(x, u, k, p)
+            smax = relu_max(stage_slack_g(x, u, k, p))
+            return (quad(ex, p["Q"]) + quad(eu, p["R"]) + quad(edu, p["W"])
+                    + p["S"] * smax * smax)
+
+        def terminal_cost(x, p):
+            ex = x - p["X_ref"][N]
+            smax = relu_max(terminal_slack_g(x, p))
+            return quad(ex, p["P"]) + p["S"] * smax * smax
+
+        def stage_residuals(x, u, k, p):
+            """cost == ||residuals||^2 exactly (Gauss-Newton factorisation)."""
+            ex, eu, edu = errors(x, u, k, p)
+            smax = relu_max(stage_slack_g(x, u, k, p))
+            return torch.cat([_mv(p["Q_s"], ex), _mv(p["R_s"], eu),
+                              _mv(p["W_s"], edu),
+                              (p["S_sqrt"] * smax)[..., None]], dim=-1)
+
+        def terminal_residuals(x, p):
+            ex = x - p["X_ref"][N]
+            smax = relu_max(terminal_slack_g(x, p))
+            return torch.cat([_mv(p["P_s"], ex),
+                              (p["S_sqrt"] * smax)[..., None]], dim=-1)
+
+        def stage_ineq(x, u, k, p):
+            gx = box_g(x, x_lo, x_hi, x_mlo, x_mhi)
+            gdu = box_g(u - p["U_last"][k], du_lo, du_hi, du_mlo, du_mhi)
+            return torch.cat([gx, gdu], dim=-1)
+
+        def terminal_ineq(x, p):
+            return box_g(x, x_lo, x_hi, x_mlo, x_mhi)
+
+        def terminal_eq(x, p):
+            return p["eq_mask"] * (x[..., :2] - p["X_ref"][N, :2])
+
+        # ---- hand Jacobians: box rows are constant +-selection rows ----
+        Jc_np = np.zeros((2 * nx + 2 * nu, nx + nu))
+        for i in range(nx):
+            Jc_np[i, i] = 1.0 if x_mhi[i] else 0.0
+            Jc_np[nx + i, i] = -1.0 if x_mlo[i] else 0.0
+        for i in range(nu):
+            Jc_np[2 * nx + i, nx + i] = 1.0 if du_mhi[i] else 0.0
+            Jc_np[2 * nx + nu + i, nx + i] = -1.0 if du_mlo[i] else 0.0
+        Jeq_np = np.zeros((2, nx))
+        Jeq_np[0, 0] = Jeq_np[1, 1] = 1.0
+
+        def const(a, like, batch):
+            t = torch.as_tensor(a, dtype=like.dtype, device=like.device)
+            return t.expand(batch + t.shape)
+
+        def stage_gn(x, u, k, p):
+            ex, eu, edu = errors(x, u, k, p)
+            smax, sgrad = stage_slack_grad(x, u, k, p)
+            r = torch.cat([_mv(p["Q_s"], ex), _mv(p["R_s"], eu),
+                           _mv(p["W_s"], edu),
+                           (p["S_sqrt"] * smax)[..., None]], dim=-1)
+            Jq = torch.zeros(2 * nu + nx, nx + nu, dtype=x.dtype,
+                             device=x.device)
+            Jq[:nx, :nx] = p["Q_s"]
+            Jq[nx:nx + nu, nx:] = p["R_s"]
+            Jq[nx + nu:, nx:] = p["W_s"]
+            J = torch.cat([Jq.expand(sgrad.shape[:-1] + Jq.shape),
+                           (p["S_sqrt"] * sgrad)[..., None, :]], dim=-2)
+            return r, J
+
+        def terminal_gn(x, p):
+            ex = x - p["X_ref"][N]
+            smax, sx = terminal_slack_grad(x, p)
+            r = torch.cat([_mv(p["P_s"], ex),
+                           (p["S_sqrt"] * smax)[..., None]], dim=-1)
+            J = torch.cat([p["P_s"].expand(sx.shape[:-1] + (nx, nx)),
+                           (p["S_sqrt"] * sx)[..., None, :]], dim=-2)
+            return r, J
+
+        def stage_ineq_jac(x, u, k, p):
+            c = stage_ineq(x, u, k, p)
+            return c, const(Jc_np, x, c.shape[:-1])
+
+        def terminal_ineq_jac(x, p):
+            c = terminal_ineq(x, p)
+            return c, const(Jc_np[:2 * nx, :nx], x, c.shape[:-1])
+
+        def terminal_eq_jac(x, p):
+            h = terminal_eq(x, p)
+            return h, p["eq_mask"] * const(Jeq_np, x, h.shape[:-1])
+
+        def dynamics_jacobians(x, u):
+            return wholebody_jacobians(x, u, dt)
+
+        # ---- fully structured AL expansion (no Jacobian materialised) ----
+        # stage_ineq rows: [x_hi(9), x_lo(9), du_hi(5), du_lo(5)];
+        # terminal_ineq rows: [x_hi(9), x_lo(9)].  Box rows are +-unit
+        # vectors, so their PHR terms are diagonal; the slack row is rank 1.
+        def stage_al_expansion(x, u, k, p, lam_k, mu, inv_scale):
+            ex, eu, edu = errors(x, u, k, p)
+            smax, sgrad = stage_slack_grad(x, u, k, p)
+            sx, su = sgrad[..., :nx], sgrad[..., nx:]
+            S = p["S"]
+            two_s = 2.0 * inv_scale
+            Ssm = (S * smax)[..., None]
+            gx = two_s * (_mv(p["Q"], ex) + Ssm * sx)
+            gu = two_s * (_mv(p["R"], eu) + _mv(p["W"], edu) + Ssm * su)
+            Hxx = two_s * (p["Q"] + S * _outer(sx, sx))
+            Huu = two_s * (p["R"] + p["W"] + S * _outer(su, su))
+            Hux = two_s * (S * _outer(su, sx))
+
+            z = lam_k + mu * stage_ineq(x, u, k, p)
+            t = torch.clamp(z, min=0.0)
+            act = (z > 0).to(x.dtype)
+            gx = gx + t[..., :nx] - t[..., nx:2 * nx]
+            gu = gu + t[..., 2 * nx:2 * nx + nu] - t[..., 2 * nx + nu:]
+            Hxx = Hxx + torch.diag_embed(
+                mu * (act[..., :nx] + act[..., nx:2 * nx]))
+            Huu = Huu + torch.diag_embed(
+                mu * (act[..., 2 * nx:2 * nx + nu] + act[..., 2 * nx + nu:]))
+            return gx, gu, Hxx, Huu, Hux
+
+        def terminal_al_expansion(x, p, lam_t, lam_e, mu, inv_scale):
+            ex = x - p["X_ref"][N]
+            smax, sx = terminal_slack_grad(x, p)
+            S = p["S"]
+            two_s = 2.0 * inv_scale
+            gx = two_s * (_mv(p["P"], ex) + (S * smax)[..., None] * sx)
+            Hxx = two_s * (p["P"] + S * _outer(sx, sx))
+
+            z = lam_t + mu * terminal_ineq(x, p)
+            t = torch.clamp(z, min=0.0)
+            act = (z > 0).to(x.dtype)
+            gx = gx + t[..., :nx] - t[..., nx:]
+            Hxx = Hxx + torch.diag_embed(mu * (act[..., :nx] + act[..., nx:]))
+
+            # maskable terminal position equality h = m * (x[:2] - ref)
+            m = p["eq_mask"]
+            geq = m * (lam_e + mu * terminal_eq(x, p))
+            gx = gx + torch.nn.functional.pad(geq, (0, nx - 2))
+            e2 = torch.zeros(nx, dtype=x.dtype, device=x.device)
+            e2[:2] = 1.0
+            Hxx = Hxx + torch.diag(e2) * (mu * m * m)
+            return gx, Hxx
+
+        # ---- fused kernels (ops/wholebody_fwd.py, ops/wholebody_bwd.py) ----
+        kernel_cfg = dict(dt=dt, base_radius=base_radius, n_obs=self.n_obs,
+                          n_hp=self.n_hp, x_bounds=self.x_bounds,
+                          du_bounds=self.du_bounds)
+
+        def lanes_fwd_factory(cfg, params):
+            alphas = [cfg.alpha_decay ** i for i in range(cfg.n_alpha)]
+            return FwdLinesearch(
+                self.ocp, params, u_clamp=(self.ulim[0], self.ulim[1]),
+                alphas=alphas, inv_scale=1.0 / cfg.cost_scale, **kernel_cfg)
+
+        def lanes_bwd_factory(cfg, params):
+            return BwdFused(self.ocp, params, inv_scale=1.0 / cfg.cost_scale,
+                            **kernel_cfg)
+
+        return OCP(
+            nx=nx, nu=nu, N=N, dynamics=dynamics,
+            stage_cost=stage_cost, terminal_cost=terminal_cost,
+            stage_ineq=stage_ineq, terminal_ineq=terminal_ineq,
+            terminal_eq=terminal_eq,
+            u_lower=self.ulim[0], u_upper=self.ulim[1],
+            lanes_fwd_factory=lanes_fwd_factory,
+            lanes_bwd_factory=lanes_bwd_factory,
+            stage_al_expansion=stage_al_expansion,
+            terminal_al_expansion=terminal_al_expansion,
+            dynamics_jacobians=dynamics_jacobians,
+            stage_residuals=stage_residuals,
+            terminal_residuals=terminal_residuals,
+            stage_gn=stage_gn, terminal_gn=terminal_gn,
+            stage_ineq_jac=stage_ineq_jac,
+            terminal_ineq_jac=terminal_ineq_jac,
+            terminal_eq_jac=terminal_eq_jac)
+
+    # ------------------------------------------------------------------
+    def setWeight(self, Q=None, R=None, P=None, S=None, W=None):
+        """Runtime weight mutation (takes effect at the next make_params)."""
+        if Q is not None:
+            self.Q_value = as_weight_matrix(Q, self.NX)
+        if R is not None:
+            self.R_value = as_weight_matrix(R, self.NU)
+        if P is not None:
+            self.P_value = as_weight_matrix(P, self.NX)
+        if S is not None:
+            self.S_value = scalar_weight(S)
+        if W is not None:
+            self.W_value = as_weight_matrix(W, self.NU)
+
+    def add_terminal_position_constraint(self):
+        """Enable the FSM-injected terminal equality X[N, :2] == X_ref[N, :2]
+        (a runtime mask)."""
+        self.terminal_eq_mask = 1.0
+
+    def make_params(self, traj_ref, u_ref) -> dict[str, np.ndarray]:
+        """The per-problem data as host arrays; move them onto a device with
+        ``utils.convert.params_from_numpy``."""
+        return {
+            "X_ref": np.asarray(traj_ref, dtype=float),
+            "U_ref": np.asarray(u_ref, dtype=float),
+            "Q": self.Q_value, "R": self.R_value, "P": self.P_value,
+            "S": np.asarray(self.S_value), "W": self.W_value,
+            "Q_s": weight_sqrt(self.Q_value),
+            "R_s": weight_sqrt(self.R_value),
+            "P_s": weight_sqrt(self.P_value),
+            "W_s": weight_sqrt(self.W_value),
+            "S_sqrt": np.sqrt(np.asarray(self.S_value)),
+            "obstacles": self.obstacles_value,
+            "hp_points": self.hp_points_value,
+            "hp_normals": self.hp_normals_value,
+            "hp_mask": self.hp_mask_value,
+            "eq_mask": np.asarray(self.terminal_eq_mask),
+        }
