@@ -5,6 +5,7 @@
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from mmmpc_tpu_torch.utils.configs import SolverConfig
 
@@ -46,6 +47,25 @@ def weight_sqrt(W):
     return vecs @ np.diag(np.sqrt(np.maximum(vals, 0.0))) @ vecs.T
 
 
+def mv(M, v):
+    """M @ v for a shared matrix M and batched vectors v (..., n)."""
+    return v @ M.mT
+
+
+def outer(a, b):
+    return a[..., :, None] * b[..., None, :]
+
+
+def quad(e, M):
+    """e^T M e over the last axis."""
+    return torch.sum(mv(M, e) * e, dim=-1)
+
+
+def no_rows(x, *_):
+    """An empty constraint group: (..., 0)."""
+    return x.new_zeros(x.shape[:-1] + (0,))
+
+
 class ControllerBase:
     """The OCP and its solver schedule."""
 
@@ -53,6 +73,14 @@ class ControllerBase:
         self.ocp = ocp
         self.solver_config = solver_config or SolverConfig()
         self.N = ocp.N
+
+    def batch_solve_fn(self):
+        """(x0_b (B, nx), U0_b (B, N, nu), params) -> batch-major SolveResult
+        of the batched solve (``solver/batched.py``)."""
+        from mmmpc_tpu_torch.solver.batched import al_ilqr_solve_batched
+        ocp, cfg = self.ocp, self.solver_config
+        return lambda x0_b, U0_b, params: al_ilqr_solve_batched(
+            ocp, x0_b, U0_b, params, cfg)
 
     def batch_solve_refined_fn(self, refine_cfg=None, refine_size=None):
         """(x0_b (B, nx), U0_b (B, N, nu), params) -> batch-major SolveResult,

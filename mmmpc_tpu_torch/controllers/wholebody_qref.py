@@ -32,18 +32,18 @@ import numpy as np
 import torch
 
 from mmmpc_tpu_torch.controllers.common import (
-    ControllerBase, as_weight_matrix, finite_bound_masks, scalar_weight,
-    weight_sqrt,
+    ControllerBase, as_weight_matrix, finite_bound_masks, mv, outer, quad,
+    scalar_weight, weight_sqrt,
 )
-from mmmpc_tpu_torch.models.arm import A2, A3, A5, A6, A7
+from mmmpc_tpu_torch.models.arm import arm_fk_partials
 from mmmpc_tpu_torch.models.mobile_manipulator import (
     wholebody_fk, wholebody_jacobians, wholebody_step,
 )
 from mmmpc_tpu_torch.models.obstacles import ground_obstacle_array
 from mmmpc_tpu_torch.ocp.constraints import (
-    NEG_BIG, OBSTACLE_EXPAND_DIST, SELF_COLLISION_RADIUS, box_g,
-    ground_circle_g, halfplane_union_g, manipulator_sample_points, relu_max,
-    self_collision_g,
+    NEG_BIG, box_g, ground_circle_g, ground_circle_g_grad, halfplane_union_g,
+    halfplane_union_g_grad, manipulator_sample_points, relu_max,
+    relu_max_grad, self_collision_g, sphere_g_grad,
 )
 from mmmpc_tpu_torch.ocp.spec import OCP
 from mmmpc_tpu_torch.ops.wholebody_bwd import BwdFused
@@ -79,38 +79,11 @@ _HP_POINTS = ((0.5, 0.0, 0.0), (1.0, 0.0, 0.0), (0.5, 0.5, 0.0),
 
 def _world_points_jacobian(x):
     """World (j2, j3, ee) as (..., 3, 3) and their Jacobians w.r.t. the state
-    (..., 3, 3, 9): the angle-sum FK of models/arm.py differentiated in
-    closed form (only px, py, psi and q enter)."""
+    (..., 3, 3, 9): the arm-frame partials of ``models/arm.py::
+    arm_fk_partials`` lifted by the base pose (only px, py, psi and q
+    enter)."""
     px, py, psi = x[..., 0], x[..., 1], x[..., 2]
-    q1 = x[..., 6]
-    th = q1 - x[..., 7]
-    be = th - x[..., 8]
-    s1, c1 = torch.sin(q1), torch.cos(q1)
-    st, ct = torch.sin(th), torch.cos(th)
-    sb, cb = torch.sin(be), torch.cos(be)
-
-    ax2 = A2 * s1 + A3 * c1
-    az2 = A2 * c1 - A3 * s1
-    D3 = A3 * st + A5 * ct              # d(-A3 ct + A5 st)/d th
-    E3 = A3 * ct - A5 * st              # d( A3 st + A5 ct)/d th
-    ax3 = ax2 - A3 * ct + A5 * st
-    az3 = az2 + A3 * st + A5 * ct
-    P6 = -A6 * sb - A7 * cb             # d( A6 cb - A7 sb)/d be
-    Q6 = -A6 * cb + A7 * sb             # d(-A6 sb - A7 cb)/d be
-    axe = ax3 + A6 * cb - A7 * sb
-    aze = az3 - A6 * sb - A7 * cb
-
-    z = torch.zeros_like(px)
-    ax = torch.stack([ax2, ax3, axe], dim=-1)
-    az = torch.stack([az2, az3, aze], dim=-1)
-    # q-partials of the arm-frame coordinates, (..., point, q)
-    ax_q = torch.stack([torch.stack([az2, z, z], -1),
-                        torch.stack([az2 + D3, -D3, z], -1),
-                        torch.stack([az2 + D3 + P6, -(D3 + P6), -P6], -1)], -2)
-    az_q = torch.stack([torch.stack([-ax2, z, z], -1),
-                        torch.stack([-ax2 + E3, -E3, z], -1),
-                        torch.stack([-ax2 + E3 + Q6, -(E3 + Q6), -Q6], -1)], -2)
-
+    ax, az, ax_q, az_q = arm_fk_partials(x[..., 6:9])
     r = ax + BASELINK2JOINT1_X
     cp = torch.cos(psi)[..., None]
     sp = torch.sin(psi)[..., None]
@@ -137,59 +110,19 @@ def _slack_rows_with_grad(x, p, base_radius, ground=True, selfcol=True,
     """Slack-group values (..., G) and their state gradients (..., G, 9),
     rows ordered [ground circles, self-collision, half-plane unions]."""
     pts, J = _world_points_jacobian(x)
-    vals, grads = [], []
+    rows = []
     if ground:
-        obs = p["obstacles"]
-        dx = x[..., 0, None] - obs[:, 0]
-        dy = x[..., 1, None] - obs[:, 1]
-        d = torch.sqrt(dx * dx + dy * dy + 1e-9)
-        vals.append((obs[:, 2] + base_radius) - d)
-        g = torch.zeros(d.shape + (9,), dtype=x.dtype, device=x.device)
-        g[..., 0] = -dx / d
-        g[..., 1] = -dy / d
-        grads.append(g)
+        v, g = ground_circle_g_grad(x[..., 0], x[..., 1], p["obstacles"],
+                                    base_radius)
+        rows.append((v, torch.nn.functional.pad(g, (0, 7))))
     if selfcol:
-        v, Jv = _combine(_SELF_DIFF, pts, J)
-        n = torch.sqrt(torch.sum(v * v, dim=-1) + 1e-9)
-        vals.append(SELF_COLLISION_RADIUS - n)
-        grads.append(-torch.einsum("...rc,...rcj->...rj", v / n[..., None],
-                                   Jv))
+        rows.append(sphere_g_grad(*_combine(_SELF_DIFF, pts, J)))
     if hp:
-        q, Jq = _combine(_HP_POINTS, pts, J)
-        nrm = p["hp_normals"]
-        o = p["hp_points"] - OBSTACLE_EXPAND_DIST * nrm
-        d = torch.sum(nrm * (o - q[..., :, None, :]), dim=-1)
-        d = torch.where(p["hp_mask"] > 0, d, NEG_BIG)        # (..., 6, n_hp)
-        dmax = torch.amax(d, dim=-1)
-        live = torch.sum(p["hp_mask"]) > 0
-        vals.append(torch.where(live, -dmax, NEG_BIG))
-        # d(-max_f d_f)/dq = the tie-split average of the maximal normals
-        tie = (d == dmax[..., None]).to(x.dtype)
-        n_eff = (tie / torch.sum(tie, dim=-1, keepdim=True)) @ nrm
-        grads.append(torch.where(
-            live, torch.einsum("...rc,...rcj->...rj", n_eff, Jq), 0.0))
-    return torch.cat(vals, dim=-1), torch.cat(grads, dim=-2)
-
-
-def _relu_max_grad(vals, grads):
-    """(relu(max vals), its gradient) with the even tie split of the VJPs of
-    jnp.max and jnp.maximum(0, .) (half a gradient at exactly 0)."""
-    gmax = torch.amax(vals, dim=-1)
-    tie = (vals == gmax[..., None]).to(vals.dtype)
-    live = torch.where(gmax > 0, 1.0,
-                       torch.where(gmax == 0, 0.5, 0.0)).to(vals.dtype)
-    live = live / torch.sum(tie, dim=-1)
-    sgrad = torch.einsum("...g,...gn->...n", tie, grads) * live[..., None]
-    return torch.clamp(gmax, min=0.0), sgrad
-
-
-def _outer(a, b):
-    return a[..., :, None] * b[..., None, :]
-
-
-def _mv(M, v):
-    """M @ v for a shared matrix M and batched vectors v (..., n)."""
-    return v @ M.mT
+        rows.append(halfplane_union_g_grad(
+            *_combine(_HP_POINTS, pts, J), p["hp_points"], p["hp_normals"],
+            p["hp_mask"]))
+    return (torch.cat([v for v, _ in rows], dim=-1),
+            torch.cat([g for _, g in rows], dim=-2))
 
 
 class MPCWholeBody(ControllerBase):
@@ -287,14 +220,11 @@ class MPCWholeBody(ControllerBase):
             # chain rule through the dynamics step
             gx = torch.cat([gx, torch.where(last[..., None], tg @ A, 0.0)], -2)
             gu = torch.cat([gu, torch.where(last[..., None], tg @ Bm, 0.0)], -2)
-            return _relu_max_grad(vals, torch.cat([gx, gu], dim=-1))
+            return relu_max_grad(vals, torch.cat([gx, gu], dim=-1))
 
         def terminal_slack_grad(x, p):
             vals, gx = _slack_rows_with_grad(x, p, base_radius, selfcol=False)
-            return _relu_max_grad(vals, gx)
-
-        def quad(e, M):
-            return torch.sum(_mv(M, e) * e, dim=-1)
+            return relu_max_grad(vals, gx)
 
         def errors(x, u, k, p):
             return x - p["X_ref"][k], u - p["U_ref"][k], u - p["U_last"][k]
@@ -314,14 +244,14 @@ class MPCWholeBody(ControllerBase):
             """cost == ||residuals||^2 exactly (Gauss-Newton factorisation)."""
             ex, eu, edu = errors(x, u, k, p)
             smax = relu_max(stage_slack_g(x, u, k, p))
-            return torch.cat([_mv(p["Q_s"], ex), _mv(p["R_s"], eu),
-                              _mv(p["W_s"], edu),
+            return torch.cat([mv(p["Q_s"], ex), mv(p["R_s"], eu),
+                              mv(p["W_s"], edu),
                               (p["S_sqrt"] * smax)[..., None]], dim=-1)
 
         def terminal_residuals(x, p):
             ex = x - p["X_ref"][N]
             smax = relu_max(terminal_slack_g(x, p))
-            return torch.cat([_mv(p["P_s"], ex),
+            return torch.cat([mv(p["P_s"], ex),
                               (p["S_sqrt"] * smax)[..., None]], dim=-1)
 
         def stage_ineq(x, u, k, p):
@@ -353,8 +283,8 @@ class MPCWholeBody(ControllerBase):
         def stage_gn(x, u, k, p):
             ex, eu, edu = errors(x, u, k, p)
             smax, sgrad = stage_slack_grad(x, u, k, p)
-            r = torch.cat([_mv(p["Q_s"], ex), _mv(p["R_s"], eu),
-                           _mv(p["W_s"], edu),
+            r = torch.cat([mv(p["Q_s"], ex), mv(p["R_s"], eu),
+                           mv(p["W_s"], edu),
                            (p["S_sqrt"] * smax)[..., None]], dim=-1)
             Jq = torch.zeros(2 * nu + nx, nx + nu, dtype=x.dtype,
                              device=x.device)
@@ -368,7 +298,7 @@ class MPCWholeBody(ControllerBase):
         def terminal_gn(x, p):
             ex = x - p["X_ref"][N]
             smax, sx = terminal_slack_grad(x, p)
-            r = torch.cat([_mv(p["P_s"], ex),
+            r = torch.cat([mv(p["P_s"], ex),
                            (p["S_sqrt"] * smax)[..., None]], dim=-1)
             J = torch.cat([p["P_s"].expand(sx.shape[:-1] + (nx, nx)),
                            (p["S_sqrt"] * sx)[..., None, :]], dim=-2)
@@ -400,11 +330,11 @@ class MPCWholeBody(ControllerBase):
             S = p["S"]
             two_s = 2.0 * inv_scale
             Ssm = (S * smax)[..., None]
-            gx = two_s * (_mv(p["Q"], ex) + Ssm * sx)
-            gu = two_s * (_mv(p["R"], eu) + _mv(p["W"], edu) + Ssm * su)
-            Hxx = two_s * (p["Q"] + S * _outer(sx, sx))
-            Huu = two_s * (p["R"] + p["W"] + S * _outer(su, su))
-            Hux = two_s * (S * _outer(su, sx))
+            gx = two_s * (mv(p["Q"], ex) + Ssm * sx)
+            gu = two_s * (mv(p["R"], eu) + mv(p["W"], edu) + Ssm * su)
+            Hxx = two_s * (p["Q"] + S * outer(sx, sx))
+            Huu = two_s * (p["R"] + p["W"] + S * outer(su, su))
+            Hux = two_s * (S * outer(su, sx))
 
             z = lam_k + mu * stage_ineq(x, u, k, p)
             t = torch.clamp(z, min=0.0)
@@ -422,8 +352,8 @@ class MPCWholeBody(ControllerBase):
             smax, sx = terminal_slack_grad(x, p)
             S = p["S"]
             two_s = 2.0 * inv_scale
-            gx = two_s * (_mv(p["P"], ex) + (S * smax)[..., None] * sx)
-            Hxx = two_s * (p["P"] + S * _outer(sx, sx))
+            gx = two_s * (mv(p["P"], ex) + (S * smax)[..., None] * sx)
+            Hxx = two_s * (p["P"] + S * outer(sx, sx))
 
             z = lam_t + mu * terminal_ineq(x, p)
             t = torch.clamp(z, min=0.0)

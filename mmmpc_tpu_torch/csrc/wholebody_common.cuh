@@ -95,6 +95,46 @@ __device__ __forceinline__ float ld(const float* __restrict__ p, int i) {
   return __ldg(p + i);
 }
 
+// ---- arm-frame forward kinematics, for the arm-only controller ----
+// (x, z) of (j2, j3, ee) in the arm frame (y == 0) and their q-partials:
+// the arm-frame algebra of fk below, written out again: routing fk through
+// a shared helper changed how nvcc contracts the whole-body backward
+// kernel's float arithmetic, and so its results.
+struct ArmFK {
+  float ax[3], az[3];  // arm-frame x / z of point p (j2, j3, ee)
+  float axq[3][3];     // d ax[p] / d q_i
+  float azq[3][3];     // d az[p] / d q_i
+};
+
+__device__ __forceinline__ void arm_fk(float q1, float q2, float q3, ArmFK& a) {
+  float s1, c1, st, ct, sb, cb;
+  sincosf(q1, &s1, &c1);
+  const float th = q1 - q2;
+  sincosf(th, &st, &ct);
+  sincosf(th - q3, &sb, &cb);
+
+  const float ax2 = A2 * s1 + A3 * c1;
+  const float az2 = A2 * c1 - A3 * s1;
+  const float D3 = A3 * st + A5 * ct;
+  const float E3 = A3 * ct - A5 * st;
+  const float ax3 = ax2 - A3 * ct + A5 * st;
+  const float az3 = az2 + A3 * st + A5 * ct;
+  const float P6 = -A6 * sb - A7 * cb;
+  const float Q6 = -A6 * cb + A7 * sb;
+  a.ax[0] = ax2;
+  a.ax[1] = ax3;
+  a.ax[2] = ax3 + A6 * cb - A7 * sb;
+  a.az[0] = az2;
+  a.az[1] = az3;
+  a.az[2] = az3 - A6 * sb - A7 * cb;
+  a.axq[0][0] = az2;            a.axq[0][1] = 0.f;           a.axq[0][2] = 0.f;
+  a.axq[1][0] = az2 + D3;       a.axq[1][1] = -D3;           a.axq[1][2] = 0.f;
+  a.axq[2][0] = az2 + D3 + P6;  a.axq[2][1] = -(D3 + P6);    a.axq[2][2] = -P6;
+  a.azq[0][0] = -ax2;           a.azq[0][1] = 0.f;           a.azq[0][2] = 0.f;
+  a.azq[1][0] = -ax2 + E3;      a.azq[1][1] = -E3;           a.azq[1][2] = 0.f;
+  a.azq[2][0] = -ax2 + E3 + Q6; a.azq[2][1] = -(E3 + Q6);    a.azq[2][2] = -Q6;
+}
+
 // ---- forward kinematics: world points (j2, j3, ee) and their partials ----
 struct FK {
   float cp, sp;        // cos / sin of the base yaw

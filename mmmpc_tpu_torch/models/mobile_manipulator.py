@@ -8,7 +8,7 @@ input u = [dV, dw, dq1, dq2, dq3]                    (..., 5)
 
 import torch
 
-from mmmpc_tpu_torch.models.arm import arm_fk, arm_step
+from mmmpc_tpu_torch.models.arm import arm_fk, arm_step, ee_jacobian
 from mmmpc_tpu_torch.models.base import base_step
 from mmmpc_tpu_torch.utils.configs import BASELINK2JOINT1_X, BASELINK2JOINT1_Z
 
@@ -32,6 +32,27 @@ def wholebody_fk(state: torch.Tensor):
     j3_w = _lift_to_world(j3, px, py, cpsi, spsi)
     pose_ee = torch.cat([ee_w, psi[..., None]], dim=-1)
     return pose_ee, j2_w, j3_w
+
+
+def wholebody_pose_jacobian(state: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 9) Jacobian of the end-effector world pose [x, y, z, psi]
+    w.r.t. the state, closed form: the x / y rows rotate the arm-frame
+    x-Jacobian by the base yaw and pick up the lever arm -r sin / r cos psi,
+    the z row is the arm-frame z-Jacobian, the yaw row picks psi."""
+    psi = state[..., 2]
+    cpsi, spsi = torch.cos(psi), torch.sin(psi)
+    ee, _, _ = arm_fk(state[..., 6:9])
+    r = ee[..., 0] + BASELINK2JOINT1_X
+    Ja = ee_jacobian(state[..., 6:9])          # rows [x, 0, z] w.r.t. q
+    z, one = torch.zeros_like(psi), torch.ones_like(psi)
+    return torch.stack([
+        torch.cat([torch.stack([one, z, -r * spsi, z, z, z], -1),
+                   cpsi[..., None] * Ja[..., 0, :]], -1),
+        torch.cat([torch.stack([z, one, r * cpsi, z, z, z], -1),
+                   spsi[..., None] * Ja[..., 0, :]], -1),
+        torch.cat([torch.stack([z] * 6, -1), Ja[..., 2, :]], -1),
+        torch.stack([z, z, one, z, z, z, z, z, z], -1),
+    ], dim=-2)
 
 
 def wholebody_step(x: torch.Tensor, u: torch.Tensor, dt: float) -> torch.Tensor:

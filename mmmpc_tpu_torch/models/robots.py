@@ -1,8 +1,18 @@
 """Robot objects the controllers are built from (counterpart of
-``mmmpc_tpu/models/robots.py``; only the whole-body robot is ported so far,
-with the attributes the controller reads: ``dt`` and the base geometry)."""
+``mmmpc_tpu/models/robots.py``, with the attributes the controllers read:
+``dt`` and the base geometry; the reference's kinematics methods are not
+ported)."""
 
 from mmmpc_tpu_torch.models import base
+
+
+class RobotDemo:
+    """1-D double integrator."""
+
+    nx, nu = 2, 1
+
+    def __init__(self, dt):
+        self.dt = dt
 
 
 class Base:
@@ -17,6 +27,15 @@ class Base:
 
     def base_radius(self):
         return base.BASE_RADIUS
+
+
+class ManipulatorPanda3DoF:
+    """Reduced Panda arm."""
+
+    nx, nu = 3, 3
+
+    def __init__(self, dt):
+        self.dt = dt
 
 
 class MobileManipulator:

@@ -14,13 +14,14 @@ is a Python int or an integer tensor that broadcasts against the batch axes
 - ``stage_ineq / terminal_ineq / terminal_eq`` -> (..., nc) / (..., nct) /
   (..., ne), hard constraints c <= 0 and h == 0 for the AL outer loop
 - ``u_lower / u_upper``: the static input box clamped in every rollout
-- ``*_residuals``, ``*_gn``, ``*_jac``, ``dynamics_jacobians``: the
-  Gauss-Newton factorisation and hand Jacobians
+- ``dynamics_jacobians``: the hand Jacobians (A, B) of ``dynamics``
+- ``*_residuals``, ``*_gn``, ``*_jac`` (optional, the qref controller's):
+  the Gauss-Newton factorisation and hand constraint Jacobians
 - ``stage_al_expansion / terminal_al_expansion``: the complete gradient and
   Gauss-Newton Hessian blocks of the scaled AL stage / terminal cost
 - ``lanes_fwd_factory(cfg, params)`` / ``lanes_bwd_factory(cfg, params)``:
   build the fused line-search and backward-sweep callables for one solve
-  (``ops/wholebody_fwd.py``, ``ops/wholebody_bwd.py``)
+  (``ops/wholebody_*.py`` or ``ops/generic_*.py``)
 """
 
 from __future__ import annotations
@@ -52,13 +53,13 @@ class OCP:
     stage_al_expansion: Callable
     terminal_al_expansion: Callable
     dynamics_jacobians: Callable
-    stage_residuals: Callable
-    terminal_residuals: Callable
-    stage_gn: Callable
-    terminal_gn: Callable
-    stage_ineq_jac: Callable
-    terminal_ineq_jac: Callable
-    terminal_eq_jac: Callable
+    stage_residuals: Callable | None = None
+    terminal_residuals: Callable | None = None
+    stage_gn: Callable | None = None
+    terminal_gn: Callable | None = None
+    stage_ineq_jac: Callable | None = None
+    terminal_ineq_jac: Callable | None = None
+    terminal_eq_jac: Callable | None = None
 
     def clamp_u(self, u: torch.Tensor) -> torch.Tensor:
         kw = dict(dtype=u.dtype, device=u.device)

@@ -4,8 +4,8 @@ The kernels have a plain C interface and are bound with ctypes (no PyTorch
 headers, so the build takes seconds).  The library is compiled on first use
 by ``nvcc`` for ``sm_90a`` (NVIDIA Hopper) into ``build/torch_kernels/`` at the
 root of the checkout, named by a hash of the sources, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  Nothing here runs at import
-time.
+rebuilt and an unchanged one is loaded as it is: one ``nvcc -c`` per source,
+all started together, then one link.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -23,10 +24,16 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("wholebody_fwd.cu", "wholebody_bwd.cu")
-HEADERS = ("wholebody_common.cuh",)
+# The formulations of the generic kernels (csrc/generic_<name>.cu)
+FORMULATIONS = ("demo", "base", "arm", "endpoint")
+SOURCES = ("wholebody_fwd.cu", "wholebody_bwd.cu",
+           *(f"generic_{name}.cu" for name in FORMULATIONS))
+HEADERS = ("wholebody_common.cuh", "generic_common.cuh", "generic_fwd.cuh",
+           "generic_bwd.cuh")
+# step sizes the statics blocks hold (MAX_ALPHA of csrc/wholebody_common.cuh)
+MAX_ALPHA = 8
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclasses.dataclass
@@ -54,11 +61,15 @@ _FLOAT = ctypes.c_float
 # C signatures (see csrc/*.cu).  Launches: host statics, device pointers,
 # mu, N, B, then the stream.  Layout sizes: the statics block, and the packed
 # params for (N, n_obs, n_hp).
+_FWD = [_VOID] * 13 + [_FLOAT, _INT, _INT, _VOID]
+_BWD = [_VOID] * 10 + [_FLOAT, _INT, _INT, _VOID]
 SIGNATURES = {
-    "wb_fwd_launch": [_VOID] * 13 + [_FLOAT, _INT, _INT, _VOID],
-    "wb_bwd_launch": [_VOID] * 10 + [_FLOAT, _INT, _INT, _VOID],
-    "wb_statics_size": [],
-    "wb_params_size": [_INT, _INT, _INT],
+    "wb_fwd_launch": _FWD, "wb_bwd_launch": _BWD,
+    "wb_statics_size": [], "wb_params_size": [_INT, _INT, _INT],
+    **{k: v for name in FORMULATIONS for k, v in (
+        (f"gen_fwd_{name}", _FWD), (f"gen_bwd_{name}", _BWD),
+        (f"gen_statics_size_{name}", []),
+        (f"gen_params_size_{name}", [_INT, _INT, _INT]))},
 }
 
 
@@ -88,15 +99,33 @@ def build() -> BuildInfo:
         log = log_path.read_text() if log_path.exists() else ""
         return BuildInfo(path, 0.0, log)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(CSRC / src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs, failed = [], []
+    for src, proc in zip(SOURCES, procs):
+        out = proc.communicate()[0]
+        logs.append(f"== {src}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src)
+    tmp = path.with_name(f"{tag}.so.tmp")
+    if not failed:
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     log_path.write_text(log)
     os.replace(tmp, path)
     return BuildInfo(path, seconds, log)
@@ -124,11 +153,35 @@ class _Library:
 LIBRARY = _Library()
 
 
+def pack_buffer(shapes: dict, params) -> torch.Tensor:
+    """The per-problem tensors ``params[k]`` of ``shapes`` (key -> shape, in
+    the order of the kernel's layout) as one contiguous buffer, in the dtype
+    and on the device of ``params``.  Per-scenario entries are not
+    supported."""
+    for k, shape in shapes.items():
+        if tuple(params[k].shape) != tuple(shape):
+            raise ValueError(f"params[{k!r}]: expected shape {tuple(shape)}, "
+                             f"got {tuple(params[k].shape)}")
+    return torch.cat([params[k].reshape(-1) for k in shapes])
+
+
+def unpack_buffer(shapes: dict, flat: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Views of a ``pack_buffer`` result under the keys of ``shapes``."""
+    sizes = [math.prod(s) for s in shapes.values()]
+    return {k: v.reshape(s) for (k, s), v in
+            zip(shapes.items(), torch.split(flat, sizes))}
+
+
 def check_layout(lib, statics, flat: torch.Tensor, N: int, n_obs: int,
-                 n_hp: int) -> None:
+                 n_hp: int, formulation: str | None = None) -> None:
     """Raise unless the host statics block and the packed params have the
-    sizes the library's C layouts (``csrc/wholebody_common.cuh``) expect."""
-    want = (lib.wb_statics_size(), lib.wb_params_size(N, n_obs, n_hp))
+    sizes the library's C layouts expect: ``csrc/wholebody_common.cuh``'s, or
+    with ``formulation`` those of ``csrc/generic_<formulation>.cu``."""
+    if formulation is None:
+        want = (lib.wb_statics_size(), lib.wb_params_size(N, n_obs, n_hp))
+    else:
+        want = (getattr(lib, f"gen_statics_size_{formulation}")(),
+                getattr(lib, f"gen_params_size_{formulation}")(N, n_obs, n_hp))
     if (statics.size, flat.numel()) != want:
         raise RuntimeError(f"layout mismatch: statics / params sizes "
                            f"{statics.size} / {flat.numel()}, the kernel "

@@ -9,9 +9,9 @@ Riccati step (Cholesky of Quu + reg I) giving kff = -Quu^-1 Qu and K = -Quu^-1
 Qux. Vxx is symmetrised after every step, as the TPU kernel does.
 
 On CUDA tensors the call launches the hand-written kernel
-``csrc/wholebody_bwd.cu``; on CPU tensors it runs the plain PyTorch version:
-the controller's hand AL expansion at every stage, then
-``ops.entry_algebra.riccati_stage`` in a loop over k.
+``csrc/wholebody_bwd.cu``; on CPU tensors it runs the plain PyTorch version,
+``ops/generic_bwd.py::plain_bwd``: the controller's hand AL expansion at
+every stage, then ``ops.entry_algebra.riccati_stage`` in a loop over k.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 from mmmpc_tpu_torch.ops._cuda import (
     LIBRARY, LaunchCounter, check_launch, check_layout, check_tensor,
 )
-from mmmpc_tpu_torch.ops.entry_algebra import riccati_stage
+from mmmpc_tpu_torch.ops.generic_bwd import plain_bwd
 from mmmpc_tpu_torch.ops.wholebody_fwd import (
     NC, NU, NX, pack_params, statics_block, unpack_params,
 )
@@ -57,25 +57,11 @@ class BwdFused:
         return self.plain(X, U, lam, lamt, lame, mu, reg)
 
     def plain(self, X, U, lam, lamt, lame, mu, reg):
-        """Hand AL expansion of every stage + a Riccati loop (any device,
-        any float dtype)."""
-        ocp, N = self.ocp, self.N
-        p = unpack_params(self.flat, N, self.n_obs, self.n_hp)
-        xs, us = X[:-1].permute(2, 0, 1), U.permute(2, 0, 1)    # (B, N, .)
-        ks = torch.arange(N, dtype=torch.long, device=X.device)
-        lx, lu, lxx, luu, lux = ocp.stage_al_expansion(
-            xs, us, ks, p, lam.permute(2, 0, 1), mu, self.inv_scale)
-        A, Bm = ocp.dynamics_jacobians(xs, us)
-        Vx, Vxx = ocp.terminal_al_expansion(X[-1].T, p, lamt.T, lame.T, mu,
-                                            self.inv_scale)
-        kffs, Ks = [None] * N, [None] * N
-        for k in reversed(range(N)):
-            kffs[k], Ks[k], Vx, Vxx = riccati_stage(
-                lx[:, k], lu[:, k], lxx[:, k], luu[:, k], lux[:, k],
-                A[:, k], Bm[:, k], Vx, Vxx, reg)
-            Vxx = 0.5 * (Vxx + Vxx.mT)
-        return (torch.stack(kffs).permute(0, 2, 1).contiguous(),
-                torch.stack(Ks).permute(0, 2, 3, 1).contiguous())
+        """``ops/generic_bwd.py::plain_bwd`` on the packed params (any
+        device, any float dtype)."""
+        return plain_bwd(self.ocp, unpack_params(self.flat, self.N, self.n_obs,
+                                                 self.n_hp),
+                         self.inv_scale, X, U, lam, lamt, lame, mu, reg)
 
     def cuda(self, X, U, lam, lamt, lame, mu, reg):
         """Launch ``csrc/wholebody_bwd.cu`` on the current stream."""

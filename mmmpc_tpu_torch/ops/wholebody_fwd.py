@@ -14,7 +14,8 @@ per-candidate costs are complete.
 
 On CUDA tensors the call launches the hand-written kernel
 ``csrc/wholebody_fwd.cu``; on CPU tensors it runs the plain PyTorch version,
-built from the OCP's own callables.  There is no fallback between them.
+``ops/generic_fwd.py::plain_fwd``, built from the OCP's own callables.  There
+is no fallback between them.
 
 This module also owns the two parameter blocks both fused kernels read:
 ``pack_params`` (the per-problem tensors, one flat buffer on the device) and
@@ -26,27 +27,21 @@ hold the sizes of both against the ones the compiled library reports.
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
 from mmmpc_tpu_torch.ops._cuda import (
-    LIBRARY, LaunchCounter, check_launch, check_layout, check_tensor,
+    LIBRARY, MAX_ALPHA, LaunchCounter, check_launch, check_layout,
+    check_tensor, pack_buffer, unpack_buffer,
 )
-from mmmpc_tpu_torch.solver.al_ilqr import _al_penalty_eq, _al_penalty_ineq
+from mmmpc_tpu_torch.ops.generic_fwd import plain_fwd
 
 NX, NU = 9, 5
 NC = 2 * NX + 2 * NU
-MAX_ALPHA = 8
 
 LAUNCHES = LaunchCounter()
 
 # ---- the packed per-problem buffer (Par* offsets in the CUDA header) ----
-_PACKED_KEYS = ("S", "eq_mask", "Q", "R", "W", "P", "X_ref", "U_ref",
-                "U_last", "obstacles", "hp_points", "hp_normals", "hp_mask")
-
-
 def _packed_shapes(N, n_obs, n_hp):
     return {"S": (), "eq_mask": (), "Q": (NX, NX), "R": (NU, NU),
             "W": (NU, NU), "P": (NX, NX), "X_ref": (N + 1, NX),
@@ -58,20 +53,12 @@ def _packed_shapes(N, n_obs, n_hp):
 def pack_params(params, N, n_obs, n_hp) -> torch.Tensor:
     """The shared per-problem tensors as one contiguous buffer (dtype and
     device of ``params``).  Per-scenario entries are not supported."""
-    shapes = _packed_shapes(N, n_obs, n_hp)
-    for k in _PACKED_KEYS:
-        if tuple(params[k].shape) != shapes[k]:
-            raise ValueError(f"params[{k!r}]: expected shape {shapes[k]}, "
-                             f"got {tuple(params[k].shape)}")
-    return torch.cat([params[k].reshape(-1) for k in _PACKED_KEYS])
+    return pack_buffer(_packed_shapes(N, n_obs, n_hp), params)
 
 
 def unpack_params(flat, N, n_obs, n_hp) -> dict[str, torch.Tensor]:
     """Views of ``flat`` under the keys of the controller's params."""
-    shapes = _packed_shapes(N, n_obs, n_hp)
-    sizes = [math.prod(shapes[k]) for k in _PACKED_KEYS]
-    parts = torch.split(flat, sizes)
-    return {k: v.reshape(shapes[k]) for k, v in zip(_PACKED_KEYS, parts)}
+    return unpack_buffer(_packed_shapes(N, n_obs, n_hp), flat)
 
 
 # ---- the statics block (St* offsets in the CUDA header) ----
@@ -136,31 +123,12 @@ class FwdLinesearch:
         return self.plain(X, U, kff, K, lam, lamt, lame, mu)
 
     def plain(self, X, U, kff, K, lam, lamt, lame, mu):
-        """The batched rollout of all step sizes with the AL cost, from the
-        OCP's callables (any device, any float dtype)."""
-        ocp, N = self.ocp, self.N
-        p = unpack_params(self.flat, N, self.n_obs, self.n_hp)
-        B = X.shape[-1]
-        alphas = torch.tensor(self.alphas, dtype=X.dtype,
-                              device=X.device)[:, None, None]
-        x = X[0].T.expand(len(self.alphas), B, NX)      # (n_alpha, B, nx)
-        cost = torch.zeros(len(self.alphas), B, dtype=X.dtype, device=X.device)
-        Xs, Us = [], []
-        for k in range(N):
-            fb = torch.einsum("bij,abj->abi", K[k].permute(2, 0, 1), x - X[k].T)
-            u = ocp.clamp_u(U[k].T + alphas * kff[k].T + fb)
-            cost = (cost + ocp.stage_cost(x, u, k, p) * self.inv_scale
-                    + _al_penalty_ineq(ocp.stage_ineq(x, u, k, p), lam[k].T,
-                                       mu))
-            Xs.append(x)
-            Us.append(u)
-            x = ocp.dynamics(x, u)
-        cost = (cost + ocp.terminal_cost(x, p) * self.inv_scale
-                + _al_penalty_ineq(ocp.terminal_ineq(x, p), lamt.T, mu)
-                + _al_penalty_eq(ocp.terminal_eq(x, p), lame.T, mu))
-        return (torch.stack(Xs).permute(0, 1, 3, 2).contiguous(),
-                torch.stack(Us).permute(0, 1, 3, 2).contiguous(),
-                x.permute(0, 2, 1).contiguous(), cost)
+        """``ops/generic_fwd.py::plain_fwd`` on the packed params (any
+        device, any float dtype)."""
+        return plain_fwd(self.ocp, unpack_params(self.flat, self.N, self.n_obs,
+                                                 self.n_hp),
+                         self.alphas, self.inv_scale, X, U, kff, K, lam, lamt,
+                         lame, mu)
 
     def cuda(self, X, U, kff, K, lam, lamt, lame, mu):
         """Launch ``csrc/wholebody_fwd.cu`` on the current stream."""

@@ -1,6 +1,6 @@
-"""Batch statistics (counterpart of ``BatchStats`` / ``_with_stats`` in
-``mmmpc_tpu/parallel/data_parallel.py``; the sharded multi-device solves are
-not ported yet)."""
+"""Batch statistics (counterpart of ``BatchStats``, ``_with_stats`` and
+``controller_batched_fn`` in ``mmmpc_tpu/parallel/data_parallel.py``; the
+sharded multi-device solves are not ported yet)."""
 
 from __future__ import annotations
 
@@ -32,3 +32,9 @@ def with_stats(run_b):
         return res, stats
 
     return run
+
+
+def controller_batched_fn(controller):
+    """A controller's batched solve with batch statistics:
+    ``(x0_b, U0_b, params) -> (SolveResult, BatchStats)``."""
+    return with_stats(controller.batch_solve_fn())

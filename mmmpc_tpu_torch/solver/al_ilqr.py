@@ -106,12 +106,14 @@ def build_core(ocp: OCP, params, cfg: SolverConfig):
                 ocp.terminal_eq(xN, params).T.contiguous())
 
     def violation(cs, ct, he):
-        """Worst hard-constraint value of each scenario: (B,)."""
-        viol = torch.maximum(torch.amax(cs, dim=(0, 1)),
-                             torch.amax(ct, dim=0))
-        # the equality residual enters as max(|h|) with an initial 0
-        return torch.maximum(viol, torch.clamp(torch.amax(he.abs(), dim=0),
-                                               min=0.0))
+        """Worst hard-constraint value of each scenario, at least 0 (the
+        equality residual enters as max |h| with an initial 0); an empty
+        group is skipped: (B,)."""
+        viol = torch.zeros(cs.shape[-1], dtype=cs.dtype, device=cs.device)
+        for c in (cs.flatten(0, -2), ct, he.abs()):
+            if c.shape[0]:
+                viol = torch.maximum(viol, torch.amax(c, dim=0))
+        return viol
 
     def mu_at(i):
         return min(cfg.mu_init * cfg.mu_scale ** i, cfg.mu_max)

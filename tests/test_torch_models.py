@@ -62,8 +62,9 @@ def test_configs_match_jax(scenario):
 
 
 @pytest.mark.parametrize("fn", ["arm_fk", "ee_jacobian", "base_step",
-                                "wholebody_fk", "wholebody_step",
-                                "wholebody_jacobians", "math"])
+                                "base_jacobians", "wholebody_fk",
+                                "wholebody_step", "wholebody_jacobians",
+                                "wholebody_pose_jacobian", "math"])
 def test_models_match_jax(fn):
     import jax
     x, u = _states()
@@ -80,6 +81,14 @@ def test_models_match_jax(fn):
             _close(base_t.base_step(xt[:, :6], ut[:, :2], dt, limited_yaw=ly),
                    jax.vmap(lambda a, b: base_j.base_step(a, b, dt, ly))(
                        xj[:, :6], uj[:, :2]))
+    elif fn == "base_jacobians":
+        for a, b in zip(base_t.base_jacobians(xt[:, :6], ut[:, :2], dt),
+                        jax.vmap(lambda a, b: base_j.base_jacobians(a, b, dt))(
+                            xj[:, :6], uj[:, :2])):
+            _close(a, b)
+    elif fn == "wholebody_pose_jacobian":
+        _close(mm_t.wholebody_pose_jacobian(xt),
+               jax.vmap(mm_j.wholebody_pose_jacobian)(xj))
     elif fn == "wholebody_fk":
         for a, b in zip(mm_t.wholebody_fk(xt), jax.vmap(mm_j.wholebody_fk)(xj)):
             _close(a, b)
@@ -110,22 +119,33 @@ for m in pkgutil.walk_packages(mmmpc_tpu_torch.__path__, "mmmpc_tpu_torch."):
     importlib.import_module(m.name)
 print("jax" in sys.modules, torch.backends.cuda.matmul.allow_tf32,
       torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
+print(*sorted(m for m in sys.modules if m.startswith("mmmpc_tpu")))
 """
 
 
 @pytest.fixture(scope="module")
 def fresh_import():
     """Import every module of the port in a fresh interpreter (the test
-    process has JAX loaded by tests/conftest.py)."""
+    process has JAX loaded by tests/conftest.py): the flags line, and the
+    names of the modules of both packages that the interpreter loaded."""
     out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
                          text=True, timeout=120, check=True)
-    return out.stdout.split()
+    flags, modules = out.stdout.splitlines()
+    return flags.split(), modules.split()
 
 
 def test_port_never_imports_jax(fresh_import):
-    assert fresh_import[0] == "False"
+    flags, modules = fresh_import
+    assert flags[0] == "False"
+    # the generic formulations' modules were among those imported, and no
+    # module of the JAX package was
+    for name in ("bench_controllers", "controllers.demo", "controllers.base",
+                 "controllers.manipulator", "controllers.wholebody_endpoint",
+                 "models.point_mass", "ops.generic_fwd", "ops.generic_bwd"):
+        assert f"mmmpc_tpu_torch.{name}" in modules, name
+    assert all(m.startswith("mmmpc_tpu_torch") for m in modules)
 
 
 def test_fp32_matmul_pinned(fresh_import):
     # the probe turns TF32 on before the import; the import turns it off
-    assert fresh_import[1:] == ["False", "False", "highest"]
+    assert fresh_import[0][1:] == ["False", "False", "highest"]
