@@ -11,16 +11,27 @@ Phases, each reported on its own lines; any failure exits nonzero:
 2. build: compiles every kernel of ``mmmpc_tpu_torch/csrc`` for sm_90a (one
    nvcc per source, all started together) and prints the build seconds and
    the ptxas register / spill report of every kernel instance;
+2b. peak: the FFMA count of the FMA microkernel's SASS (``cuobjdump``),
+   then the sweep of ``mmmpc_tpu_torch/roofline.py``: each configuration's
+   float32 rate, the best configuration's second of back-to-back launches
+   on the host's clock, the best of each accumulator count run on inputs
+   that count its trips exactly and against ``plain_fma`` (rtol 1e-5,
+   atol 1e-6) at its own grid and shortest trip count, then the measured
+   peak, its share of what the SM clock allows (above 101% fails) and of
+   the published 67 TFLOP/s, and ``nvidia-smi`` clocks / power;
 3. kernels: each kernel against its plain PyTorch version on the card at the
    bench shape (N=20, B=8192, 3 step sizes) on seeded inputs, at the
-   tolerances of ``tests/test_torch_kernels.py`` and
-   ``tests/test_torch_generic_kernels.py``: the whole-body pair on the qref
-   bench problem, and the generic pair of each formulation (demo, base, arm,
-   endpoint) on the rows of ``mmmpc_tpu_torch/bench_controllers.py``; the
-   kernel's device time per launch (launches replayed from a CUDA graph),
-   the wall time per wrapper call and the plain version's (CUDA events),
-   and the least time the card could take (bytes moved over 3.35 TB/s
-   against operations over 67 TFLOP/s float32);
+   tolerances of ``tests/test_torch_kernels.py``,
+   ``tests/test_torch_generic_kernels.py`` and
+   ``tests/test_pallas_riccati.py``: the whole-body pair on the qref bench
+   problem, the generic pair of each formulation (demo, base, arm,
+   endpoint) on the rows of ``mmmpc_tpu_torch/bench_controllers.py``, the
+   Riccati sweep on the expansion blocks of each of those inputs and on the
+   random SPD blocks of the Pallas test; the kernel's device time per
+   launch (launches replayed from a CUDA graph), the wall time per wrapper
+   call and the plain version's (CUDA events), and the least time the card
+   could take (bytes moved over 3.35 TB/s against operations over the
+   published 67 TFLOP/s float32, and over the measured peak);
 4. slice: the refined whole-body qref solve of ``bench.py`` at batch 8192
    (one warm-up solve with the kernel launch counters reset just before it,
    then 10 solves timed one by one): median and quartiles of the solve time,
@@ -29,6 +40,11 @@ Phases, each reported on its own lines; any failure exits nonzero:
    solve; then one more solve under ``torch.profiler``: the device ops it
    ran, the device busy time (union of their intervals), the idle share of
    the median solve, and each fused kernel's calls and time;
+4b. unfused: the same solve with ``use_fused_backward=False``: the AL
+   expansion in plain PyTorch and the Riccati sweep kernel in place of the
+   fused backward kernel, which must not launch; launches, timing (3
+   solves), profile, convergence, and the gate of phase 6 against phase 4's
+   fused solve;
 5. scaling: the same timing and profile at batch 1024;
 6. reference: the same solve at batch 64 on the card and, through the plain
    versions, on the CPU: relative mean cost within 5e-3, the same converged
@@ -39,16 +55,25 @@ Phases, each reported on its own lines; any failure exits nonzero:
    kernel must launch once per iteration of the row's schedule and its plain
    version never; timing and profile as in phase 4; converged fraction (at
    least 0.99) and max violation;
+7b. formulations-unfused: each of those rows with ``use_fused_backward=
+   False``: its Riccati sweep instance and its line search launch once per
+   iteration, its fused backward never; timing (3 solves), profile,
+   convergence, and the gate of phase 6 against the row's fused solve of
+   phase 7;
 8. formulations-reference: each of those rows at batch 64 on the card and,
    through the plain versions, on the CPU, with the gates of phase 6.
 
-The last two lines are a JSON record of the kernels and
-``{"ok": true, "device": {...}}``.
+Each phase from 2b on prints its wall seconds (``[phase]``), and each
+profiled solve the seconds the profile took.  The last two lines are a
+JSON record of the kernels and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -59,6 +84,8 @@ import torch
 BATCH = 8192
 SMALL_BATCH = 1024
 REPS = 10
+# the unfused solves are host-bound at 0.1-1.6 s each: fewer timed solves
+UNFUSED_REPS = 3
 SEED = 0
 # published peaks of one H100 SXM: HBM bytes/s, float32 FLOP/s (CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -70,16 +97,25 @@ GENERIC = tuple(ROWS.values())
 # gains tolerance (atol) of each formulation's generic backward kernel, rtol
 # 1e-4 (tests/test_generic_bwd.py); the arm is held in the p99 / float64 form
 BWD_ATOL = {"demo": 1e-5, "base": 1e-3, "endpoint": 2e-4}
+# (nx, nu) of each generic formulation: its Riccati sweep instance
+DIMS = {"demo": (2, 1), "base": (6, 2), "arm": (3, 3), "endpoint": (9, 5)}
 # device-kernel names (as the profiler reports them) of each wrapper
 KERNEL_SYMBOLS = {"wholebody_fwd": "wb::fwd_kernel",
                   "wholebody_bwd": "wb::bwd_kernel",
                   **{f"generic_{d}.{f}":
                      f"gen::generic_{d}_kernel<gen::{f.capitalize()}>"
-                     for f in GENERIC for d in ("fwd", "bwd")}}
-REPLACES = {"wholebody_fwd": "mmmpc_tpu/ops/wholebody_fwd.py:237",
-            "wholebody_bwd": "mmmpc_tpu/ops/wholebody_bwd.py:272",
-            "generic_fwd": "mmmpc_tpu/ops/generic_fwd.py:261",
-            "generic_bwd": "mmmpc_tpu/ops/generic_bwd.py:177"}
+                     for f in GENERIC for d in ("fwd", "bwd")},
+                  **{f"riccati_bwd.{nx}x{nu}": f"ric::riccati_bwd_kernel<{nx}, {nu}>"
+                     for nx, nu in DIMS.values()}}
+# each wrapper kind: (its CUDA source, the TPU kernel it replaces)
+KINDS = {"wholebody_fwd": ("wholebody_fwd.cu",
+                           "mmmpc_tpu/ops/wholebody_fwd.py:237"),
+         "wholebody_bwd": ("wholebody_bwd.cu",
+                           "mmmpc_tpu/ops/wholebody_bwd.py:272"),
+         "generic_fwd": ("generic_fwd.cuh", "mmmpc_tpu/ops/generic_fwd.py:261"),
+         "generic_bwd": ("generic_bwd.cuh", "mmmpc_tpu/ops/generic_bwd.py:177"),
+         "riccati_bwd": ("riccati.cu", "mmmpc_tpu/ops/riccati.py:152"),
+         "fma_peak": ("fma_peak.cu", "scripts/roofline.py:153")}
 
 
 def _line(tag, **kv):
@@ -139,14 +175,16 @@ def _close(name, got, ref, rtol, atol):
     return err.max().item()
 
 
-def _bound(inputs, outputs, flops):
+def _bound(inputs, outputs, flops, peak):
     """The least time the card could take: each input read once and each
     output written once over the HBM rate, against ``flops`` over the
-    float32 peak."""
+    published float32 rate (``bound_ms``, ``bound_by``) and over the
+    measured peak ``peak`` (FLOP/s; ``bound_ms_measured_peak``)."""
     nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms_measured_peak": 1e3 * max(t_bytes, flops / peak),
             "bytes": nbytes, "flops": flops}
 
 
@@ -171,7 +209,18 @@ def bwd_flops(N, B, nx, nu):
     return N * B * per_stage
 
 
-def check_pair(name, fwd, bwd, fargs, bargs, counts, bwd_check):
+def ric_flops(N, B, nx, nu):
+    """Float operations of the Riccati sweep on precomputed blocks: those of
+    ``bwd_flops`` plus the dense Q-block products through A and B
+    (A^T Vx, B^T Vx, Vxx B, B^T (Vxx B), Vxx A, B^T (Vxx A), A^T (Vxx A)) and
+    the additions of the stage blocks: ~8.5 kFLOP per (9, 5) stage."""
+    dense = (2 * nx * nx + 2 * nx * nu + 2 * nx * nx * nu + 2 * nu * nu * nx
+             + 2 * nx ** 3 + 2 * nu * nx * nx + 2 * nx ** 3)
+    adds = nx + nu + nx * nx + nu * nu + nu * nx
+    return bwd_flops(N, B, nx, nu) + N * B * (dense + adds)
+
+
+def check_pair(name, fwd, bwd, fargs, bargs, counts, bwd_check, peak):
     """One fused pair against its plain versions on the same inputs: the
     forward pass at X / U atol 2e-5 and cost rtol = atol = 2e-3 (float32
     op-order differences, as the JAX kernel tests allow), the backward
@@ -194,7 +243,7 @@ def check_pair(name, fwd, bwd, fargs, bargs, counts, bwd_check):
         call_ms=_time_ms(lambda: fwd.cuda(*fargs), 20),
         plain_ms=_time_ms(lambda: fwd.plain(*fargs), 3),
         **_bound([fwd.flat, *(a for a in fargs if torch.is_tensor(a))], got,
-                 fwd_flops(N, B, na, nx, nu, nc, nct)))
+                 fwd_flops(N, B, na, nx, nu, nc, nct), peak))
     _line("kernel", name=name[0], max_abs_err_XU=f"{err:.3e}",
           max_abs_err_cost=f"{err_cost:.3e}", **_fmt(out[name[0]]))
 
@@ -207,7 +256,7 @@ def check_pair(name, fwd, bwd, fargs, bargs, counts, bwd_check):
         call_ms=_time_ms(lambda: bwd.cuda(*bargs), 20),
         plain_ms=_time_ms(lambda: bwd.plain(*bargs), 3),
         **_bound([bwd.flat, *(a for a in bargs if torch.is_tensor(a))], got,
-                 bwd_flops(N, B, nx, nu)))
+                 bwd_flops(N, B, nx, nu), peak))
     _line("kernel", name=name[1], **_fmt(out[name[1]]))
     return out
 
@@ -217,9 +266,91 @@ def _fmt(d):
             for k, v in d.items()}
 
 
-def check_wholebody(mpc, x0, params, cfg, device):
-    """Phase 3, kernels A and B on the qref bench problem."""
-    from mmmpc_tpu_torch.solver.al_ilqr import rollout
+def _check_f64(tag, got, ref, truth):
+    """The arm's gains (its 1e6 wedge slack makes the solve ill-conditioned
+    in float32; tests/test_generic_bwd.py): p99 of |kernel - plain| below
+    5e-4, and the kernel's error against the plain version in float64 at
+    most twice the plain float32 version's (1e-3 floor, 0.15 ceiling).
+    Returns the max |kernel - plain|."""
+    err = 0.0
+    for k, g, r, tr in zip(("kff", "K"), got, ref, truth):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{tag} {k}: not finite")
+        p99 = torch.quantile((g - r).abs().double().flatten(), 0.99).item()
+        e_k = (g.double() - tr).abs().max().item()
+        e_p = (r.double() - tr).abs().max().item()
+        _line("kernel-arm-f64", name=tag, tensor=k,
+              p99_kernel_vs_plain=f"{p99:.3e}", kernel_err_f64=f"{e_k:.3e}",
+              plain_f32_err_f64=f"{e_p:.3e}")
+        if not (p99 < 5e-4 and e_k <= max(2.0 * e_p, 1e-3) and e_k < 0.15):
+            raise AssertionError(f"{tag} {k}: p99 {p99:.3e}, error "
+                                 f"{e_k:.3e} vs {e_p:.3e}")
+        err = max(err, (g - r).abs().max().item())
+    return err
+
+
+def _gains_check(tag, rtol, atol):
+    """check(got, ref, args) of (kff, K) at rtol / atol."""
+    return lambda got, ref, args: max(
+        _close(f"{tag} {k}", g, r, rtol, atol)
+        for k, g, r in zip(("kff", "K"), got, ref))
+
+
+def check_riccati(blocks_of, blocks, reg, check, peak, timed=True):
+    """Phase 3, kernel E on ``blocks`` (the sweep's nine block arguments)
+    against ``plain_riccati_bm`` on the same blocks, held by
+    ``check(got, ref, args)`` -> max abs error; with ``timed``, its device
+    ms, call ms, plain ms and bound as ``check_pair``."""
+    from mmmpc_tpu_torch.ops.riccati import (
+        plain_riccati_bm, riccati_backward_bm,
+    )
+    N, nx, B = blocks[0].shape
+    nu = blocks[1].shape[1]
+    name = f"riccati_bwd.{nx}x{nu}"
+    args = (*blocks, reg)
+    got, ref = riccati_backward_bm(*args), plain_riccati_bm(*args)
+    torch.cuda.synchronize()
+    out = dict(max_abs_err=check(got, ref, args))
+    if timed:
+        out.update(ms=_kernel_ms(lambda: riccati_backward_bm(*args), 20),
+                   call_ms=_time_ms(lambda: riccati_backward_bm(*args), 20),
+                   plain_ms=_time_ms(lambda: plain_riccati_bm(*args), 3),
+                   **_bound(args, got, ric_flops(N, B, nx, nu), peak))
+    _line("kernel", name=name, blocks=blocks_of, N=N, B=B, **_fmt(out))
+    return out
+
+
+def spd_blocks(device, B=1024, N=4, nx=9, nu=5):
+    """The random SPD blocks of tests/test_pallas_riccati.py (seed 3, its
+    batch and horizon), batch-last on ``device``."""
+    rng = np.random.default_rng(3)
+
+    def mk(*s):
+        return rng.standard_normal(s).astype(np.float32)
+
+    def spd(a, n):
+        return a @ np.swapaxes(a, -1, -2) + 5 * np.eye(n, dtype=np.float32)
+
+    lx, lu = mk(B, N, nx), mk(B, N, nu)
+    lxx = spd(mk(B, N, nx, nx), nx)
+    luu = spd(mk(B, N, nu, nu), nu)
+    lux = mk(B, N, nu, nx)
+    A = mk(B, N, nx, nx) * 0.1 + np.eye(nx, dtype=np.float32)
+    Bm = mk(B, N, nx, nu) * 0.1
+    tg = mk(B, nx)
+    tH = spd(mk(B, nx, nx), nx)
+    return tuple(torch.as_tensor(np.ascontiguousarray(np.moveaxis(a, 0, -1)),
+                                 device=device)
+                 for a in (lx, lu, lxx, luu, lux, A, Bm, tg, tH))
+
+
+def check_wholebody(mpc, x0, params, cfg, device, peak):
+    """Phase 3, kernels A and B on the qref bench problem, E on the
+    expansion blocks of B's inputs and on the random SPD blocks of the
+    Pallas test."""
+    from mmmpc_tpu_torch.solver.al_ilqr import (
+        rollout, stage_al_blocks, terminal_al_blocks,
+    )
     rng = np.random.default_rng(SEED)
     N, B = mpc.N, x0.shape[0]
 
@@ -243,17 +374,33 @@ def check_wholebody(mpc, x0, params, cfg, device):
         return max(_close("wholebody_bwd kff", got[0], ref[0], 5e-3, 5e-3),
                    _close("wholebody_bwd K", got[1], ref[1], 5e-3, 5e-3))
 
-    return check_pair(("wholebody_fwd", "wholebody_bwd"), fwd, bwd,
-                      (X[:-1], U, kff, K, lam, lamt, lame, 10.0),
-                      (X, U, lam, lamt, lame, 10.0, reg),
-                      (N, B, cfg.n_alpha, 9, 5, 28, 18), bwd_check)
+    out = check_pair(("wholebody_fwd", "wholebody_bwd"), fwd, bwd,
+                     (X[:-1], U, kff, K, lam, lamt, lame, 10.0),
+                     (X, U, lam, lamt, lame, 10.0, reg),
+                     (N, B, cfg.n_alpha, 9, 5, 28, 18), bwd_check, peak)
+    # E on the same inputs: rtol = atol = 5e-3 as B
+    inv = 1.0 / cfg.cost_scale
+    out["riccati_bwd.9x5"] = check_riccati(
+        "qref", (*stage_al_blocks(mpc.ocp, params, inv, X[:-1], U, lam, 10.0),
+                 *terminal_al_blocks(mpc.ocp, params, inv, X[-1], lamt, lame,
+                                     10.0)),
+        reg, _gains_check("riccati_bwd.9x5", 5e-3, 5e-3), peak)
+    check_riccati("spd", spd_blocks(device),
+                  torch.full((1024,), 1e-6, device=device),
+                  _gains_check("riccati_bwd.9x5 spd", 2e-4, 2e-4), peak,
+                  timed=False)
+    return out
 
 
-def check_generic(device):
-    """Phase 3, kernels C and D of each formulation on its bench row."""
+def check_generic(device, peak):
+    """Phase 3, kernels C and D of each formulation on its bench row, and E
+    on the expansion blocks of D's inputs."""
     from mmmpc_tpu_torch.bench_controllers import problems
     from mmmpc_tpu_torch.ops.generic_bwd import plain_bwd
-    from mmmpc_tpu_torch.solver.al_ilqr import rollout
+    from mmmpc_tpu_torch.ops.riccati import plain_riccati_bm
+    from mmmpc_tpu_torch.solver.al_ilqr import (
+        rollout, stage_al_blocks, terminal_al_blocks,
+    )
     out = {}
     for row, mpc, x0, _, params in problems(BATCH, device):
         if row not in ROWS:
@@ -282,41 +429,38 @@ def check_generic(device):
         def bwd_check(got, ref, f=f, bwd=bwd, mpc=mpc, bargs=bargs,
                       params=params):
             if f != "arm":
-                return max(_close(f"generic_bwd.{f} {k}", g, r, 1e-4,
-                                  BWD_ATOL[f])
-                           for k, g, r in zip(("kff", "K"), got, ref))
-            # the 1e6 wedge slack makes the solve ill-conditioned in float32
-            # (tests/test_generic_bwd.py): p99 of |kernel - plain| below
-            # 5e-4, and the kernel's error against the plain version in
-            # float64 at most twice the plain float32 version's (1e-3
-            # floor, 0.15 ceiling)
+                return _gains_check(f"generic_bwd.{f}", 1e-4,
+                                    BWD_ATOL[f])(got, ref, bargs)
             truth = plain_bwd(mpc.ocp, {k: v.double()
                                         for k, v in params.items()},
                               bwd.inv_scale,
                               *(a.double() if torch.is_tensor(a) else a
                                 for a in bargs))
-            err = 0.0
-            for k, g, r, tr in zip(("kff", "K"), got, ref, truth):
-                if not torch.isfinite(g).all():
-                    raise AssertionError(f"generic_bwd.arm {k}: not finite")
-                p99 = torch.quantile((g - r).abs().double().flatten(),
-                                     0.99).item()
-                e_k = (g.double() - tr).abs().max().item()
-                e_p = (r.double() - tr).abs().max().item()
-                _line("kernel-arm-f64", tensor=k, p99_kernel_vs_plain=
-                      f"{p99:.3e}", kernel_err_f64=f"{e_k:.3e}",
-                      plain_f32_err_f64=f"{e_p:.3e}")
-                if not (p99 < 5e-4 and e_k <= max(2.0 * e_p, 1e-3)
-                        and e_k < 0.15):
-                    raise AssertionError(f"generic_bwd.arm {k}: p99 {p99:.3e}"
-                                         f", error {e_k:.3e} vs {e_p:.3e}")
-                err = max(err, (g - r).abs().max().item())
-            return err
+            return _check_f64("generic_bwd.arm", got, ref, truth)
 
         out.update(check_pair((f"generic_fwd.{f}", f"generic_bwd.{f}"), fwd,
                               bwd, fargs, bargs,
                               (N, B, cfg.n_alpha, nx, nu, nc, nct),
-                              bwd_check))
+                              bwd_check, peak))
+
+        # E on the expansion blocks of D's inputs, at D's tolerances; the
+        # arm's truth is the plain sweep in float64 on the same blocks
+        name = f"riccati_bwd.{nx}x{nu}"
+        if f == "arm":
+            def ric_check(got, ref, args):
+                return _check_f64(name, got, ref, plain_riccati_bm(
+                    *(a.double() for a in args)))
+        else:
+            ric_check = _gains_check(name, 1e-4, BWD_ATOL[f])
+        X, U, lam, lamt, lame, mu, reg = bargs
+        ric = check_riccati(
+            row, (*stage_al_blocks(mpc.ocp, params, bwd.inv_scale, X[:-1], U,
+                                   lam, mu),
+                  *terminal_al_blocks(mpc.ocp, params, bwd.inv_scale, X[-1],
+                                      lamt, lame, mu)),
+            reg, ric_check, peak)
+        if f != "endpoint":          # (9, 5): the record keeps qref's blocks
+            out[name] = ric
     return out
 
 
@@ -334,11 +478,12 @@ def time_solves(run, args, reps):
 def profile_solve(run, args, names):
     """One solve under torch.profiler: (device ops, busy ms as the union of
     their intervals, {kernel: (calls, ms)} of the fused kernels ``names``),
-    or None when the profiler saw no device activity."""
+    or None when the profiler saw no device activity.  Device activity
+    only: with the host's ops recorded as well, the profile of one unfused
+    solve (~73,000 device ops) took 40-48 s on an H100 host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run(*args)
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -356,22 +501,25 @@ def profile_solve(run, args, names):
     return len(spans), busy / 1e3, ours
 
 
-def report_timing(tag, run, args, batch, names, **kv):
-    """Time ``REPS`` solves and profile one more; print both.  Returns the
+def report_timing(tag, run, args, batch, names, reps=REPS, **kv):
+    """Time ``reps`` solves and profile one more; print both.  Returns the
     median solve seconds."""
-    ts = time_solves(run, args, REPS)
+    ts = time_solves(run, args, reps)
     q1, med, q3 = np.percentile(ts, [25, 50, 75])
-    _line(tag, **kv, batch=batch, reps=REPS, solve_s_median=f"{med:.4f}",
+    _line(tag, **kv, batch=batch, reps=reps, solve_s_median=f"{med:.4f}",
           solve_s_q1=f"{q1:.4f}", solve_s_q3=f"{q3:.4f}",
           solves_per_s_median=f"{batch / med:.1f}",
           solve_s=",".join(f"{t:.4f}" for t in ts))
+    t0 = time.perf_counter()
     prof = profile_solve(run, args, names)
+    profile_s = f"{time.perf_counter() - t0:.1f}"
     if prof is None:
         _line(tag + "-profile", **kv, batch=batch,
               device_ops="not measured (the profiler saw no device activity)")
         return med
     n_ops, busy_ms, ours = prof
-    _line(tag + "-profile", **kv, batch=batch, device_ops=n_ops,
+    _line(tag + "-profile", **kv, batch=batch, profile_s=profile_s,
+          device_ops=n_ops,
           device_busy_ms=f"{busy_ms:.3f}",
           idle_share_of_median_solve=f"{1 - busy_ms / (1e3 * med):.3f}",
           **{f"{k}_calls": v[0] for k, v in ours.items()},
@@ -396,14 +544,19 @@ def check_result(res, mpc, batch, device):
         raise AssertionError("inputs outside the clamped input box")
 
 
-def count_launches(counters, per_solve, solves):
-    """{kernel: launches}; raises unless each kernel launched ``per_solve``
-    times in each of ``solves`` solves and its plain version never."""
+def count_launches(counters, per_solve, solves, absent=None):
+    """{kernel: launches}; raises unless each kernel of ``counters``
+    launched ``per_solve`` times in each of ``solves`` solves, each kernel
+    of ``absent`` never, and no plain version ran."""
     for name, c in counters.items():
         if c.cuda != per_solve * solves or c.plain:
             raise AssertionError(f"{name}: {c.cuda} launches and {c.plain} "
                                  f"plain calls in {solves} solves, expected "
                                  f"{per_solve * solves} and 0")
+    for name, c in (absent or {}).items():
+        if c.cuda or c.plain:
+            raise AssertionError(f"{name}: {c.cuda} launches and {c.plain} "
+                                 f"plain calls, expected none")
     return {name: c.cuda for name, c in counters.items()}
 
 
@@ -441,7 +594,53 @@ def run_slice(device):
         raise AssertionError(f"converged_frac {conv} < 0.99")
     _line("bar", row="wholebody_qref_refined", converged_frac_is_1=conv == 1.0,
           max_violation_below_1e_3=maxv < 1e-3, met=conv == 1.0 and maxv < 1e-3)
-    return launches
+    return launches, (res, stats)
+
+
+def run_unfused(device, fused):
+    """Phase 4b: the refined solve at the bench batch with the unfused
+    backward (AL expansion in plain torch + the Riccati sweep kernel),
+    gated against ``fused``, the (result, stats) of phase 4."""
+    from mmmpc_tpu_torch.bench import REFINE_CFG, SOLVER_CFG, build_problem
+    from mmmpc_tpu_torch.ops import riccati, wholebody_bwd, wholebody_fwd
+    from mmmpc_tpu_torch.parallel.data_parallel import with_stats
+    from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
+
+    cfg = dataclasses.replace(SOLVER_CFG, use_fused_backward=False)
+    refine_cfg = dataclasses.replace(REFINE_CFG, use_fused_backward=False)
+    mpc, x0, U0, params = build_problem(BATCH, device, cfg)
+    run = with_stats(mpc.batch_solve_refined_fn(refine_cfg))
+    per_solve = iteration_count(cfg) + iteration_count(refine_cfg)
+    counters = {"riccati_bwd.9x5": riccati.LAUNCHES[(9, 5)],
+                "wholebody_fwd": wholebody_fwd.LAUNCHES}
+    absent = {"wholebody_bwd": wholebody_bwd.LAUNCHES}
+    for c in (*counters.values(), *absent.values()):
+        c.reset()
+    res, stats = run(x0, U0, params)
+    torch.cuda.synchronize()
+    launches = count_launches(counters, per_solve, 1, absent)
+
+    med = report_timing("unfused-timing", run, (x0, U0, params), BATCH,
+                        counters, reps=UNFUSED_REPS)
+    count_launches(counters, per_solve, 2 + UNFUSED_REPS, absent)
+    check_result(res, mpc, BATCH, device)
+    conv = float(stats.n_converged) / float(stats.n_solved)
+    maxv = float(stats.max_violation)
+    _line("unfused", batch=BATCH, solves_per_s_median=f"{BATCH / med:.1f}",
+          batch_latency_s_median=f"{med:.4f}", converged_frac=f"{conv:.6f}",
+          max_violation=f"{maxv:.3e}",
+          mean_cost=f"{float(stats.mean_cost):.4f}",
+          launches_per_solve=per_solve,
+          **{f"launches_{k}": v for k, v in launches.items()},
+          launches_wholebody_bwd=0)
+    if conv < 0.99:
+        raise AssertionError(f"unfused: converged_frac {conv} < 0.99")
+    _reference_gate("unfused-vs-fused", (res, stats), fused,
+                    row="wholebody_qref_refined")
+    _line("bar", row="wholebody_qref_refined_unfused",
+          converged_frac_is_1=conv == 1.0,
+          max_violation_below_1e_3=maxv < 1e-3, met=conv == 1.0 and maxv < 1e-3)
+    return {"riccati_bwd.9x5": launches["riccati_bwd.9x5"]}
 
 
 def run_scaling(device):
@@ -457,19 +656,20 @@ def run_scaling(device):
                   ("wholebody_fwd", "wholebody_bwd"))
 
 
-def _reference_gate(tag, out, **kv):
-    """Card vs CPU solve of one problem: relative mean cost within 5e-3 and
-    the same converged flags on at least 95% of the robots.  A full solve is
-    held to cost and feasibility, not to |dU|: a float reassociation can
-    flip a near-tied line-search argmin and part two trajectories (ROADMAP
-    queue 3)."""
-    (rg, sg), (rc, sc) = out["cuda"], out["cpu"]
-    dU = (rg.U.cpu() - rc.U).abs().amax(dim=(1, 2)).numpy()
-    dcost = ((rg.cost.cpu() - rc.cost).abs()
-             / rc.cost.abs().clamp(min=1e-12)).numpy()
+def _reference_gate(tag, got, ref, **kv):
+    """Two solves of one problem, ``got`` and ``ref`` = (result, stats):
+    relative mean cost within 5e-3 and the same converged flags on at least
+    95% of the robots.  A full solve is held to cost and feasibility, not to
+    |dU|: a float reassociation can flip a near-tied line-search argmin and
+    part two trajectories (ROADMAP queue 3)."""
+    (rg, sg), (rc, sc) = got, ref
+    dU = (rg.U.cpu() - rc.U.cpu()).abs().amax(dim=(1, 2)).numpy()
+    dcost = ((rg.cost.cpu() - rc.cost.cpu()).abs()
+             / rc.cost.cpu().abs().clamp(min=1e-12)).numpy()
     rel_cost = (abs(float(sg.mean_cost) - float(sc.mean_cost))
                 / abs(float(sc.mean_cost)))
-    same_conv = float((rg.converged.cpu() == rc.converged).float().mean())
+    same_conv = float((rg.converged.cpu() == rc.converged.cpu()).float()
+                      .mean())
     conv = min(float(rg.converged.float().mean()),
                float(rc.converged.float().mean()))
     _line(tag, **kv, median_dU=f"{np.median(dU):.3e}",
@@ -479,8 +679,7 @@ def _reference_gate(tag, out, **kv):
           rel_mean_cost=f"{rel_cost:.3e}", same_converged=f"{same_conv:.4f}",
           converged_frac_min=f"{conv:.4f}")
     if not (rel_cost < 5e-3 and same_conv >= 0.95):
-        raise AssertionError(f"{tag} {kv}: card solve disagrees with the "
-                             f"plain CPU solve")
+        raise AssertionError(f"{tag} {kv}: the two solves disagree")
     return conv
 
 
@@ -496,7 +695,7 @@ def check_reference(device):
         run = with_stats(mpc.batch_solve_refined_fn(REFINE_CFG,
                                                     refine_size=16))
         out[dev.type] = run(x0, U0, params)
-    if _reference_gate("reference", out) < 0.95:
+    if _reference_gate("reference", out["cuda"], out["cpu"]) < 0.95:
         raise AssertionError("reference: converged fraction below 0.95")
 
 
@@ -507,7 +706,7 @@ def run_formulations(device):
     from mmmpc_tpu_torch.parallel.data_parallel import controller_batched_fn
     from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
 
-    launches, bars = {}, []
+    launches, bars, results = {}, [], {}
     for row, mpc, x0, U0, params in problems(BATCH, device):
         if row not in ROWS:
             continue
@@ -521,6 +720,7 @@ def run_formulations(device):
         res, stats = run(x0, U0, params)
         torch.cuda.synchronize()
         launches.update(count_launches(counters, per_solve, 1))
+        results[row] = (res, stats)
 
         med = report_timing("formulations-timing", run, (x0, U0, params),
                             BATCH, counters, row=row)
@@ -540,7 +740,61 @@ def run_formulations(device):
         _line("bar", row=row, converged_frac_is_1=conv == 1.0,
               max_violation_below_1e_3=maxv < 1e-3, met=bars[-1])
     _line("bar", row="all_formulations", met=all(bars))
-    return launches
+    return launches, results
+
+
+def run_formulations_unfused(device, fused):
+    """Phase 7b: each generic row at the bench batch with the unfused
+    backward, gated against ``fused`` {row: (result, stats)} of phase 7."""
+    from mmmpc_tpu_torch.bench_controllers import problems
+    from mmmpc_tpu_torch.ops import generic_bwd, generic_fwd, riccati
+    from mmmpc_tpu_torch.parallel.data_parallel import controller_batched_fn
+    from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
+
+    launches, bars = {}, []
+    for row, mpc, x0, U0, params in problems(BATCH, device):
+        if row not in ROWS:
+            continue
+        f = ROWS[row]
+        mpc.solver_config = dataclasses.replace(mpc.solver_config,
+                                                use_fused_backward=False)
+        run = controller_batched_fn(mpc)
+        per_solve = iteration_count(mpc.solver_config)
+        ric = "riccati_bwd.{}x{}".format(*DIMS[f])
+        counters = {ric: riccati.LAUNCHES[DIMS[f]],
+                    f"generic_fwd.{f}": generic_fwd.LAUNCHES[f]}
+        absent = {f"generic_bwd.{f}": generic_bwd.LAUNCHES[f]}
+        for c in (*counters.values(), *absent.values()):
+            c.reset()
+        res, stats = run(x0, U0, params)
+        torch.cuda.synchronize()
+        launches[row] = count_launches(counters, per_solve, 1, absent)[ric]
+
+        med = report_timing("formulations-unfused-timing", run,
+                            (x0, U0, params), BATCH, counters,
+                            reps=UNFUSED_REPS, row=row)
+        count_launches(counters, per_solve, 2 + UNFUSED_REPS, absent)
+        check_result(res, mpc, BATCH, device)
+        conv = float(stats.n_converged) / float(stats.n_solved)
+        maxv = float(stats.max_violation)
+        _line("formulations-unfused", row=row, batch=BATCH,
+              solves_per_s_median=f"{BATCH / med:.1f}",
+              batch_latency_s_median=f"{med:.4f}",
+              converged_frac=f"{conv:.6f}", max_violation=f"{maxv:.3e}",
+              mean_cost=f"{float(stats.mean_cost):.6g}",
+              launches_per_solve=per_solve, **{f"launches_{ric}": per_solve},
+              **{f"launches_generic_bwd.{f}": 0})
+        if conv < 0.99:
+            raise AssertionError(f"{row} unfused: converged_frac {conv} < 0.99")
+        _reference_gate("formulations-unfused-vs-fused", (res, stats),
+                        fused[row], row=row)
+        bars.append(conv == 1.0 and maxv < 1e-3)
+        _line("bar", row=f"{row}_unfused", converged_frac_is_1=conv == 1.0,
+              max_violation_below_1e_3=maxv < 1e-3, met=bars[-1])
+    _line("bar", row="all_formulations_unfused", met=all(bars))
+    # the record's launches of each sweep instance: its row's
+    return {"riccati_bwd.{}x{}".format(*DIMS[ROWS[row]]): n
+            for row, n in launches.items() if ROWS[row] != "endpoint"}
 
 
 def check_formulations_reference(device):
@@ -555,7 +809,126 @@ def check_formulations_reference(device):
                 out.setdefault(row, {})[dev.type] = controller_batched_fn(
                     mpc)(x0, U0, params)
     for row, o in out.items():
-        _reference_gate("formulations-reference", o, row=row)
+        _reference_gate("formulations-reference", o["cuda"], o["cpu"],
+                        row=row)
+
+
+def _sass_ffma(lib_path):
+    """The FFMA instructions in the SASS of each FMA microkernel instance
+    (``cuobjdump -sass``); raises unless each instance has at least one per
+    accumulator.  Prints that the check was skipped where the toolkit has
+    no cuobjdump."""
+    from mmmpc_tpu_torch.ops._cuda import FMA_NACC
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if shutil.which(tool) is None:
+        _line("peak-sass", cuobjdump="not available")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+        elif fn and "fma_peak_kernel" in fn and "FFMA" in ln:
+            counts[fn] = counts.get(fn, 0) + 1
+    found = {}
+    for fn, n in sorted(counts.items()):
+        nacc = int(re.search(r"ILi(\d+)E", fn).group(1))
+        found[nacc] = n
+        _line("peak-sass", nacc=nacc, function=fn, ffma=n)
+    if any(found.get(nacc, 0) < nacc for nacc in FMA_NACC):
+        raise AssertionError(f"fma_peak SASS: FFMA counts {found}, expected "
+                             f"at least one per accumulator of {FMA_NACC}")
+
+
+def run_peak(device):
+    """Phase 2b: kernel F's SASS, the sweep, then each accumulator count's
+    best configuration at its own grid and its shortest trip count, which
+    is 3 mod 8 so the remainder of the unrolled trip loop runs: on inputs
+    that count the trips exactly, and against ``plain_fma`` (rtol 1e-5,
+    atol 1e-6: the kernel's one rounding per trip against plain torch's
+    two, on chains that contract); then the gate of ``check_peak``.  The
+    record entry is the best configuration at that trip count, on the
+    inputs it was checked on.  Returns (measured FLOP/s, record entry,
+    launches in the sweep)."""
+    from mmmpc_tpu_torch import roofline
+    from mmmpc_tpu_torch.ops._cuda import FMA_NACC, LIBRARY
+
+    _sass_ffma(LIBRARY.info.path)
+    roofline.LAUNCHES.reset()
+    res = roofline.measure_fp32_peak(device)
+    launches = roofline.LAUNCHES.cuda
+    for r in res["sweep"]:
+        _line("peak", nacc=r["nacc"], threads=r["threads"], blocks=r["blocks"],
+              trips=",".join(map(str, r["trips"])),
+              ms=",".join(f"{t:.4f}" for t in r["ms"]),
+              tflops=f"{r['fp32_flops'] / 1e12:.3f}")
+
+    host = res["host"]
+    _line("peak-host", launches=host["launches"],
+          event_ms=f"{host['event_ms']:.3f}", host_ms=f"{host['host_ms']:.3f}",
+          tflops_host_clock=f"{host['fp32_flops'] / 1e12:.3f}",
+          clocks_sm=repr(",".join(host["clocks_sm"])))
+
+    def check(r):
+        nacc, blocks, threads, inner = (r["nacc"], r["blocks"], r["threads"],
+                                        r["trips"][0])
+        n = blocks * threads
+        # every trip ran: b = c = 1 counts them exactly
+        x = roofline.count_inputs(nacc, n, device)
+        got = roofline.fma_peak(x, nacc, inner, blocks, threads)
+        if not torch.equal(got, x[:nacc] + inner):
+            raise AssertionError(f"fma_peak_{nacc}: did not run {inner} trips")
+        x = roofline.fma_inputs(nacc, n, device)
+        got = roofline.fma_peak(x, nacc, inner, blocks, threads)
+        e = _close(f"fma_peak_{nacc}", got, roofline.plain_fma(x, nacc, inner),
+                   1e-5, 1e-6)
+        _line("peak-check", nacc=nacc, blocks=blocks, threads=threads,
+              inner=inner, trips_counted=inner, max_abs_err=f"{e:.3e}")
+        return x, got, e
+
+    checked = {}
+    for nacc in FMA_NACC:
+        r = max((r for r in res["sweep"] if r["nacc"] == nacc),
+                key=lambda r: r["fp32_flops"])
+        _line("peak-nacc", nacc=nacc,
+              best_tflops=f"{r['fp32_flops'] / 1e12:.3f}")
+        checked[nacc] = check(r)
+    best = res["best"]
+    _line("peak", measured_tflops=f"{res['fp32_flops'] / 1e12:.3f}",
+          sweep_best_tflops=f"{best['fp32_flops'] / 1e12:.3f}",
+          clock_ceiling_tflops=f"{res['clock_ceiling_flops'] / 1e12:.3f}",
+          share_of_clock_ceiling=(
+              f"{res['fp32_flops'] / res['clock_ceiling_flops']:.4f}"),
+          published_tflops=f"{FP32_FLOP_PER_S / 1e12:.0f}",
+          share_of_published=f"{res['fp32_flops'] / FP32_FLOP_PER_S:.4f}",
+          best_nacc=best["nacc"], best_threads=best["threads"],
+          best_blocks=best["blocks"], launches=launches,
+          clocks_sm_power_draw_power_limit=repr(res["clocks_power"]))
+    roofline.check_peak(res)
+
+    nacc, blocks, threads, inner = (best["nacc"], best["blocks"],
+                                    best["threads"], best["trips"][0])
+    x, got, err = checked[nacc]
+    entry = dict(max_abs_err=err,
+                 ms=_kernel_ms(lambda: roofline.fma_peak(x, nacc, inner,
+                                                         blocks, threads), 20),
+                 plain_ms=_time_ms(lambda: roofline.plain_fma(x, nacc, inner),
+                                   3),
+                 **_bound([x], got, 2.0 * nacc * blocks * threads * inner,
+                          res["fp32_flops"]))
+    _line("kernel", name="fma_peak", nacc=nacc, blocks=blocks,
+          threads=threads, inner=inner, **_fmt(entry))
+    return res["fp32_flops"], entry, launches
+
+
+def _phase(name, fn, *args):
+    """Run one phase and print its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    _line("phase", name=name, seconds=f"{time.perf_counter() - t0:.1f}")
+    return out
 
 
 def main(argv):
@@ -581,28 +954,37 @@ def main(argv):
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print("[ptxas] " + ln.strip(), flush=True)
 
+    peak, fma_entry, fma_launches = _phase("peak", run_peak, device)
+    timings = {"fma_peak": fma_entry}
     mpc, x0, _, params = build_problem(BATCH, device)
-    timings = check_wholebody(mpc, x0, params, SOLVER_CFG, device)
-    timings.update(check_generic(device))
+    timings.update(_phase("kernels-wholebody", check_wholebody, mpc, x0,
+                          params, SOLVER_CFG, device, peak))
+    timings.update(_phase("kernels-generic", check_generic, device, peak))
     if argv == ["--kernels"]:
         return 0
-    launches = run_slice(device)
-    run_scaling(device)
-    check_reference(device)
-    launches.update(run_formulations(device))
-    check_formulations_reference(device)
+    launches, fused = _phase("slice", run_slice, device)
+    launches.update(_phase("unfused", run_unfused, device, fused))
+    launches["fma_peak"] = fma_launches
+    _phase("scaling", run_scaling, device)
+    _phase("reference", check_reference, device)
+    launches_f, fused_rows = _phase("formulations", run_formulations, device)
+    launches.update(launches_f)
+    launches.update(_phase("formulations-unfused", run_formulations_unfused,
+                           device, fused_rows))
+    _phase("formulations-reference", check_formulations_reference, device)
 
     record = {"kernels": []}
     for name, t in timings.items():
-        kind = name.split(".")[0]
-        source = (f"{name}.cu" if "." not in name else f"{kind}.cuh")
+        source, replaces = KINDS[name.split(".")[0]]
         record["kernels"].append({
             "name": name, "route": "cuda",
             "source": f"mmmpc_tpu_torch/csrc/{source}",
-            "replaces": REPLACES[kind], "launches": launches[name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None})
+            "bound_by": t["bound_by"],
+            "bound_ms_measured_peak": t["bound_ms_measured_peak"],
+            "library_ms": None})
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

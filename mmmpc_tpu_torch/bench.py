@@ -58,10 +58,14 @@ def build_problem_numpy(batch: int, N: int = N,
     return mpc, x0_b, params
 
 
-def build_problem(batch: int, device):
+def build_problem(batch: int, device,
+                  solver_config: SolverConfig = SOLVER_CFG):
     """(mpc, x0_b (batch, 9), U0_b (batch, N, 5), params) in float32 on
-    ``device``, the kernels' dtype."""
-    mpc, x0_b, params = build_problem_numpy(batch)
+    ``device``, the kernels' dtype; ``solver_config`` is the stage-1
+    schedule (``dataclasses.replace(SOLVER_CFG, use_fused_backward=False)``
+    for the unfused backward path)."""
+    mpc, x0_b, params = build_problem_numpy(batch,
+                                            solver_config=solver_config)
     kw = dict(dtype=torch.float32, device=device)
     return (mpc, torch.as_tensor(x0_b, **kw), torch.zeros(batch, N, 5, **kw),
             params_from_numpy(params, device, torch.float32))

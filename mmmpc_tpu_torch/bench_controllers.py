@@ -1,12 +1,14 @@
 """Batched throughput of every ported MPC formulation (counterpart of
 ``scripts/bench_controllers.py``).
 
-    python -m mmmpc_tpu_torch.bench_controllers [batch] [names...] [--device cpu]
+    python -m mmmpc_tpu_torch.bench_controllers [batch] [names...] [--device cpu] [--unfused]
 
 One JSON row per formulation: controller, batch, horizon, solves_per_s
 (over 10 solves after a warm-up, each batch synchronised), converged_frac,
 max_violation and the device.  It runs on the card and raises when there is
-no CUDA unless ``--device cpu`` is given.
+no CUDA unless ``--device cpu`` is given.  ``--unfused`` solves every row
+with ``use_fused_backward=False`` (the AL expansion in plain PyTorch, then
+the Riccati sweep kernel) and adds ``"backward": "unfused"`` to each row.
 
 ``problems`` builds the JAX script's problems from numpy in the same
 ``default_rng(0)`` order (demo -> base -> arm -> endpoint -> qref), so every
@@ -18,6 +20,7 @@ out: the whole-body kernels have no moving-obstacle tables yet.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 import time
@@ -148,6 +151,8 @@ def bench_one(name, mpc, x0_b, U0_b, params, reps=REPS):
 
 def main(argv):
     device = "cuda"
+    unfused = "--unfused" in argv
+    argv = [a for a in argv if a != "--unfused"]
     if "--device" in argv:
         i = argv.index("--device")
         device = argv[i + 1]
@@ -160,7 +165,13 @@ def main(argv):
     for name, mpc, x0_b, U0_b, params in problems(batch, device):
         if names and name not in names:
             continue
-        print(json.dumps(bench_one(name, mpc, x0_b, U0_b, params)), flush=True)
+        if unfused:
+            mpc.solver_config = dataclasses.replace(mpc.solver_config,
+                                                    use_fused_backward=False)
+        row = bench_one(name, mpc, x0_b, U0_b, params)
+        if unfused:
+            row["backward"] = "unfused"
+        print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,9 @@
 // the stages, the Q blocks of the next value function through the
 // dynamics Jacobians, plus the stage's scaled Gauss-Newton model and its PHR
 // rows, one Riccati step (Cholesky of Quu + reg I, kff = -Quu^-1 Qu,
-// K = -Quu^-1 Qux), the value update, and Vxx symmetrised.  The plain
-// PyTorch version is ops/generic_bwd.py::plain_bwd.
+// K = -Quu^-1 Qux), the value update, and Vxx symmetrised: the step is
+// ric::riccati_step (riccati_step.cuh), which kernel E shares with dense
+// Jacobians.  The plain PyTorch version is ops/generic_bwd.py::plain_bwd.
 //
 // The formulation F supplies, besides the members listed in
 // generic_common.cuh:
@@ -33,6 +34,7 @@
 #pragma once
 
 #include "generic_common.cuh"
+#include "riccati_step.cuh"
 
 namespace gen {
 
@@ -42,9 +44,11 @@ namespace gen {
 // the gradient and mu [t > 0] dc dc^T to the Hessian.  Masked rows are
 // skipped.
 template <int NX, int NU>
-struct QBlocks {
-  float x[NX], u[NU];
-  float xx[NX][NX], uu[NU][NU], ux[NU][NX];
+struct QBlocks : ric::QStage<NX, NU> {
+  using ric::QStage<NX, NU>::x;
+  using ric::QStage<NX, NU>::u;
+  using ric::QStage<NX, NU>::xx;
+  using ric::QStage<NX, NU>::uu;
   const float* lam;  // the multipliers of the current rows: row r at lam[r * B]
   int B;
   float mu;
@@ -80,6 +84,20 @@ struct QBlocks {
       }
     }
   }
+};
+
+// The formulation's dynamics Jacobians in registers, with its masks.
+template <class F>
+struct JacRegs {
+  float A[F::NX][F::NX], Bm[F::NX][F::NU];
+  __host__ __device__ static constexpr bool a_nz(int i, int j) {
+    return F::a_nz(i, j);
+  }
+  __host__ __device__ static constexpr bool b_nz(int i, int j) {
+    return F::b_nz(i, j);
+  }
+  __device__ __forceinline__ float a(int i, int j) const { return A[i][j]; }
+  __device__ __forceinline__ float b(int i, int j) const { return Bm[i][j]; }
 };
 
 template <class F>
@@ -125,195 +143,18 @@ generic_bwd_kernel(const __grid_constant__ Statics<F> st,
     for (int i = 0; i < NX; ++i) x[i] = X[(k * NX + i) * B + b];
 #pragma unroll
     for (int i = 0; i < NU; ++i) u[i] = U[(k * NU + i) * B + b];
-    float A[NX][NX], Bm[NX][NU];
-    F::dyn_jac(x, u, c, A, Bm);
+    JacRegs<F> jac;
+    F::dyn_jac(x, u, c, jac.A, jac.Bm);
 
-    // ---- Q blocks of the next value function.  Sums start at -0.f, the
-    // identity of float addition, so a single live term folds to itself.
-    //   Qx = A^T Vx, Qu = B^T Vx, Quu = B^T Vxx B
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      float s = -0.f;
-#pragma unroll
-      for (int p = 0; p < NX; ++p)
-        if (F::a_nz(p, i)) s += A[p][i] * Vx[p];
-      q.x[i] = s;
-    }
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      float s = -0.f;
-#pragma unroll
-      for (int p = 0; p < NX; ++p)
-        if (F::b_nz(p, i)) s += Bm[p][i] * Vx[p];
-      q.u[i] = s;
-    }
-    {
-      float VB[NX][NU];
-#pragma unroll
-      for (int p = 0; p < NX; ++p) {
-#pragma unroll
-        for (int j = 0; j < NU; ++j) {
-          float s = -0.f;
-#pragma unroll
-          for (int r = 0; r < NX; ++r)
-            if (F::b_nz(r, j)) s += q.xx[p][r] * Bm[r][j];
-          VB[p][j] = s;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < NU; ++i) {
-#pragma unroll
-        for (int j = 0; j < NU; ++j) {
-          float s = -0.f;
-#pragma unroll
-          for (int p = 0; p < NX; ++p)
-            if (F::b_nz(p, i)) s += Bm[p][i] * VB[p][j];
-          q.uu[i][j] = s;
-        }
-      }
-    }
-    // Vxx <- Vxx A in place, row by row
-#pragma unroll
-    for (int p = 0; p < NX; ++p) {
-      float row[NX];
-#pragma unroll
-      for (int r = 0; r < NX; ++r) row[r] = q.xx[p][r];
-#pragma unroll
-      for (int j = 0; j < NX; ++j) {
-        float s = -0.f;
-#pragma unroll
-        for (int r = 0; r < NX; ++r)
-          if (F::a_nz(r, j)) s += row[r] * A[r][j];
-        q.xx[p][j] = s;
-      }
-    }
-    // Qux = B^T (Vxx A)
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-#pragma unroll
-      for (int j = 0; j < NX; ++j) {
-        float s = -0.f;
-#pragma unroll
-        for (int p = 0; p < NX; ++p)
-          if (F::b_nz(p, i)) s += Bm[p][i] * q.xx[p][j];
-        q.ux[i][j] = s;
-      }
-    }
-    // Qxx = A^T (Vxx A) in place, column by column
-#pragma unroll
-    for (int j = 0; j < NX; ++j) {
-      float col[NX];
-#pragma unroll
-      for (int p = 0; p < NX; ++p) col[p] = q.xx[p][j];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        float s = -0.f;
-#pragma unroll
-        for (int p = 0; p < NX; ++p)
-          if (F::a_nz(p, i)) s += A[p][i] * col[p];
-        q.xx[i][j] = s;
-      }
-    }
-
-    // ---- + the scaled stage model and its PHR rows
-    q.lam = lam + static_cast<long long>(k) * NC * B + b;
-    F::stage_quad(x, u, k, c, q);
-
-    // ---- Cholesky of Quu + reg I (pivot reciprocals: substitutions
-    // multiply), then [kff | K] = -(Quu + reg I)^-1 [Qu | Qux]
-    float Lc[NU][NU], Dinv[NU];
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-#pragma unroll
-      for (int j = 0; j <= i; ++j) {
-        float s = q.uu[i][j] + (i == j ? rg : 0.f);
-#pragma unroll
-        for (int p = 0; p < j; ++p) s -= Lc[i][p] * Lc[j][p];
-        if (i == j) {
-          const float r = sqrtf(s);
-          Dinv[i] = 1.f / r;
-          Lc[i][i] = r;
-        } else {
-          Lc[i][j] = s * Dinv[j];
-        }
-      }
-    }
-    float kf[NU], Kg[NU][NX];
-#pragma unroll
-    for (int cc = 0; cc < 1 + NX; ++cc) {
-      float y[NU];
-#pragma unroll
-      for (int i = 0; i < NU; ++i) {
-        float s = cc == 0 ? q.u[i] : q.ux[i][cc - 1];
-#pragma unroll
-        for (int p = 0; p < i; ++p) s -= Lc[i][p] * y[p];
-        y[i] = s * Dinv[i];
-      }
-      float z[NU];
-#pragma unroll
-      for (int i = NU - 1; i >= 0; --i) {
-        float s = y[i];
-#pragma unroll
-        for (int p = i + 1; p < NU; ++p) s -= Lc[p][i] * z[p];
-        z[i] = s * Dinv[i];
-      }
-#pragma unroll
-      for (int i = 0; i < NU; ++i) {
-        if (cc == 0) kf[i] = -z[i];
-        else Kg[i][cc - 1] = -z[i];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      kff_out[(k * NU + i) * B + b] = kf[i];
-#pragma unroll
-      for (int j = 0; j < NX; ++j) K_out[((k * NU + i) * NX + j) * B + b] = Kg[i][j];
-    }
-
-    // ---- value update (Quu without reg):
-    //   Vx  = Qx + K^T (Quu kff + Qu) + Qux^T kff
-    //   Vxx = Qxx + K^T M + Qux^T K with M = Quu K + Qux, symmetrised
-    float w[NU];
-#pragma unroll
-    for (int p = 0; p < NU; ++p) {
-      float s = q.u[p];
-#pragma unroll
-      for (int r = 0; r < NU; ++r) s += q.uu[p][r] * kf[r];
-      w[p] = s;
-    }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      float s = q.x[i];
-#pragma unroll
-      for (int p = 0; p < NU; ++p) s += Kg[p][i] * w[p] + q.ux[p][i] * kf[p];
-      Vx[i] = s;
-    }
-    float Mk[NU][NX];
-#pragma unroll
-    for (int p = 0; p < NU; ++p) {
-#pragma unroll
-      for (int j = 0; j < NX; ++j) {
-        float s = q.ux[p][j];
-#pragma unroll
-        for (int r = 0; r < NU; ++r) s += q.uu[p][r] * Kg[r][j];
-        Mk[p][j] = s;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-#pragma unroll
-      for (int j = i; j < NX; ++j) {
-        float vij = q.xx[i][j], vji = q.xx[j][i];
-#pragma unroll
-        for (int p = 0; p < NU; ++p) {
-          vij += Kg[p][i] * Mk[p][j] + q.ux[p][i] * Kg[p][j];
-          vji += Kg[p][j] * Mk[p][i] + q.ux[p][j] * Kg[p][i];
-        }
-        const float v = 0.5f * (vij + vji);
-        q.xx[i][j] = v;
-        q.xx[j][i] = v;
-      }
-    }
+    // ---- one Riccati step, the stage's scaled model and PHR rows added
+    // between the Q-block products and the Cholesky
+    ric::riccati_step<NX, NU>(
+        jac, [&]() {
+          q.lam = lam + static_cast<long long>(k) * NC * B + b;
+          F::stage_quad(x, u, k, c, q);
+        },
+        q, Vx, rg, kff_out + static_cast<long long>(k) * NU * B + b,
+        K_out + static_cast<long long>(k) * NU * NX * B + b, B);
   }
 }
 

@@ -19,9 +19,12 @@ is a Python int or an integer tensor that broadcasts against the batch axes
   the Gauss-Newton factorisation and hand constraint Jacobians
 - ``stage_al_expansion / terminal_al_expansion``: the complete gradient and
   Gauss-Newton Hessian blocks of the scaled AL stage / terminal cost
-- ``lanes_fwd_factory(cfg, params)`` / ``lanes_bwd_factory(cfg, params)``:
-  build the fused line-search and backward-sweep callables for one solve
-  (``ops/wholebody_*.py`` or ``ops/generic_*.py``)
+- ``lanes_fwd_factory(cfg, params)``: builds the fused line-search callable
+  for one solve (``ops/wholebody_fwd.py`` or ``ops/generic_fwd.py``)
+- ``lanes_bwd_factory(cfg, params)`` (optional): builds the fused
+  backward-sweep callable (``ops/wholebody_bwd.py`` or
+  ``ops/generic_bwd.py``); without one the solver runs the structured AL
+  expansion and the Riccati sweep kernel (``ops/riccati.py``)
 """
 
 from __future__ import annotations
@@ -49,10 +52,10 @@ class OCP:
     u_lower: np.ndarray
     u_upper: np.ndarray
     lanes_fwd_factory: Callable
-    lanes_bwd_factory: Callable
     stage_al_expansion: Callable
     terminal_al_expansion: Callable
     dynamics_jacobians: Callable
+    lanes_bwd_factory: Callable | None = None
     stage_residuals: Callable | None = None
     terminal_residuals: Callable | None = None
     stage_gn: Callable | None = None

@@ -26,10 +26,15 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # The formulations of the generic kernels (csrc/generic_<name>.cu)
 FORMULATIONS = ("demo", "base", "arm", "endpoint")
+# The (nx, nu) instances of the Riccati sweep (csrc/riccati.cu), and the
+# accumulator counts of the FMA microkernel (csrc/fma_peak.cu)
+RICCATI_INSTANCES = ((2, 1), (3, 3), (6, 2), (9, 5))
+FMA_NACC = (4, 8, 16, 32)
 SOURCES = ("wholebody_fwd.cu", "wholebody_bwd.cu",
-           *(f"generic_{name}.cu" for name in FORMULATIONS))
+           *(f"generic_{name}.cu" for name in FORMULATIONS), "riccati.cu",
+           "fma_peak.cu")
 HEADERS = ("wholebody_common.cuh", "generic_common.cuh", "generic_fwd.cuh",
-           "generic_bwd.cuh")
+           "generic_bwd.cuh", "riccati_step.cuh")
 # step sizes the statics blocks hold (MAX_ALPHA of csrc/wholebody_common.cuh)
 MAX_ALPHA = 8
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,9 +63,11 @@ class BuildInfo:
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
-# C signatures (see csrc/*.cu).  Launches: host statics, device pointers,
-# mu, N, B, then the stream.  Layout sizes: the statics block, and the packed
-# params for (N, n_obs, n_hp).
+# C signatures (see csrc/*.cu).  Fused launches: host statics, device
+# pointers, mu, N, B, then the stream.  Layout sizes: the statics block, and
+# the packed params for (N, n_obs, n_hp).  Riccati sweep: 12 device pointers,
+# N, B, the stream.  FMA microkernel: 2 device pointers, the trip count,
+# blocks, threads, the stream.
 _FWD = [_VOID] * 13 + [_FLOAT, _INT, _INT, _VOID]
 _BWD = [_VOID] * 10 + [_FLOAT, _INT, _INT, _VOID]
 SIGNATURES = {
@@ -70,6 +77,10 @@ SIGNATURES = {
         (f"gen_fwd_{name}", _FWD), (f"gen_bwd_{name}", _BWD),
         (f"gen_statics_size_{name}", []),
         (f"gen_params_size_{name}", [_INT, _INT, _INT]))},
+    **{f"ric_bwd_{nx}x{nu}": [_VOID] * 12 + [_INT, _INT, _VOID]
+       for nx, nu in RICCATI_INSTANCES},
+    **{f"fma_peak_{n}": [_VOID, _VOID, _INT, _INT, _INT, _VOID]
+       for n in FMA_NACC},
 }
 
 

@@ -12,8 +12,9 @@ kff = -Quu^-1 Qu and K = -Quu^-1 Qux; Vxx is symmetrised after every step.
 On CUDA tensors the call launches ``gen_bwd_<name>`` of the kernel library,
 the template ``csrc/generic_bwd.cuh`` instantiated with the formulation
 struct of ``csrc/generic_<name>.cu``; on CPU tensors it runs ``plain_bwd``:
-the controller's structured AL expansion at every stage, then
-``ops.entry_algebra.riccati_stage`` in a loop over k.
+the controller's structured AL expansion at every stage
+(``solver.al_ilqr.stage_al_blocks``), then the plain Riccati sweep
+(``ops.riccati.plain_riccati_bm``), the two halves of the unfused path.
 """
 
 from __future__ import annotations
@@ -24,33 +25,22 @@ from mmmpc_tpu_torch.ops._cuda import (
     FORMULATIONS, LIBRARY, LaunchCounter, check_launch, check_layout,
     check_tensor,
 )
-from mmmpc_tpu_torch.ops.entry_algebra import riccati_stage
 from mmmpc_tpu_torch.ops.generic_fwd import Formulation
+from mmmpc_tpu_torch.ops.riccati import plain_riccati_bm
+from mmmpc_tpu_torch.solver.al_ilqr import stage_al_blocks, terminal_al_blocks
 
 LAUNCHES = {name: LaunchCounter() for name in FORMULATIONS}
 
 
 def plain_bwd(ocp, params, inv_scale, X, U, lam, lamt, lame, mu, reg):
-    """The OCP's structured AL expansion of every stage + a Riccati loop
-    (any device, any float dtype).  X (N+1, nx, B), U (N, nu, B),
-    lam (N, nc, B), lamt (nct, B), lame (ne, B), reg (B,) ->
+    """The OCP's structured AL expansion of every stage, then the plain
+    Riccati sweep (any device, any float dtype).  X (N+1, nx, B),
+    U (N, nu, B), lam (N, nc, B), lamt (nct, B), lame (ne, B), reg (B,) ->
     kff (N, nu, B), K (N, nu, nx, B)."""
-    N = ocp.N
-    xs, us = X[:-1].permute(2, 0, 1), U.permute(2, 0, 1)    # (B, N, .)
-    ks = torch.arange(N, dtype=torch.long, device=X.device)
-    lx, lu, lxx, luu, lux = ocp.stage_al_expansion(
-        xs, us, ks, params, lam.permute(2, 0, 1), mu, inv_scale)
-    A, Bm = ocp.dynamics_jacobians(xs, us)
-    Vx, Vxx = ocp.terminal_al_expansion(X[-1].T, params, lamt.T, lame.T, mu,
-                                        inv_scale)
-    kffs, Ks = [None] * N, [None] * N
-    for k in reversed(range(N)):
-        kffs[k], Ks[k], Vx, Vxx = riccati_stage(
-            lx[:, k], lu[:, k], lxx[:, k], luu[:, k], lux[:, k],
-            A[:, k], Bm[:, k], Vx, Vxx, reg)
-        Vxx = 0.5 * (Vxx + Vxx.mT)
-    return (torch.stack(kffs).permute(0, 2, 1).contiguous(),
-            torch.stack(Ks).permute(0, 2, 3, 1).contiguous())
+    return plain_riccati_bm(
+        *stage_al_blocks(ocp, params, inv_scale, X[:-1], U, lam, mu),
+        *terminal_al_blocks(ocp, params, inv_scale, X[-1], lamt, lame, mu),
+        reg)
 
 
 class GenericBwdFused:

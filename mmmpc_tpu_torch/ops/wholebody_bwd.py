@@ -11,7 +11,8 @@ Qux. Vxx is symmetrised after every step, as the TPU kernel does.
 On CUDA tensors the call launches the hand-written kernel
 ``csrc/wholebody_bwd.cu``; on CPU tensors it runs the plain PyTorch version,
 ``ops/generic_bwd.py::plain_bwd``: the controller's hand AL expansion at
-every stage, then ``ops.entry_algebra.riccati_stage`` in a loop over k.
+every stage, then the plain Riccati sweep ``ops/riccati.py::
+plain_riccati_bm``.
 """
 
 from __future__ import annotations

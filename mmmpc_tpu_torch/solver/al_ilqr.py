@@ -72,6 +72,40 @@ def _al_penalty_eq(h, lam, mu):
     return torch.sum(lam * h, dim=-1) + 0.5 * mu * torch.sum(h * h, dim=-1)
 
 
+def _batch_last(t, shape):
+    """A batch-first (B, ...) block of the OCP callables, broadcast to
+    ``shape`` = (B, ...) -> a contiguous (..., B) tensor."""
+    return t.expand(shape).movedim(0, -1).contiguous()
+
+
+def stage_al_blocks(ocp: OCP, params, inv_scale, X, U, lam_stage, mu):
+    """The scaled AL expansion of every stage and the dynamics Jacobians,
+    batch-last (the JAX ``stage_derivs_al_exp`` over the batch and the
+    stages).  X (N, nx, B) stage states, U (N, nu, B), lam_stage (N, nc, B)
+    -> lx (N, nx, B), lu (N, nu, B), lxx (N, nx, nx, B), luu (N, nu, nu, B),
+    lux (N, nu, nx, B), A (N, nx, nx, B), Bm (N, nx, nu, B)."""
+    N, nx, nu = ocp.N, ocp.nx, ocp.nu
+    xs, us = X.permute(2, 0, 1), U.permute(2, 0, 1)        # (B, N, .)
+    ks = torch.arange(N, dtype=torch.long, device=X.device)
+    blocks = (*ocp.stage_al_expansion(xs, us, ks, params,
+                                      lam_stage.permute(2, 0, 1), mu,
+                                      inv_scale),
+              *ocp.dynamics_jacobians(xs, us))
+    lead = xs.shape[:2]
+    shapes = ((nx,), (nu,), (nx, nx), (nu, nu), (nu, nx), (nx, nx), (nx, nu))
+    return tuple(_batch_last(t, lead + s) for t, s in zip(blocks, shapes))
+
+
+def terminal_al_blocks(ocp: OCP, params, inv_scale, xN, lam_term, lam_eq,
+                       mu):
+    """The scaled terminal AL expansion, batch-last: xN (nx, B),
+    lam_term (nct, B), lam_eq (ne, B) -> term_g (nx, B), term_H (nx, nx, B)."""
+    nx, B = ocp.nx, xN.shape[-1]
+    g, H = ocp.terminal_al_expansion(xN.T, params, lam_term.T, lam_eq.T, mu,
+                                     inv_scale)
+    return _batch_last(g, (B, nx)), _batch_last(H, (B, nx, nx))
+
+
 def build_core(ocp: OCP, params, cfg: SolverConfig):
     """Batched AL building blocks of one problem (shared params)."""
     N = ocp.N

@@ -1,15 +1,26 @@
 """Natively batched AL-iLQR with the batch on the last axis (counterpart of
 ``mmmpc_tpu/solver/batched.py::_solve_batched_lanes``, the JAX package's
-fastest path; the port has no other).
+fastest path; its batch-major and vmap fallbacks are not ported).
 
 Every array of the inner loop is batch-last — X (N+1, nx, B), U (N, nu, B),
-multipliers (N, nc, B) — which is the layout both fused kernels read with
-coalesced loads.  Each iLQR iteration is one call of the fused AL-expansion
-+ Riccati backward sweep (``ops/wholebody_bwd.py``), one call of the fused
-rollout + line search over all step sizes (``ops/wholebody_fwd.py``), then the
-per-scenario argmin over step sizes and the accept / reject merge.  On CUDA
-tensors both calls launch the hand-written kernels; on CPU tensors they run
-their plain PyTorch versions.  Any batch size is taken.
+multipliers (N, nc, B) — which is the layout the kernels read with coalesced
+loads.  Each iLQR iteration is one backward pass, one call of the fused
+rollout + line search over all step sizes (``ops/wholebody_fwd.py``,
+``ops/generic_fwd.py``), then the per-scenario argmin over step sizes and
+the accept / reject merge.  The backward pass is one of two, as in the JAX
+solver:
+
+- fused (``cfg.use_fused_backward`` and an OCP with a ``lanes_bwd_factory``):
+  one call of the OCP's fused AL-expansion + Riccati kernel
+  (``ops/wholebody_bwd.py``, ``ops/generic_bwd.py``);
+- unfused (otherwise): the OCP's structured AL expansion and dynamics
+  Jacobians in plain PyTorch (``solver/al_ilqr.py::stage_al_blocks``,
+  ``terminal_al_blocks``: the JAX ``core.stage_derivs`` /
+  ``core.terminal_derivs``), then the Riccati sweep kernel on those blocks
+  (``ops/riccati.py``).  It takes shared params only, as the JAX solver's.
+
+On CUDA tensors the calls launch the hand-written kernels; on CPU tensors
+they run their plain PyTorch versions.  Any batch size is taken.
 """
 
 from __future__ import annotations
@@ -17,10 +28,18 @@ from __future__ import annotations
 import torch
 
 from mmmpc_tpu_torch.ocp.spec import OCP
+from mmmpc_tpu_torch.ops.riccati import riccati_backward_bm
 from mmmpc_tpu_torch.solver.al_ilqr import (
     SolveResult, _objective, build_core, rollout, run_al_rounds,
+    stage_al_blocks, terminal_al_blocks,
 )
 from mmmpc_tpu_torch.utils.configs import SolverConfig
+
+
+# params entries that carry a trailing per-scenario batch axis in the JAX
+# package's fleet convention (``_per_scenario_keys``), and their rank then
+_PER_SCENARIO_RANK = {"U_last": 3, "X_ref": 3, "U_ref": 3, "Q": 3, "P": 3,
+                      "eq_mask": 1}
 
 
 def _pick(cand, best):
@@ -41,13 +60,29 @@ def al_ilqr_solve_batched(ocp: OCP, x0_b, U0_b, params,
     """
     B = x0_b.shape[0]
     dtype, device = x0_b.dtype, x0_b.device
+    fused = cfg.use_fused_backward and ocp.lanes_bwd_factory is not None
+    per_scenario = sorted(k for k, rank in _PER_SCENARIO_RANK.items()
+                          if k in params and params[k].dim() == rank)
+    if per_scenario and not fused:
+        raise ValueError(f"per-scenario params {per_scenario} need the fused "
+                         f"backward: the unfused path's expansion takes "
+                         f"shared params only")
     core = build_core(ocp, params, cfg)
     N, nc, nct, ne = core.N, core.nc, core.nct, core.ne
     fwd_ls = ocp.lanes_fwd_factory(cfg, params)
-    bwd_fused = ocp.lanes_bwd_factory(cfg, params)
+    bwd_fused = ocp.lanes_bwd_factory(cfg, params) if fused else None
+    inv_scale = 1.0 / cfg.cost_scale
+
+    def backward(X, U, lams, mu, reg):
+        if bwd_fused is not None:
+            return bwd_fused(X, U, *lams, mu, reg)
+        return riccati_backward_bm(
+            *stage_al_blocks(ocp, params, inv_scale, X[:-1], U, lams[0], mu),
+            *terminal_al_blocks(ocp, params, inv_scale, X[-1], lams[1],
+                                lams[2], mu), reg)
 
     def ilqr_iter(X, U, cost, reg, lams, mu):
-        kffs, Ks = bwd_fused(X, U, *lams, mu, reg)
+        kffs, Ks = backward(X, U, lams, mu, reg)
         Xc, Uc, xlast, cc = fwd_ls(X[:-1], U, kffs, Ks, *lams, mu)
         # Xc (N, n_alpha, nx, B), xlast (n_alpha, nx, B), cc (n_alpha, B)
         best = torch.argmin(cc, dim=0, keepdim=True)           # (1, B)

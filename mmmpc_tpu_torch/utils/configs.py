@@ -5,9 +5,17 @@ importing it runs ``mmmpc_tpu/__init__.py``, which loads JAX, so the port keeps
 its own copy.  The values here are held equal to the JAX package's by
 ``tests/test_torch_models.py``.
 
-The JAX config's path switches (``scan_unroll``, ``force_kernel``,
-``use_pallas_*``, ``use_fused_backward``, ``use_assoc_scan``,
-``matmul_precision``) have no counterpart: the port has one solver path, its
+``use_fused_backward`` is kept: it selects between the two backward paths
+of the batched solver, the OCP's fused backward kernel or the AL expansion
+in plain PyTorch followed by the Riccati sweep kernel
+(``solver/batched.py``), as in the JAX package.  The solver picks the
+unfused path by itself for an OCP without a ``lanes_bwd_factory``; the
+field is the JAX config's, and for an OCP that has a fused kernel it is
+the only way to run, measure and hold that general path against the fused
+one on the same problem (the fused path is faster on every measured
+problem, so it stays the default).  The JAX config's other path
+switches (``scan_unroll``, ``force_kernel``, ``use_pallas_*``,
+``use_assoc_scan``, ``matmul_precision``) have no counterpart: the port's
 kernels are chosen by the device of the tensors they are given, and float32
 matmul precision is pinned when the package is imported
 (``mmmpc_tpu_torch/__init__.py``).
@@ -58,6 +66,11 @@ class SolverConfig:
     # The AL objective is divided by this factor so that float32 keeps the
     # ~1e5-magnitude slack costs inside its mantissa; solutions are unchanged.
     cost_scale: float = 1.0
+    # Run the AL expansion fused into the OCP's backward kernel when it has
+    # one; False (or an OCP without ``lanes_bwd_factory``) runs the
+    # expansion in plain PyTorch and then the Riccati sweep kernel, which
+    # reads ~291 floats of precomputed blocks per (9, 5) stage.
+    use_fused_backward: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

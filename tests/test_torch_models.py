@@ -141,7 +141,8 @@ def test_port_never_imports_jax(fresh_import):
     # module of the JAX package was
     for name in ("bench_controllers", "controllers.demo", "controllers.base",
                  "controllers.manipulator", "controllers.wholebody_endpoint",
-                 "models.point_mass", "ops.generic_fwd", "ops.generic_bwd"):
+                 "models.point_mass", "ops.generic_fwd", "ops.generic_bwd",
+                 "ops.riccati", "roofline"):
         assert f"mmmpc_tpu_torch.{name}" in modules, name
     assert all(m.startswith("mmmpc_tpu_torch") for m in modules)
 
