@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py             # every phase (the record of a run)
     python3 chip_smoke.py --kernels   # phases 1-3 only: build and check
+    python3 chip_smoke.py --kernel wholebody_bwd   # phases 1-2, then the
+        # [kernel] check of one kind of KINDS alone (no peak sweep: bounds
+        # at the published 67 TFLOP/s; fma_peak runs phase 2b)
 
 Phases, each reported on its own lines; any failure exits nonzero:
 
@@ -31,7 +34,10 @@ Phases, each reported on its own lines; any failure exits nonzero:
    launch (launches replayed from a CUDA graph), the wall time per wrapper
    call and the plain version's (CUDA events), and the least time the card
    could take (bytes moved over 3.35 TB/s against operations over the
-   published 67 TFLOP/s float32, and over the measured peak);
+   published 67 TFLOP/s float32, and over the measured peak); kernel B
+   also at the ragged batches 8191, 1000 and 1 against its plain version,
+   with its launch geometry, and its device ms at each team size at batch
+   8192 and 1024 (``[kernel-batch]``, ``[kernel-team]``);
 4. slice: the refined whole-body qref solve of ``bench.py`` at batch 8192
    (one warm-up solve with the kernel launch counters reset just before it,
    then 10 solves timed one by one): median and quartiles of the solve time,
@@ -179,12 +185,14 @@ def _bound(inputs, outputs, flops, peak):
     """The least time the card could take: each input read once and each
     output written once over the HBM rate, against ``flops`` over the
     published float32 rate (``bound_ms``, ``bound_by``) and over the
-    measured peak ``peak`` (FLOP/s; ``bound_ms_measured_peak``)."""
+    measured peak ``peak`` (FLOP/s; ``bound_ms_measured_peak``, None
+    without a measured peak)."""
     nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_ms_measured_peak": 1e3 * max(t_bytes, flops / peak),
+            "bound_ms_measured_peak": (None if peak is None else
+                                       1e3 * max(t_bytes, flops / peak)),
             "bytes": nbytes, "flops": flops}
 
 
@@ -220,7 +228,8 @@ def ric_flops(N, B, nx, nu):
     return bwd_flops(N, B, nx, nu) + N * B * (dense + adds)
 
 
-def check_pair(name, fwd, bwd, fargs, bargs, counts, bwd_check, peak):
+def check_pair(name, fwd, bwd, fargs, bargs, counts, bwd_check, peak,
+               kinds):
     """One fused pair against its plain versions on the same inputs: the
     forward pass at X / U atol 2e-5 and cost rtol = atol = 2e-3 (float32
     op-order differences, as the JAX kernel tests allow), the backward
@@ -228,36 +237,53 @@ def check_pair(name, fwd, bwd, fargs, bargs, counts, bwd_check, peak):
     device time per launch (``ms``), the wall time per wrapper call on
     CUDA events (``call_ms``), the plain version's (``plain_ms``), and the
     bound.  ``name`` = (forward, backward) wrapper names; ``counts`` =
-    (N, B, n_alpha, nx, nu, nc, nct)."""
+    (N, B, n_alpha, nx, nu, nc, nct); only the halves whose kind (the name
+    up to its first dot) is in ``kinds`` run."""
+    out = {}
+    if name[0].split(".")[0] in kinds:
+        out.update(_check_fwd(name[0], fwd, fargs, counts, peak))
+    if name[1].split(".")[0] in kinds:
+        out.update(_check_bwd(name[1], bwd, bargs, counts, bwd_check, peak))
+    return out
+
+
+def _check_fwd(name, fwd, fargs, counts, peak):
+    """The forward half of ``check_pair``."""
     N, B, na, nx, nu, nc, nct = counts
     out = {}
     got, ref = fwd.cuda(*fargs), fwd.plain(*fargs)
     torch.cuda.synchronize()
-    err = max(_close(f"{name[0]} Xc", got[0], ref[0], 0.0, 2e-5),
-              _close(f"{name[0]} Uc", got[1], ref[1], 0.0, 2e-5),
-              _close(f"{name[0]} xlast", got[2], ref[2], 0.0, 2e-5))
-    err_cost = _close(f"{name[0]} cost", got[3], ref[3], 2e-3, 2e-3)
-    out[name[0]] = dict(
+    err = max(_close(f"{name} Xc", got[0], ref[0], 0.0, 2e-5),
+              _close(f"{name} Uc", got[1], ref[1], 0.0, 2e-5),
+              _close(f"{name} xlast", got[2], ref[2], 0.0, 2e-5))
+    err_cost = _close(f"{name} cost", got[3], ref[3], 2e-3, 2e-3)
+    out[name] = dict(
         max_abs_err=max(err, err_cost),
         ms=_kernel_ms(lambda: fwd.cuda(*fargs), 20),
         call_ms=_time_ms(lambda: fwd.cuda(*fargs), 20),
         plain_ms=_time_ms(lambda: fwd.plain(*fargs), 3),
         **_bound([fwd.flat, *(a for a in fargs if torch.is_tensor(a))], got,
                  fwd_flops(N, B, na, nx, nu, nc, nct), peak))
-    _line("kernel", name=name[0], max_abs_err_XU=f"{err:.3e}",
-          max_abs_err_cost=f"{err_cost:.3e}", **_fmt(out[name[0]]))
+    _line("kernel", name=name, max_abs_err_XU=f"{err:.3e}",
+          max_abs_err_cost=f"{err_cost:.3e}", **_fmt(out[name]))
+    return out
 
+
+def _check_bwd(name, bwd, bargs, counts, bwd_check, peak):
+    """The backward half of ``check_pair``."""
+    N, B, na, nx, nu, nc, nct = counts
+    out = {}
     got, ref = bwd.cuda(*bargs), bwd.plain(*bargs)
     torch.cuda.synchronize()
     err = bwd_check(got, ref)
-    out[name[1]] = dict(
+    out[name] = dict(
         max_abs_err=err,
         ms=_kernel_ms(lambda: bwd.cuda(*bargs), 20),
         call_ms=_time_ms(lambda: bwd.cuda(*bargs), 20),
         plain_ms=_time_ms(lambda: bwd.plain(*bargs), 3),
         **_bound([bwd.flat, *(a for a in bargs if torch.is_tensor(a))], got,
                  bwd_flops(N, B, nx, nu), peak))
-    _line("kernel", name=name[1], **_fmt(out[name[1]]))
+    _line("kernel", name=name, **_fmt(out[name]))
     return out
 
 
@@ -344,10 +370,49 @@ def spd_blocks(device, B=1024, N=4, nx=9, nu=5):
                  for a in (lx, lu, lxx, luu, lux, A, Bm, tg, tH))
 
 
-def check_wholebody(mpc, x0, params, cfg, device, peak):
-    """Phase 3, kernels A and B on the qref bench problem, E on the
-    expansion blocks of B's inputs and on the random SPD blocks of the
-    Pallas test."""
+def check_bwd_batches(bwd, bargs, bwd_check):
+    """Phase 3, kernel B beyond the bench shape: at the ragged batches 8191,
+    1000 and 1 (the first ``n`` scenarios of ``bargs``) against its plain
+    version, with its launch geometry; then at each team size of ``TEAMS``
+    at batch 8192 and 1024, against the plain version and timed as in
+    ``check_pair``."""
+    from mmmpc_tpu_torch.ops._cuda import LIBRARY
+    from mmmpc_tpu_torch.ops.wholebody_bwd import (
+        TEAM, TEAMS, launch_geometry,
+    )
+
+    def first(n):
+        return tuple(a[..., :n].contiguous() if torch.is_tensor(a) else a
+                     for a in bargs)
+
+    def geometry(team, n):
+        return launch_geometry(LIBRARY.get(), team, bwd.N, bwd.n_obs,
+                               bwd.n_hp, n)
+
+    for n in (8191, 1000, 1):
+        args = first(n)
+        got, ref = bwd.cuda(*args), bwd.plain(*args)
+        torch.cuda.synchronize()
+        _line("kernel-batch", name="wholebody_bwd", B=n, team=TEAM,
+              max_abs_err=f"{bwd_check(got, ref):.4g}", **geometry(TEAM, n))
+    for n in (BATCH, SMALL_BATCH):
+        args = first(n)
+        ref = bwd.plain(*args)
+        for team in TEAMS:
+            got = bwd.cuda(*args, team=team)
+            torch.cuda.synchronize()
+            _line("kernel-team", name="wholebody_bwd", B=n, team=team,
+                  shipped=team == TEAM,
+                  max_abs_err=f"{bwd_check(got, ref):.4g}",
+                  ms=f"{_kernel_ms(lambda: bwd.cuda(*args, team=team), 20):.4g}",
+                  **geometry(team, n))
+
+
+def check_wholebody(mpc, x0, params, cfg, device, peak, kinds):
+    """Phase 3, kernels A and B on the qref bench problem (B also by
+    ``check_bwd_batches``), E on the expansion blocks of B's inputs and on
+    the random SPD blocks of the Pallas test; the kernels whose kind is in
+    ``kinds``."""
     from mmmpc_tpu_torch.solver.al_ilqr import (
         rollout, stage_al_blocks, terminal_al_blocks,
     )
@@ -374,10 +439,15 @@ def check_wholebody(mpc, x0, params, cfg, device, peak):
         return max(_close("wholebody_bwd kff", got[0], ref[0], 5e-3, 5e-3),
                    _close("wholebody_bwd K", got[1], ref[1], 5e-3, 5e-3))
 
+    bargs = (X, U, lam, lamt, lame, 10.0, reg)
     out = check_pair(("wholebody_fwd", "wholebody_bwd"), fwd, bwd,
-                     (X[:-1], U, kff, K, lam, lamt, lame, 10.0),
-                     (X, U, lam, lamt, lame, 10.0, reg),
-                     (N, B, cfg.n_alpha, 9, 5, 28, 18), bwd_check, peak)
+                     (X[:-1], U, kff, K, lam, lamt, lame, 10.0), bargs,
+                     (N, B, cfg.n_alpha, 9, 5, 28, 18), bwd_check, peak,
+                     kinds)
+    if "wholebody_bwd" in kinds:
+        check_bwd_batches(bwd, bargs, bwd_check)
+    if "riccati_bwd" not in kinds:
+        return out
     # E on the same inputs: rtol = atol = 5e-3 as B
     inv = 1.0 / cfg.cost_scale
     out["riccati_bwd.9x5"] = check_riccati(
@@ -392,9 +462,10 @@ def check_wholebody(mpc, x0, params, cfg, device, peak):
     return out
 
 
-def check_generic(device, peak):
+def check_generic(device, peak, kinds):
     """Phase 3, kernels C and D of each formulation on its bench row, and E
-    on the expansion blocks of D's inputs."""
+    on the expansion blocks of D's inputs; the kernels whose kind is in
+    ``kinds``."""
     from mmmpc_tpu_torch.bench_controllers import problems
     from mmmpc_tpu_torch.ops.generic_bwd import plain_bwd
     from mmmpc_tpu_torch.ops.riccati import plain_riccati_bm
@@ -441,7 +512,9 @@ def check_generic(device, peak):
         out.update(check_pair((f"generic_fwd.{f}", f"generic_bwd.{f}"), fwd,
                               bwd, fargs, bargs,
                               (N, B, cfg.n_alpha, nx, nu, nc, nct),
-                              bwd_check, peak))
+                              bwd_check, peak, kinds))
+        if "riccati_bwd" not in kinds:
+            continue
 
         # E on the expansion blocks of D's inputs, at D's tolerances; the
         # arm's truth is the plain sweep in float64 on the same blocks
@@ -935,6 +1008,11 @@ def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    if not (argv in ([], ["--kernels"]) or (
+            argv[:1] == ["--kernel"] and len(argv) == 2 and argv[1] in KINDS)):
+        print(f"chip_smoke: usage: [--kernels | --kernel one of "
+              f"{', '.join(KINDS)}]", file=sys.stderr)
+        return 2
     from mmmpc_tpu_torch.bench import SOLVER_CFG, build_problem
     from mmmpc_tpu_torch.ops._cuda import LIBRARY
 
@@ -954,13 +1032,21 @@ def main(argv):
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print("[ptxas] " + ln.strip(), flush=True)
 
-    peak, fma_entry, fma_launches = _phase("peak", run_peak, device)
-    timings = {"fma_peak": fma_entry}
-    mpc, x0, _, params = build_problem(BATCH, device)
-    timings.update(_phase("kernels-wholebody", check_wholebody, mpc, x0,
-                          params, SOLVER_CFG, device, peak))
-    timings.update(_phase("kernels-generic", check_generic, device, peak))
-    if argv == ["--kernels"]:
+    timings, peak = {}, None
+    kinds = set(argv[1:]) if argv[:1] == ["--kernel"] else set(KINDS)
+    if "fma_peak" in kinds:
+        peak, timings["fma_peak"], fma_launches = _phase("peak", run_peak,
+                                                         device)
+    if argv[:1] == ["--kernel"]:
+        peak = None          # bounds at the published peak only
+    if kinds & {"wholebody_fwd", "wholebody_bwd", "riccati_bwd"}:
+        mpc, x0, _, params = build_problem(BATCH, device)
+        timings.update(_phase("kernels-wholebody", check_wholebody, mpc, x0,
+                              params, SOLVER_CFG, device, peak, kinds))
+    if kinds & {"generic_fwd", "generic_bwd", "riccati_bwd"}:
+        timings.update(_phase("kernels-generic", check_generic, device, peak,
+                              kinds))
+    if argv:
         return 0
     launches, fused = _phase("slice", run_slice, device)
     launches.update(_phase("unfused", run_unfused, device, fused))

@@ -145,9 +145,15 @@ def test_bwd_plain_matches_jax(eq_mask):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["wholebody_fwd", "wholebody_bwd"])
-def test_cuda_kernel_matches_plain(kernel):
-    """The CUDA kernel against its plain version on the card, same inputs."""
+@pytest.mark.parametrize("kernel, batch", [
+    pytest.param("wholebody_fwd", B, id="wholebody_fwd"),
+    pytest.param("wholebody_bwd", B, id="wholebody_bwd"),
+    pytest.param("wholebody_bwd", 1, id="wholebody_bwd-1"),
+    pytest.param("wholebody_bwd", 37, id="wholebody_bwd-37")])
+def test_cuda_kernel_matches_plain(kernel, batch):
+    """The CUDA kernel against its plain version on the card, same inputs;
+    the backward kernel also on the first 1 and 37 scenarios (a partial
+    block of its teams)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU build)")
     _, mpc_t, x0_b, U0_b, params = make_problem(1.0)
@@ -172,6 +178,8 @@ def test_cuda_kernel_matches_plain(kernel):
         f = mpc_t.ocp.lanes_bwd_factory(mpc_t.solver_config, p)
         args = (X, U, lam, lamt, lame, 10.0,
                 torch.full((B,), 1e-6, device=dev))
+        args = tuple(a[..., :batch].contiguous() if torch.is_tensor(a) else a
+                     for a in args)
         tols = [(5e-3, 5e-3)] * 2
     got, ref = f.cuda(*args), f.plain(*args)
     torch.cuda.synchronize()
@@ -202,3 +210,25 @@ def test_layout_check_rejects_a_size_mismatch():
     with pytest.raises(RuntimeError, match="layout mismatch"):
         check_layout(Library(1), fwd.statics, fwd.flat, N, fwd.n_obs,
                      fwd.n_hp)
+
+
+def test_bwd_launch_geometry_checks_the_team_size():
+    """The backward wrapper takes its launch geometry from the library's
+    ``wb_bwd_geometry`` (here a stand-in) and refuses a team size the
+    library was not built for, before any launch."""
+    from mmmpc_tpu_torch.ops.wholebody_bwd import TEAM, TEAMS, launch_geometry
+
+    class Library:
+        def wb_bwd_geometry(self, team, n, n_obs, n_hp, batch, out):
+            if team == 32:
+                return 1
+            out[0], out[1], out[2] = 128, -(-batch // (128 // team)), 4 * n
+            return 0
+
+    assert TEAM in TEAMS
+    assert launch_geometry(Library(), 16, N, 1, 1, 37) == dict(
+        threads=128, blocks=5, smem_bytes=4 * N)
+    with pytest.raises(ValueError, match="team 12"):
+        launch_geometry(Library(), 12, N, 1, 1, 37)
+    with pytest.raises(RuntimeError, match="no team 32"):
+        launch_geometry(Library(), 32, N, 1, 1, 37)
