@@ -36,8 +36,7 @@ Phases, each reported on its own lines; any failure exits nonzero:
    could take (bytes moved over 3.35 TB/s against operations over the
    published 67 TFLOP/s float32, and over the measured peak); kernel B
    also at the ragged batches 8191, 1000 and 1 against its plain version,
-   with its launch geometry, and its device ms at each team size at batch
-   8192 and 1024 (``[kernel-batch]``, ``[kernel-team]``);
+   with its launch geometry (``[kernel-batch]``);
 4. slice: the refined whole-body qref solve of ``bench.py`` at batch 8192
    (one warm-up solve with the kernel launch counters reset just before it,
    then 10 solves timed one by one): median and quartiles of the solve time,
@@ -373,39 +372,18 @@ def spd_blocks(device, B=1024, N=4, nx=9, nu=5):
 def check_bwd_batches(bwd, bargs, bwd_check):
     """Phase 3, kernel B beyond the bench shape: at the ragged batches 8191,
     1000 and 1 (the first ``n`` scenarios of ``bargs``) against its plain
-    version, with its launch geometry; then at each team size of ``TEAMS``
-    at batch 8192 and 1024, against the plain version and timed as in
-    ``check_pair``."""
+    version, with the launch geometry the library reports."""
     from mmmpc_tpu_torch.ops._cuda import LIBRARY
-    from mmmpc_tpu_torch.ops.wholebody_bwd import (
-        TEAM, TEAMS, launch_geometry,
-    )
-
-    def first(n):
-        return tuple(a[..., :n].contiguous() if torch.is_tensor(a) else a
-                     for a in bargs)
-
-    def geometry(team, n):
-        return launch_geometry(LIBRARY.get(), team, bwd.N, bwd.n_obs,
-                               bwd.n_hp, n)
+    from mmmpc_tpu_torch.ops.wholebody_bwd import launch_geometry
 
     for n in (8191, 1000, 1):
-        args = first(n)
+        args = tuple(a[..., :n].contiguous() if torch.is_tensor(a) else a
+                     for a in bargs)
         got, ref = bwd.cuda(*args), bwd.plain(*args)
         torch.cuda.synchronize()
-        _line("kernel-batch", name="wholebody_bwd", B=n, team=TEAM,
-              max_abs_err=f"{bwd_check(got, ref):.4g}", **geometry(TEAM, n))
-    for n in (BATCH, SMALL_BATCH):
-        args = first(n)
-        ref = bwd.plain(*args)
-        for team in TEAMS:
-            got = bwd.cuda(*args, team=team)
-            torch.cuda.synchronize()
-            _line("kernel-team", name="wholebody_bwd", B=n, team=team,
-                  shipped=team == TEAM,
-                  max_abs_err=f"{bwd_check(got, ref):.4g}",
-                  ms=f"{_kernel_ms(lambda: bwd.cuda(*args, team=team), 20):.4g}",
-                  **geometry(team, n))
+        _line("kernel-batch", name="wholebody_bwd", B=n,
+              max_abs_err=f"{bwd_check(got, ref):.4g}",
+              **launch_geometry(LIBRARY.get(), bwd.N, bwd.n_obs, bwd.n_hp, n))
 
 
 def check_wholebody(mpc, x0, params, cfg, device, peak, kinds):

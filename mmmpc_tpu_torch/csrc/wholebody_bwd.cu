@@ -22,10 +22,9 @@
 // sub-partition to hide it.  So the design spreads each stage over the
 // lanes of a team and the teams over the card's warps:
 //
-// - A team of T lanes of one warp per scenario (T a template parameter:
-//   8, 16 or 32; ops/wholebody_bwd.py::TEAM is the one the solver
-//   launches), 128 threads a block, at most 128 registers a thread
-//   (__launch_bounds__), with no spill.
+// - A team of T lanes of one warp per scenario (T a template parameter,
+//   launched at BWD_TEAM = 8), 128 threads a block, at most 128 registers
+//   a thread (__launch_bounds__), with no spill.
 // - The stage's AL expansion, split: the four sincos of the forward
 //   kinematics on four lanes, exchanged by shuffles; the rows of the slack
 //   group (half-plane samples, ground circles, self-collision spheres, and
@@ -77,6 +76,9 @@ namespace wb {
 
 constexpr int BWD_THREADS = 128;
 constexpr int BWD_MIN_BLOCKS = 4;   // __launch_bounds__: <= 128 registers
+// Lanes a scenario.  The kernel is written for a team of 8, 16 or 32; 8 was
+// the fastest at batch 8192 (the times of each in PERF.md).
+constexpr int BWD_TEAM = 8;
 constexpr int NIN = NX + NU + NC;   // stage inputs per scenario: x, u, lam
 constexpr int NTERM = NX + NCT + 2; // terminal inputs: x_N, lamt, lame
 constexpr int NT = NX + NU;         // row tasks of a stage: x rows, u rows
@@ -138,10 +140,14 @@ __device__ __forceinline__ void st_row(float* row, const float v[NX]) {
   row[8] = v[8];
 }
 
-// 1 / sqrt(q): the MUFU estimate and one Newton step, near the correctly
-// rounded sqrtf and division it stands for at a fraction of their latency
-// on the stage's chain.  (The bare estimate, 2 ulp, moved the refined qref
-// solve enough to leave a robot above the constraint tolerance.)
+// 1 / sqrt(q): the MUFU estimate and one Newton step, within an ulp or so of
+// the correctly rounded sqrtf and division, at less latency on the stage's
+// chain.  It is not needed for accuracy: the refined qref solve's worst
+// robot ends within a few percent of the 1e-3 violation tolerance, and
+// whether it passes turns on rounding alone.  Of five roundings of these
+// reciprocals (PERF.md, bwd_rounding_variants.py) three passed, among them
+// this one and correct rounding throughout, and two failed: the bare
+// estimate throughout, and correct rounding in the Cholesky alone.
 __device__ __forceinline__ float rsqrt_nr(float q) {
   const float y = rsqrtf(q);
   return y * (1.5f - 0.5f * q * y * y);
@@ -741,58 +747,52 @@ bwd_kernel(const Statics st, const float* __restrict__ pp,
   store_gains(0);
 }
 
-template <int T>
-int launch(const Statics& st, const float* params, const float* X,
-           const float* U, const float* lam, const float* lamt,
-           const float* lame, const float* reg, float* kff, float* K, float mu,
-           int N, int B, cudaStream_t stream) {
-  const int n_obs = static_cast<int>(st.v[ST_N_OBS]);
-  const int n_hp = static_cast<int>(st.v[ST_N_HP]);
-  const int smem = bwd_smem_bytes(T, N, n_obs, n_hp);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int scen = BWD_THREADS / T;
-  const int blocks = (B + scen - 1) / scen;
-  bwd_kernel<T><<<blocks, BWD_THREADS, smem, stream>>>(
-      st, params, X, U, lam, lamt, lame, reg, kff, K, mu, N, B);
-  return static_cast<int>(cudaGetLastError());
+// The launch at batch B: threads a block, blocks, dynamic shared-memory
+// bytes.  wb_bwd_launch launches with it and wb_bwd_geometry reports it.
+struct Geometry {
+  int threads, blocks, smem;
+};
+inline Geometry bwd_geometry(int N, int n_obs, int n_hp, int B) {
+  constexpr int scen = BWD_THREADS / BWD_TEAM;
+  return {BWD_THREADS, (B + scen - 1) / scen,
+          bwd_smem_bytes(BWD_TEAM, N, n_obs, n_hp)};
 }
 
 }  // namespace wb
 
-// Launch geometry of a team size: threads a block, blocks for batch B, and
-// dynamic shared-memory bytes; returns 1 (and writes nothing) for a team
-// size without an instance.
-extern "C" int wb_bwd_geometry(int team, int N, int n_obs, int n_hp, int B,
-                               int* out) {
-  if (team != 8 && team != 16 && team != 32) return 1;
-  const int scen = wb::BWD_THREADS / team;
-  out[0] = wb::BWD_THREADS;
-  out[1] = (B + scen - 1) / scen;
-  out[2] = wb::bwd_smem_bytes(team, N, n_obs, n_hp);
+// Launch geometry at batch B: out = {lanes a scenario, threads a block,
+// blocks, dynamic shared-memory bytes}, as wb_bwd_launch launches.
+extern "C" int wb_bwd_geometry(int N, int n_obs, int n_hp, int B, int* out) {
+  const wb::Geometry g = wb::bwd_geometry(N, n_obs, n_hp, B);
+  out[0] = wb::BWD_TEAM;
+  out[1] = g.threads;
+  out[2] = g.blocks;
+  out[3] = g.smem;
   return 0;
 }
 
 // C entry: statics is a HOST pointer (copied into the kernel argument); all
-// other pointers are device memory; team is 8, 16 or 32 lanes a scenario.
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// another team size).
+// other pointers are device memory.  Returns cudaGetLastError() after the
+// launch (or the error of raising the kernel's shared-memory limit).
 extern "C" int wb_bwd_launch(const float* statics, const float* params,
                              const float* X, const float* U, const float* lam,
                              const float* lamt, const float* lame,
                              const float* reg, float* kff, float* K, float mu,
-                             int N, int B, int team, void* stream) {
+                             int N, int B, void* stream) {
   wb::Statics st;
   std::memcpy(st.v, statics, sizeof(st.v));
   if (B <= 0 || N <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (team) {
-    case 8: return wb::launch<8>(st, params, X, U, lam, lamt, lame, reg, kff, K, mu, N, B, s);
-    case 16: return wb::launch<16>(st, params, X, U, lam, lamt, lame, reg, kff, K, mu, N, B, s);
-    case 32: return wb::launch<32>(st, params, X, U, lam, lamt, lame, reg, kff, K, mu, N, B, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const wb::Geometry g = wb::bwd_geometry(
+      N, static_cast<int>(st.v[wb::ST_N_OBS]),
+      static_cast<int>(st.v[wb::ST_N_HP]), B);
+  if (g.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        wb::bwd_kernel<wb::BWD_TEAM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
+  wb::bwd_kernel<wb::BWD_TEAM>
+      <<<g.blocks, g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(
+          st, params, X, U, lam, lamt, lame, reg, kff, K, mu, N, B);
+  return static_cast<int>(cudaGetLastError());
 }

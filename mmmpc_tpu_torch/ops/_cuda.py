@@ -67,15 +67,14 @@ _FLOAT = ctypes.c_float
 # pointers, mu, N, B, then the stream.  Layout sizes: the statics block, and
 # the packed params for (N, n_obs, n_hp).  Riccati sweep: 12 device pointers,
 # N, B, the stream.  FMA microkernel: 2 device pointers, the trip count,
-# blocks, threads, the stream.  The whole-body backward takes its team size
-# before the stream; its geometry (team, N, n_obs, n_hp, B) writes three
-# ints (threads, blocks, shared-memory bytes).
+# blocks, threads, the stream.  The whole-body backward's geometry (N, n_obs,
+# n_hp, B) writes four ints (team, threads, blocks, shared-memory bytes).
 _FWD = [_VOID] * 13 + [_FLOAT, _INT, _INT, _VOID]
 _BWD = [_VOID] * 10 + [_FLOAT, _INT, _INT, _VOID]
 SIGNATURES = {
     "wb_fwd_launch": _FWD,
-    "wb_bwd_launch": [_VOID] * 10 + [_FLOAT, _INT, _INT, _INT, _VOID],
-    "wb_bwd_geometry": [_INT] * 5 + [_VOID],
+    "wb_bwd_launch": _BWD,
+    "wb_bwd_geometry": [_INT] * 4 + [_VOID],
     "wb_statics_size": [], "wb_params_size": [_INT, _INT, _INT],
     **{k: v for name in FORMULATIONS for k, v in (
         (f"gen_fwd_{name}", _FWD), (f"gen_bwd_{name}", _BWD),

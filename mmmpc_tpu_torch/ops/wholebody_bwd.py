@@ -9,7 +9,7 @@ Riccati step (Cholesky of Quu + reg I) giving kff = -Quu^-1 Qu and K = -Quu^-1
 Qux. Vxx is symmetrised after every step, as the TPU kernel does.
 
 On CUDA tensors the call launches the hand-written kernel
-``csrc/wholebody_bwd.cu``: a team of ``TEAM`` lanes per scenario (the
+``csrc/wholebody_bwd.cu``: a team of 8 lanes per scenario (the
 rows of the stage's slack group split over the lanes and merged by
 shuffles, then rows of the Riccati step and one column of the triangular
 solves a lane), the packed params and a two-stage buffer of the stage
@@ -35,26 +35,16 @@ from mmmpc_tpu_torch.ops.wholebody_fwd import (
 )
 
 LAUNCHES = LaunchCounter()
-# lanes per scenario of the CUDA kernel: the team sizes it is built for, and
-# the one the solver launches (times of each in PERF.md)
-TEAMS = (8, 16, 32)
-TEAM = 8
 
 
-def _check_team(team):
-    if team not in TEAMS:
-        raise ValueError(f"wholebody_bwd: team {team} not in {TEAMS}")
-
-
-def launch_geometry(lib, team, N, n_obs, n_hp, B):
-    """{threads, blocks, smem_bytes} of the kernel at ``team`` lanes per
-    scenario and batch ``B``, from the library's ``wb_bwd_geometry``;
-    raises for a team size without an instance."""
-    _check_team(team)
-    out = (ctypes.c_int * 3)()
-    if lib.wb_bwd_geometry(team, N, n_obs, n_hp, B, out) != 0:
-        raise RuntimeError(f"wholebody_bwd: the library has no team {team}")
-    return dict(threads=out[0], blocks=out[1], smem_bytes=out[2])
+def launch_geometry(lib, N, n_obs, n_hp, B):
+    """{team, threads, blocks, smem_bytes}: the lanes a scenario, threads a
+    block, blocks and dynamic shared-memory bytes with which the library's
+    ``wb_bwd_launch`` launches the kernel at batch ``B``, as its
+    ``wb_bwd_geometry`` reports them."""
+    out = (ctypes.c_int * 4)()
+    lib.wb_bwd_geometry(N, n_obs, n_hp, B, out)
+    return dict(team=out[0], threads=out[1], blocks=out[2], smem_bytes=out[3])
 
 
 class BwdFused:
@@ -91,9 +81,8 @@ class BwdFused:
                                                  self.n_hp),
                          self.inv_scale, X, U, lam, lamt, lame, mu, reg)
 
-    def cuda(self, X, U, lam, lamt, lame, mu, reg, team=TEAM):
-        """Launch ``csrc/wholebody_bwd.cu`` on the current stream, ``team``
-        lanes per scenario."""
+    def cuda(self, X, U, lam, lamt, lame, mu, reg):
+        """Launch ``csrc/wholebody_bwd.cu`` on the current stream."""
         N, B = self.N, X.shape[-1]
         ptrs = [check_tensor("params", self.flat, (self.flat.numel(),),
                              X.device),
@@ -107,11 +96,10 @@ class BwdFused:
         outs = (torch.empty(N, NU, B, **kw), torch.empty(N, NU, NX, B, **kw))
         lib = LIBRARY.get()
         check_layout(lib, self.statics, self.flat, N, self.n_obs, self.n_hp)
-        _check_team(team)
         with torch.cuda.device(X.device):
             err = lib.wb_bwd_launch(
                 self.statics.ctypes.data, *ptrs, *(o.data_ptr() for o in outs),
-                float(mu), N, B, team, torch.cuda.current_stream().cuda_stream)
+                float(mu), N, B, torch.cuda.current_stream().cuda_stream)
         check_launch("wholebody_bwd", err)
         LAUNCHES.cuda += 1
         return outs

@@ -213,22 +213,17 @@ def test_layout_check_rejects_a_size_mismatch():
 
 
 def test_bwd_launch_geometry_checks_the_team_size():
-    """The backward wrapper takes its launch geometry from the library's
-    ``wb_bwd_geometry`` (here a stand-in) and refuses a team size the
-    library was not built for, before any launch."""
-    from mmmpc_tpu_torch.ops.wholebody_bwd import TEAM, TEAMS, launch_geometry
+    """``launch_geometry`` reports the team size, threads, blocks and
+    shared-memory bytes with which the library's ``wb_bwd_launch`` launches,
+    as its ``wb_bwd_geometry`` (here a stand-in) writes them for the
+    problem's sizes and the batch."""
+    from mmmpc_tpu_torch.ops.wholebody_bwd import launch_geometry
 
     class Library:
-        def wb_bwd_geometry(self, team, n, n_obs, n_hp, batch, out):
-            if team == 32:
-                return 1
-            out[0], out[1], out[2] = 128, -(-batch // (128 // team)), 4 * n
+        def wb_bwd_geometry(self, n, n_obs, n_hp, batch, out):
+            assert (n, n_obs, n_hp) == (N, 1, 1)
+            out[0], out[1], out[2], out[3] = 8, 128, -(-batch // 16), 4 * n
             return 0
 
-    assert TEAM in TEAMS
-    assert launch_geometry(Library(), 16, N, 1, 1, 37) == dict(
-        threads=128, blocks=5, smem_bytes=4 * N)
-    with pytest.raises(ValueError, match="team 12"):
-        launch_geometry(Library(), 12, N, 1, 1, 37)
-    with pytest.raises(RuntimeError, match="no team 32"):
-        launch_geometry(Library(), 32, N, 1, 1, 37)
+    assert launch_geometry(Library(), N, 1, 1, 37) == dict(
+        team=8, threads=128, blocks=3, smem_bytes=4 * N)
