@@ -369,6 +369,36 @@ def spd_blocks(device, B=1024, N=4, nx=9, nu=5):
                  for a in (lx, lu, lxx, luu, lux, A, Bm, tg, tH))
 
 
+def check_new_pair(device, peak, dims=(4, 2)):
+    """Phase 3, kernel E at a pair the kernel library does not hold: one
+    call builds the pair's own library (its seconds and ptxas registers /
+    spills) and launches it once on the card (the pair's counter), then the
+    sweep against its plain version on the Pallas test's SPD blocks at
+    rtol = atol = 2e-4, timed as ``check_riccati``."""
+    from mmmpc_tpu_torch.ops import riccati
+    from mmmpc_tpu_torch.ops._cuda import RICCATI
+    nx, nu = dims
+    name = f"riccati_bwd.{nx}x{nu}"
+    blocks = spd_blocks(device, nx=nx, nu=nu)
+    reg = torch.full((1024,), 1e-6, device=device)
+    riccati.LAUNCHES[dims].reset()
+    riccati.riccati_backward_bm(*blocks, reg)
+    torch.cuda.synchronize()
+    c = riccati.LAUNCHES[dims]
+    if (c.cuda, c.plain) != (1, 0):
+        raise AssertionError(f"{name}: {c.cuda} launches and {c.plain} plain "
+                             f"calls in one call on the card, expected 1, 0")
+    info = RICCATI.info[dims]
+    _line("build-pair", name=name, seconds=f"{info.seconds:.1f}",
+          library=info.path.name, launches=c.cuda)
+    for ln in info.log.splitlines():
+        if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+            print("[ptxas] " + ln.strip(), flush=True)
+    out = check_riccati("spd", blocks, reg,
+                        _gains_check(f"{name} spd", 2e-4, 2e-4), peak)
+    return dict(out, launches=c.cuda)
+
+
 def check_bwd_batches(bwd, bargs, bwd_check):
     """Phase 3, kernel B beyond the bench shape: at the ragged batches 8191,
     1000 and 1 (the first ``n`` scenarios of ``bargs``) against its plain
@@ -384,6 +414,53 @@ def check_bwd_batches(bwd, bargs, bwd_check):
         _line("kernel-batch", name="wholebody_bwd", B=n,
               max_abs_err=f"{bwd_check(got, ref):.4g}",
               **launch_geometry(LIBRARY.get(), bwd.N, bwd.n_obs, bwd.n_hp, n))
+
+
+def _fwd_check(name, got, ref):
+    """Max abs error of a forward pass against its plain version: X / U
+    atol 2e-5, cost rtol = atol 2e-3 (as ``_check_fwd``)."""
+    return max(_close(f"{name} Xc", got[0], ref[0], 0.0, 2e-5),
+               _close(f"{name} Uc", got[1], ref[1], 0.0, 2e-5),
+               _close(f"{name} xlast", got[2], ref[2], 0.0, 2e-5),
+               _close(f"{name} cost", got[3], ref[3], 2e-3, 2e-3))
+
+
+def check_fwd_batches(fwd, fargs):
+    """Phase 3, kernel A beyond the bench shape: at the ragged batches 8191,
+    1000 and 1 (the first ``n`` scenarios of ``fargs``) against its plain
+    version, with the launch geometry the library reports."""
+    from mmmpc_tpu_torch.ops._cuda import LIBRARY
+    from mmmpc_tpu_torch.ops.wholebody_fwd import launch_geometry
+
+    for n in (8191, 1000, 1):
+        args = tuple(a[..., :n].contiguous() if torch.is_tensor(a) else a
+                     for a in fargs)
+        got, ref = fwd.cuda(*args), fwd.plain(*args)
+        torch.cuda.synchronize()
+        _line("kernel-batch", name="wholebody_fwd", B=n,
+              max_abs_err=f"{_fwd_check('wholebody_fwd', got, ref):.4g}",
+              **launch_geometry(LIBRARY.get(), fwd.N, fwd.n_obs, fwd.n_hp,
+                                len(fwd.alphas), n))
+
+
+def check_fwd_teams(fwd, fargs):
+    """Kernel A at each team size the library builds, at the bench shape:
+    its error against the plain version, its device time and geometry."""
+    from mmmpc_tpu_torch.ops._cuda import LIBRARY
+    from mmmpc_tpu_torch.ops.wholebody_fwd import launch_geometry
+
+    ref = fwd.plain(*fargs)
+    # 100 T + the blocks per SM of __launch_bounds__
+    for team in (204, 404, 406, 408, 804):
+        got = fwd.cuda(*fargs, team=team)
+        torch.cuda.synchronize()
+        err = _fwd_check(f"wholebody_fwd T={team}", got, ref)
+        _line("kernel-team", name="wholebody_fwd", variant=team,
+              max_abs_err=f"{err:.4g}",
+              max_abs_err_cost=f"{(got[3] - ref[3]).abs().max().item():.4g}",
+              ms=f"{_kernel_ms(lambda: fwd.cuda(*fargs, team=team), 20):.4f}",
+              **launch_geometry(LIBRARY.get(), fwd.N, fwd.n_obs, fwd.n_hp,
+                                len(fwd.alphas), fargs[0].shape[-1], team))
 
 
 def check_wholebody(mpc, x0, params, cfg, device, peak, kinds):
@@ -417,11 +494,14 @@ def check_wholebody(mpc, x0, params, cfg, device, peak, kinds):
         return max(_close("wholebody_bwd kff", got[0], ref[0], 5e-3, 5e-3),
                    _close("wholebody_bwd K", got[1], ref[1], 5e-3, 5e-3))
 
+    fargs = (X[:-1], U, kff, K, lam, lamt, lame, 10.0)
     bargs = (X, U, lam, lamt, lame, 10.0, reg)
-    out = check_pair(("wholebody_fwd", "wholebody_bwd"), fwd, bwd,
-                     (X[:-1], U, kff, K, lam, lamt, lame, 10.0), bargs,
-                     (N, B, cfg.n_alpha, 9, 5, 28, 18), bwd_check, peak,
-                     kinds)
+    out = check_pair(("wholebody_fwd", "wholebody_bwd"), fwd, bwd, fargs,
+                     bargs, (N, B, cfg.n_alpha, 9, 5, 28, 18), bwd_check,
+                     peak, kinds)
+    if "wholebody_fwd" in kinds:
+        check_fwd_batches(fwd, fargs)
+        check_fwd_teams(fwd, fargs)
     if "wholebody_bwd" in kinds:
         check_bwd_batches(bwd, bargs, bwd_check)
     if "riccati_bwd" not in kinds:
@@ -437,6 +517,7 @@ def check_wholebody(mpc, x0, params, cfg, device, peak, kinds):
                   torch.full((1024,), 1e-6, device=device),
                   _gains_check("riccati_bwd.9x5 spd", 2e-4, 2e-4), peak,
                   timed=False)
+    out["riccati_bwd.4x2"] = check_new_pair(device, peak)
     return out
 
 
@@ -1029,6 +1110,8 @@ def main(argv):
     launches, fused = _phase("slice", run_slice, device)
     launches.update(_phase("unfused", run_unfused, device, fused))
     launches["fma_peak"] = fma_launches
+    # E at (4, 2) runs on no solve path: its launches in its own check
+    launches["riccati_bwd.4x2"] = timings["riccati_bwd.4x2"]["launches"]
     _phase("scaling", run_scaling, device)
     _phase("reference", check_reference, device)
     launches_f, fused_rows = _phase("formulations", run_formulations, device)

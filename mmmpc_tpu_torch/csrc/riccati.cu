@@ -135,7 +135,17 @@ int launch(const float* lx, const float* lu, const float* lxx,
                                reg, kff, K, N, B, stream);                     \
   }
 
+// The library of the port holds the four pairs of its controllers.  Built
+// with -DRIC_PAIR_NX=nx -DRIC_PAIR_NU=nu, the source gives the one entry of
+// that pair instead (ops/_cuda.py::build_riccati_pair, any other (nx, nu)
+// on its first use).  RIC_ENTRY_ expands the two macros before RIC_ENTRY
+// pastes them into the name.
+#define RIC_ENTRY_(nx, nu) RIC_ENTRY(nx, nu)
+#if defined(RIC_PAIR_NX) && defined(RIC_PAIR_NU)
+RIC_ENTRY_(RIC_PAIR_NX, RIC_PAIR_NU)
+#else
 RIC_ENTRY(2, 1)
 RIC_ENTRY(3, 3)
 RIC_ENTRY(6, 2)
 RIC_ENTRY(9, 5)
+#endif

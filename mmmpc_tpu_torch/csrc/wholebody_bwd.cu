@@ -67,9 +67,11 @@
 //
 // wholebody_common.cuh's helpers are used as they are (kernel A shares
 // them and must not move); what this kernel needs otherwise (the items,
-// the team's FK, the merge) is written below.
+// the team's FK, the merge) is written below.  The cp.async wrappers are
+// in cp_async.cuh, shared with kernel A.
 #include <cstring>
 
+#include "cp_async.cuh"
 #include "wholebody_common.cuh"
 
 namespace wb {
@@ -111,19 +113,6 @@ __host__ __device__ inline int bwd_smem_bytes(int team, int N, int n_obs,
                      2 * NIN * scen + HF * n_hp + ST_SIZE +
                      param_layout(N, n_obs, n_hp).size;
   return floats * static_cast<int>(sizeof(float));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
 // A padded row of nine from shared memory.

@@ -3,53 +3,125 @@
 //
 // Replaces the Pallas TPU kernel mmmpc_tpu/ops/wholebody_fwd.py::_kernel
 // (built by make_fwd_linesearch).  For every scenario b and step size alpha
-// it rolls the closed-loop policy over the horizon,
+// (a candidate) it rolls the closed-loop policy over the horizon,
 //     u_k     = clamp(U_k + alpha kff_k + K_k (x_k - X_k))
 //     cost   += inv_scale (tracking + S relu(max slack)^2) + PHR(boxes)
 //     x_{k+1} = f(x_k, u_k)
 // and adds the terminal AL cost on the last stage.  The plain PyTorch version
 // of the same function is ops/wholebody_fwd.py::FwdLinesearch.plain.
 //
-// What bounds it on this card: each thread runs a serial recurrence of N
-// stages (three sincosf, a few hundred dependent FLOPs per stage), so the
-// time is the per-thread latency of that chain, not bytes: a call reads about
-// 92 floats per (stage, scenario) and writes 14 per (stage, scenario, alpha),
-// under 100 MB at the bench shape.  With one thread per (scenario, alpha)
-// the bench shape gives 24576 threads, 768 warps: under 6 per SM on 132 SMs,
-// too few to hide much of the chain's latency.
+// What bounds it on this card: not bytes (each stage reads 92 floats per
+// scenario and writes 14 per candidate, 89.5 MB a call at the bench shape,
+// 27 us at 3.35 TB/s), but instruction issue and latency.  Only
+// dx -> u -> x_{k+1} is a serial chain; the stage cost (the arm's FK, the
+// slack rows, three quadratic forms, 28 PHR rows) feeds nothing but the sum.
+// One thread per candidate ran all of it in the thread of the chain, with
+// too few threads to hide its latency (24,576 at the bench shape, under 6
+// warps per SM), each stage's inputs read once per candidate through the
+// read-only cache and nothing prefetched.  So the design, after kernel B's
+// (wholebody_bwd.cu):
 //
-// Design: the TPU kernel's grid walked (batch tile, stage) with the carry in
-// VMEM scratch; here a loop over the stages inside the thread keeps x, the
-// cost and the FK in registers.  Loads and stores are batch-last and
-// coalesce across the warp.  Shared weights, references and geometry are
-// read from one packed buffer through the read-only cache; bounds, masks,
-// step sizes and constants arrive by value as a kernel argument.  sincosf is
-// evaluated exactly at every stage (the TPU kernel's incremental trig carry
-// worked around its slow VPU transcendentals).
+// - A team of T lanes of one warp per candidate (T a template parameter,
+//   launched at FWD_TEAM), 128 threads a block, at most 128 registers a
+//   thread (__launch_bounds__), with no spill.  The n_alpha candidates of
+//   a scenario are neighbouring teams of one block, which holds
+//   (128 / T) / n_alpha scenarios; the teams left over idle.
+// - The chain, split: the five rows of U + alpha kff + K dx on lanes, u
+//   exchanged by shuffles, then the step in every lane, so every lane
+//   holds the same x.  The four sincos of the FK (q1, q1 - q2,
+//   q1 - q2 - q3, psi) on four lanes, exchanged by shuffles.
+// - Off the chain, as items over the lanes: the half-plane samples, the
+//   ground circles, the self-collision spheres, and at k = N-1 the stale
+//   terminal self-collision rows of x_N (each family a loop of its own, so
+//   the lanes of a warp run one family at a time); the rows of the Q, R
+//   and W forms and the 28 PHR rows.  The slack max is merged by a
+//   butterfly of shuffles (exact; NaN stays NaN), the rows' terms go into
+//   a partial cost of each lane, and the partials are summed across the
+//   team once, after the terminal cost, by a butterfly whose every step
+//   adds a + b on one side and b + a on the other: every lane ends with
+//   the same bits.  The rows that a lane picks at run time read the
+//   candidate's x, u and errors from the team's vector in shared memory;
+//   the PHR rows' bounds, signs and masks from a table built per block.
+// - Shared memory per block: the packed params (param_layout) and the
+//   statics, the half-plane faces and the PHR row table, loaded once; a
+//   two-stage buffer of each stage's inputs (X_k, U_k, kff_k, K_k, lam_k of
+//   the block's scenarios, element-major, scenario fastest), filled by
+//   cp.async one stage ahead, each scenario's inputs loaded once and read
+//   by all of its candidates; the terminal multipliers; the teams' vectors
+//   of the stage, two parities, whose first 14 entries are the stage's
+//   outputs x_k and u_k.  One __syncthreads a stage: after it stage k's
+//   inputs have landed, stage k+1's loads are issued, and stage k-1's
+//   outputs are stored from the vectors of its parity, the block's
+//   scenarios contiguous along the batch.
+// - A ragged batch: the teams of a partial block run on the clamped
+//   scenario index min(b, B - 1) and only stores are masked, so every
+//   __syncthreads, __syncwarp and shuffle is reached by every thread.
+// - No tensor cores: the products are 9-wide per candidate.
+//
+// The slack rows, the controls and the states are computed as the
+// one-thread kernel computed them; the cost is summed in another order.
+// wholebody_common.cuh's helpers are used as they are (kernel B shares
+// them); this kernel's own team variants are written below.
 #include <cstring>
 
+#include "cp_async.cuh"
 #include "wholebody_common.cuh"
 
 namespace wb {
 
+constexpr int FWD_THREADS = 128;
+constexpr int FWD_MIN_BLOCKS = 4;   // __launch_bounds__: <= 128 registers
+// Lanes a candidate (the times of each team size in PERF.md).
+constexpr int FWD_TEAM = 4;
+constexpr unsigned FWD_FULL = 0xffffffffu;
+// One scenario's inputs of a stage, in the buffer's element order.
+constexpr int IN_X = 0;
+constexpr int IN_U = IN_X + NX;
+constexpr int IN_KFF = IN_U + NU;
+constexpr int IN_K = IN_KFF + NU;
+constexpr int IN_LAM = IN_K + NU * NX;
+constexpr int FWD_NIN = IN_LAM + NC;   // 92
+constexpr int FWD_NTERM = NCT + 2;     // terminal multipliers: lamt, lame
+// A candidate's vector of a stage: x_k and u_k (its outputs, in the order
+// of Xc and Uc), then the errors x - xref, u - uref, u - ulast.
+constexpr int V_X = 0;
+constexpr int V_U = V_X + NX;
+constexpr int V_EX = V_U + NU;
+constexpr int V_EU = V_EX + NX;
+constexpr int V_ED = V_EU + NU;
+constexpr int NV = V_ED + NU;          // 33: odd, so the teams' vectors
+                                       // fall on different banks
+constexpr int NOUT = NX + NU;
+// A half-plane face: {n0, n1, n2, o0}, {o1, o2, mask, 0}, o the face point
+// pushed out by EXPAND along its normal n.
+constexpr int FWD_HF = 8;
+
+// Offsets (floats) of the parts of a block's shared memory.  The stage
+// buffer and the terminal multipliers take a stride of 128 / T scenarios,
+// the most a block holds, so their offsets are constants.
+struct FwdSmem {
+  int hf, rows, in, term, vec, sv, ps, size;
+};
+
+__host__ __device__ inline FwdSmem fwd_smem(int team, int N, int n_obs,
+                                            int n_hp) {
+  const int teams = FWD_THREADS / team;
+  FwdSmem m;
+  int o = 0;
+  m.hf = o;    o += FWD_HF * n_hp;
+  m.rows = o;  o += 4 * NC;
+  m.in = o;    o += 2 * FWD_NIN * teams;
+  m.term = o;  o += FWD_NTERM * teams;
+  m.vec = o;   o += 2 * NV * teams;
+  m.sv = o;    o += ST_SIZE;
+  m.ps = o;    o += param_layout(N, n_obs, n_hp).size;
+  m.size = o;
+  return m;
+}
+
 // u clamped to [lo, hi]; a NaN stays NaN (jnp.clip semantics).
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// e^T M e for a row-major n x n matrix in the packed buffer.
-template <int n>
-__device__ __forceinline__ float qform(const float* __restrict__ pp, int off,
-                                       const float* e) {
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < n; ++i) {
-    float row = 0.f;
-#pragma unroll
-    for (int j = 0; j < n; ++j) row += ld(pp, off + i * n + j) * e[j];
-    acc += e[i] * row;
-  }
-  return acc;
 }
 
 // PHR term of one box row: max(lam + mu c, 0)^2 - lam^2 (the 1/(2 mu) is
@@ -60,7 +132,186 @@ __device__ __forceinline__ float phr(float lam, float mu, float c, bool live) {
   return t * t - lam * lam;
 }
 
-__global__ void __launch_bounds__(128)
+// Running max with NaN propagation.
+__device__ __forceinline__ float max_nan(float m, float v) {
+  return (v > m || isnan(v)) ? v : m;
+}
+
+// The world points (j2, j3, ee) of the arm and the base yaw's cos / sin:
+// fk of wholebody_common.cuh without the partials, its four sincos split
+// over four lanes of the team and exchanged by shuffles.
+struct Pts {
+  float cp, sp;
+  float pt[3][3];   // world point p (j2, j3, ee), coordinate c
+};
+
+template <int T>
+__device__ __forceinline__ void fk_pts_team(const float* x, int lane,
+                                            Pts& f) {
+  static_assert(T >= 2, "the FK's four sincos take two lanes or more");
+  // the angles q1, q1 - q2, q1 - q2 - q3, psi: angle q on lane q (T >= 4),
+  // or angles lane and lane + 2 on each of two lanes
+  const float th = x[6] - x[7];
+  const float ang[4] = {x[6], th, th - x[8], x[2]};
+  float sa, ca, sa2 = 0.f, ca2 = 0.f;
+  int b;
+  if constexpr (T >= 4) {
+    const int q = lane & 3;
+    sincosf(q == 0 ? ang[0] : q == 1 ? ang[1] : q == 2 ? ang[2] : ang[3], &sa,
+            &ca);
+    b = lane & ~3;
+  } else {
+    sincosf(lane == 0 ? ang[0] : ang[1], &sa, &ca);
+    sincosf(lane == 0 ? ang[2] : ang[3], &sa2, &ca2);
+    b = 0;
+  }
+  const int l1 = b + 1, l2 = T >= 4 ? b + 2 : 0, l3 = T >= 4 ? b + 3 : 1;
+  const float s1 = __shfl_sync(FWD_FULL, sa, b, T);
+  const float c1 = __shfl_sync(FWD_FULL, ca, b, T);
+  const float st = __shfl_sync(FWD_FULL, sa, l1, T);
+  const float ct = __shfl_sync(FWD_FULL, ca, l1, T);
+  const float sb = __shfl_sync(FWD_FULL, T >= 4 ? sa : sa2, l2, T);
+  const float cb = __shfl_sync(FWD_FULL, T >= 4 ? ca : ca2, l2, T);
+  f.sp = __shfl_sync(FWD_FULL, T >= 4 ? sa : sa2, l3, T);
+  f.cp = __shfl_sync(FWD_FULL, T >= 4 ? ca : ca2, l3, T);
+
+  const float ax2 = A2 * s1 + A3 * c1;
+  const float az2 = A2 * c1 - A3 * s1;
+  const float ax3 = ax2 - A3 * ct + A5 * st;
+  const float az3 = az2 + A3 * st + A5 * ct;
+  const float axe = ax3 + A6 * cb - A7 * sb;
+  const float aze = az3 - A6 * sb - A7 * cb;
+  const float ax[3] = {ax2, ax3, axe};
+  const float az[3] = {az2, az3, aze};
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const float r = ax[p] + BX;
+    f.pt[p][0] = x[0] + r * f.cp;
+    f.pt[p][1] = x[1] + r * f.sp;
+    f.pt[p][2] = az[p] + BZ;
+  }
+}
+
+// World point a0 j2 + a1 j3 + a2 ee.
+__device__ __forceinline__ void pts_combo(const Pts& f, float a0, float a1,
+                                          float a2, float P[3]) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    P[c] = a0 * f.pt[0][c] + a1 * f.pt[1][c] + a2 * f.pt[2][c];
+}
+
+// ---- the slack rows, one item each (the rows of wholebody_common.cuh's
+// ground_rows, self_rows and halfplane_rows, values only) ----
+// Ground circle o: (r_obs + r_base) - |(px, py) - obs|.
+__device__ __forceinline__ float ground_value(int o, const float* x,
+                                              const float* ps, const Layout& L,
+                                              float base_radius) {
+  const float dx = x[0] - ps[L.obs + 3 * o];
+  const float dy = x[1] - ps[L.obs + 3 * o + 1];
+  const float d = sqrtf(dx * dx + dy * dy + EPS);
+  return (ps[L.obs + 3 * o + 2] + base_radius) - d;
+}
+
+// Self-collision sphere r (SELF_DIFF[r]): SELF_R - |check - ee|.
+__device__ __forceinline__ float self_value(int r, const Pts& f) {
+  const float a0 = r == 0 ? 0.f : (r == 2 ? 1.f : 0.5f);
+  const float a1 = r == 3 ? 0.5f : 0.f;
+  float v3[3];
+  pts_combo(f, a0, a1, -1.f, v3);
+  return SELF_R - sqrtf(v3[0] * v3[0] + v3[1] * v3[1] + v3[2] * v3[2] + EPS);
+}
+
+// Half-plane sample r (HP_POINTS[r]): -max over live faces of n . (o - P),
+// -1e9 (never the max) for a masked face.
+__device__ __forceinline__ float hp_value(int r, const Pts& f, const float* hf,
+                                          int n_hp) {
+  const float a0 = r == 0 || r == 2 ? 0.5f : (r == 1 ? 1.f : 0.f);
+  const float a1 = r == 2 || r == 4 ? 0.5f : (r == 3 ? 1.f : 0.f);
+  const float a2 = r == 4 ? 0.5f : (r == 5 ? 1.f : 0.f);
+  float P[3];
+  pts_combo(f, a0, a1, a2, P);
+  float dmax = -INFINITY;
+#pragma unroll 4
+  for (int h = 0; h < n_hp; ++h) {
+    const float4 a = *reinterpret_cast<const float4*>(hf + FWD_HF * h);
+    const float4 b = *reinterpret_cast<const float4*>(hf + FWD_HF * h + 4);
+    const float d = b.z > 0.f
+        ? a.x * (a.w - P[0]) + a.y * (b.x - P[1]) + a.z * (b.y - P[2])
+        : -1e9f;
+    dmax = max_nan(dmax, d);
+  }
+  return -dmax;
+}
+
+// The slack group's max across the team (every lane ends with it).
+template <int T>
+__device__ __forceinline__ float max_team(float m) {
+#pragma unroll
+  for (int off = 1; off < T; off <<= 1)
+    m = max_nan(m, __shfl_xor_sync(FWD_FULL, m, off, T));
+  return m;
+}
+
+// The ground circles and half-plane samples of x's slack group over the
+// lanes, into the lane's running max.
+template <int T>
+__device__ __forceinline__ float ground_hp_rows(const float* x, const Pts& f,
+                                                const float* ps,
+                                                const float* hf,
+                                                const Layout& L, int n_obs,
+                                                int n_hp, int n_hpi,
+                                                float base_radius, int lane) {
+  float m = -INFINITY;
+#pragma unroll
+  for (int q = 0; q < (6 + T - 1) / T; ++q) {
+    const int r = lane + q * T;
+    if (r < n_hpi) m = max_nan(m, hp_value(r, f, hf, n_hp));
+  }
+  for (int o = lane; o < n_obs; o += T)
+    m = max_nan(m, ground_value(o, x, ps, L, base_radius));
+  return m;
+}
+
+// The lane's share of e^T M e over the rows r = lane, lane + T, ... of the
+// n x n matrix M (row-major in shared memory): the full error e in
+// registers, e[r] of the lane's rows from the team's vector ev.
+template <int T, int n>
+__device__ __forceinline__ float qform_rows(const float* M, const float* e,
+                                            const float* ev, int lane) {
+  float acc = 0.f;
+#pragma unroll
+  for (int q = 0; q < (n + T - 1) / T; ++q) {
+    const int r = min(lane + q * T, n - 1);   // past n: a copy, not added
+    float row = 0.f;
+#pragma unroll
+    for (int j = 0; j < n; ++j) row += M[r * n + j] * e[j];
+    const float t = ev[r] * row;
+    acc += lane + q * T < n ? t : 0.f;
+  }
+  return acc;
+}
+
+// The lane's share of the PHR sum over rows r = lane, lane + T, ... < n of
+// the row table rt ({bound, sign, mask, vector index} a row): c = sign
+// (v - bound), which is v - hi for an upper row and lo - v for a lower one.
+template <int T, int n>
+__device__ __forceinline__ float phr_rows(const float* rt, const float* v,
+                                          const float* lam, int stride,
+                                          float mu, int lane) {
+  float pen = 0.f;
+#pragma unroll
+  for (int q = 0; q < (n + T - 1) / T; ++q) {
+    const int r = min(lane + q * T, n - 1);   // past n: a copy, not added
+    const float4 t = *reinterpret_cast<const float4*>(rt + 4 * r);
+    const float c = t.y * (v[__float_as_int(t.w)] - t.x);
+    const float p = phr(lam[r * stride], mu, c, t.z != 0.f);
+    pen += lane + q * T < n ? p : 0.f;
+  }
+  return pen;
+}
+
+template <int T, int MINB>
+__global__ void __launch_bounds__(FWD_THREADS, MINB)
 fwd_kernel(const Statics st, const float* __restrict__ pp,
            const float* __restrict__ X, const float* __restrict__ U,
            const float* __restrict__ kff, const float* __restrict__ K,
@@ -68,143 +319,309 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
            const float* __restrict__ lame, float* __restrict__ Xc,
            float* __restrict__ Uc, float* __restrict__ xlast,
            float* __restrict__ cost, float mu, int N, int B) {
-  const int n_alpha = static_cast<int>(st.v[ST_N_ALPHA]);
-  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (t >= static_cast<long long>(n_alpha) * B) return;
-  const int a = static_cast<int>(t / B);
-  const int b = static_cast<int>(t % B);
+  constexpr int TEAMS = FWD_THREADS / T;   // the most scenarios a block
+  constexpr int ROWS = (NU + T - 1) / T;   // control rows a lane
+  extern __shared__ __align__(16) float smem[];
+  const int na = static_cast<int>(st.v[ST_N_ALPHA]);
+  const int n_obs = static_cast<int>(st.v[ST_N_OBS]);
+  const int n_hp = static_cast<int>(st.v[ST_N_HP]);
+  const int scen = TEAMS / na;             // scenarios of this block
+  const Layout L = param_layout(N, n_obs, n_hp);
+  const FwdSmem M = fwd_smem(T, N, n_obs, n_hp);
+  float* hf = smem + M.hf;        // half-plane faces
+  float* rt = smem + M.rows;      // PHR row table
+  float* inbuf = smem + M.in;     // stage inputs, two parities
+  float* tb = smem + M.term;      // terminal multipliers
+  float* vec = smem + M.vec;      // the teams' vectors, two parities
+  float* sv = smem + M.sv;        // statics
+  float* ps = smem + M.ps;        // packed params
+
+  const int tid = threadIdx.x;
+  const int team = tid / T, lane = tid % T;
+  const int s = min(team / na, scen - 1);  // idle teams shadow the last
+  const int a = team % na;
+  const int b0 = blockIdx.x * scen;
+  const bool own = team < na * scen && b0 + s < B;   // stores its results
+
+  // The block's copies of per-scenario arrays: thread tid moves scenario
+  // cs = tid % scen (clamped to the batch) of the element rows ci,
+  // ci + per, ...; buffers are element-major, scenario fastest.
+  const int per = FWD_THREADS / scen;
+  const int cs = tid % scen, ci = tid / scen;
+  const bool copier = ci < per;
+  const int cb = min(b0 + cs, B - 1);
+  // rows [0, n) of a batch-last array from row `first` on, into the
+  // buffer's rows off, off + 1, ... at dst
+  auto copy_rows = [&](float* dst, const float* src, int first, int n) {
+    if (!copier) return;
+    const float* p = src + static_cast<long long>(first + ci) * B + cb;
+    const long long step = static_cast<long long>(per) * B;
+#pragma unroll 4
+    for (int i = ci; i < n; i += per, p += step) cp_async4(dst + i * TEAMS, p);
+  };
+  // stage k's inputs into buffer k & 1
+  auto issue_stage = [&](int k) {
+    float* dst = inbuf + (k & 1) * FWD_NIN * TEAMS + cs;
+    copy_rows(dst + IN_X * TEAMS, X, k * NX, NX);
+    copy_rows(dst + IN_U * TEAMS, U, k * NU, NU);
+    copy_rows(dst + IN_KFF * TEAMS, kff, k * NU, NU);
+    copy_rows(dst + IN_K * TEAMS, K, k * NU * NX, NU * NX);
+    copy_rows(dst + IN_LAM * TEAMS, lam, k * NC, NC);
+  };
+  // stage k's outputs x_k, u_k from the vectors of its parity
+  auto store_out = [&](int k) {
+    if (!copier || b0 + cs >= B) return;
+    const float* src = vec + (k & 1) * NV * TEAMS;
+#pragma unroll 4
+    for (int q = ci; q < na * NOUT; q += per) {
+      const int aa = q / NOUT, e = q % NOUT;
+      const float v = src[(cs * na + aa) * NV + e];
+      if (e < NX)
+        Xc[static_cast<long long>((k * na + aa) * NX + e) * B + b0 + cs] = v;
+      else
+        Uc[static_cast<long long>((k * na + aa) * NU + e - NX) * B + b0 + cs] = v;
+    }
+  };
+
+  // ---- the params, the terminal multipliers and stage 0 in flight; the
+  // statics, the PHR row table and the faces meanwhile
+  for (int i = tid; i < L.size; i += FWD_THREADS) cp_async4(ps + i, pp + i);
+  copy_rows(tb + cs, lamt, 0, NCT);
+  copy_rows(tb + NCT * TEAMS + cs, lame, 0, 2);
+  issue_stage(0);
+  cp_async_commit();
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < ST_SIZE; ++i) sv[i] = st.v[i];
+    // the PHR rows [x_hi, x_lo, du_hi, du_lo]; the terminal rows are the
+    // first 2 NX
+#pragma unroll
+    for (int r = 0; r < NC; ++r) {
+      const bool isx = r < 2 * NX;
+      const bool hi = isx ? r < NX : r < 2 * NX + NU;
+      const int e = isx ? (hi ? r : r - NX) : (hi ? r - 2 * NX : r - 2 * NX - NU);
+      const int bound = isx ? (hi ? ST_XHI : ST_XLO) : (hi ? ST_DUHI : ST_DULO);
+      const int mask = isx ? (hi ? ST_XMHI : ST_XMLO) : (hi ? ST_DUMHI : ST_DUMLO);
+      rt[4 * r] = st.v[bound + e];
+      rt[4 * r + 1] = hi ? 1.f : -1.f;
+      rt[4 * r + 2] = st.v[mask + e] != 0.f ? 1.f : 0.f;
+      rt[4 * r + 3] = __int_as_float(isx ? V_X + e : V_ED + e);
+    }
+  }
+  for (int h = tid; h < n_hp; h += FWD_THREADS) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float nc = __ldg(pp + L.hpn + 3 * h + c);
+      hf[FWD_HF * h + c] = nc;
+      hf[FWD_HF * h + 3 + c] = __ldg(pp + L.hpp + 3 * h + c) - EXPAND * nc;
+    }
+    hf[FWD_HF * h + 6] = __ldg(pp + L.hpm + h);
+    hf[FWD_HF * h + 7] = 0.f;
+  }
 
   const float dt = st.v[ST_DT];
   const float inv_scale = st.v[ST_INV_SCALE];
   const float base_radius = st.v[ST_BASE_RADIUS];
-  const int n_obs = static_cast<int>(st.v[ST_N_OBS]);
-  const int n_hp = static_cast<int>(st.v[ST_N_HP]);
-  float alpha = 0.f;
-#pragma unroll
-  for (int i = 0; i < MAX_ALPHA; ++i)
-    alpha = (i == a) ? st.v[ST_ALPHAS + i] : alpha;
-  const Layout L = param_layout(N, n_obs, n_hp);
-  const float S = ld(pp, L.S);
   const float inv2mu = 0.5f / mu;
+  float hp_live = 0.f;
+  for (int h = 0; h < n_hp; ++h) hp_live += __ldg(pp + L.hpm + h);
+  const int n_hpi = hp_live > 0.f ? 6 : 0;   // half-plane samples
 
   float x[NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) x[i] = X[i * B + b];
-  float acc = 0.f;
-  FK f;
-
+  float acc = 0.f;   // this lane's partial cost
   for (int k = 0; k < N; ++k) {
-    // ---- control: feedforward + feedback, clamped to ulim
-    float dxk[NX];
+    cp_async_wait<0>();
+    __syncthreads();
+    if (k + 1 < N) issue_stage(k + 1);
+    cp_async_commit();
+    if (k > 0) store_out(k - 1);
+    const float* in = inbuf + (k & 1) * FWD_NIN * TEAMS + s;
+    if (k == 0) {
 #pragma unroll
-    for (int j = 0; j < NX; ++j) dxk[j] = x[j] - X[(k * NX + j) * B + b];
-    float u[NU];
+      for (int i = 0; i < NX; ++i) x[i] = in[(IN_X + i) * TEAMS];
+    }
+    const float alpha = sv[ST_ALPHAS + a];
+
+    // ---- the chain: the rows of U + alpha kff + K dx on the lanes,
+    // clamped, u exchanged by shuffles; the step in every lane
+    float dx[NX];
 #pragma unroll
-    for (int i = 0; i < NU; ++i) {
+    for (int j = 0; j < NX; ++j) dx[j] = x[j] - in[(IN_X + j) * TEAMS];
+    float ur[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const int i = min(lane + r * T, NU - 1);   // past NU: a copy, unused
       float fb = 0.f;
 #pragma unroll
-      for (int j = 0; j < NX; ++j) fb += K[((k * NU + i) * NX + j) * B + b] * dxk[j];
-      const float v = U[(k * NU + i) * B + b] + alpha * kff[(k * NU + i) * B + b] + fb;
-      u[i] = clampf(v, st.v[ST_ULO + i], st.v[ST_UHI + i]);
+      for (int j = 0; j < NX; ++j) fb += in[(IN_K + i * NX + j) * TEAMS] * dx[j];
+      const float v = in[(IN_U + i) * TEAMS] + alpha * in[(IN_KFF + i) * TEAMS] + fb;
+      ur[r] = clampf(v, sv[ST_ULO + i], sv[ST_UHI + i]);
     }
-
-    // ---- slack group of x_k (ground + self-collision + half-planes)
-    fk(x, f);
-    float gmax = -INFINITY;
-    ground_rows<false, 1>(x, pp, L, n_obs, base_radius, gmax, nullptr);
-    self_rows<false, 1>(f, gmax, nullptr);
-    halfplane_rows<false, 1>(f, pp, L, n_hp, gmax, nullptr);
-
+    float u[NU];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) u[i] = __shfl_sync(FWD_FULL, ur[i / T], i % T, T);
+    Pts f;
+    fk_pts_team<T>(x, lane, f);
     float xn[NX];
     step(x, u, dt, f.cp, f.sp, xn);
-    if (k == N - 1) {
-      // terminal self-collision rides stage N-1's slack group (the
-      // reference's stale slack index)
-      FK fn;
-      fk(xn, fn);
-      self_rows<false, 1>(fn, gmax, nullptr);
-    }
-    const float smax = gmax < 0.f ? 0.f : gmax;
 
-    // ---- quadratic tracking costs
-    float ex[NX], eu[NU], edu[NU];
+    // ---- the team's vector of the stage (every lane writes the same
+    // values): x_k, u_k, then the errors the rows read
+    float ex[NX], eu[NU], ed[NU];
+    {
+      const float* xr = ps + L.xref + k * NX;
+      const float* ur_ = ps + L.uref + k * NU;
+      const float* ul = ps + L.ulast + k * NU;
 #pragma unroll
-    for (int i = 0; i < NX; ++i) ex[i] = x[i] - ld(pp, L.xref + k * NX + i);
+      for (int i = 0; i < NX; ++i) ex[i] = x[i] - xr[i];
 #pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      eu[i] = u[i] - ld(pp, L.uref + k * NU + i);
-      edu[i] = u[i] - ld(pp, L.ulast + k * NU + i);
+      for (int i = 0; i < NU; ++i) {
+        eu[i] = u[i] - ur_[i];
+        ed[i] = u[i] - ul[i];
+      }
     }
-    const float track = qform<NX>(pp, L.Q, ex) + qform<NU>(pp, L.R, eu) +
-                        qform<NU>(pp, L.W, edu);
-
-    // ---- PHR penalty on the box rows [x_hi, x_lo, du_hi, du_lo]
-    const float* lk = lam + static_cast<long long>(k) * NC * B + b;
-    float pen = 0.f;
+    float* v = vec + (k & 1) * NV * TEAMS + team * NV;
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
-      pen += phr(lk[i * B], mu, x[i] - st.v[ST_XHI + i], st.v[ST_XMHI + i] != 0.f);
-      pen += phr(lk[(NX + i) * B], mu, st.v[ST_XLO + i] - x[i],
-                 st.v[ST_XMLO + i] != 0.f);
+      v[V_X + i] = x[i];
+      v[V_EX + i] = ex[i];
     }
 #pragma unroll
     for (int i = 0; i < NU; ++i) {
-      pen += phr(lk[(2 * NX + i) * B], mu, edu[i] - st.v[ST_DUHI + i],
-                 st.v[ST_DUMHI + i] != 0.f);
-      pen += phr(lk[(2 * NX + NU + i) * B], mu, st.v[ST_DULO + i] - edu[i],
-                 st.v[ST_DUMLO + i] != 0.f);
+      v[V_U + i] = u[i];
+      v[V_EU + i] = eu[i];
+      v[V_ED + i] = ed[i];
     }
-    acc += inv_scale * (track + S * smax * smax) + pen * inv2mu;
+    __syncwarp();
 
-    // ---- outputs + carry
-#pragma unroll
-    for (int i = 0; i < NX; ++i) Xc[((k * n_alpha + a) * NX + i) * B + b] = x[i];
-#pragma unroll
-    for (int i = 0; i < NU; ++i) Uc[((k * n_alpha + a) * NU + i) * B + b] = u[i];
+    // ---- the slack group of x_k over the lanes; at k = N-1 the terminal
+    // self-collision rows ride it (the reference's stale slack index)
+    float gmax = ground_hp_rows<T>(x, f, ps, hf, L, n_obs, n_hp, n_hpi,
+                                   base_radius, lane);
+    for (int r = lane; r < 4; r += T) gmax = max_nan(gmax, self_value(r, f));
+    if (k == N - 1) {
+      Pts fn;
+      fk_pts_team<T>(xn, lane, fn);
+      for (int r = lane; r < 4; r += T) gmax = max_nan(gmax, self_value(r, fn));
+    }
+    gmax = max_team<T>(gmax);
+    const float smax = gmax < 0.f ? 0.f : gmax;
+
+    // ---- the lane's rows of the tracking forms and of the PHR sum
+    float tr = lane == 0 ? ps[L.S] * smax * smax : 0.f;
+    tr += qform_rows<T, NX>(ps + L.Q, ex, v + V_EX, lane);
+    tr += qform_rows<T, NU>(ps + L.R, eu, v + V_EU, lane);
+    tr += qform_rows<T, NU>(ps + L.W, ed, v + V_ED, lane);
+    const float pen = phr_rows<T, NC>(rt, v, in + IN_LAM * TEAMS, TEAMS, mu,
+                                      lane);
+    acc += inv_scale * tr + pen * inv2mu;
 #pragma unroll
     for (int i = 0; i < NX; ++i) x[i] = xn[i];
   }
 
-  // ---- terminal AL cost: P tracking + S relu(max terminal slack)^2 + PHR
-  // on the terminal boxes + the maskable position equality.  The terminal
-  // slack group has no self-collision rows: they rode stage N-1's.
-  fk(x, f);
-  float gmax = -INFINITY;
-  ground_rows<false, 1>(x, pp, L, n_obs, base_radius, gmax, nullptr);
-  halfplane_rows<false, 1>(f, pp, L, n_hp, gmax, nullptr);
-  const float smax = gmax < 0.f ? 0.f : gmax;
-
-  float ex[NX];
+  // ---- terminal AL cost of x_N: P tracking + S relu(max terminal slack)^2
+  // + PHR on the terminal boxes + the maskable position equality.  The
+  // terminal slack group has no self-collision rows: they rode stage N-1's.
+  cp_async_wait<0>();
+  __syncthreads();
+  store_out(N - 1);
+  {
+    Pts f;
+    fk_pts_team<T>(x, lane, f);
+    float ex[NX];
+    const float* xr = ps + L.xref + N * NX;
 #pragma unroll
-  for (int i = 0; i < NX; ++i) ex[i] = x[i] - ld(pp, L.xref + N * NX + i);
-  const float track = qform<NX>(pp, L.P, ex);
-
-  float pen = 0.f;
+    for (int i = 0; i < NX; ++i) ex[i] = x[i] - xr[i];
+    float* v = vec + (N & 1) * NV * TEAMS + team * NV;
 #pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    pen += phr(lamt[i * B + b], mu, x[i] - st.v[ST_XHI + i], st.v[ST_XMHI + i] != 0.f);
-    pen += phr(lamt[(NX + i) * B + b], mu, st.v[ST_XLO + i] - x[i],
-               st.v[ST_XMLO + i] != 0.f);
+    for (int i = 0; i < NX; ++i) {
+      v[V_X + i] = x[i];
+      v[V_EX + i] = ex[i];
+    }
+    __syncwarp();
+    const float gmax = max_team<T>(ground_hp_rows<T>(
+        x, f, ps, hf, L, n_obs, n_hp, n_hpi, base_radius, lane));
+    const float smax = gmax < 0.f ? 0.f : gmax;
+    float tr = lane == 0 ? ps[L.S] * smax * smax : 0.f;
+    tr += qform_rows<T, NX>(ps + L.P, ex, v + V_EX, lane);
+    const float* lt = tb + s;
+    const float pen = phr_rows<T, NCT>(rt, v, lt, TEAMS, mu, lane);
+    const float m = ps[L.eqm];
+    float peneq = 0.f;
+    for (int i = lane; i < 2; i += T) {
+      const float h = m * v[V_EX + i];
+      peneq += lt[(NCT + i) * TEAMS] * h + 0.5f * mu * h * h;
+    }
+    acc += inv_scale * tr + pen * inv2mu + peneq;
   }
-  const float m = ld(pp, L.eqm);
-  float peneq = 0.f;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float h = m * ex[i];
-    peneq += lame[i * B + b] * h + 0.5f * mu * h * h;
-  }
-  acc += inv_scale * (track + S * smax * smax) + pen * inv2mu + peneq;
 
+  // ---- the team's sum of the partial costs: a + b on one side of each
+  // step, b + a on the other, so every lane holds the same bits
 #pragma unroll
-  for (int i = 0; i < NX; ++i) xlast[(a * NX + i) * B + b] = x[i];
-  cost[a * B + b] = acc;
+  for (int off = 1; off < T; off <<= 1)
+    acc += __shfl_xor_sync(FWD_FULL, acc, off, T);
+  if (own) {
+    const int b = b0 + s;
+#pragma unroll
+    for (int i = 0; i < NX; ++i)
+      if (i % T == lane) xlast[(a * NX + i) * static_cast<long long>(B) + b] = x[i];
+    if (lane == 0) cost[a * static_cast<long long>(B) + b] = acc;
+  }
+}
+
+// The launch at batch B with n_alpha step sizes: lanes a candidate, threads
+// a block, blocks, dynamic shared-memory bytes.  wb_fwd_launch launches
+// with it and wb_fwd_geometry reports it.
+struct FwdGeometry {
+  int team, threads, blocks, smem;
+};
+
+inline FwdGeometry fwd_geometry(int team, int N, int n_obs, int n_hp,
+                                int n_alpha, int B) {
+  const int scen = (FWD_THREADS / team) / n_alpha;
+  return {team, FWD_THREADS, (B + scen - 1) / scen,
+          fwd_smem(team, N, n_obs, n_hp).size * static_cast<int>(sizeof(float))};
+}
+
+template <int T, int MINB = FWD_MIN_BLOCKS>
+int fwd_launch(const Statics& st, const float* params, const float* X,
+               const float* U, const float* kff, const float* K,
+               const float* lam, const float* lamt, const float* lame,
+               float* Xc, float* Uc, float* xlast, float* cost, float mu,
+               int N, int B, cudaStream_t stream) {
+  const FwdGeometry g = fwd_geometry(
+      T, N, static_cast<int>(st.v[ST_N_OBS]), static_cast<int>(st.v[ST_N_HP]),
+      static_cast<int>(st.v[ST_N_ALPHA]), B);
+  if (g.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fwd_kernel<T, MINB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        g.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  fwd_kernel<T, MINB><<<g.blocks, g.threads, g.smem, stream>>>(
+      st, params, X, U, kff, K, lam, lamt, lame, Xc, Uc, xlast, cost, mu, N, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace wb
 
+// Launch geometry at batch B with n_alpha step sizes: out = {lanes a
+// candidate, threads a block, blocks, dynamic shared-memory bytes}, as
+// wb_fwd_launch launches.
+extern "C" int wb_fwd_geometry(int N, int n_obs, int n_hp, int n_alpha, int B,
+                               int* out) {
+  const wb::FwdGeometry g =
+      wb::fwd_geometry(wb::FWD_TEAM, N, n_obs, n_hp, n_alpha, B);
+  out[0] = g.team;
+  out[1] = g.threads;
+  out[2] = g.blocks;
+  out[3] = g.smem;
+  return 0;
+}
+
 // C entry: statics is a HOST pointer (copied into the kernel argument); all
 // other pointers are device memory.  Returns cudaGetLastError() after the
-// launch.
+// launch (or the error of raising the kernel's shared-memory limit).
 extern "C" int wb_fwd_launch(const float* statics, const float* params,
                              const float* X, const float* U, const float* kff,
                              const float* K, const float* lam,
@@ -213,14 +630,12 @@ extern "C" int wb_fwd_launch(const float* statics, const float* params,
                              int N, int B, void* stream) {
   wb::Statics st;
   std::memcpy(st.v, statics, sizeof(st.v));
-  const long long total =
-      static_cast<long long>(st.v[wb::ST_N_ALPHA]) * static_cast<long long>(B);
-  if (total <= 0 || N <= 0) return 0;
-  const int threads = 128;
-  const int blocks = static_cast<int>((total + threads - 1) / threads);
-  wb::fwd_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      st, params, X, U, kff, K, lam, lamt, lame, Xc, Uc, xlast, cost, mu, N, B);
-  return static_cast<int>(cudaGetLastError());
+  const int na = static_cast<int>(st.v[wb::ST_N_ALPHA]);
+  if (na <= 0 || B <= 0 || N <= 0) return 0;
+  if (na > wb::MAX_ALPHA) return static_cast<int>(cudaErrorInvalidValue);
+  return wb::fwd_launch<wb::FWD_TEAM>(st, params, X, U, kff, K, lam, lamt,
+                                      lame, Xc, Uc, xlast, cost, mu, N, B,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 // Sizes of the two host-built blocks, for the wrappers' layout check.
@@ -228,4 +643,40 @@ extern "C" int wb_statics_size() { return wb::ST_SIZE; }
 
 extern "C" int wb_params_size(int N, int n_obs, int n_hp) {
   return wb::param_layout(N, n_obs, n_hp).size;
+}
+
+// Development only: the kernel and its geometry at team size 4, 8 or 16.
+extern "C" int wb_fwd_launch_team(int team, const float* statics,
+                                  const float* params, const float* X,
+                                  const float* U, const float* kff,
+                                  const float* K, const float* lam,
+                                  const float* lamt, const float* lame,
+                                  float* Xc, float* Uc, float* xlast,
+                                  float* cost, float mu, int N, int B,
+                                  void* stream) {
+  wb::Statics st;
+  std::memcpy(st.v, statics, sizeof(st.v));
+  const int na = static_cast<int>(st.v[wb::ST_N_ALPHA]);
+  if (na <= 0 || B <= 0 || N <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FWD_CASE(t, m)                                                     \
+  case 100 * t + m:                                                        \
+    return wb::fwd_launch<t, m>(st, params, X, U, kff, K, lam, lamt, lame,  \
+                                Xc, Uc, xlast, cost, mu, N, B, s);
+  // team = 100 T + the blocks per SM of __launch_bounds__
+  switch (team) {
+    FWD_CASE(2, 4) FWD_CASE(4, 4) FWD_CASE(4, 6) FWD_CASE(4, 8) FWD_CASE(8, 4)
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int wb_fwd_geometry_team(int team, int N, int n_obs, int n_hp,
+                                    int n_alpha, int B, int* out) {
+  const wb::FwdGeometry g =
+      wb::fwd_geometry(team / 100, N, n_obs, n_hp, n_alpha, B);
+  out[0] = g.team;
+  out[1] = g.threads;
+  out[2] = g.blocks;
+  out[3] = g.smem;
+  return 0;
 }

@@ -5,7 +5,9 @@ headers, so the build takes seconds).  The library is compiled on first use
 by ``nvcc`` for ``sm_90a`` (NVIDIA Hopper) into ``build/torch_kernels/`` at the
 root of the checkout, named by a hash of the sources, so an edited source is
 rebuilt and an unchanged one is loaded as it is: one ``nvcc -c`` per source,
-all started together, then one link.  Nothing here runs at import time.
+all started together, then one link.  Kernel E at an (nx, nu) that the
+library does not hold gets a library of its own, built the same way on the
+pair's first use (``RICCATI``).  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -26,15 +28,16 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # The formulations of the generic kernels (csrc/generic_<name>.cu)
 FORMULATIONS = ("demo", "base", "arm", "endpoint")
-# The (nx, nu) instances of the Riccati sweep (csrc/riccati.cu), and the
-# accumulator counts of the FMA microkernel (csrc/fma_peak.cu)
+# The (nx, nu) instances of the Riccati sweep (csrc/riccati.cu) that the
+# kernel library holds (any other pair: build_riccati_pair on first use),
+# and the accumulator counts of the FMA microkernel (csrc/fma_peak.cu)
 RICCATI_INSTANCES = ((2, 1), (3, 3), (6, 2), (9, 5))
 FMA_NACC = (4, 8, 16, 32)
 SOURCES = ("wholebody_fwd.cu", "wholebody_bwd.cu",
            *(f"generic_{name}.cu" for name in FORMULATIONS), "riccati.cu",
            "fma_peak.cu")
-HEADERS = ("wholebody_common.cuh", "generic_common.cuh", "generic_fwd.cuh",
-           "generic_bwd.cuh", "riccati_step.cuh")
+HEADERS = ("wholebody_common.cuh", "cp_async.cuh", "generic_common.cuh",
+           "generic_fwd.cuh", "generic_bwd.cuh", "riccati_step.cuh")
 # step sizes the statics blocks hold (MAX_ALPHA of csrc/wholebody_common.cuh)
 MAX_ALPHA = 8
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -68,20 +71,24 @@ _FLOAT = ctypes.c_float
 # the packed params for (N, n_obs, n_hp).  Riccati sweep: 12 device pointers,
 # N, B, the stream.  FMA microkernel: 2 device pointers, the trip count,
 # blocks, threads, the stream.  The whole-body backward's geometry (N, n_obs,
-# n_hp, B) writes four ints (team, threads, blocks, shared-memory bytes).
+# n_hp, B) and the forward's (N, n_obs, n_hp, n_alpha, B) write four ints
+# (team, threads, blocks, shared-memory bytes).
 _FWD = [_VOID] * 13 + [_FLOAT, _INT, _INT, _VOID]
 _BWD = [_VOID] * 10 + [_FLOAT, _INT, _INT, _VOID]
+_RIC = [_VOID] * 12 + [_INT, _INT, _VOID]
 SIGNATURES = {
     "wb_fwd_launch": _FWD,
     "wb_bwd_launch": _BWD,
     "wb_bwd_geometry": [_INT] * 4 + [_VOID],
+    "wb_fwd_geometry": [_INT] * 5 + [_VOID],
+    "wb_fwd_launch_team": [_INT] + _FWD,
+    "wb_fwd_geometry_team": [_INT] * 6 + [_VOID],
     "wb_statics_size": [], "wb_params_size": [_INT, _INT, _INT],
     **{k: v for name in FORMULATIONS for k, v in (
         (f"gen_fwd_{name}", _FWD), (f"gen_bwd_{name}", _BWD),
         (f"gen_statics_size_{name}", []),
         (f"gen_params_size_{name}", [_INT, _INT, _INT]))},
-    **{f"ric_bwd_{nx}x{nu}": [_VOID] * 12 + [_INT, _INT, _VOID]
-       for nx, nu in RICCATI_INSTANCES},
+    **{f"ric_bwd_{nx}x{nu}": _RIC for nx, nu in RICCATI_INSTANCES},
     **{f"fma_peak_{n}": [_VOID, _VOID, _INT, _INT, _INT, _VOID]
        for n in FMA_NACC},
 }
@@ -96,32 +103,53 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _source_hash() -> str:
+def _source_hash(names=HEADERS + SOURCES, defines=()) -> str:
     h = hashlib.sha256()
-    for name in HEADERS + SOURCES:
+    for name in names:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join((*NVCC_FLAGS, *defines)).encode())
     return h.hexdigest()[:16]
 
 
 def build() -> BuildInfo:
     """Compile the kernel library unless an up-to-date one exists."""
-    path = BUILD_DIR / f"libmmmpc_kernels_{_source_hash()}.so"
+    return _build(BUILD_DIR / f"libmmmpc_kernels_{_source_hash()}.so",
+                  SOURCES)
+
+
+def build_riccati_pair(nx: int, nu: int) -> BuildInfo:
+    """Compile ``csrc/riccati.cu`` for the one pair (nx, nu), whose entry is
+    ``ric_bwd_<nx>x<nu>``, unless an up-to-date library exists.  The kernel
+    library holds the pairs of ``RICCATI_INSTANCES``; any other pair is
+    built by this on its first use."""
+    if (nx, nu) in RICCATI_INSTANCES or min(nx, nu) < 1:
+        raise ValueError(f"no pair library for (nx, nu) = {(nx, nu)}")
+    defines = (f"-DRIC_PAIR_NX={nx}", f"-DRIC_PAIR_NU={nu}")
+    digest = _source_hash(("riccati_step.cuh", "riccati.cu"), defines)
+    return _build(BUILD_DIR / f"libmmmpc_riccati_{digest}_{nx}x{nu}.so",
+                  ("riccati.cu",), defines)
+
+
+def _build(path: Path, sources, defines=()) -> BuildInfo:
+    """Compile ``sources`` (one ``nvcc -c`` each, all started together, with
+    ``defines``) and link them into the shared library ``path``, unless it
+    exists; raise with nvcc's output if a step fails."""
     log_path = path.with_suffix(".log")
     if path.exists():
         log = log_path.read_text() if log_path.exists() else ""
         return BuildInfo(path, 0.0, log)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{path.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in SOURCES]
+    objs = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in sources]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
-                               str(CSRC / src)], stdout=subprocess.PIPE,
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, *defines, "-c", "-o",
+                               str(obj), str(CSRC / src)],
+                              stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(SOURCES, objs)]
+             for src, obj in zip(sources, objs)]
     logs, failed = [], []
-    for src, proc in zip(SOURCES, procs):
+    for src, proc in zip(sources, procs):
         out = proc.communicate()[0]
         logs.append(f"== {src}\n{out}")
         if proc.returncode != 0:
@@ -165,6 +193,35 @@ class _Library:
 
 
 LIBRARY = _Library()
+
+
+class RiccatiEntries:
+    """The C entry ``ric_bwd_<nx>x<nu>`` of kernel E for any (nx, nu): from
+    the kernel library for a pair of ``RICCATI_INSTANCES``, else from the
+    pair's own library, built by ``build`` on the pair's first use and
+    loaded by ``load`` once a process.  A failed build raises."""
+
+    def __init__(self, library=LIBRARY, build=build_riccati_pair,
+                 load=ctypes.CDLL):
+        self.library, self.build, self.load = library, build, load
+        self.entries = {}
+        self.info = {}      # (nx, nu) -> BuildInfo of each pair built here
+
+    def get(self, nx: int, nu: int):
+        name = f"ric_bwd_{nx}x{nu}"
+        if (nx, nu) in RICCATI_INSTANCES:
+            return getattr(self.library.get(), name)
+        if (nx, nu) not in self.entries:
+            info = self.build(nx, nu)
+            fn = getattr(self.load(str(info.path)), name)
+            fn.argtypes = _RIC
+            fn.restype = _INT
+            self.info[(nx, nu)] = info
+            self.entries[(nx, nu)] = fn
+        return self.entries[(nx, nu)]
+
+
+RICCATI = RiccatiEntries()
 
 
 def pack_buffer(shapes: dict, params) -> torch.Tensor:

@@ -7,23 +7,28 @@ gradient / Hessian it runs backward over the stages, one Riccati step each
 (Cholesky of Quu + reg I giving kff = -Quu^-1 Qu and K = -Quu^-1 Qux, the
 value update with Quu without reg), with Vxx symmetrised after every step.
 
-On CUDA tensors the call launches ``ric_bwd_<nx>x<nu>`` of the kernel library
-(``csrc/riccati.cu``, one instance per (nx, nu) of the ported controllers);
-on CPU tensors it runs ``plain_riccati_bm``: ``ops.entry_algebra.
-riccati_stage`` in a loop over the stages.
+On CUDA tensors the call launches ``ric_bwd_<nx>x<nu>`` (``csrc/riccati.cu``)
+at any (nx, nu), as the JAX function takes it from its operands: the
+kernel library holds the pairs of the ported controllers, and any other
+pair is compiled into a library of its own on its first call
+(``ops/_cuda.py::RICCATI``); a failed build raises.  On CPU tensors it runs
+``plain_riccati_bm``: ``ops.entry_algebra.riccati_stage`` in a loop over
+the stages.
 """
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from mmmpc_tpu_torch.ops._cuda import (
-    LIBRARY, RICCATI_INSTANCES, LaunchCounter, check_launch, check_tensor,
+    RICCATI, LaunchCounter, check_launch, check_tensor,
 )
 from mmmpc_tpu_torch.ops.entry_algebra import riccati_stage
 
-# dispatches per (nx, nu) instance
-LAUNCHES = {pair: LaunchCounter() for pair in RICCATI_INSTANCES}
+# dispatches per (nx, nu), each pair's counter made on its first use
+LAUNCHES = collections.defaultdict(LaunchCounter)
 
 
 def plain_riccati_bm(lx, lu, lxx, luu, lux, A, Bm, term_g, term_H, reg):
@@ -59,8 +64,7 @@ def riccati_backward_bm(lx, lu, lxx, luu, lux, A, Bm, term_g, term_H, reg):
         return _launch(lx, lu, lxx, luu, lux, A, Bm, term_g, term_H, reg)
     if dev.type != "cpu":
         raise ValueError(f"no riccati_backward_bm for device {dev}")
-    if (nx, nu) in LAUNCHES:
-        LAUNCHES[(nx, nu)].plain += 1
+    LAUNCHES[(nx, nu)].plain += 1
     return plain_riccati_bm(lx, lu, lxx, luu, lux, A, Bm, term_g, term_H, reg)
 
 
@@ -68,9 +72,6 @@ def _launch(lx, lu, lxx, luu, lux, A, Bm, term_g, term_H, reg):
     """Launch ``ric_bwd_<nx>x<nu>`` on the current stream."""
     N, nx, B = lx.shape
     nu = lu.shape[1]
-    if (nx, nu) not in LAUNCHES:
-        raise ValueError(f"riccati_backward_bm: no CUDA instance for (nx, nu) "
-                         f"= {(nx, nu)}; instances: {list(LAUNCHES)}")
     dev = lx.device
     shapes = {"lx": (N, nx, B), "lu": (N, nu, B), "lxx": (N, nx, nx, B),
               "luu": (N, nu, nu, B), "lux": (N, nu, nx, B),
@@ -80,11 +81,10 @@ def _launch(lx, lu, lxx, luu, lux, A, Bm, term_g, term_H, reg):
         shapes.items(), (lx, lu, lxx, luu, lux, A, Bm, term_g, term_H, reg))]
     kw = dict(dtype=torch.float32, device=dev)
     outs = (torch.empty(N, nu, B, **kw), torch.empty(N, nu, nx, B, **kw))
-    lib = LIBRARY.get()
+    entry = RICCATI.get(nx, nu)
     with torch.cuda.device(dev):
-        err = getattr(lib, f"ric_bwd_{nx}x{nu}")(
-            *ptrs, *(o.data_ptr() for o in outs), N, B,
-            torch.cuda.current_stream().cuda_stream)
+        err = entry(*ptrs, *(o.data_ptr() for o in outs), N, B,
+                    torch.cuda.current_stream().cuda_stream)
     check_launch(f"riccati_bwd.{nx}x{nu}", err)
     LAUNCHES[(nx, nu)].cuda += 1
     return outs

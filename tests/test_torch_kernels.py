@@ -227,3 +227,23 @@ def test_bwd_launch_geometry_checks_the_team_size():
 
     assert launch_geometry(Library(), N, 1, 1, 37) == dict(
         team=8, threads=128, blocks=3, smem_bytes=4 * N)
+
+
+def test_fwd_launch_geometry_reports_the_library():
+    """``launch_geometry`` of the line search reports the lanes a
+    candidate, threads, blocks and shared-memory bytes with which the
+    library's ``wb_fwd_launch`` launches, as its ``wb_fwd_geometry`` (here
+    a stand-in) writes them for the problem's sizes, the step sizes and the
+    batch: the candidates of a scenario in one block."""
+    from mmmpc_tpu_torch.ops.wholebody_fwd import launch_geometry
+
+    class Library:
+        def wb_fwd_geometry(self, n, n_obs, n_hp, n_alpha, batch, out):
+            assert (n, n_obs, n_hp) == (N, 1, 1)
+            scen = (128 // 4) // n_alpha
+            out[0], out[1], out[2], out[3] = 4, 128, -(-batch // scen), 4 * n
+            return 0
+
+    assert launch_geometry(Library(), N, 1, 1, 3, 37) == dict(
+        team=4, threads=128, blocks=4, smem_bytes=4 * N)
+    assert launch_geometry(Library(), N, 1, 1, 8, 37)["blocks"] == 10

@@ -13,11 +13,19 @@ package, the plain FMA recurrence of the peak microkernel (kernel F), and
   float64, B=64, N=5, on the qref problem of tests/test_torch_kernels.py and
   the endpoint problem of tests/test_torch_generic_kernels.py: rtol = atol =
   1e-9 (the same closed forms in another op order);
+- ``plain_riccati_bm`` at (nx, nu) = (4, 2), a pair outside the kernel
+  library, against the JAX package's ``riccati_backward_bm`` with its Pallas
+  kernel in interpret mode (B=1024, N=4) at 2e-4, and the dispatch that
+  builds such a pair's CUDA entry on its first use, with a stand-in
+  library, builder and loader;
 - ``plain_fma`` against a numpy loop, exactly; the sweep's trip counts and
   its slope fit.
 """
 
+import ctypes
 import functools
+import types
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -107,6 +115,89 @@ def test_plain_riccati_matches_jax(dims, per_scenario_reg):
                                np.asarray(kff_r), rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(K.permute(3, 0, 1, 2).numpy(),
                                np.asarray(K_r), rtol=2e-4, atol=2e-4)
+
+
+def test_plain_riccati_matches_the_pallas_kernel_at_a_new_pair(monkeypatch):
+    """At (nx, nu) = (4, 2), a pair that no controller of the port has and
+    that its kernel library does not hold, the plain sweep against the JAX
+    package's ``riccati_backward_bm`` (its Pallas kernel in interpret mode,
+    as tests/test_pallas_riccati.py runs it, at a batch of 1024, which the
+    kernel's tiling asks for) at the Pallas test's rtol = atol = 2e-4; the
+    pair's launch counter is made on its first use."""
+    import jax.experimental.pallas as pl
+    import mmmpc_tpu.ops.riccati as ric_j
+    orig_call = pl.pallas_call
+
+    def interp_call(*args, **kw):
+        kw["interpret"] = True
+        return orig_call(*args, **kw)
+
+    monkeypatch.setattr(ric_j.pl, "pallas_call", interp_call)
+    dims, batch = (4, 2), 1024
+    assert dims not in RICCATI_INSTANCES
+    blocks = [np.moveaxis(a, 0, -1) for a in spd_blocks(*dims, batch=batch)]
+    kff_r, K_r = ric_j.riccati_backward_bm(
+        *(jnp.asarray(a) for a in blocks), 1e-6)
+
+    riccati.LAUNCHES.pop(dims, None)
+    kff, K = riccati.riccati_backward_bm(
+        *(torch.as_tensor(np.ascontiguousarray(a)) for a in blocks), 1e-6)
+    assert (riccati.LAUNCHES[dims].cuda, riccati.LAUNCHES[dims].plain) == (0, 1)
+    np.testing.assert_allclose(kff.numpy(), np.asarray(kff_r), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(K.numpy(), np.asarray(K_r), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_riccati_entry_builds_a_new_pair_once():
+    """The CUDA entry of kernel E at any (nx, nu), with a stand-in kernel
+    library, builder and loader: the four pairs of the library never
+    build; (4, 2) builds once, on its first use, into a library whose entry
+    is ``ric_bwd_4x2``, and a second use takes it again; a failed build
+    raises, and is tried anew at the next use."""
+    from mmmpc_tpu_torch.ops._cuda import BuildInfo, RiccatiEntries
+
+    def entry():
+        return lambda *args: 0
+
+    class Library:
+        def get(self):
+            return types.SimpleNamespace(**{f"ric_bwd_{nx}x{nu}": entry()
+                                            for nx, nu in RICCATI_INSTANCES})
+
+    builds, loads = [], []
+
+    def build(nx, nu):
+        builds.append((nx, nu))
+        if (nx, nu) == (7, 3):
+            raise RuntimeError("nvcc failed (riccati.cu)")
+        return BuildInfo(Path(f"libpair_{nx}x{nu}.so"), 1.5, "ptxas info")
+
+    def load(path):
+        loads.append(path)
+        return types.SimpleNamespace(ric_bwd_4x2=entry())
+
+    entries = RiccatiEntries(Library(), build, load)
+    for nx, nu in RICCATI_INSTANCES:
+        entries.get(nx, nu)
+    assert builds == [] and loads == []
+    fn = entries.get(4, 2)
+    assert builds == [(4, 2)] and loads == ["libpair_4x2.so"]
+    assert fn.argtypes[-3:] == [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    assert fn.restype is ctypes.c_int
+    assert entries.get(4, 2) is fn and builds == [(4, 2)]
+    assert entries.info[(4, 2)].seconds == 1.5
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            entries.get(7, 3)
+    assert builds == [(4, 2), (7, 3), (7, 3)] and len(loads) == 1
+
+
+def test_riccati_pair_build_takes_only_new_pairs():
+    from mmmpc_tpu_torch.ops._cuda import build_riccati_pair
+    for dims in (*RICCATI_INSTANCES, (0, 2), (4, 0)):
+        with pytest.raises(ValueError, match="no pair library"):
+            build_riccati_pair(*dims)
 
 
 def test_riccati_wrapper_rejects_other_devices():
@@ -212,10 +303,11 @@ def test_peak_needs_a_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dims", RICCATI_INSTANCES)
+@pytest.mark.parametrize("dims", (*RICCATI_INSTANCES, (4, 2)))
 def test_cuda_riccati_matches_plain(dims):
     """Each CUDA instance against the plain sweep on the card, same SPD
-    blocks, at the Pallas test's 2e-4."""
+    blocks, at the Pallas test's 2e-4; (4, 2) builds its own library on its
+    first use."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU build)")
     args = [_bl(a).cuda() for a in spd_blocks(*dims)]
