@@ -34,9 +34,13 @@ Phases, each reported on its own lines; any failure exits nonzero:
    launch (launches replayed from a CUDA graph), the wall time per wrapper
    call and the plain version's (CUDA events), and the least time the card
    could take (bytes moved over 3.35 TB/s against operations over the
-   published 67 TFLOP/s float32, and over the measured peak); kernel B
-   also at the ragged batches 8191, 1000 and 1 against its plain version,
-   with its launch geometry (``[kernel-batch]``);
+   published 67 TFLOP/s float32, and over the measured peak); kernels A
+   and B also at the ragged batches 8191, 1000 and 1 against their plain
+   versions, with their launch geometry (``[kernel-batch]``); kernel E also
+   at (nx, nu) = (4, 2), which the kernel library does not hold: the
+   pair's own library built on its first call (``[build-pair]``: seconds,
+   the pair's launches in that call; ptxas registers / spills), then
+   against its plain version on the SPD blocks at 2e-4;
 4. slice: the refined whole-body qref solve of ``bench.py`` at batch 8192
    (one warm-up solve with the kernel launch counters reset just before it,
    then 10 solves timed one by one): median and quartiles of the solve time,
@@ -70,7 +74,8 @@ Phases, each reported on its own lines; any failure exits nonzero:
 
 Each phase from 2b on prints its wall seconds (``[phase]``), and each
 profiled solve the seconds the profile took.  The last two lines are a
-JSON record of the kernels and ``{"ok": true, "device": {...}}``.
+JSON record of the kernels (E at (4, 2), on no solve path, with its
+launches in its own check) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -385,18 +390,20 @@ def check_new_pair(device, peak, dims=(4, 2)):
     riccati.riccati_backward_bm(*blocks, reg)
     torch.cuda.synchronize()
     c = riccati.LAUNCHES[dims]
-    if (c.cuda, c.plain) != (1, 0):
-        raise AssertionError(f"{name}: {c.cuda} launches and {c.plain} plain "
-                             f"calls in one call on the card, expected 1, 0")
+    launches = c.cuda
+    if (launches, c.plain) != (1, 0):
+        raise AssertionError(f"{name}: {launches} launches and {c.plain} "
+                             f"plain calls in one call on the card, "
+                             f"expected 1, 0")
     info = RICCATI.info[dims]
     _line("build-pair", name=name, seconds=f"{info.seconds:.1f}",
-          library=info.path.name, launches=c.cuda)
+          library=info.path.name, launches=launches)
     for ln in info.log.splitlines():
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print("[ptxas] " + ln.strip(), flush=True)
     out = check_riccati("spd", blocks, reg,
                         _gains_check(f"{name} spd", 2e-4, 2e-4), peak)
-    return dict(out, launches=c.cuda)
+    return dict(out, launches=launches)
 
 
 def check_bwd_batches(bwd, bargs, bwd_check):
@@ -443,26 +450,6 @@ def check_fwd_batches(fwd, fargs):
                                 len(fwd.alphas), n))
 
 
-def check_fwd_teams(fwd, fargs):
-    """Kernel A at each team size the library builds, at the bench shape:
-    its error against the plain version, its device time and geometry."""
-    from mmmpc_tpu_torch.ops._cuda import LIBRARY
-    from mmmpc_tpu_torch.ops.wholebody_fwd import launch_geometry
-
-    ref = fwd.plain(*fargs)
-    # 100 T + the blocks per SM of __launch_bounds__
-    for team in (204, 404, 406, 408, 804):
-        got = fwd.cuda(*fargs, team=team)
-        torch.cuda.synchronize()
-        err = _fwd_check(f"wholebody_fwd T={team}", got, ref)
-        _line("kernel-team", name="wholebody_fwd", variant=team,
-              max_abs_err=f"{err:.4g}",
-              max_abs_err_cost=f"{(got[3] - ref[3]).abs().max().item():.4g}",
-              ms=f"{_kernel_ms(lambda: fwd.cuda(*fargs, team=team), 20):.4f}",
-              **launch_geometry(LIBRARY.get(), fwd.N, fwd.n_obs, fwd.n_hp,
-                                len(fwd.alphas), fargs[0].shape[-1], team))
-
-
 def check_wholebody(mpc, x0, params, cfg, device, peak, kinds):
     """Phase 3, kernels A and B on the qref bench problem (B also by
     ``check_bwd_batches``), E on the expansion blocks of B's inputs and on
@@ -501,7 +488,6 @@ def check_wholebody(mpc, x0, params, cfg, device, peak, kinds):
                      peak, kinds)
     if "wholebody_fwd" in kinds:
         check_fwd_batches(fwd, fargs)
-        check_fwd_teams(fwd, fargs)
     if "wholebody_bwd" in kinds:
         check_bwd_batches(bwd, bargs, bwd_check)
     if "riccati_bwd" not in kinds:

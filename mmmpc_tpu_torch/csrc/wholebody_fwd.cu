@@ -22,14 +22,18 @@
 // (wholebody_bwd.cu):
 //
 // - A team of T lanes of one warp per candidate (T a template parameter,
-//   launched at FWD_TEAM), 128 threads a block, at most 128 registers a
-//   thread (__launch_bounds__), with no spill.  The n_alpha candidates of
-//   a scenario are neighbouring teams of one block, which holds
-//   (128 / T) / n_alpha scenarios; the teams left over idle.
+//   launched at FWD_TEAM = 2), 128 threads a block, at most 128 registers
+//   a thread (__launch_bounds__), with no spill.  The n_alpha candidates
+//   of a scenario are neighbouring teams of one block, which holds
+//   (128 / T) / n_alpha scenarios, at most FWD_SCEN; the teams left over
+//   idle.  Fewer lanes a candidate ran faster (PERF.md): the work that
+//   every lane repeats (the chain's step, the FK's algebra, the errors)
+//   grows with T, and the card is full at batch 8192 with T = 2.
 // - The chain, split: the five rows of U + alpha kff + K dx on lanes, u
 //   exchanged by shuffles, then the step in every lane, so every lane
 //   holds the same x.  The four sincos of the FK (q1, q1 - q2,
-//   q1 - q2 - q3, psi) on four lanes, exchanged by shuffles.
+//   q1 - q2 - q3, psi) over the lanes (two each at T = 2), exchanged by
+//   shuffles.
 // - Off the chain, as items over the lanes: the half-plane samples, the
 //   ground circles, the self-collision spheres, and at k = N-1 the stale
 //   terminal self-collision rows of x_N (each family a loop of its own, so
@@ -71,8 +75,11 @@ namespace wb {
 
 constexpr int FWD_THREADS = 128;
 constexpr int FWD_MIN_BLOCKS = 4;   // __launch_bounds__: <= 128 registers
-// Lanes a candidate (the times of each team size in PERF.md).
-constexpr int FWD_TEAM = 4;
+// Lanes a candidate.  The kernel is written for a team of 2, 4, 8, ...; 2
+// was the fastest at batch 8192 (the times of each in PERF.md).
+constexpr int FWD_TEAM = 2;
+// The most scenarios a block holds: the stride of the stage buffer.
+constexpr int FWD_SCEN = 32;
 constexpr unsigned FWD_FULL = 0xffffffffu;
 // One scenario's inputs of a stage, in the buffer's element order.
 constexpr int IN_X = 0;
@@ -96,23 +103,29 @@ constexpr int NOUT = NX + NU;
 // pushed out by EXPAND along its normal n.
 constexpr int FWD_HF = 8;
 
+// The scenarios of a block: its teams over the step sizes, at most
+// FWD_SCEN.
+__host__ __device__ constexpr int fwd_scen(int team, int n_alpha) {
+  return (FWD_THREADS / team) / n_alpha < FWD_SCEN
+             ? (FWD_THREADS / team) / n_alpha : FWD_SCEN;
+}
+
 // Offsets (floats) of the parts of a block's shared memory.  The stage
-// buffer and the terminal multipliers take a stride of 128 / T scenarios,
-// the most a block holds, so their offsets are constants.
+// buffer and the terminal multipliers take a stride of FWD_SCEN scenarios,
+// so their offsets are constants.
 struct FwdSmem {
   int hf, rows, in, term, vec, sv, ps, size;
 };
 
 __host__ __device__ inline FwdSmem fwd_smem(int team, int N, int n_obs,
                                             int n_hp) {
-  const int teams = FWD_THREADS / team;
   FwdSmem m;
   int o = 0;
   m.hf = o;    o += FWD_HF * n_hp;
   m.rows = o;  o += 4 * NC;
-  m.in = o;    o += 2 * FWD_NIN * teams;
-  m.term = o;  o += FWD_NTERM * teams;
-  m.vec = o;   o += 2 * NV * teams;
+  m.in = o;    o += 2 * FWD_NIN * FWD_SCEN;
+  m.term = o;  o += FWD_NTERM * FWD_SCEN;
+  m.vec = o;   o += 2 * NV * (FWD_THREADS / team);
   m.sv = o;    o += ST_SIZE;
   m.ps = o;    o += param_layout(N, n_obs, n_hp).size;
   m.size = o;
@@ -310,8 +323,8 @@ __device__ __forceinline__ float phr_rows(const float* rt, const float* v,
   return pen;
 }
 
-template <int T, int MINB>
-__global__ void __launch_bounds__(FWD_THREADS, MINB)
+template <int T>
+__global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS)
 fwd_kernel(const Statics st, const float* __restrict__ pp,
            const float* __restrict__ X, const float* __restrict__ U,
            const float* __restrict__ kff, const float* __restrict__ K,
@@ -319,13 +332,14 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
            const float* __restrict__ lame, float* __restrict__ Xc,
            float* __restrict__ Uc, float* __restrict__ xlast,
            float* __restrict__ cost, float mu, int N, int B) {
-  constexpr int TEAMS = FWD_THREADS / T;   // the most scenarios a block
+  constexpr int TEAMS = FWD_THREADS / T;
+  constexpr int SC = FWD_SCEN;             // the stage buffer's stride
   constexpr int ROWS = (NU + T - 1) / T;   // control rows a lane
   extern __shared__ __align__(16) float smem[];
   const int na = static_cast<int>(st.v[ST_N_ALPHA]);
   const int n_obs = static_cast<int>(st.v[ST_N_OBS]);
   const int n_hp = static_cast<int>(st.v[ST_N_HP]);
-  const int scen = TEAMS / na;             // scenarios of this block
+  const int scen = fwd_scen(T, na);        // scenarios of this block
   const Layout L = param_layout(N, n_obs, n_hp);
   const FwdSmem M = fwd_smem(T, N, n_obs, n_hp);
   float* hf = smem + M.hf;        // half-plane faces
@@ -357,16 +371,16 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
     const float* p = src + static_cast<long long>(first + ci) * B + cb;
     const long long step = static_cast<long long>(per) * B;
 #pragma unroll 4
-    for (int i = ci; i < n; i += per, p += step) cp_async4(dst + i * TEAMS, p);
+    for (int i = ci; i < n; i += per, p += step) cp_async4(dst + i * SC, p);
   };
   // stage k's inputs into buffer k & 1
   auto issue_stage = [&](int k) {
-    float* dst = inbuf + (k & 1) * FWD_NIN * TEAMS + cs;
-    copy_rows(dst + IN_X * TEAMS, X, k * NX, NX);
-    copy_rows(dst + IN_U * TEAMS, U, k * NU, NU);
-    copy_rows(dst + IN_KFF * TEAMS, kff, k * NU, NU);
-    copy_rows(dst + IN_K * TEAMS, K, k * NU * NX, NU * NX);
-    copy_rows(dst + IN_LAM * TEAMS, lam, k * NC, NC);
+    float* dst = inbuf + (k & 1) * FWD_NIN * SC + cs;
+    copy_rows(dst + IN_X * SC, X, k * NX, NX);
+    copy_rows(dst + IN_U * SC, U, k * NU, NU);
+    copy_rows(dst + IN_KFF * SC, kff, k * NU, NU);
+    copy_rows(dst + IN_K * SC, K, k * NU * NX, NU * NX);
+    copy_rows(dst + IN_LAM * SC, lam, k * NC, NC);
   };
   // stage k's outputs x_k, u_k from the vectors of its parity
   auto store_out = [&](int k) {
@@ -387,7 +401,7 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
   // statics, the PHR row table and the faces meanwhile
   for (int i = tid; i < L.size; i += FWD_THREADS) cp_async4(ps + i, pp + i);
   copy_rows(tb + cs, lamt, 0, NCT);
-  copy_rows(tb + NCT * TEAMS + cs, lame, 0, 2);
+  copy_rows(tb + NCT * SC + cs, lame, 0, 2);
   issue_stage(0);
   cp_async_commit();
   if (tid == 0) {
@@ -435,10 +449,10 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
     if (k + 1 < N) issue_stage(k + 1);
     cp_async_commit();
     if (k > 0) store_out(k - 1);
-    const float* in = inbuf + (k & 1) * FWD_NIN * TEAMS + s;
+    const float* in = inbuf + (k & 1) * FWD_NIN * SC + s;
     if (k == 0) {
 #pragma unroll
-      for (int i = 0; i < NX; ++i) x[i] = in[(IN_X + i) * TEAMS];
+      for (int i = 0; i < NX; ++i) x[i] = in[(IN_X + i) * SC];
     }
     const float alpha = sv[ST_ALPHAS + a];
 
@@ -446,15 +460,15 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
     // clamped, u exchanged by shuffles; the step in every lane
     float dx[NX];
 #pragma unroll
-    for (int j = 0; j < NX; ++j) dx[j] = x[j] - in[(IN_X + j) * TEAMS];
+    for (int j = 0; j < NX; ++j) dx[j] = x[j] - in[(IN_X + j) * SC];
     float ur[ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       const int i = min(lane + r * T, NU - 1);   // past NU: a copy, unused
       float fb = 0.f;
 #pragma unroll
-      for (int j = 0; j < NX; ++j) fb += in[(IN_K + i * NX + j) * TEAMS] * dx[j];
-      const float v = in[(IN_U + i) * TEAMS] + alpha * in[(IN_KFF + i) * TEAMS] + fb;
+      for (int j = 0; j < NX; ++j) fb += in[(IN_K + i * NX + j) * SC] * dx[j];
+      const float v = in[(IN_U + i) * SC] + alpha * in[(IN_KFF + i) * SC] + fb;
       ur[r] = clampf(v, sv[ST_ULO + i], sv[ST_UHI + i]);
     }
     float u[NU];
@@ -512,8 +526,7 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
     tr += qform_rows<T, NX>(ps + L.Q, ex, v + V_EX, lane);
     tr += qform_rows<T, NU>(ps + L.R, eu, v + V_EU, lane);
     tr += qform_rows<T, NU>(ps + L.W, ed, v + V_ED, lane);
-    const float pen = phr_rows<T, NC>(rt, v, in + IN_LAM * TEAMS, TEAMS, mu,
-                                      lane);
+    const float pen = phr_rows<T, NC>(rt, v, in + IN_LAM * SC, SC, mu, lane);
     acc += inv_scale * tr + pen * inv2mu;
 #pragma unroll
     for (int i = 0; i < NX; ++i) x[i] = xn[i];
@@ -545,12 +558,12 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
     float tr = lane == 0 ? ps[L.S] * smax * smax : 0.f;
     tr += qform_rows<T, NX>(ps + L.P, ex, v + V_EX, lane);
     const float* lt = tb + s;
-    const float pen = phr_rows<T, NCT>(rt, v, lt, TEAMS, mu, lane);
+    const float pen = phr_rows<T, NCT>(rt, v, lt, SC, mu, lane);
     const float m = ps[L.eqm];
     float peneq = 0.f;
     for (int i = lane; i < 2; i += T) {
       const float h = m * v[V_EX + i];
-      peneq += lt[(NCT + i) * TEAMS] * h + 0.5f * mu * h * h;
+      peneq += lt[(NCT + i) * SC] * h + 0.5f * mu * h * h;
     }
     acc += inv_scale * tr + pen * inv2mu + peneq;
   }
@@ -578,12 +591,12 @@ struct FwdGeometry {
 
 inline FwdGeometry fwd_geometry(int team, int N, int n_obs, int n_hp,
                                 int n_alpha, int B) {
-  const int scen = (FWD_THREADS / team) / n_alpha;
+  const int scen = fwd_scen(team, n_alpha);
   return {team, FWD_THREADS, (B + scen - 1) / scen,
           fwd_smem(team, N, n_obs, n_hp).size * static_cast<int>(sizeof(float))};
 }
 
-template <int T, int MINB = FWD_MIN_BLOCKS>
+template <int T>
 int fwd_launch(const Statics& st, const float* params, const float* X,
                const float* U, const float* kff, const float* K,
                const float* lam, const float* lamt, const float* lame,
@@ -594,11 +607,10 @@ int fwd_launch(const Statics& st, const float* params, const float* X,
       static_cast<int>(st.v[ST_N_ALPHA]), B);
   if (g.smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fwd_kernel<T, MINB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        g.smem);
+        fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  fwd_kernel<T, MINB><<<g.blocks, g.threads, g.smem, stream>>>(
+  fwd_kernel<T><<<g.blocks, g.threads, g.smem, stream>>>(
       st, params, X, U, kff, K, lam, lamt, lame, Xc, Uc, xlast, cost, mu, N, B);
   return static_cast<int>(cudaGetLastError());
 }
@@ -645,38 +657,3 @@ extern "C" int wb_params_size(int N, int n_obs, int n_hp) {
   return wb::param_layout(N, n_obs, n_hp).size;
 }
 
-// Development only: the kernel and its geometry at team size 4, 8 or 16.
-extern "C" int wb_fwd_launch_team(int team, const float* statics,
-                                  const float* params, const float* X,
-                                  const float* U, const float* kff,
-                                  const float* K, const float* lam,
-                                  const float* lamt, const float* lame,
-                                  float* Xc, float* Uc, float* xlast,
-                                  float* cost, float mu, int N, int B,
-                                  void* stream) {
-  wb::Statics st;
-  std::memcpy(st.v, statics, sizeof(st.v));
-  const int na = static_cast<int>(st.v[wb::ST_N_ALPHA]);
-  if (na <= 0 || B <= 0 || N <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FWD_CASE(t, m)                                                     \
-  case 100 * t + m:                                                        \
-    return wb::fwd_launch<t, m>(st, params, X, U, kff, K, lam, lamt, lame,  \
-                                Xc, Uc, xlast, cost, mu, N, B, s);
-  // team = 100 T + the blocks per SM of __launch_bounds__
-  switch (team) {
-    FWD_CASE(2, 4) FWD_CASE(4, 4) FWD_CASE(4, 6) FWD_CASE(4, 8) FWD_CASE(8, 4)
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-extern "C" int wb_fwd_geometry_team(int team, int N, int n_obs, int n_hp,
-                                    int n_alpha, int B, int* out) {
-  const wb::FwdGeometry g =
-      wb::fwd_geometry(team / 100, N, n_obs, n_hp, n_alpha, B);
-  out[0] = g.team;
-  out[1] = g.threads;
-  out[2] = g.blocks;
-  out[3] = g.smem;
-  return 0;
-}

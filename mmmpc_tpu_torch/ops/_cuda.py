@@ -81,8 +81,6 @@ SIGNATURES = {
     "wb_bwd_launch": _BWD,
     "wb_bwd_geometry": [_INT] * 4 + [_VOID],
     "wb_fwd_geometry": [_INT] * 5 + [_VOID],
-    "wb_fwd_launch_team": [_INT] + _FWD,
-    "wb_fwd_geometry_team": [_INT] * 6 + [_VOID],
     "wb_statics_size": [], "wb_params_size": [_INT, _INT, _INT],
     **{k: v for name in FORMULATIONS for k, v in (
         (f"gen_fwd_{name}", _FWD), (f"gen_bwd_{name}", _BWD),

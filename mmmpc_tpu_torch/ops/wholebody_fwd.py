@@ -13,7 +13,7 @@ terminal boxes, the maskable position equality) at the end, so the returned
 per-candidate costs are complete.
 
 On CUDA tensors the call launches the hand-written kernel
-``csrc/wholebody_fwd.cu``: a team of lanes per candidate (scenario, step
+``csrc/wholebody_fwd.cu``: a team of 2 lanes per candidate (scenario, step
 size), the candidates of a scenario in one block; the control rows, the
 FK's sincos, the slack rows and the rows of the cost split over the lanes
 and merged by shuffles; the packed params and a two-stage buffer of the
@@ -50,16 +50,13 @@ NC = 2 * NX + 2 * NU
 LAUNCHES = LaunchCounter()
 
 
-def launch_geometry(lib, N, n_obs, n_hp, n_alpha, B, team=None):
+def launch_geometry(lib, N, n_obs, n_hp, n_alpha, B):
     """{team, threads, blocks, smem_bytes}: the lanes a candidate, threads a
     block, blocks and dynamic shared-memory bytes with which the library's
     ``wb_fwd_launch`` launches the kernel at batch ``B`` with ``n_alpha``
     step sizes, as its ``wb_fwd_geometry`` reports them."""
     out = (ctypes.c_int * 4)()
-    if team is None:
-        lib.wb_fwd_geometry(N, n_obs, n_hp, n_alpha, B, out)
-    else:
-        lib.wb_fwd_geometry_team(team, N, n_obs, n_hp, n_alpha, B, out)
+    lib.wb_fwd_geometry(N, n_obs, n_hp, n_alpha, B, out)
     return dict(team=out[0], threads=out[1], blocks=out[2], smem_bytes=out[3])
 
 # ---- the packed per-problem buffer (Par* offsets in the CUDA header) ----
@@ -151,7 +148,7 @@ class FwdLinesearch:
                          self.alphas, self.inv_scale, X, U, kff, K, lam, lamt,
                          lame, mu)
 
-    def cuda(self, X, U, kff, K, lam, lamt, lame, mu, team=None):
+    def cuda(self, X, U, kff, K, lam, lamt, lame, mu):
         """Launch ``csrc/wholebody_fwd.cu`` on the current stream."""
         N, B, na = self.N, X.shape[-1], len(self.alphas)
         ptrs = [check_tensor("params", self.flat, (self.flat.numel(),),
@@ -168,12 +165,10 @@ class FwdLinesearch:
                 torch.empty(na, NX, B, **kw), torch.empty(na, B, **kw))
         lib = LIBRARY.get()
         check_layout(lib, self.statics, self.flat, N, self.n_obs, self.n_hp)
-        args = (self.statics.ctypes.data, *ptrs,
-                *(o.data_ptr() for o in outs), float(mu), N, B,
-                torch.cuda.current_stream().cuda_stream)
         with torch.cuda.device(X.device):
-            err = (lib.wb_fwd_launch(*args) if team is None
-                   else lib.wb_fwd_launch_team(team, *args))
+            err = lib.wb_fwd_launch(
+                self.statics.ctypes.data, *ptrs, *(o.data_ptr() for o in outs),
+                float(mu), N, B, torch.cuda.current_stream().cuda_stream)
         check_launch("wholebody_fwd", err)
         LAUNCHES.cuda += 1
         return outs

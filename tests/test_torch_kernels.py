@@ -240,10 +240,10 @@ def test_fwd_launch_geometry_reports_the_library():
     class Library:
         def wb_fwd_geometry(self, n, n_obs, n_hp, n_alpha, batch, out):
             assert (n, n_obs, n_hp) == (N, 1, 1)
-            scen = (128 // 4) // n_alpha
-            out[0], out[1], out[2], out[3] = 4, 128, -(-batch // scen), 4 * n
+            scen = min((128 // 2) // n_alpha, 32)
+            out[0], out[1], out[2], out[3] = 2, 128, -(-batch // scen), 4 * n
             return 0
 
     assert launch_geometry(Library(), N, 1, 1, 3, 37) == dict(
-        team=4, threads=128, blocks=4, smem_bytes=4 * N)
-    assert launch_geometry(Library(), N, 1, 1, 8, 37)["blocks"] == 10
+        team=2, threads=128, blocks=2, smem_bytes=4 * N)
+    assert launch_geometry(Library(), N, 1, 1, 8, 37)["blocks"] == 5
