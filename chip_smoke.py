@@ -251,16 +251,22 @@ def check_pair(name, fwd, bwd, fargs, bargs, counts, bwd_check, peak,
     return out
 
 
+def _fwd_errors(name, got, ref):
+    """Max abs errors (X / U, cost) of a forward pass against its plain
+    version, held at X / U atol 2e-5 and cost rtol = atol 2e-3."""
+    return (max(_close(f"{name} Xc", got[0], ref[0], 0.0, 2e-5),
+                _close(f"{name} Uc", got[1], ref[1], 0.0, 2e-5),
+                _close(f"{name} xlast", got[2], ref[2], 0.0, 2e-5)),
+            _close(f"{name} cost", got[3], ref[3], 2e-3, 2e-3))
+
+
 def _check_fwd(name, fwd, fargs, counts, peak):
     """The forward half of ``check_pair``."""
     N, B, na, nx, nu, nc, nct = counts
     out = {}
     got, ref = fwd.cuda(*fargs), fwd.plain(*fargs)
     torch.cuda.synchronize()
-    err = max(_close(f"{name} Xc", got[0], ref[0], 0.0, 2e-5),
-              _close(f"{name} Uc", got[1], ref[1], 0.0, 2e-5),
-              _close(f"{name} xlast", got[2], ref[2], 0.0, 2e-5))
-    err_cost = _close(f"{name} cost", got[3], ref[3], 2e-3, 2e-3)
+    err, err_cost = _fwd_errors(name, got, ref)
     out[name] = dict(
         max_abs_err=max(err, err_cost),
         ms=_kernel_ms(lambda: fwd.cuda(*fargs), 20),
@@ -423,15 +429,6 @@ def check_bwd_batches(bwd, bargs, bwd_check):
               **launch_geometry(LIBRARY.get(), bwd.N, bwd.n_obs, bwd.n_hp, n))
 
 
-def _fwd_check(name, got, ref):
-    """Max abs error of a forward pass against its plain version: X / U
-    atol 2e-5, cost rtol = atol 2e-3 (as ``_check_fwd``)."""
-    return max(_close(f"{name} Xc", got[0], ref[0], 0.0, 2e-5),
-               _close(f"{name} Uc", got[1], ref[1], 0.0, 2e-5),
-               _close(f"{name} xlast", got[2], ref[2], 0.0, 2e-5),
-               _close(f"{name} cost", got[3], ref[3], 2e-3, 2e-3))
-
-
 def check_fwd_batches(fwd, fargs):
     """Phase 3, kernel A beyond the bench shape: at the ragged batches 8191,
     1000 and 1 (the first ``n`` scenarios of ``fargs``) against its plain
@@ -445,7 +442,7 @@ def check_fwd_batches(fwd, fargs):
         got, ref = fwd.cuda(*args), fwd.plain(*args)
         torch.cuda.synchronize()
         _line("kernel-batch", name="wholebody_fwd", B=n,
-              max_abs_err=f"{_fwd_check('wholebody_fwd', got, ref):.4g}",
+              max_abs_err=f"{max(_fwd_errors('wholebody_fwd', got, ref)):.4g}",
               **launch_geometry(LIBRARY.get(), fwd.N, fwd.n_obs, fwd.n_hp,
                                 len(fwd.alphas), n))
 

@@ -32,8 +32,7 @@
 // - The chain, split: the five rows of U + alpha kff + K dx on lanes, u
 //   exchanged by shuffles, then the step in every lane, so every lane
 //   holds the same x.  The four sincos of the FK (q1, q1 - q2,
-//   q1 - q2 - q3, psi) over the lanes (two each at T = 2), exchanged by
-//   shuffles.
+//   q1 - q2 - q3, psi) two on each lane, exchanged by shuffles.
 // - Off the chain, as items over the lanes: the half-plane samples, the
 //   ground circles, the self-collision spheres, and at k = N-1 the stale
 //   terminal self-collision rows of x_N (each family a loop of its own, so
@@ -75,8 +74,8 @@ namespace wb {
 
 constexpr int FWD_THREADS = 128;
 constexpr int FWD_MIN_BLOCKS = 4;   // __launch_bounds__: <= 128 registers
-// Lanes a candidate.  The kernel is written for a team of 2, 4, 8, ...; 2
-// was the fastest at batch 8192 (the times of each in PERF.md).
+// Lanes a candidate: 2 was the fastest of 2, 4 and 8 at batch 8192 (the
+// times of each in PERF.md); the FK's split is written for 2.
 constexpr int FWD_TEAM = 2;
 // The most scenarios a block holds: the stride of the stage buffer.
 constexpr int FWD_SCEN = 32;
@@ -152,7 +151,7 @@ __device__ __forceinline__ float max_nan(float m, float v) {
 
 // The world points (j2, j3, ee) of the arm and the base yaw's cos / sin:
 // fk of wholebody_common.cuh without the partials, its four sincos split
-// over four lanes of the team and exchanged by shuffles.
+// over the team's two lanes and exchanged by shuffles.
 struct Pts {
   float cp, sp;
   float pt[3][3];   // world point p (j2, j3, ee), coordinate c
@@ -161,32 +160,20 @@ struct Pts {
 template <int T>
 __device__ __forceinline__ void fk_pts_team(const float* x, int lane,
                                             Pts& f) {
-  static_assert(T >= 2, "the FK's four sincos take two lanes or more");
-  // the angles q1, q1 - q2, q1 - q2 - q3, psi: angle q on lane q (T >= 4),
-  // or angles lane and lane + 2 on each of two lanes
+  static_assert(T == 2, "the FK's sincos are split over two lanes");
+  // lane 0: q1 and q1 - q2 - q3; lane 1: q1 - q2 and psi
   const float th = x[6] - x[7];
-  const float ang[4] = {x[6], th, th - x[8], x[2]};
-  float sa, ca, sa2 = 0.f, ca2 = 0.f;
-  int b;
-  if constexpr (T >= 4) {
-    const int q = lane & 3;
-    sincosf(q == 0 ? ang[0] : q == 1 ? ang[1] : q == 2 ? ang[2] : ang[3], &sa,
-            &ca);
-    b = lane & ~3;
-  } else {
-    sincosf(lane == 0 ? ang[0] : ang[1], &sa, &ca);
-    sincosf(lane == 0 ? ang[2] : ang[3], &sa2, &ca2);
-    b = 0;
-  }
-  const int l1 = b + 1, l2 = T >= 4 ? b + 2 : 0, l3 = T >= 4 ? b + 3 : 1;
-  const float s1 = __shfl_sync(FWD_FULL, sa, b, T);
-  const float c1 = __shfl_sync(FWD_FULL, ca, b, T);
-  const float st = __shfl_sync(FWD_FULL, sa, l1, T);
-  const float ct = __shfl_sync(FWD_FULL, ca, l1, T);
-  const float sb = __shfl_sync(FWD_FULL, T >= 4 ? sa : sa2, l2, T);
-  const float cb = __shfl_sync(FWD_FULL, T >= 4 ? ca : ca2, l2, T);
-  f.sp = __shfl_sync(FWD_FULL, T >= 4 ? sa : sa2, l3, T);
-  f.cp = __shfl_sync(FWD_FULL, T >= 4 ? ca : ca2, l3, T);
+  float sa, ca, sa2, ca2;
+  sincosf(lane == 0 ? x[6] : th, &sa, &ca);
+  sincosf(lane == 0 ? th - x[8] : x[2], &sa2, &ca2);
+  const float s1 = __shfl_sync(FWD_FULL, sa, 0, T);
+  const float c1 = __shfl_sync(FWD_FULL, ca, 0, T);
+  const float st = __shfl_sync(FWD_FULL, sa, 1, T);
+  const float ct = __shfl_sync(FWD_FULL, ca, 1, T);
+  const float sb = __shfl_sync(FWD_FULL, sa2, 0, T);
+  const float cb = __shfl_sync(FWD_FULL, ca2, 0, T);
+  f.sp = __shfl_sync(FWD_FULL, sa2, 1, T);
+  f.cp = __shfl_sync(FWD_FULL, ca2, 1, T);
 
   const float ax2 = A2 * s1 + A3 * c1;
   const float az2 = A2 * c1 - A3 * s1;
