@@ -17,7 +17,7 @@ package, the plain FMA recurrence of the peak microkernel (kernel F), and
   library, against the JAX package's ``riccati_backward_bm`` with its Pallas
   kernel in interpret mode (B=1024, N=4) at 2e-4, and the dispatch that
   builds such a pair's CUDA entry on its first use, with a stand-in
-  library, builder and loader;
+  kernel library, build function and loader;
 - ``plain_fma`` against a numpy loop, exactly; the sweep's trip counts and
   its slope fit.
 """
@@ -151,10 +151,10 @@ def test_plain_riccati_matches_the_pallas_kernel_at_a_new_pair(monkeypatch):
 
 def test_riccati_entry_builds_a_new_pair_once():
     """The CUDA entry of kernel E at any (nx, nu), with a stand-in kernel
-    library, builder and loader: the four pairs of the library never
-    build; (4, 2) builds once, on its first use, into a library whose entry
-    is ``ric_bwd_4x2``, and a second use takes it again; a failed build
-    raises, and is tried anew at the next use."""
+    library, build function and loader: the four pairs of the library
+    never build; (4, 2) builds once, on its first use, into a library whose
+    entry is ``ric_bwd_4x2``, and a second use takes it again; a failed
+    build raises, and is tried anew at the next use."""
     from mmmpc_tpu_torch.ops._cuda import BuildInfo, RiccatiEntries
 
     def entry():
