@@ -109,13 +109,18 @@ GENERIC = tuple(ROWS.values())
 BWD_ATOL = {"demo": 1e-5, "base": 1e-3, "endpoint": 2e-4}
 # (nx, nu) of each generic formulation: its Riccati sweep instance
 DIMS = {"demo": (2, 1), "base": (6, 2), "arm": (3, 3), "endpoint": (9, 5)}
-# device-kernel names (as the profiler reports them) of each wrapper
+# device-kernel names (as the profiler reports them) of each wrapper; a
+# profiled solve whose count of a kernel differs from its wrapper's
+# launches fails (report_timing), so a renamed kernel cannot read 0 calls
 KERNEL_SYMBOLS = {"wholebody_fwd": "wb::fwd_kernel",
                   "wholebody_bwd": "wb::bwd_kernel",
                   **{f"generic_{d}.{f}":
                      f"gen::generic_{d}_kernel<gen::{f.capitalize()}>"
                      for f in GENERIC for d in ("fwd", "bwd")},
-                  **{f"riccati_bwd.{nx}x{nu}": f"ric::riccati_bwd_kernel<{nx}, {nu}>"
+                  "generic_bwd.endpoint":
+                  "gen::generic_bwd_team_kernel<gen::Endpoint>",
+                  **{f"riccati_bwd.{nx}x{nu}":
+                     f"ric::riccati_team_kernel<{nx}, {nu}>"
                      for nx, nu in DIMS.values()}}
 # each wrapper kind: (its CUDA source, the TPU kernel it replaces)
 KINDS = {"wholebody_fwd": ("wholebody_fwd.cu",
@@ -338,7 +343,7 @@ def check_riccati(blocks_of, blocks, reg, check, peak, timed=True):
     ``check(got, ref, args)`` -> max abs error; with ``timed``, its device
     ms, call ms, plain ms and bound as ``check_pair``."""
     from mmmpc_tpu_torch.ops.riccati import (
-        plain_riccati_bm, riccati_backward_bm,
+        launch_geometry, plain_riccati_bm, riccati_backward_bm,
     )
     N, nx, B = blocks[0].shape
     nu = blocks[1].shape[1]
@@ -352,8 +357,27 @@ def check_riccati(blocks_of, blocks, reg, check, peak, timed=True):
                    call_ms=_time_ms(lambda: riccati_backward_bm(*args), 20),
                    plain_ms=_time_ms(lambda: plain_riccati_bm(*args), 3),
                    **_bound(args, got, ric_flops(N, B, nx, nu), peak))
-    _line("kernel", name=name, blocks=blocks_of, N=N, B=B, **_fmt(out))
+    _line("kernel", name=name, inputs=blocks_of, N=N, B=B, **_fmt(out),
+          **launch_geometry(nx, nu, B))
     return out
+
+
+def check_riccati_batches(blocks_of, blocks, reg, check):
+    """Phase 3, kernel E beyond the bench shape: on the first ``n``
+    scenarios of ``blocks`` and ``reg``, at the ragged batches 8191, 1000
+    and 1, against its plain version, held by ``check(got, ref, args)``,
+    with the launch geometry the library reports."""
+    from mmmpc_tpu_torch.ops.riccati import (
+        launch_geometry, plain_riccati_bm, riccati_backward_bm,
+    )
+    nx, nu = blocks[0].shape[1], blocks[1].shape[1]
+    for n in (8191, 1000, 1):
+        args = tuple(a[..., :n].contiguous() for a in (*blocks, reg))
+        got, ref = riccati_backward_bm(*args), plain_riccati_bm(*args)
+        torch.cuda.synchronize()
+        _line("kernel-batch", name=f"riccati_bwd.{nx}x{nu}", inputs=blocks_of,
+              B=n, max_abs_err=f"{check(got, ref, args):.4g}",
+              **launch_geometry(nx, nu, n))
 
 
 def spd_blocks(device, B=1024, N=4, nx=9, nu=5):
@@ -407,8 +431,10 @@ def check_new_pair(device, peak, dims=(4, 2)):
     for ln in info.log.splitlines():
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print("[ptxas] " + ln.strip(), flush=True)
-    out = check_riccati("spd", blocks, reg,
-                        _gains_check(f"{name} spd", 2e-4, 2e-4), peak)
+    check = _gains_check(f"{name} spd", 2e-4, 2e-4)
+    out = check_riccati("spd", blocks, reg, check, peak)
+    check_riccati_batches("spd", spd_blocks(device, B=BATCH, nx=nx, nu=nu),
+                          torch.full((BATCH,), 1e-6, device=device), check)
     return dict(out, launches=launches)
 
 
@@ -427,6 +453,26 @@ def check_bwd_batches(bwd, bargs, bwd_check):
         _line("kernel-batch", name="wholebody_bwd", B=n,
               max_abs_err=f"{bwd_check(got, ref):.4g}",
               **launch_geometry(LIBRARY.get(), bwd.N, bwd.n_obs, bwd.n_hp, n))
+
+
+def check_generic_bwd_batches(bwd, bargs, bwd_check):
+    """Phase 3, kernel D of a formulation beyond the bench shape: at the
+    ragged batches 8191, 1000 and 1 (the first ``n`` scenarios of
+    ``bargs``) against its plain version, with the launch geometry the
+    library reports."""
+    from mmmpc_tpu_torch.ops._cuda import LIBRARY
+    from mmmpc_tpu_torch.ops.generic_bwd import launch_geometry
+
+    f = bwd.form
+    for n in (8191, 1000, 1):
+        args = tuple(a[..., :n].contiguous() if torch.is_tensor(a) else a
+                     for a in bargs)
+        got, ref = bwd.cuda(*args), bwd.plain(*args)
+        torch.cuda.synchronize()
+        _line("kernel-batch", name=f"generic_bwd.{f.name}", B=n,
+              max_abs_err=f"{bwd_check(got, ref):.4g}",
+              **launch_geometry(LIBRARY.get(), f.name, bwd.ocp.N, f.n_obs,
+                                f.n_hp, n))
 
 
 def check_fwd_batches(fwd, fargs):
@@ -491,11 +537,12 @@ def check_wholebody(mpc, x0, params, cfg, device, peak, kinds):
         return out
     # E on the same inputs: rtol = atol = 5e-3 as B
     inv = 1.0 / cfg.cost_scale
-    out["riccati_bwd.9x5"] = check_riccati(
-        "qref", (*stage_al_blocks(mpc.ocp, params, inv, X[:-1], U, lam, 10.0),
-                 *terminal_al_blocks(mpc.ocp, params, inv, X[-1], lamt, lame,
-                                     10.0)),
-        reg, _gains_check("riccati_bwd.9x5", 5e-3, 5e-3), peak)
+    blocks = (*stage_al_blocks(mpc.ocp, params, inv, X[:-1], U, lam, 10.0),
+              *terminal_al_blocks(mpc.ocp, params, inv, X[-1], lamt, lame,
+                                  10.0))
+    check = _gains_check("riccati_bwd.9x5", 5e-3, 5e-3)
+    out["riccati_bwd.9x5"] = check_riccati("qref", blocks, reg, check, peak)
+    check_riccati_batches("qref", blocks, reg, check)
     check_riccati("spd", spd_blocks(device),
                   torch.full((1024,), 1e-6, device=device),
                   _gains_check("riccati_bwd.9x5 spd", 2e-4, 2e-4), peak,
@@ -555,6 +602,8 @@ def check_generic(device, peak, kinds):
                               bwd, fargs, bargs,
                               (N, B, cfg.n_alpha, nx, nu, nc, nct),
                               bwd_check, peak, kinds))
+        if f == "endpoint" and "generic_bwd" in kinds:
+            check_generic_bwd_batches(bwd, bargs, bwd_check)
         if "riccati_bwd" not in kinds:
             continue
 
@@ -616,9 +665,11 @@ def profile_solve(run, args, names):
     return len(spans), busy / 1e3, ours
 
 
-def report_timing(tag, run, args, batch, names, reps=REPS, **kv):
-    """Time ``reps`` solves and profile one more; print both.  Returns the
-    median solve seconds."""
+def report_timing(tag, run, args, batch, counters, reps=REPS, **kv):
+    """Time ``reps`` solves and profile one more; print both.  Raises
+    where the profile counts another number of calls of a kernel of
+    ``counters`` ({name: launch counter}) than its wrapper launched in the
+    profiled solve.  Returns the median solve seconds."""
     ts = time_solves(run, args, reps)
     q1, med, q3 = np.percentile(ts, [25, 50, 75])
     _line(tag, **kv, batch=batch, reps=reps, solve_s_median=f"{med:.4f}",
@@ -626,13 +677,20 @@ def report_timing(tag, run, args, batch, names, reps=REPS, **kv):
           solves_per_s_median=f"{batch / med:.1f}",
           solve_s=",".join(f"{t:.4f}" for t in ts))
     t0 = time.perf_counter()
-    prof = profile_solve(run, args, names)
+    before = {name: c.cuda for name, c in counters.items()}
+    prof = profile_solve(run, args, counters)
     profile_s = f"{time.perf_counter() - t0:.1f}"
     if prof is None:
         _line(tag + "-profile", **kv, batch=batch,
               device_ops="not measured (the profiler saw no device activity)")
         return med
     n_ops, busy_ms, ours = prof
+    for name, c in counters.items():
+        if ours[name][0] != c.cuda - before[name]:
+            raise AssertionError(
+                f"{tag} {kv}: the profile counts {ours[name][0]} calls of "
+                f"{KERNEL_SYMBOLS[name]!r}, its wrapper launched "
+                f"{c.cuda - before[name]}")
     _line(tag + "-profile", **kv, batch=batch, profile_s=profile_s,
           device_ops=n_ops,
           device_busy_ms=f"{busy_ms:.3f}",
@@ -761,6 +819,7 @@ def run_unfused(device, fused):
 def run_scaling(device):
     """Phase 5: the kernels' and the solve's time at a batch 8x smaller."""
     from mmmpc_tpu_torch.bench import REFINE_CFG, build_problem
+    from mmmpc_tpu_torch.ops import wholebody_bwd, wholebody_fwd
     from mmmpc_tpu_torch.parallel.data_parallel import with_stats
 
     mpc, x0, U0, params = build_problem(SMALL_BATCH, device)
@@ -768,7 +827,8 @@ def run_scaling(device):
     run(x0, U0, params)
     torch.cuda.synchronize()
     report_timing("scaling", run, (x0, U0, params), SMALL_BATCH,
-                  ("wholebody_fwd", "wholebody_bwd"))
+                  {"wholebody_fwd": wholebody_fwd.LAUNCHES,
+                   "wholebody_bwd": wholebody_bwd.LAUNCHES})
 
 
 def _reference_gate(tag, got, ref, **kv):

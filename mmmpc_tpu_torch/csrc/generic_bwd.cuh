@@ -33,8 +33,12 @@
 // 8192 the grid is 64 blocks of 128 threads on 132 SMs.
 #pragma once
 
+#include <type_traits>
+
+#include "cp_async.cuh"
 #include "generic_common.cuh"
 #include "riccati_step.cuh"
+#include "riccati_team.cuh"
 
 namespace gen {
 
@@ -158,6 +162,182 @@ generic_bwd_kernel(const __grid_constant__ Statics<F> st,
   }
 }
 
+// ---------------- the team kernel (formulations with BWD_TEAM) ----------------
+//
+// A formulation F that declares BWD_TEAM = T runs its backward sweep on
+// ric::team_step (riccati_team.cuh), after kernel B's design
+// (wholebody_bwd.cu): a team of T lanes of one warp per scenario, 128 / T
+// scenarios a block, at most 128 registers a thread, the packed params and
+// the statics in shared memory once a block, and a two-stage buffer of the
+// stage inputs x_k, u_k, lam_k of the block's scenarios (element-major,
+// scenario fastest) filled one stage ahead by cp.async, the terminal's
+// inputs and the params first.  One __syncthreads a stage.  Every lane
+// computes the stage's dynamics Jacobians (registers, F's masks: the team
+// step folds them at compile time) and F's stage model; the hooks
+//   team_term<T>(in, S, c, mu, lane, tile)           terminal -> V, vx
+//   team_rows<T>(x, in, S, k, c, mu, lane, q, acc, uu)  the stage's rows
+// add the rows of the lane's tasks.  A ragged batch runs on the clamped
+// scenario index with masked stores.  The other formulations keep the
+// one-thread kernel above.
+template <class F, class = void>
+struct BwdTeam {
+  static constexpr int value = 0;
+};
+template <class F>
+struct BwdTeam<F, std::void_t<decltype(F::BWD_TEAM)>> {
+  static constexpr int value = F::BWD_TEAM;
+};
+
+// What the team kernel's hooks read: the statics and the packed params in
+// shared memory, their layout, and the horizon (the members of Ctx).
+template <class F>
+struct SmemCtx {
+  const float* sv;
+  const float* pp;
+  typename F::Layout L;
+  float dt, inv_scale;
+  int N, n_obs, n_hp;
+
+  __device__ __forceinline__ float p(int i) const { return pp[i]; }
+  __device__ __forceinline__ float ex(int i) const {
+    return sv[Statics<F>::EXTRA + i];
+  }
+};
+
+// The formulation's Jacobians in registers, as the team step takes them.
+template <class F>
+struct TeamJac : JacRegs<F> {
+  static constexpr bool RUNTIME_ROWS = false;
+};
+
+constexpr int TEAM_THREADS = 128;
+
+template <class F>
+__host__ __device__ constexpr int team_scen() {
+  return TEAM_THREADS / BwdTeam<F>::value;
+}
+
+// Floats of the team kernel's shared memory: the tiles, the stage buffer,
+// the statics, the packed params.
+template <class F>
+__host__ __device__ inline int team_smem_floats(int N, int n_obs, int n_hp) {
+  constexpr int S = team_scen<F>();
+  return S * ric::tile_stride<F::NX, F::NU>() + 2 * (F::NX + F::NU + F::NC) * S +
+         Statics<F>::SIZE + F::layout(N, n_obs, n_hp).size;
+}
+
+template <class F>
+__global__ void __launch_bounds__(TEAM_THREADS, 4)
+generic_bwd_team_kernel(const __grid_constant__ Statics<F> st,
+                        const float* __restrict__ pp,
+                        const float* __restrict__ X,
+                        const float* __restrict__ U,
+                        const float* __restrict__ lam,
+                        const float* __restrict__ lamt,
+                        const float* __restrict__ reg,
+                        float* __restrict__ kff_out,
+                        float* __restrict__ K_out, float mu, int N, int B) {
+  constexpr int NX = F::NX, NU = F::NU, NC = F::NC, NCT = F::NCT;
+  constexpr int T = BwdTeam<F>::value, S = team_scen<F>();
+  constexpr int NIN = NX + NU + NC;   // stage inputs: x_k, u_k, lam_k
+  constexpr int R = ric::rounds<NX, NU, T>();
+  static_assert(F::NE == 0, "the generic kernels take no terminal equality");
+  static_assert(NX + NCT <= NIN, "the terminal inputs fill one stage slot");
+  extern __shared__ __align__(16) float smem[];
+  const int n_obs = static_cast<int>(st.v[GST_N_OBS]);
+  const int n_hp = static_cast<int>(st.v[GST_N_HP]);
+  const typename F::Layout L = F::layout(N, n_obs, n_hp);
+  float* inbuf = smem + S * ric::tile_stride<NX, NU>();
+  float* sv = inbuf + 2 * NIN * S;
+  float* ps = sv + Statics<F>::SIZE;
+
+  const int tid = threadIdx.x;
+  const int team = tid / T, lane = tid % T;
+  const int b0 = blockIdx.x * S;
+  const int bs = min(b0 + team, B - 1);
+  const bool store = b0 + team < B;
+  ric::TeamTile<NX, NU>& tt = *reinterpret_cast<ric::TeamTile<NX, NU>*>(
+      smem + team * ric::tile_stride<NX, NU>());
+
+  // The block's copies: thread tid moves scenario cs = tid % S (clamped to
+  // the batch) of the elements ci, ci + T, ...
+  const int cs = tid % S, ci = tid / S;
+  const int cb = min(b0 + cs, B - 1);
+  auto issue_stage = [&](int k) {
+    float* dst = inbuf + (k & 1) * NIN * S + cs;
+    for (int i = ci; i < NIN; i += T) {
+      const float* src =
+          i < NX ? X + static_cast<long long>(k * NX + i) * B
+          : i < NX + NU ? U + static_cast<long long>(k * NU + i - NX) * B
+                        : lam + static_cast<long long>(k * NC + i - NX - NU) * B;
+      wb::cp_async4(dst + i * S, src + cb);
+    }
+  };
+  // the terminal inputs x_N, lamt into buffer N & 1, and the params
+  {
+    float* dst = inbuf + (N & 1) * NIN * S + cs;
+    for (int i = ci; i < NX + NCT; i += T) {
+      const float* src = i < NX ? X + static_cast<long long>(N * NX + i) * B
+                                : lamt + static_cast<long long>(i - NX) * B;
+      wb::cp_async4(dst + i * S, src + cb);
+    }
+    for (int i = tid; i < L.size; i += TEAM_THREADS) wb::cp_async4(ps + i, pp + i);
+    wb::cp_async_commit();
+  }
+  issue_stage(N - 1);
+  wb::cp_async_commit();
+  for (int i = tid; i < Statics<F>::SIZE; i += TEAM_THREADS) sv[i] = st.v[i];
+  const float rg = __ldg(reg + bs);
+  wb::cp_async_wait<1>();
+  __syncthreads();
+  const SmemCtx<F> c{sv, ps, L, sv[GST_DT], sv[GST_INV_SCALE], N, n_obs, n_hp};
+
+  // ---------------- terminal expansion -> Vx, Vxx ----------------
+  F::template team_term<T>(inbuf + (N & 1) * NIN * S + team, S, c, mu, lane, tt);
+
+  // ---------------- backward over the stages ----------------
+  // One barrier a stage: after it stage k's inputs have landed and every
+  // team is done with stage k+1, whose buffer takes stage k-1's loads.
+  for (int k = N - 1; k >= 0; --k) {
+    wb::cp_async_wait<0>();
+    __syncthreads();
+    if (k > 0) issue_stage(k - 1);
+    wb::cp_async_commit();
+    const float* in = inbuf + (k & 1) * NIN * S + team;
+    float x[NX], u[NU];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = in[i * S];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) u[i] = in[(NX + i) * S];
+    TeamJac<F> jac;
+    F::dyn_jac(x, u, c, jac.A, jac.Bm);
+    ric::team_step<NX, NU, T>(
+        jac,
+        [&](float (&q)[R], float (&acc)[R][NX], float (&uu)[R][NU]) {
+          F::template team_rows<T>(x, in, S, k, c, mu, lane, q, acc, uu);
+        },
+        tt, rg, lane, kff_out + static_cast<long long>(k) * NU * B + bs,
+        K_out + static_cast<long long>(k) * NU * NX * B + bs, B, store);
+  }
+}
+
+// The launch at batch B: lanes a scenario, threads a block, blocks,
+// dynamic shared-memory bytes.
+struct BwdGeometry {
+  int team, threads, blocks, smem;
+};
+
+template <class F>
+BwdGeometry bwd_geometry(int N, int n_obs, int n_hp, int B) {
+  if constexpr (BwdTeam<F>::value > 0) {
+    constexpr int S = team_scen<F>();
+    return {BwdTeam<F>::value, TEAM_THREADS, (B + S - 1) / S,
+            team_smem_floats<F>(N, n_obs, n_hp) * 4};
+  } else {
+    return {1, 128, (B + 127) / 128, 0};
+  }
+}
+
 template <class F>
 int launch_bwd(const float* statics, const float* params, const float* X,
                const float* U, const float* lam, const float* lamt,
@@ -166,10 +346,22 @@ int launch_bwd(const float* statics, const float* params, const float* X,
   Statics<F> st;
   std::memcpy(st.v, statics, sizeof(st.v));
   if (B <= 0 || N <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  generic_bwd_kernel<F><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      st, params, X, U, lam, lamt, reg, kff, K, mu, N, B);
+  const BwdGeometry g = bwd_geometry<F>(
+      N, static_cast<int>(st.v[GST_N_OBS]), static_cast<int>(st.v[GST_N_HP]), B);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (BwdTeam<F>::value > 0) {
+    if (g.smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          generic_bwd_team_kernel<F>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    generic_bwd_team_kernel<F><<<g.blocks, g.threads, g.smem, s>>>(
+        st, params, X, U, lam, lamt, reg, kff, K, mu, N, B);
+  } else {
+    generic_bwd_kernel<F><<<g.blocks, g.threads, 0, s>>>(
+        st, params, X, U, lam, lamt, reg, kff, K, mu, N, B);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -132,7 +132,9 @@ __device__ __forceinline__ float ground_slack(const C& c, int off, float px,
 // The C entries of formulation F under the name `name`: launches of both
 // kernels (statics is a HOST pointer, copied into the kernel argument; the
 // other pointers are device memory; each returns cudaGetLastError() after
-// the launch), and the two layout sizes for the wrappers' check.
+// the launch), the backward's launch geometry at batch B (team, threads,
+// blocks, shared-memory bytes), and the two layout sizes for the wrappers'
+// check.
 #define GEN_ENTRIES(name, F)                                                  \
   extern "C" int gen_fwd_##name(                                              \
       const float* statics, const float* params, const float* X,             \
@@ -149,6 +151,15 @@ __device__ __forceinline__ float ground_slack(const C& c, int off, float px,
       void* stream) {                                                         \
     return gen::launch_bwd<F>(statics, params, X, U, lam, lamt, lame, reg,   \
                               kff, K, mu, N, B, stream);                     \
+  }                                                                           \
+  extern "C" int gen_bwd_geometry_##name(int N, int n_obs, int n_hp, int B,  \
+                                         int* out) {                          \
+    const gen::BwdGeometry g = gen::bwd_geometry<F>(N, n_obs, n_hp, B);      \
+    out[0] = g.team;                                                          \
+    out[1] = g.threads;                                                       \
+    out[2] = g.blocks;                                                        \
+    out[3] = g.smem;                                                          \
+    return 0;                                                                 \
   }                                                                           \
   extern "C" int gen_statics_size_##name() { return gen::Statics<F>::SIZE; } \
   extern "C" int gen_params_size_##name(int N, int n_obs, int n_hp) {        \

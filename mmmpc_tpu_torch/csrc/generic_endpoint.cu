@@ -239,6 +239,191 @@ struct Endpoint {
   __device__ static void term_quad(const float* x, const C& c, Q& q) {
     tracking(x, c, c.N, c.L.P, q);
   }
+
+  // ---- the team backward (generic_bwd.cuh, generic_bwd_team_kernel): teams
+  // of 8 lanes a scenario.  Every lane computes the stage's FK, pose error
+  // and Jp; each lane adds the rows of its tasks, in tracking's and
+  // stage_quad's order of operations.  Rows picked at run time read x, u
+  // and the multipliers from the stage buffer (in[e * S]: x, u, lam) and
+  // pick Jp's column by selects.
+  static constexpr int BWD_TEAM = 8;
+
+  // The tracking model of one stage (or the terminal) with weights W.
+  struct Track {
+    float Jp[4][NX], We[4], WJ[4][NX], sxy[2], sm, S;
+
+    template <class C>
+    __device__ __forceinline__ Track(const float* x, const C& c, int row, int W) {
+      wb::FK f;
+      wb::fk(x, f);
+      float e[4];
+      pose_err(x, f, c, row, e);
+      Jp[0][0] = 1.f;
+      Jp[0][2] = -f.r[2] * f.sp;
+      Jp[1][1] = 1.f;
+      Jp[1][2] = f.r[2] * f.cp;
+      Jp[3][2] = 1.f;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        Jp[0][6 + i] = f.cp * f.axq[2][i];
+        Jp[1][6 + i] = f.sp * f.axq[2][i];
+        Jp[2][6 + i] = f.azq[2][i];
+      }
+      sm = ground_slack(c, c.L.obs, x[0], x[1], c.ex(S_RADIUS), sxy);
+      S = c.p(c.L.S);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        float s = 0.f;
+#pragma unroll
+        for (int l = 0; l < 4; ++l) s += c.p(W + p * 4 + l) * e[l];
+        We[p] = s;
+#pragma unroll
+        for (int j = 0; j < NX; ++j) {
+          float t = -0.f;
+#pragma unroll
+          for (int l = 0; l < 4; ++l)
+            if (jp_nz(l, j)) t += c.p(W + p * 4 + l) * Jp[l][j];
+          WJ[p][j] = t;
+        }
+      }
+    }
+
+    // x row t = rho T + lane (a task past the x rows adds nothing): two_s
+    // (Jp^T W e + S smax sx) into q, two_s (Jp^T W Jp + S sx sx^T) into acc
+    template <int T>
+    __device__ __forceinline__ void add_row(int rho, int lane, float two_s,
+                                            float& q, float (&acc)[NX]) const {
+      const int t = rho * T + lane;
+      const bool live = t < NX && col_nz(t);
+      float jt[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        jt[p] = ric::pick<T, NX>(rho, lane, [&](int i) {
+          return jp_nz(p, i) ? Jp[p][i] : 0.f;
+        });
+      const float st = t == 0 ? sxy[0] : sxy[1];
+      float g = -0.f;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) g += jt[p] * We[p];
+      const float gx = two_s * (t < 2 ? g + S * sm * st : g);
+      q = live ? q + gx : q;
+#pragma unroll
+      for (int j = 0; j < NX; ++j) {
+        if (!col_nz(j)) continue;
+        float h = -0.f;
+#pragma unroll
+        for (int p = 0; p < 4; ++p) h += jt[p] * WJ[p][j];
+        const float hv = two_s * (t < 2 && j < 2 ? h + S * (st * sxy[j]) : h);
+        acc[j] = live ? acc[j] + hv : acc[j];
+      }
+    }
+  };
+
+  // The state-box rows of x row t (q.box_x of rows t and NX + t): the
+  // multipliers at lam[r * S], x[t] = xt.
+  template <class C>
+  __device__ __forceinline__ static void team_box_x(int t, float xt,
+                                                    const float* lam, int S,
+                                                    const C& c, float mu,
+                                                    float& q, float (&acc)[NX]) {
+    const int tc = t < NX ? t : NX - 1;
+#pragma unroll
+    for (int side = 0; side < 2; ++side) {
+      const bool hi = side == 0;
+      const bool live = t < NX && xlive(c, tc, hi);
+      const float val = hi ? xt - c.ex(S_XHI + tc) : c.ex(S_XLO + tc) - xt;
+      const float tv = fmaxf(lam[(hi ? tc : NX + tc) * S] + mu * val, 0.f);
+      q = live ? q + (hi ? 1.f : -1.f) * tv : q;
+      const float d = tv > 0.f ? mu : 0.f;
+#pragma unroll
+      for (int j = 0; j < NX; ++j) acc[j] = live && j == t ? acc[j] + d : acc[j];
+    }
+  }
+
+  // The terminal (term_quad) -> Vx, Vxx of the lane's rows: in[e * S] holds
+  // x_N, then lamt.
+  template <int T, class C>
+  __device__ static void team_term(const float* in, int S, const C& c,
+                                   float mu, int lane,
+                                   ric::TeamTile<NX, NU>& tt) {
+    float x[NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = in[i * S];
+    const Track tr(x, c, c.N, c.L.P);
+    const float two_s = 2.f * c.inv_scale;
+#pragma unroll
+    for (int rho = 0; rho < (NX + T - 1) / T; ++rho) {
+      const int t = rho * T + lane;
+      float q = 0.f, acc[NX];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) acc[j] = 0.f;
+      tr.add_row<T>(rho, lane, two_s, q, acc);
+      team_box_x(t, in[(t < NX ? t : 0) * S], in + NX * S, S, c, mu, q, acc);
+      if (t < NX) {
+        tt.vx[t] = q;
+#pragma unroll
+        for (int j = 0; j < NX; ++j) tt.V[t][j] = acc[j];
+      }
+    }
+  }
+
+  // A stage's rows (stage_quad) of the lane's tasks: in[e * S] holds x_k,
+  // u_k, lam_k.
+  template <int T, class C>
+  __device__ static void team_rows(const float* x, const float* in, int S, int k,
+                                   const C& c, float mu, int lane,
+                                   float (&q)[ric::rounds<NX, NU, T>()],
+                                   float (&acc)[ric::rounds<NX, NU, T>()][NX],
+                                   float (&uu)[ric::rounds<NX, NU, T>()][NU]) {
+    constexpr int R = ric::rounds<NX, NU, T>();
+    const float two_s = 2.f * c.inv_scale;
+    const float* lam = in + (NX + NU) * S;
+    {
+      const Track tr(x, c, k, c.L.Q);
+#pragma unroll
+      for (int rho = 0; rho < R; ++rho) {
+        if (rho * T >= NX) continue;     // no x row in this round
+        const int t = rho * T + lane;
+        tr.add_row<T>(rho, lane, two_s, q[rho], acc[rho]);
+        team_box_x(t, in[(t < NX ? t : 0) * S], lam, S, c, mu, q[rho], acc[rho]);
+      }
+    }
+    float eu[NU], edu[NU];
+#pragma unroll
+    for (int j = 0; j < NU; ++j) {
+      const float uj = in[(NX + j) * S];
+      eu[j] = uj - c.p(c.L.uref + k * NU + j);
+      edu[j] = uj - c.p(c.L.ulast + k * NU + j);
+    }
+#pragma unroll
+    for (int rho = 0; rho < R; ++rho) {
+      if ((rho + 1) * T <= NX) continue;  // no u row in this round
+      const int t = rho * T + lane;
+      const bool urow = t >= NX && t < NX + NU;
+      const int i = urow ? t - NX : 0;
+      const int Ri = c.L.R + i * NU, Wi = c.L.W + i * NU;
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < NU; ++j) s += c.p(Ri + j) * eu[j] + c.p(Wi + j) * edu[j];
+      q[rho] = urow ? q[rho] + two_s * s : q[rho];
+#pragma unroll
+      for (int j = 0; j < NU; ++j)
+        uu[rho][j] = urow ? uu[rho][j] + two_s * (c.p(Ri + j) + c.p(Wi + j)) : uu[rho][j];
+      // the rate-box rows 2 NX + i and 2 NX + NU + i (q.box_u)
+      const float ed = in[(NX + i) * S] - c.p(c.L.ulast + k * NU + i);
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        const bool hi = side == 0;
+        const bool live = urow && dulive(c, i, hi);
+        const float val = hi ? ed - c.ex(S_DUHI + i) : c.ex(S_DULO + i) - ed;
+        const float tv = fmaxf(lam[(hi ? 2 * NX + i : 2 * NX + NU + i) * S] + mu * val, 0.f);
+        q[rho] = live ? q[rho] + (hi ? 1.f : -1.f) * tv : q[rho];
+        const float d = tv > 0.f ? mu : 0.f;
+#pragma unroll
+        for (int j = 0; j < NU; ++j) uu[rho][j] = live && j == i ? uu[rho][j] + d : uu[rho][j];
+      }
+    }
+  }
 };
 
 }  // namespace gen

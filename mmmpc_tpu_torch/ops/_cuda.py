@@ -17,6 +17,7 @@ import dataclasses
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -37,9 +38,11 @@ SOURCES = ("wholebody_fwd.cu", "wholebody_bwd.cu",
            *(f"generic_{name}.cu" for name in FORMULATIONS), "riccati.cu",
            "fma_peak.cu")
 HEADERS = ("wholebody_common.cuh", "cp_async.cuh", "generic_common.cuh",
-           "generic_fwd.cuh", "generic_bwd.cuh", "riccati_step.cuh")
+           "generic_fwd.cuh", "generic_bwd.cuh", "riccati_step.cuh",
+           "riccati_team.cuh")
 # step sizes the statics blocks hold (MAX_ALPHA of csrc/wholebody_common.cuh)
 MAX_ALPHA = 8
+_INCLUDE = re.compile(r'\s*#\s*include\s+"([^"]+)"')
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -69,13 +72,16 @@ _FLOAT = ctypes.c_float
 # C signatures (see csrc/*.cu).  Fused launches: host statics, device
 # pointers, mu, N, B, then the stream.  Layout sizes: the statics block, and
 # the packed params for (N, n_obs, n_hp).  Riccati sweep: 12 device pointers,
-# N, B, the stream.  FMA microkernel: 2 device pointers, the trip count,
-# blocks, threads, the stream.  The whole-body backward's geometry (N, n_obs,
-# n_hp, B) and the forward's (N, n_obs, n_hp, n_alpha, B) write four ints
-# (team, threads, blocks, shared-memory bytes).
+# N, B, the stream; its geometry (B) writes five ints (team, threads,
+# blocks, shared-memory bytes, blocks an SM).  FMA microkernel: 2 device
+# pointers, the trip count, blocks, threads, the stream.  The whole-body
+# backward's geometry (N, n_obs, n_hp, B), the forward's (N, n_obs, n_hp,
+# n_alpha, B) and each generic backward's (N, n_obs, n_hp, B) write four
+# ints (team, threads, blocks, shared-memory bytes).
 _FWD = [_VOID] * 13 + [_FLOAT, _INT, _INT, _VOID]
 _BWD = [_VOID] * 10 + [_FLOAT, _INT, _INT, _VOID]
 _RIC = [_VOID] * 12 + [_INT, _INT, _VOID]
+_RIC_GEOMETRY = [_INT, _VOID]
 SIGNATURES = {
     "wb_fwd_launch": _FWD,
     "wb_bwd_launch": _BWD,
@@ -84,9 +90,12 @@ SIGNATURES = {
     "wb_statics_size": [], "wb_params_size": [_INT, _INT, _INT],
     **{k: v for name in FORMULATIONS for k, v in (
         (f"gen_fwd_{name}", _FWD), (f"gen_bwd_{name}", _BWD),
+        (f"gen_bwd_geometry_{name}", [_INT] * 4 + [_VOID]),
         (f"gen_statics_size_{name}", []),
         (f"gen_params_size_{name}", [_INT, _INT, _INT]))},
     **{f"ric_bwd_{nx}x{nu}": _RIC for nx, nu in RICCATI_INSTANCES},
+    **{f"ric_geometry_{nx}x{nu}": _RIC_GEOMETRY
+       for nx, nu in RICCATI_INSTANCES},
     **{f"fma_peak_{n}": [_VOID, _VOID, _INT, _INT, _INT, _VOID]
        for n in FMA_NACC},
 }
@@ -99,6 +108,22 @@ def _nvcc() -> str:
     if nvcc is None:
         raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return nvcc
+
+
+def includes(source: str) -> tuple[str, ...]:
+    """``source`` and every file of ``csrc`` that it includes with
+    ``#include "..."``, followed transitively, in the order first met."""
+    found, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in found:
+            continue
+        found.append(name)
+        for line in (CSRC / name).read_text().splitlines():
+            m = _INCLUDE.match(line)
+            if m:
+                todo.append(m.group(1))
+    return tuple(found)
 
 
 def _source_hash(names=HEADERS + SOURCES, defines=()) -> str:
@@ -124,7 +149,7 @@ def build_riccati_pair(nx: int, nu: int) -> BuildInfo:
     if (nx, nu) in RICCATI_INSTANCES or min(nx, nu) < 1:
         raise ValueError(f"no pair library for (nx, nu) = {(nx, nu)}")
     defines = (f"-DRIC_PAIR_NX={nx}", f"-DRIC_PAIR_NU={nu}")
-    digest = _source_hash(("riccati_step.cuh", "riccati.cu"), defines)
+    digest = _source_hash(includes("riccati.cu"), defines)
     return _build(BUILD_DIR / f"libmmmpc_riccati_{digest}_{nx}x{nu}.so",
                   ("riccati.cu",), defines)
 
@@ -194,29 +219,38 @@ LIBRARY = _Library()
 
 
 class RiccatiEntries:
-    """The C entry ``ric_bwd_<nx>x<nu>`` of kernel E for any (nx, nu): from
-    the kernel library for a pair of ``RICCATI_INSTANCES``, else from the
-    pair's own library, built by ``build`` on the pair's first use and
-    loaded by ``load`` once a process.  A failed build raises."""
+    """The C entries of kernel E for any (nx, nu): ``ric_bwd_<nx>x<nu>``
+    (``get``) and ``ric_geometry_<nx>x<nu>`` (``geometry``), from the kernel
+    library for a pair of ``RICCATI_INSTANCES``, else from the pair's own
+    library, built by ``build`` on the pair's first use and loaded by
+    ``load`` once a process.  A failed build raises."""
 
     def __init__(self, library=LIBRARY, build=build_riccati_pair,
                  load=ctypes.CDLL):
         self.library, self.build, self.load = library, build, load
-        self.entries = {}
+        self.libs = {}
         self.info = {}      # (nx, nu) -> BuildInfo of each pair built here
 
-    def get(self, nx: int, nu: int):
-        name = f"ric_bwd_{nx}x{nu}"
+    def _lib(self, nx: int, nu: int):
         if (nx, nu) in RICCATI_INSTANCES:
-            return getattr(self.library.get(), name)
-        if (nx, nu) not in self.entries:
+            return self.library.get()
+        if (nx, nu) not in self.libs:
             info = self.build(nx, nu)
-            fn = getattr(self.load(str(info.path)), name)
-            fn.argtypes = _RIC
-            fn.restype = _INT
+            lib = self.load(str(info.path))
+            for name, argtypes in ((f"ric_bwd_{nx}x{nu}", _RIC),
+                                   (f"ric_geometry_{nx}x{nu}", _RIC_GEOMETRY)):
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = _INT
             self.info[(nx, nu)] = info
-            self.entries[(nx, nu)] = fn
-        return self.entries[(nx, nu)]
+            self.libs[(nx, nu)] = lib
+        return self.libs[(nx, nu)]
+
+    def get(self, nx: int, nu: int):
+        return getattr(self._lib(nx, nu), f"ric_bwd_{nx}x{nu}")
+
+    def geometry(self, nx: int, nu: int):
+        return getattr(self._lib(nx, nu), f"ric_geometry_{nx}x{nu}")
 
 
 RICCATI = RiccatiEntries()

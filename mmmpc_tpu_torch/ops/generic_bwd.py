@@ -11,13 +11,17 @@ kff = -Quu^-1 Qu and K = -Quu^-1 Qux; Vxx is symmetrised after every step.
 
 On CUDA tensors the call launches ``gen_bwd_<name>`` of the kernel library,
 the template ``csrc/generic_bwd.cuh`` instantiated with the formulation
-struct of ``csrc/generic_<name>.cu``; on CPU tensors it runs ``plain_bwd``:
+struct of ``csrc/generic_<name>.cu``: the endpoint's on the team Riccati
+step (``csrc/riccati_team.cuh``), the others one thread a scenario; on CPU
+tensors it runs ``plain_bwd``:
 the controller's structured AL expansion at every stage
 (``solver.al_ilqr.stage_al_blocks``), then the plain Riccati sweep
 (``ops.riccati.plain_riccati_bm``), the two halves of the unfused path.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -30,6 +34,16 @@ from mmmpc_tpu_torch.ops.riccati import plain_riccati_bm
 from mmmpc_tpu_torch.solver.al_ilqr import stage_al_blocks, terminal_al_blocks
 
 LAUNCHES = {name: LaunchCounter() for name in FORMULATIONS}
+
+
+def launch_geometry(lib, name, N, n_obs, n_hp, B):
+    """{team, threads, blocks, smem_bytes}: the lanes a scenario, threads a
+    block, blocks and dynamic shared-memory bytes with which the library's
+    ``gen_bwd_<name>`` launches at batch ``B``, as its
+    ``gen_bwd_geometry_<name>`` reports them."""
+    out = (ctypes.c_int * 4)()
+    getattr(lib, f"gen_bwd_geometry_{name}")(N, n_obs, n_hp, B, out)
+    return dict(team=out[0], threads=out[1], blocks=out[2], smem_bytes=out[3])
 
 
 def plain_bwd(ocp, params, inv_scale, X, U, lam, lamt, lame, mu, reg):

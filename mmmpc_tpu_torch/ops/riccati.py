@@ -19,6 +19,7 @@ the stages.
 from __future__ import annotations
 
 import collections
+import ctypes
 
 import torch
 
@@ -29,6 +30,19 @@ from mmmpc_tpu_torch.ops.entry_algebra import riccati_stage
 
 # dispatches per (nx, nu), each pair's counter made on its first use
 LAUNCHES = collections.defaultdict(LaunchCounter)
+
+
+def launch_geometry(nx, nu, B, entries=RICCATI):
+    """{team, threads, blocks, smem_bytes, blocks_per_sm}: the lanes a
+    scenario, threads a block, blocks and dynamic shared-memory bytes with
+    which ``ric_bwd_<nx>x<nu>`` launches at batch ``B``, and the blocks of
+    it that one SM of the card holds, as ``ric_geometry_<nx>x<nu>`` reports
+    them (on the card: it asks the CUDA runtime for the occupancy)."""
+    out = (ctypes.c_int * 5)()
+    check_launch(f"riccati_bwd.{nx}x{nu} geometry",
+                 entries.geometry(nx, nu)(B, out))
+    return dict(team=out[0], threads=out[1], blocks=out[2],
+                smem_bytes=out[3], blocks_per_sm=out[4])
 
 
 def plain_riccati_bm(lx, lu, lxx, luu, lux, A, Bm, term_g, term_H, reg):

@@ -175,7 +175,8 @@ def test_riccati_entry_builds_a_new_pair_once():
 
     def load(path):
         loads.append(path)
-        return types.SimpleNamespace(ric_bwd_4x2=entry())
+        return types.SimpleNamespace(ric_bwd_4x2=entry(),
+                                     ric_geometry_4x2=entry())
 
     entries = RiccatiEntries(Library(), build, load)
     for nx, nu in RICCATI_INSTANCES:
