@@ -34,13 +34,15 @@ Phases, each reported on its own lines; any failure exits nonzero:
    launch (launches replayed from a CUDA graph), the wall time per wrapper
    call and the plain version's (CUDA events), and the least time the card
    could take (bytes moved over 3.35 TB/s against operations over the
-   published 67 TFLOP/s float32, and over the measured peak); kernels A
-   and B also at the ragged batches 8191, 1000 and 1 against their plain
-   versions, with their launch geometry (``[kernel-batch]``); kernel E also
-   at (nx, nu) = (4, 2), which the kernel library does not hold: the
-   pair's own library built on its first call (``[build-pair]``: seconds,
-   the pair's launches in that call; ptxas registers / spills), then
-   against its plain version on the SPD blocks at 2e-4;
+   published 67 TFLOP/s float32, and over the measured peak); kernels A,
+   B, D.endpoint and E (at (9, 5) on the qref blocks, at (4, 2) on the SPD
+   blocks) also at the ragged batches 8191, 1000 and 1 against their plain
+   versions, with their launch geometry (``[kernel-batch]``; E's with the
+   blocks an SM holds); kernel E also at (nx, nu) = (4, 2), which the
+   kernel library does not hold: the pair's own library built on its first
+   call (``[build-pair]``: seconds, the pair's launches in that call; ptxas
+   registers / spills), then against its plain version on the SPD blocks
+   at 2e-4;
 4. slice: the refined whole-body qref solve of ``bench.py`` at batch 8192
    (one warm-up solve with the kernel launch counters reset just before it,
    then 10 solves timed one by one): median and quartiles of the solve time,
@@ -48,7 +50,10 @@ Phases, each reported on its own lines; any failure exits nonzero:
    kernel's launches, which must equal the schedule's 58 + 36 iterations per
    solve; then one more solve under ``torch.profiler``: the device ops it
    ran, the device busy time (union of their intervals), the idle share of
-   the median solve, and each fused kernel's calls and time;
+   the median solve, and each fused kernel's calls and time, found by its
+   name (``KERNEL_SYMBOLS``); a kernel whose calls there differ from its
+   wrapper's launches in that solve fails the phase (so does every profiled
+   phase below);
 4b. unfused: the same solve with ``use_fused_backward=False``: the AL
    expansion in plain PyTorch and the Riccati sweep kernel in place of the
    fused backward kernel, which must not launch; launches, timing (3

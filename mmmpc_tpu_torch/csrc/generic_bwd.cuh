@@ -8,9 +8,12 @@
 // the stages, the Q blocks of the next value function through the
 // dynamics Jacobians, plus the stage's scaled Gauss-Newton model and its PHR
 // rows, one Riccati step (Cholesky of Quu + reg I, kff = -Quu^-1 Qu,
-// K = -Quu^-1 Qux), the value update, and Vxx symmetrised: the step is
-// ric::riccati_step (riccati_step.cuh), which kernel E shares with dense
-// Jacobians.  The plain PyTorch version is ops/generic_bwd.py::plain_bwd.
+// K = -Quu^-1 Qux), the value update, and Vxx symmetrised.  A formulation
+// without BWD_TEAM (demo, base, arm) runs one thread a scenario on
+// ric::riccati_step (riccati_step.cuh); one with it (endpoint) runs the
+// team kernel below on ric::team_step (riccati_team.cuh), which kernel E
+// shares with dense Jacobians.  The plain PyTorch version is
+// ops/generic_bwd.py::plain_bwd.
 //
 // The formulation F supplies, besides the members listed in
 // generic_common.cuh:
@@ -27,10 +30,11 @@
 // time (the counterpart of the TPU kernel's trace-time literal folding;
 // nvcc may not fold x * 0.f, so zeros are skipped, never multiplied).
 //
-// What bounds it on this card: a serial recurrence of N stages per thread,
-// each a few thousand dependent FLOPs on an NX x NX value function, and
-// registers: Vxx and the Q blocks are live together.  At the bench batch of
-// 8192 the grid is 64 blocks of 128 threads on 132 SMs.
+// What bounds the one-thread kernel on this card: a serial recurrence of N
+// stages per thread, each a few thousand dependent FLOPs on an NX x NX
+// value function, and registers: Vxx and the Q blocks are live together.
+// At the bench batch of 8192 the grid is 64 blocks of 128 threads on 132
+// SMs.
 #pragma once
 
 #include <type_traits>

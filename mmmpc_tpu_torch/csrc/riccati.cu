@@ -27,7 +27,12 @@
 //
 // - A team of T lanes of one warp per scenario, S = 128 / T scenarios a
 //   block, at most 128 registers a thread (__launch_bounds__), no spill.
-//   T comes from one rule, ric_team(nx, nu), for every pair.
+//   T comes from one rule, ric_team(nx, nu), for every pair: the least
+//   power of two that takes the nx + nu row tasks in four rounds.  The
+//   lanes of a warp read each row of Vxx, A and B once for all of the
+//   warp's scenarios, so fewer lanes a scenario read less per scenario;
+//   more rounds hold more rows in registers.  At (9, 5) T = 4 beat T = 8
+//   (PERF.md, team_sweep.py) though it leaves 2 blocks an SM, not 4.
 // - The step is ric::team_step (riccati_team.cuh, shared with kernel
 //   D.endpoint): the row tasks of the Q blocks over the lanes, the factor
 //   in every lane, the solve columns over the lanes, the value update row
@@ -41,8 +46,7 @@
 //   buffer then takes stage k-1's loads while stage k computes.  A whole
 //   stage of the block in flight, where one thread had one load at a time.
 // - The lane of a solve column stores its gains as it solves them, so no
-//   tile of gains waits for the next barrier: at (9, 5) the block's shared
-//   memory (56,768 B) then leaves room for 4 blocks an SM.  None of it
+//   tile of gains waits for the next barrier.  None of the shared memory
 //   grows with N.
 // - A ragged batch: the lanes of a partial block run on the clamped
 //   scenario index min(b, B - 1) and only stores are masked, so every
@@ -60,7 +64,7 @@
 namespace ric {
 
 constexpr int THREADS = 128;
-constexpr int MIN_BLOCKS = 512 / THREADS;  // __launch_bounds__: <= 128 registers
+constexpr int MIN_BLOCKS = 4;    // __launch_bounds__: <= 128 registers
 constexpr int MAX_SMEM = 227 * 1024;
 
 // Lanes a scenario at (nx, nu): the least power of two that takes the
@@ -69,14 +73,6 @@ __host__ __device__ constexpr int ric_team(int nx, int nu) {
   int t = 1;
   while (4 * t < nx + nu && t < 8) t *= 2;
   return t;
-}
-
-// Stages in flight in the stage buffer: 4 where a stage's blocks are a
-// few floats a scenario, so that the loads of short stages are issued far
-// enough ahead, else 2.
-__host__ __device__ constexpr int ric_depth(int nx, int nu) {
-  const int floats = nx + nu + 2 * nx * nx + nu * nu + 2 * nu * nx;
-  return floats <= 64 ? 4 : 2;
 }
 
 // A stage's blocks of one scenario, in the buffer's element order.
@@ -89,7 +85,7 @@ struct Blocks {
 
 template <int NX, int NU>
 __host__ __device__ constexpr int smem_floats(int scen) {
-  return scen * (tile_stride<NX, NU>() + ric_depth(NX, NU) * Blocks<NX, NU>::N);
+  return scen * (tile_stride<NX, NU>() + 2 * Blocks<NX, NU>::N);
 }
 
 // Scenarios a block: 128 / T, halved while the block's shared memory
@@ -136,7 +132,6 @@ riccati_team_kernel(const float* __restrict__ lx, const float* __restrict__ lu,
                     const float* __restrict__ reg, float* __restrict__ kff,
                     float* __restrict__ K, int N, int B) {
   constexpr int T = ric_team(NX, NU), S = ric_scen<NX, NU>();
-  constexpr int D = ric_depth(NX, NU);
   constexpr int NT = NX + NU, R = rounds<NX, NU, T>();
   using E = Blocks<NX, NU>;
   extern __shared__ __align__(16) float smem[];
@@ -158,9 +153,9 @@ riccati_team_kernel(const float* __restrict__ lx, const float* __restrict__ lu,
     for (int i = ci; i < n; i += T)
       wb::cp_async4(dst + (off + i) * S, src + static_cast<size_t>(i) * B + cb);
   };
-  // stage k's blocks into slot k % D of the buffer
+  // stage k's blocks into buffer k & 1
   auto issue_stage = [&](int k) {
-    float* dst = inbuf + (k % D) * E::N * S + cs;
+    float* dst = inbuf + (k & 1) * E::N * S + cs;
     const size_t s = static_cast<size_t>(k);
     copy(dst, E::LX, NX, lx + s * NX * B);
     copy(dst, E::LU, NU, lu + s * NU * B);
@@ -170,25 +165,21 @@ riccati_team_kernel(const float* __restrict__ lx, const float* __restrict__ lu,
     copy(dst, E::A, NX * NX, A + s * NX * NX * B);
     copy(dst, E::B, NX * NU, Bm + s * NX * NU * B);
   };
-  // the terminal blocks into slot N % D (stages N-1 .. N-D+1 take the
-  // others), term_g at elements 0.., term_H after it; one commit group
-  // each, so that D - 2 groups are younger than stage k's at its top
+  // the terminal blocks into buffer N & 1 (stage N-1 uses the other):
+  // term_g at elements 0.., term_H after it
   {
-    float* dst = inbuf + (N % D) * E::N * S + cs;
+    float* dst = inbuf + (N & 1) * E::N * S + cs;
     copy(dst, 0, NX, term_g);
     copy(dst, NX, NX * NX, term_H);
     wb::cp_async_commit();
   }
-#pragma unroll
-  for (int j = 1; j < D; ++j) {
-    if (N - j >= 0) issue_stage(N - j);
-    wb::cp_async_commit();
-  }
+  issue_stage(N - 1);
+  wb::cp_async_commit();
   const float rg = __ldg(reg + bs);
-  wb::cp_async_wait<D - 1>();
+  wb::cp_async_wait<1>();
   __syncthreads();
   {
-    const float* in = inbuf + (N % D) * E::N * S + team;
+    const float* in = inbuf + (N & 1) * E::N * S + team;
     for (int e = lane; e < NX + NX * NX; e += T) {
       if (e < NX) tt.vx[e] = in[e * S];
       else (&tt.V[0][0])[e - NX] = in[e * S];
@@ -196,11 +187,11 @@ riccati_team_kernel(const float* __restrict__ lx, const float* __restrict__ lu,
   }
 
   for (int k = N - 1; k >= 0; --k) {
-    wb::cp_async_wait<D - 2>();
+    wb::cp_async_wait<0>();
     __syncthreads();
-    if (k - (D - 1) >= 0) issue_stage(k - (D - 1));
+    if (k > 0) issue_stage(k - 1);
     wb::cp_async_commit();
-    const float* in = inbuf + (k % D) * E::N * S + team;
+    const float* in = inbuf + (k & 1) * E::N * S + team;
     const size_t s = static_cast<size_t>(k);
     team_step<NX, NU, T>(
         JacBuf<NX, NU, S>{in},

@@ -255,6 +255,30 @@ def test_layout_check_reads_the_formulations_sizes():
         check_layout(Library(1), fwd.statics, fwd.flat, N, 2, 0, "base")
 
 
+def test_bwd_launch_geometry_reports_the_library():
+    """``launch_geometry`` of a formulation's fused backward reports the
+    lanes a scenario, threads, blocks and shared-memory bytes with which
+    the library's ``gen_bwd_<name>`` launches, as its
+    ``gen_bwd_geometry_<name>`` (here a stand-in) writes them: the
+    endpoint's team kernel (8 lanes, 16 scenarios a block), another
+    formulation's one thread a scenario."""
+    from mmmpc_tpu_torch.ops.generic_bwd import launch_geometry
+
+    class Library:
+        def gen_bwd_geometry_endpoint(self, n, n_obs, n_hp, batch, out):
+            assert (n, n_obs, n_hp) == (N, 3, 0)
+            out[0], out[1], out[2], out[3] = 8, 128, -(-batch // 16), 4 * n
+            return 0
+
+        def gen_bwd_geometry_demo(self, n, n_obs, n_hp, batch, out):
+            out[0], out[1], out[2], out[3] = 1, 128, -(-batch // 128), 0
+            return 0
+
+    assert launch_geometry(Library(), "endpoint", N, 3, 0, 8191) == dict(
+        team=8, threads=128, blocks=512, smem_bytes=4 * N)
+    assert launch_geometry(Library(), "demo", N, 0, 0, 129)["blocks"] == 2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["fwd", "bwd"])
 @pytest.mark.parametrize("name", FORMULATIONS)

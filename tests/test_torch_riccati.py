@@ -16,8 +16,9 @@ package, the plain FMA recurrence of the peak microkernel (kernel F), and
 - ``plain_riccati_bm`` at (nx, nu) = (4, 2), a pair outside the kernel
   library, against the JAX package's ``riccati_backward_bm`` with its Pallas
   kernel in interpret mode (B=1024, N=4) at 2e-4, and the dispatch that
-  builds such a pair's CUDA entry on its first use, with a stand-in
-  kernel library, build function and loader;
+  builds such a pair's CUDA entries on its first use, with a stand-in
+  kernel library, build function and loader; the pair library's digest
+  over every file ``riccati.cu`` includes; the launch geometry;
 - ``plain_fma`` against a numpy loop, exactly; the sweep's trip counts and
   its slope fit.
 """
@@ -187,11 +188,70 @@ def test_riccati_entry_builds_a_new_pair_once():
     assert fn.argtypes[-3:] == [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     assert fn.restype is ctypes.c_int
     assert entries.get(4, 2) is fn and builds == [(4, 2)]
+    assert entries.geometry(4, 2).argtypes == [ctypes.c_int, ctypes.c_void_p]
+    assert builds == [(4, 2)] and len(loads) == 1
     assert entries.info[(4, 2)].seconds == 1.5
     for _ in range(2):
         with pytest.raises(RuntimeError, match="nvcc failed"):
             entries.get(7, 3)
     assert builds == [(4, 2), (7, 3), (7, 3)] and len(loads) == 1
+
+
+def test_pair_library_digest_covers_every_include(tmp_path, monkeypatch):
+    """The name of a pair's library (its digest) changes with every file
+    that ``riccati.cu`` includes, followed transitively through their
+    ``#include "..."`` lines, in a copy of ``csrc`` (the build stubbed), and
+    with no other file: a library built before an edit of a header it
+    includes is never loaded stale."""
+    import re
+    import shutil
+    from mmmpc_tpu_torch.ops import _cuda
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_cuda.CSRC, csrc)
+    monkeypatch.setattr(_cuda, "CSRC", csrc)
+    monkeypatch.setattr(_cuda, "_build", lambda path, sources, defines=():
+                        _cuda.BuildInfo(path, 0.0, ""))
+    included, todo = set(), ["riccati.cu"]
+    while todo:
+        name = todo.pop()
+        if name not in included:
+            included.add(name)
+            todo += re.findall(r'^\s*#\s*include\s+"([^"]+)"',
+                               (csrc / name).read_text(), re.M)
+    assert {"riccati.cu", "riccati_team.cuh", "cp_async.cuh"} <= included
+
+    def pair_library():
+        return _cuda.build_riccati_pair(4, 2).path.name
+
+    first = pair_library()
+    for name in sorted(included):
+        text = (csrc / name).read_text()
+        (csrc / name).write_text(text + "\n// edited\n")
+        assert pair_library() != first, name
+        (csrc / name).write_text(text)
+        assert pair_library() == first
+    (csrc / "wholebody_fwd.cu").write_text("// edited\n")
+    assert pair_library() == first
+
+
+def test_riccati_launch_geometry_reports_the_entry():
+    """``launch_geometry`` reports the team, threads, blocks, shared-memory
+    bytes and blocks an SM of ``ric_geometry_<nx>x<nu>`` (here a stand-in
+    of the pair's entries), and raises on the CUDA error it returns."""
+
+    class Entries:
+        def geometry(self, nx, nu):
+            def fn(batch, out):
+                out[0], out[1], out[2] = 4, 128, -(-batch // 32)
+                out[3], out[4] = 1000 * nx + nu, 2
+                return 0 if batch > 0 else 1
+            return fn
+
+    assert riccati.launch_geometry(9, 5, 8191, Entries()) == dict(
+        team=4, threads=128, blocks=256, smem_bytes=9005, blocks_per_sm=2)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        riccati.launch_geometry(9, 5, 0, Entries())
 
 
 def test_riccati_pair_build_takes_only_new_pairs():
