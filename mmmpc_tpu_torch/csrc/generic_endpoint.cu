@@ -241,21 +241,108 @@ struct Endpoint {
   }
 
   // ---- the team backward (generic_bwd.cuh, generic_bwd_team_kernel): teams
-  // of 8 lanes a scenario.  Every lane computes the stage's FK, pose error
-  // and Jp; each lane adds the rows of its tasks, in tracking's and
-  // stage_quad's order of operations.  Rows picked at run time read x, u
-  // and the multipliers from the stage buffer (in[e * S]: x, u, lam) and
-  // pick Jp's column by selects.
+  // of 8 lanes a scenario.  The lanes share the stage's FK (its four sincos
+  // over four lanes, exchanged by shuffles) and its ground circles (one a
+  // lane, merged across the team), then every lane computes the pose error
+  // and Jp and adds the rows of its tasks, in tracking's and stage_quad's
+  // order of operations.  Rows picked at run time read x, u and the
+  // multipliers from the stage buffer (in[e * S]: x, u, lam) and pick Jp's
+  // column by selects.
   static constexpr int BWD_TEAM = 8;
+  static constexpr unsigned FULL = 0xffffffffu;
+
+  // wb::fk with its four sincos (q1, q1 - q2, q1 - q2 - q3, psi) split over
+  // lanes 4m .. 4m + 3 of the team and exchanged by shuffles: the same
+  // algebra, so every lane ends with fk's values.
+  template <int T>
+  __device__ static void fk_team(const float* x, int lane, wb::FK& f) {
+    static_assert(T % 4 == 0 && T <= 32, "fk_team splits over four lanes");
+    const int qd = lane & 3;
+    const float th = x[6] - x[7];
+    const float ang = qd == 0 ? x[6] : qd == 1 ? th : qd == 2 ? th - x[8] : x[2];
+    float sa, ca;
+    sincosf(ang, &sa, &ca);
+    const int b = lane & ~3;
+    const float s1 = __shfl_sync(FULL, sa, b, T), c1 = __shfl_sync(FULL, ca, b, T);
+    const float st = __shfl_sync(FULL, sa, b + 1, T), ct = __shfl_sync(FULL, ca, b + 1, T);
+    const float sb = __shfl_sync(FULL, sa, b + 2, T), cb = __shfl_sync(FULL, ca, b + 2, T);
+    f.sp = __shfl_sync(FULL, sa, b + 3, T);
+    f.cp = __shfl_sync(FULL, ca, b + 3, T);
+    using namespace wb;
+    const float ax2 = A2 * s1 + A3 * c1;
+    const float az2 = A2 * c1 - A3 * s1;
+    const float D3 = A3 * st + A5 * ct;
+    const float E3 = A3 * ct - A5 * st;
+    const float ax3 = ax2 - A3 * ct + A5 * st;
+    const float az3 = az2 + A3 * st + A5 * ct;
+    const float P6 = -A6 * sb - A7 * cb;
+    const float Q6 = -A6 * cb + A7 * sb;
+    const float axe = ax3 + A6 * cb - A7 * sb;
+    const float aze = az3 - A6 * sb - A7 * cb;
+    const float ax[3] = {ax2, ax3, axe};
+    const float az[3] = {az2, az3, aze};
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      f.r[p] = ax[p] + BX;
+      f.pt[p][0] = x[0] + f.r[p] * f.cp;
+      f.pt[p][1] = x[1] + f.r[p] * f.sp;
+      f.pt[p][2] = az[p] + BZ;
+    }
+    f.axq[0][0] = az2;            f.axq[0][1] = 0.f;           f.axq[0][2] = 0.f;
+    f.axq[1][0] = az2 + D3;       f.axq[1][1] = -D3;           f.axq[1][2] = 0.f;
+    f.axq[2][0] = az2 + D3 + P6;  f.axq[2][1] = -(D3 + P6);    f.axq[2][2] = -P6;
+    f.azq[0][0] = -ax2;           f.azq[0][1] = 0.f;           f.azq[0][2] = 0.f;
+    f.azq[1][0] = -ax2 + E3;      f.azq[1][1] = -E3;           f.azq[1][2] = 0.f;
+    f.azq[2][0] = -ax2 + E3 + Q6; f.azq[2][1] = -(E3 + Q6);    f.azq[2][2] = -Q6;
+  }
+
+  // ground_slack with its circles over the lanes of the team, each into its
+  // own relu(max) accumulator, merged by a butterfly of shuffles: a larger
+  // max replaces, equal maxima add their counts and gradients, a NaN max
+  // stays NaN.  Every lane ends with the same smax and sxy.
+  template <int T, class C>
+  __device__ static float ground_slack_team(const C& c, float px, float py,
+                                            float* sxy, int lane) {
+    wb::MaxAcc<2> m;
+    m.init();
+    for (int o = lane; o < c.n_obs; o += T) {
+      const float dx = px - c.p(c.L.obs + 3 * o);
+      const float dy = py - c.p(c.L.obs + 3 * o + 1);
+      const float d = sqrtf(dx * dx + dy * dy + wb::EPS);
+      const float g[2] = {-dx / d, -dy / d};
+      m.add((c.p(c.L.obs + 3 * o + 2) + c.ex(S_RADIUS)) - d, g);
+    }
+#pragma unroll
+    for (int off = 1; off < T; off <<= 1) {
+      const float og = __shfl_xor_sync(FULL, m.gmax, off, T);
+      const float oc = __shfl_xor_sync(FULL, m.cnt, off, T);
+      const bool nan = isnan(og) || isnan(m.gmax);
+      const bool take = !nan && og > m.gmax;
+      const bool add = nan || og == m.gmax;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float o = __shfl_xor_sync(FULL, m.gsum[i], off, T);
+        m.gsum[i] = take ? o : (add ? m.gsum[i] + o : m.gsum[i]);
+      }
+      m.cnt = take ? oc : (add ? m.cnt + oc : m.cnt);
+      m.gmax = nan ? NAN : (take ? og : m.gmax);
+    }
+    const float gs = m.grad_scale();
+    sxy[0] = m.gsum[0] * gs;
+    sxy[1] = m.gsum[1] * gs;
+    return m.smax();
+  }
 
   // The tracking model of one stage (or the terminal) with weights W.
+  template <int T>
   struct Track {
     float Jp[4][NX], We[4], WJ[4][NX], sxy[2], sm, S;
 
     template <class C>
-    __device__ __forceinline__ Track(const float* x, const C& c, int row, int W) {
+    __device__ __forceinline__ Track(const float* x, const C& c, int row,
+                                     int W, int lane) {
       wb::FK f;
-      wb::fk(x, f);
+      fk_team<T>(x, lane, f);
       float e[4];
       pose_err(x, f, c, row, e);
       Jp[0][0] = 1.f;
@@ -269,7 +356,7 @@ struct Endpoint {
         Jp[1][6 + i] = f.sp * f.axq[2][i];
         Jp[2][6 + i] = f.azq[2][i];
       }
-      sm = ground_slack(c, c.L.obs, x[0], x[1], c.ex(S_RADIUS), sxy);
+      sm = ground_slack_team<T>(c, x[0], x[1], sxy, lane);
       S = c.p(c.L.S);
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
@@ -290,7 +377,6 @@ struct Endpoint {
 
     // x row t = rho T + lane (a task past the x rows adds nothing): two_s
     // (Jp^T W e + S smax sx) into q, two_s (Jp^T W Jp + S sx sx^T) into acc
-    template <int T>
     __device__ __forceinline__ void add_row(int rho, int lane, float two_s,
                                             float& q, float (&acc)[NX]) const {
       const int t = rho * T + lane;
@@ -349,7 +435,7 @@ struct Endpoint {
     float x[NX];
 #pragma unroll
     for (int i = 0; i < NX; ++i) x[i] = in[i * S];
-    const Track tr(x, c, c.N, c.L.P);
+    const Track<T> tr(x, c, c.N, c.L.P, lane);
     const float two_s = 2.f * c.inv_scale;
 #pragma unroll
     for (int rho = 0; rho < (NX + T - 1) / T; ++rho) {
@@ -357,7 +443,7 @@ struct Endpoint {
       float q = 0.f, acc[NX];
 #pragma unroll
       for (int j = 0; j < NX; ++j) acc[j] = 0.f;
-      tr.add_row<T>(rho, lane, two_s, q, acc);
+      tr.add_row(rho, lane, two_s, q, acc);
       team_box_x(t, in[(t < NX ? t : 0) * S], in + NX * S, S, c, mu, q, acc);
       if (t < NX) {
         tt.vx[t] = q;
@@ -379,12 +465,12 @@ struct Endpoint {
     const float two_s = 2.f * c.inv_scale;
     const float* lam = in + (NX + NU) * S;
     {
-      const Track tr(x, c, k, c.L.Q);
+      const Track<T> tr(x, c, k, c.L.Q, lane);
 #pragma unroll
       for (int rho = 0; rho < R; ++rho) {
         if (rho * T >= NX) continue;     // no x row in this round
         const int t = rho * T + lane;
-        tr.add_row<T>(rho, lane, two_s, q[rho], acc[rho]);
+        tr.add_row(rho, lane, two_s, q[rho], acc[rho]);
         team_box_x(t, in[(t < NX ? t : 0) * S], lam, S, c, mu, q[rho], acc[rho]);
       }
     }
