@@ -367,22 +367,30 @@ def check_riccati(blocks_of, blocks, reg, check, peak, timed=True):
     return out
 
 
-def check_riccati_batches(blocks_of, blocks, reg, check):
-    """Phase 3, kernel E beyond the bench shape: on the first ``n``
-    scenarios of ``blocks`` and ``reg``, at the ragged batches 8191, 1000
-    and 1, against its plain version, held by ``check(got, ref, args)``,
-    with the launch geometry the library reports."""
+def check_batches(name, cuda, plain, args, err, geometry, **kv):
+    """Phase 3, a kernel beyond the bench shape: ``cuda`` against ``plain``
+    on the first ``n`` scenarios of the batch-last ``args`` at the ragged
+    batches 8191, 1000 and 1, held by ``err(got, ref, args)`` -> max abs
+    error, with the launch geometry ``geometry(n)`` that the library
+    reports."""
+    for n in (8191, 1000, 1):
+        a = tuple(x[..., :n].contiguous() if torch.is_tensor(x) else x
+                  for x in args)
+        got, ref = cuda(*a), plain(*a)
+        torch.cuda.synchronize()
+        _line("kernel-batch", name=name, **kv, B=n,
+              max_abs_err=f"{err(got, ref, a):.4g}", **geometry(n))
+
+
+def _riccati_batches(inputs, blocks, reg, check):
+    """``check_batches`` of kernel E on ``blocks`` and ``reg``."""
     from mmmpc_tpu_torch.ops.riccati import (
         launch_geometry, plain_riccati_bm, riccati_backward_bm,
     )
     nx, nu = blocks[0].shape[1], blocks[1].shape[1]
-    for n in (8191, 1000, 1):
-        args = tuple(a[..., :n].contiguous() for a in (*blocks, reg))
-        got, ref = riccati_backward_bm(*args), plain_riccati_bm(*args)
-        torch.cuda.synchronize()
-        _line("kernel-batch", name=f"riccati_bwd.{nx}x{nu}", inputs=blocks_of,
-              B=n, max_abs_err=f"{check(got, ref, args):.4g}",
-              **launch_geometry(nx, nu, n))
+    check_batches(f"riccati_bwd.{nx}x{nu}", riccati_backward_bm,
+                  plain_riccati_bm, (*blocks, reg), check,
+                  lambda n: launch_geometry(nx, nu, n), inputs=inputs)
 
 
 def spd_blocks(device, B=1024, N=4, nx=9, nu=5):
@@ -438,71 +446,23 @@ def check_new_pair(device, peak, dims=(4, 2)):
             print("[ptxas] " + ln.strip(), flush=True)
     check = _gains_check(f"{name} spd", 2e-4, 2e-4)
     out = check_riccati("spd", blocks, reg, check, peak)
-    check_riccati_batches("spd", spd_blocks(device, B=BATCH, nx=nx, nu=nu),
-                          torch.full((BATCH,), 1e-6, device=device), check)
+    _riccati_batches("spd", spd_blocks(device, B=BATCH, nx=nx, nu=nu),
+                     torch.full((BATCH,), 1e-6, device=device), check)
     return dict(out, launches=launches)
-
-
-def check_bwd_batches(bwd, bargs, bwd_check):
-    """Phase 3, kernel B beyond the bench shape: at the ragged batches 8191,
-    1000 and 1 (the first ``n`` scenarios of ``bargs``) against its plain
-    version, with the launch geometry the library reports."""
-    from mmmpc_tpu_torch.ops._cuda import LIBRARY
-    from mmmpc_tpu_torch.ops.wholebody_bwd import launch_geometry
-
-    for n in (8191, 1000, 1):
-        args = tuple(a[..., :n].contiguous() if torch.is_tensor(a) else a
-                     for a in bargs)
-        got, ref = bwd.cuda(*args), bwd.plain(*args)
-        torch.cuda.synchronize()
-        _line("kernel-batch", name="wholebody_bwd", B=n,
-              max_abs_err=f"{bwd_check(got, ref):.4g}",
-              **launch_geometry(LIBRARY.get(), bwd.N, bwd.n_obs, bwd.n_hp, n))
-
-
-def check_generic_bwd_batches(bwd, bargs, bwd_check):
-    """Phase 3, kernel D of a formulation beyond the bench shape: at the
-    ragged batches 8191, 1000 and 1 (the first ``n`` scenarios of
-    ``bargs``) against its plain version, with the launch geometry the
-    library reports."""
-    from mmmpc_tpu_torch.ops._cuda import LIBRARY
-    from mmmpc_tpu_torch.ops.generic_bwd import launch_geometry
-
-    f = bwd.form
-    for n in (8191, 1000, 1):
-        args = tuple(a[..., :n].contiguous() if torch.is_tensor(a) else a
-                     for a in bargs)
-        got, ref = bwd.cuda(*args), bwd.plain(*args)
-        torch.cuda.synchronize()
-        _line("kernel-batch", name=f"generic_bwd.{f.name}", B=n,
-              max_abs_err=f"{bwd_check(got, ref):.4g}",
-              **launch_geometry(LIBRARY.get(), f.name, bwd.ocp.N, f.n_obs,
-                                f.n_hp, n))
-
-
-def check_fwd_batches(fwd, fargs):
-    """Phase 3, kernel A beyond the bench shape: at the ragged batches 8191,
-    1000 and 1 (the first ``n`` scenarios of ``fargs``) against its plain
-    version, with the launch geometry the library reports."""
-    from mmmpc_tpu_torch.ops._cuda import LIBRARY
-    from mmmpc_tpu_torch.ops.wholebody_fwd import launch_geometry
-
-    for n in (8191, 1000, 1):
-        args = tuple(a[..., :n].contiguous() if torch.is_tensor(a) else a
-                     for a in fargs)
-        got, ref = fwd.cuda(*args), fwd.plain(*args)
-        torch.cuda.synchronize()
-        _line("kernel-batch", name="wholebody_fwd", B=n,
-              max_abs_err=f"{max(_fwd_errors('wholebody_fwd', got, ref)):.4g}",
-              **launch_geometry(LIBRARY.get(), fwd.N, fwd.n_obs, fwd.n_hp,
-                                len(fwd.alphas), n))
 
 
 def check_wholebody(mpc, x0, params, cfg, device, peak, kinds):
     """Phase 3, kernels A and B on the qref bench problem (B also by
-    ``check_bwd_batches``), E on the expansion blocks of B's inputs and on
+    ``check_batches``), E on the expansion blocks of B's inputs and on
     the random SPD blocks of the Pallas test; the kernels whose kind is in
     ``kinds``."""
+    from mmmpc_tpu_torch.ops._cuda import LIBRARY
+    from mmmpc_tpu_torch.ops.wholebody_bwd import (
+        launch_geometry as bwd_geometry,
+    )
+    from mmmpc_tpu_torch.ops.wholebody_fwd import (
+        launch_geometry as fwd_geometry,
+    )
     from mmmpc_tpu_torch.solver.al_ilqr import (
         rollout, stage_al_blocks, terminal_al_blocks,
     )
@@ -535,9 +495,15 @@ def check_wholebody(mpc, x0, params, cfg, device, peak, kinds):
                      bargs, (N, B, cfg.n_alpha, 9, 5, 28, 18), bwd_check,
                      peak, kinds)
     if "wholebody_fwd" in kinds:
-        check_fwd_batches(fwd, fargs)
+        check_batches("wholebody_fwd", fwd.cuda, fwd.plain, fargs,
+                      lambda g, r, a: max(_fwd_errors("wholebody_fwd", g, r)),
+                      lambda n: fwd_geometry(LIBRARY.get(), fwd.N, fwd.n_obs,
+                                             fwd.n_hp, len(fwd.alphas), n))
     if "wholebody_bwd" in kinds:
-        check_bwd_batches(bwd, bargs, bwd_check)
+        check_batches("wholebody_bwd", bwd.cuda, bwd.plain, bargs,
+                      lambda g, r, a: bwd_check(g, r),
+                      lambda n: bwd_geometry(LIBRARY.get(), bwd.N, bwd.n_obs,
+                                             bwd.n_hp, n))
     if "riccati_bwd" not in kinds:
         return out
     # E on the same inputs: rtol = atol = 5e-3 as B
@@ -547,7 +513,7 @@ def check_wholebody(mpc, x0, params, cfg, device, peak, kinds):
                                   10.0))
     check = _gains_check("riccati_bwd.9x5", 5e-3, 5e-3)
     out["riccati_bwd.9x5"] = check_riccati("qref", blocks, reg, check, peak)
-    check_riccati_batches("qref", blocks, reg, check)
+    _riccati_batches("qref", blocks, reg, check)
     check_riccati("spd", spd_blocks(device),
                   torch.full((1024,), 1e-6, device=device),
                   _gains_check("riccati_bwd.9x5 spd", 2e-4, 2e-4), peak,
@@ -561,7 +527,10 @@ def check_generic(device, peak, kinds):
     on the expansion blocks of D's inputs; the kernels whose kind is in
     ``kinds``."""
     from mmmpc_tpu_torch.bench_controllers import problems
-    from mmmpc_tpu_torch.ops.generic_bwd import plain_bwd
+    from mmmpc_tpu_torch.ops._cuda import LIBRARY
+    from mmmpc_tpu_torch.ops.generic_bwd import (
+        launch_geometry as gen_bwd_geometry, plain_bwd,
+    )
     from mmmpc_tpu_torch.ops.riccati import plain_riccati_bm
     from mmmpc_tpu_torch.solver.al_ilqr import (
         rollout, stage_al_blocks, terminal_al_blocks,
@@ -608,7 +577,12 @@ def check_generic(device, peak, kinds):
                               (N, B, cfg.n_alpha, nx, nu, nc, nct),
                               bwd_check, peak, kinds))
         if f == "endpoint" and "generic_bwd" in kinds:
-            check_generic_bwd_batches(bwd, bargs, bwd_check)
+            form = bwd.form
+            check_batches(
+                "generic_bwd.endpoint", bwd.cuda, bwd.plain, bargs,
+                lambda g, r, a: bwd_check(g, r),
+                lambda n: gen_bwd_geometry(LIBRARY.get(), "endpoint", N,
+                                           form.n_obs, form.n_hp, n))
         if "riccati_bwd" not in kinds:
             continue
 

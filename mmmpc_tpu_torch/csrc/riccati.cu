@@ -228,6 +228,16 @@ Geometry geometry(int B) {
   return {T, S * T, (B + S - 1) / S, smem_floats<NX, NU>(S) * 4};
 }
 
+// Lets the kernel take g.smem bytes of dynamic shared memory (above 48 KB
+// only after cudaFuncSetAttribute).
+template <int NX, int NU>
+cudaError_t allow_smem(const Geometry& g) {
+  if (g.smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(riccati_team_kernel<NX, NU>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              g.smem);
+}
+
 template <int NX, int NU>
 int launch(const float* lx, const float* lu, const float* lxx,
            const float* luu, const float* lux, const float* A, const float* Bm,
@@ -235,12 +245,8 @@ int launch(const float* lx, const float* lu, const float* lxx,
            float* kff, float* K, int N, int B, void* stream) {
   if (B <= 0 || N <= 0) return 0;
   const Geometry g = geometry<NX, NU>(B);
-  if (g.smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        riccati_team_kernel<NX, NU>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = allow_smem<NX, NU>(g);
+  if (e != cudaSuccess) return static_cast<int>(e);
   riccati_team_kernel<NX, NU>
       <<<g.blocks, g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(
           lx, lu, lxx, luu, lux, A, Bm, term_g, term_H, reg, kff, K, N, B);
@@ -252,20 +258,14 @@ int launch(const float* lx, const float* lu, const float* lxx,
 template <int NX, int NU>
 int report(int B, int* out) {
   const Geometry g = geometry<NX, NU>(B);
-  if (g.smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        riccati_team_kernel<NX, NU>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  int per_sm = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, riccati_team_kernel<NX, NU>, g.threads, g.smem);
   out[0] = g.team;
   out[1] = g.threads;
   out[2] = g.blocks;
   out[3] = g.smem;
-  out[4] = per_sm;
+  cudaError_t e = allow_smem<NX, NU>(g);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[4], riccati_team_kernel<NX, NU>, g.threads, g.smem);
   return static_cast<int>(e);
 }
 

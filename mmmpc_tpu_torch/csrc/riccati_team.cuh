@@ -37,9 +37,10 @@
 // at a task t known at run time (Jacobians in shared memory, kernel E).
 // Without it (Jacobians in registers, kernel D) that entry is picked by
 // selects over the tasks of the round, each a constant index once the
-// rounds are unrolled, so a structural zero of every task in a round
-// drops its terms at compile time; nvcc may not fold x * 0.f, so zeros are
-// skipped, never multiplied.
+// rounds are unrolled: an entry that is a structural zero for every task
+// of a round drops its terms at compile time (nvcc may not fold x * 0.f),
+// and a lane whose task has a zero where another task of its round has
+// not adds 0 * v.
 #pragma once
 
 namespace ric {
