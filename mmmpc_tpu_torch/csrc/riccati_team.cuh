@@ -19,8 +19,8 @@
 // - The factor and the solves.  Every lane factors the NU x NU matrix
 //   Quu + reg I itself (exact sqrtf and correctly rounded pivot
 //   reciprocals, as riccati_step.cuh), so the factor is never exchanged;
-//   the 1 + NX columns of [Qu | Qux] are solved by the lanes in turn, and
-//   the lane of a column stores its gains.
+//   the 1 + NX columns of [Qu | Qux] are solved by the lanes, a lane's
+//   columns side by side, and the lane of a column stores its gains.
 // - The value update, row by row: the lane of row r writes Vx[r] and
 //   column r of M = Quu K + Qux over column r of Qux (it alone reads that
 //   column), then row r of Vxx = Qxx + K^T M + Qux^T K, then row r of the
@@ -232,41 +232,50 @@ __device__ __forceinline__ void team_step(const J& jac, Rows&& rows,
         for (int p = 0; p < j; ++p) s -= Lc[i][p] * Lc[j][p];
         if (i == j) {
           const float r = sqrtf(s);
-          Dinv[i] = 1.f / r;
+          Dinv[i] = __frcp_rn(r);   // 1 / r, correctly rounded
           Lc[i][i] = r;
         } else {
           Lc[i][j] = s * Dinv[j];
         }
       }
     }
+    // the lane's columns c = rc T + lane side by side, so that their
+    // substitution chains overlap; a column past the last is solved on
+    // the last one and not stored
+    float y[RC][NU], z[RC][NU];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+#pragma unroll
+      for (int rc = 0; rc < RC; ++rc) {
+        const int c = min(rc * T + lane, NX);
+        float s = c == 0 ? tt.q[NX + i] : tt.Qux[i][c - 1];
+#pragma unroll
+        for (int p = 0; p < i; ++p) s -= Lc[i][p] * y[rc][p];
+        y[rc][i] = s * Dinv[i];
+      }
+    }
+#pragma unroll
+    for (int i = NU - 1; i >= 0; --i) {
+#pragma unroll
+      for (int rc = 0; rc < RC; ++rc) {
+        float s = y[rc][i];
+#pragma unroll
+        for (int p = i + 1; p < NU; ++p) s -= Lc[p][i] * z[rc][p];
+        z[rc][i] = s * Dinv[i];
+      }
+    }
 #pragma unroll
     for (int rc = 0; rc < RC; ++rc) {
       const int c = rc * T + lane;
       if (c >= 1 + NX) continue;
-      float y[NU];
-#pragma unroll
-      for (int i = 0; i < NU; ++i) {
-        float s = c == 0 ? tt.q[NX + i] : tt.Qux[i][c - 1];
-#pragma unroll
-        for (int p = 0; p < i; ++p) s -= Lc[i][p] * y[p];
-        y[i] = s * Dinv[i];
-      }
-      float z[NU];
-#pragma unroll
-      for (int i = NU - 1; i >= 0; --i) {
-        float s = y[i];
-#pragma unroll
-        for (int p = i + 1; p < NU; ++p) s -= Lc[p][i] * z[p];
-        z[i] = s * Dinv[i];
-      }
 #pragma unroll
       for (int i = 0; i < NU; ++i) {
         if (c == 0) {
-          tt.kf[i] = -z[i];
-          if (store) kff_out[i * B] = -z[i];
+          tt.kf[i] = -z[rc][i];
+          if (store) kff_out[i * B] = -z[rc][i];
         } else {
-          tt.K[i][c - 1] = -z[i];
-          if (store) K_out[(i * NX + c - 1) * B] = -z[i];
+          tt.K[i][c - 1] = -z[rc][i];
+          if (store) K_out[(i * NX + c - 1) * B] = -z[rc][i];
         }
       }
     }
