@@ -177,7 +177,8 @@ generic_bwd_kernel(const __grid_constant__ Statics<F> st,
 // scenario fastest) filled one stage ahead by cp.async, the terminal's
 // inputs and the params first.  One __syncthreads a stage.  Every lane
 // computes the stage's dynamics Jacobians (registers, F's masks: the team
-// step folds them at compile time) and F's stage model; the hooks
+// step folds them at compile time); F's stage model is the hooks' (they
+// may share its work over the lanes):
 //   team_term<T>(in, S, c, mu, lane, tile)           terminal -> V, vx
 //   team_rows<T>(x, in, S, k, c, mu, lane, q, acc, uu)  the stage's rows
 // add the rows of the lane's tasks.  A ragged batch runs on the clamped
