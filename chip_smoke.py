@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch / CUDA port (``mmmpc_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # every phase (the record of a run)
-    python3 chip_smoke.py --kernels   # phases 1-3 only: build and check
+    python3 chip_smoke.py --kernels   # phases 1-3b only: build and check
     python3 chip_smoke.py --kernel wholebody_bwd   # phases 1-2, then the
         # [kernel] check of one kind of KINDS alone (no peak sweep: bounds
         # at the published 67 TFLOP/s; fma_peak runs phase 2b)
@@ -35,14 +35,17 @@ Phases, each reported on its own lines; any failure exits nonzero:
    call and the plain version's (CUDA events), and the least time the card
    could take (bytes moved over 3.35 TB/s against operations over the
    published 67 TFLOP/s float32, and over the measured peak); kernels A,
-   B, D.endpoint and E (at (9, 5) on the qref blocks, at (4, 2) on the SPD
-   blocks) also at the ragged batches 8191, 1000 and 1 against their plain
-   versions, with their launch geometry (``[kernel-batch]``; E's with the
-   blocks an SM holds); kernel E also at (nx, nu) = (4, 2), which the
+   B, C.endpoint, D.arm, D.endpoint and E (at (9, 5) on the qref blocks,
+   at (4, 2) on the SPD blocks) also at the ragged batches 8191, 1000 and
+   1 against their plain versions, with their launch geometry
+   (``[kernel-batch]``; E's with the blocks an SM holds); kernel E also at (nx, nu) = (4, 2), which the
    kernel library does not hold: the pair's own library built on its first
    call (``[build-pair]``: seconds, the pair's launches in that call; ptxas
    registers / spills), then against its plain version on the SPD blocks
    at 2e-4;
+3b. cuda-tests: ``python -m pytest --noconftest -p no:cacheprovider -m cuda
+   tests/test_torch_cuda.py`` from the checkout's root, every kernel
+   against its plain version on small inputs (not with ``--kernel``);
 4. slice: the refined whole-body qref solve of ``bench.py`` at batch 8192
    (one warm-up solve with the kernel launch counters reset just before it,
    then 10 solves timed one by one): median and quartiles of the solve time,
@@ -126,8 +129,11 @@ KERNEL_SYMBOLS = {"wholebody_fwd": "wb::fwd_kernel",
                   **{f"generic_{d}.{f}":
                      f"gen::generic_{d}_kernel<gen::{f.capitalize()}>"
                      for f in GENERIC for d in ("fwd", "bwd")},
-                  "generic_bwd.endpoint":
-                  "gen::generic_bwd_team_kernel<gen::Endpoint>",
+                  "generic_fwd.endpoint":
+                  "gen::generic_fwd_team_kernel<gen::Endpoint>",
+                  **{f"generic_bwd.{f}":
+                     f"gen::generic_bwd_team_kernel<gen::{f.capitalize()}>"
+                     for f in ("arm", "endpoint")},
                   **{f"riccati_bwd.{nx}x{nu}":
                      f"ric::riccati_team_kernel<{nx}, {nu}>"
                      for nx, nu in DIMS.values()}}
@@ -535,6 +541,9 @@ def check_generic(device, peak, kinds):
     from mmmpc_tpu_torch.ops.generic_bwd import (
         launch_geometry as gen_bwd_geometry, plain_bwd,
     )
+    from mmmpc_tpu_torch.ops.generic_fwd import (
+        launch_geometry as gen_fwd_geometry,
+    )
     from mmmpc_tpu_torch.ops.riccati import plain_riccati_bm
     from mmmpc_tpu_torch.solver.al_ilqr import (
         rollout, stage_al_blocks, terminal_al_blocks,
@@ -564,29 +573,36 @@ def check_generic(device, peak, kinds):
                  t(0.3 * np.abs(rng.standard_normal((nct, B)))), lame, 10.0,
                  torch.full((B,), 1e-6, device=device))
 
-        def bwd_check(got, ref, f=f, bwd=bwd, mpc=mpc, bargs=bargs,
-                      params=params):
+        def bwd_check(got, ref, args, f=f, bwd=bwd, mpc=mpc, params=params):
             if f != "arm":
                 return _gains_check(f"generic_bwd.{f}", 1e-4,
-                                    BWD_ATOL[f])(got, ref, bargs)
+                                    BWD_ATOL[f])(got, ref, args)
             truth = plain_bwd(mpc.ocp, {k: v.double()
                                         for k, v in params.items()},
                               bwd.inv_scale,
                               *(a.double() if torch.is_tensor(a) else a
-                                for a in bargs))
+                                for a in args))
             return _check_f64("generic_bwd.arm", got, ref, truth)
 
         out.update(check_pair((f"generic_fwd.{f}", f"generic_bwd.{f}"), fwd,
                               bwd, fargs, bargs,
                               (N, B, cfg.n_alpha, nx, nu, nc, nct),
-                              bwd_check, peak, kinds))
-        if f == "endpoint" and "generic_bwd" in kinds:
-            form = bwd.form
+                              lambda g, r, bargs=bargs, check=bwd_check:
+                              check(g, r, bargs), peak, kinds))
+        form = bwd.form
+        # the team kernels (D.arm, D.endpoint, C.endpoint) at ragged batches
+        if f in ("arm", "endpoint") and "generic_bwd" in kinds:
             check_batches(
-                "generic_bwd.endpoint", bwd.cuda, bwd.plain, bargs,
-                lambda g, r, a: bwd_check(g, r),
-                lambda n: gen_bwd_geometry(LIBRARY.get(), "endpoint", N,
-                                           form.n_obs, form.n_hp, n))
+                f"generic_bwd.{f}", bwd.cuda, bwd.plain, bargs, bwd_check,
+                lambda n, f=f, form=form: gen_bwd_geometry(
+                    LIBRARY.get(), f, N, form.n_obs, form.n_hp, n))
+        if f == "endpoint" and "generic_fwd" in kinds:
+            check_batches(
+                "generic_fwd.endpoint", fwd.cuda, fwd.plain, fargs,
+                lambda g, r, a: max(_fwd_errors("generic_fwd.endpoint", g, r)),
+                lambda n, form=form: gen_fwd_geometry(
+                    LIBRARY.get(), "endpoint", N, form.n_obs, form.n_hp,
+                    len(fwd.alphas), n))
         if "riccati_bwd" not in kinds:
             continue
 
@@ -1093,6 +1109,25 @@ def run_peak(device):
     return res["fp32_flops"], entry, launches
 
 
+def run_cuda_tests():
+    """Phase 3b: the ``cuda``-marked tests of ``tests/test_torch_cuda.py``
+    (no JAX there), in a pytest process of their own from the checkout's
+    root: each kernel against its plain version on small inputs.  Fails
+    unless pytest exits 0 with every selected test passed (a test that
+    skips on the card is a failure here)."""
+    from pathlib import Path
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-p",
+           "no:cacheprovider", "-m", "cuda", "-q", "tests/test_torch_cuda.py"]
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True)
+    lines = proc.stdout.strip().splitlines() or [""]
+    _line("cuda-tests", rc=proc.returncode, summary=repr(lines[-1]))
+    if (proc.returncode != 0 or "passed" not in lines[-1]
+            or re.search(r"skipped|failed|error", lines[-1])):
+        print(proc.stdout[-8000:], proc.stderr[-4000:], sep="\n", flush=True)
+        raise AssertionError(f"tests/test_torch_cuda.py: {lines[-1]!r}")
+
+
 def _phase(name, fn, *args):
     """Run one phase and print its wall seconds."""
     t0 = time.perf_counter()
@@ -1143,6 +1178,9 @@ def main(argv):
     if kinds & {"generic_fwd", "generic_bwd", "riccati_bwd"}:
         timings.update(_phase("kernels-generic", check_generic, device, peak,
                               kinds))
+    if argv[:1] == ["--kernel"]:
+        return 0
+    _phase("cuda-tests", run_cuda_tests)
     if argv:
         return 0
     launches, fused = _phase("slice", run_slice, device)

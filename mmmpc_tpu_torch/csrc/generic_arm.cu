@@ -248,6 +248,305 @@ struct Arm {
   __device__ static void term_quad(const float* x, const C& c, Q& q) {
     tracking(x, c, c.N, c.L.P, 6, q);
   }
+
+  // ---- the team backward (generic_bwd.cuh, generic_bwd_team_kernel):
+  // teams of BWD_TEAM lanes a scenario.  The lanes share the stage's
+  // expansion: the FK's three sincos (sincos_team), the six wedge points
+  // (a point's max over the faces in the lane that owns it, the points'
+  // relu(max) merged across the team), the four self-collision rows (each
+  // on one lane, its value and gradient exchanged by shuffles); then every
+  // lane adds the rows of its tasks in tracking's and stage_quad's order
+  // of operations, the q-box rows to its x rows and the rate-box rows to
+  // its u rows.  Rows picked at run time read x, u and the multipliers
+  // from the stage buffer (in[e * S]: x, u, lam) and the sampled rows by
+  // selects (ric::pick).
+  static constexpr int BWD_TEAM = 4;
+  // the self-collision rows: one a lane, exchanged by shuffles (true), or
+  // all four in every lane (false)
+  static constexpr bool BWD_SELF_SHUFFLE = true;
+
+  // arm_fk with its three sincos over the lanes of the team.
+  template <int T>
+  __device__ static void fk_team(const float* x, int lane, wb::ArmFK& a) {
+    const float th = x[0] - x[1];
+    float s[3], cs[3];
+    sincos_team<T, 3>([&](int i) { return i == 0 ? x[0] : (i == 1 ? th : th - x[2]); },
+                      lane, s, cs);
+    using namespace wb;
+    const float s1 = s[0], c1 = cs[0], st = s[1], ct = cs[1], sb = s[2], cb = cs[2];
+    const float ax2 = A2 * s1 + A3 * c1;
+    const float az2 = A2 * c1 - A3 * s1;
+    const float D3 = A3 * st + A5 * ct;
+    const float E3 = A3 * ct - A5 * st;
+    const float ax3 = ax2 - A3 * ct + A5 * st;
+    const float az3 = az2 + A3 * st + A5 * ct;
+    const float P6 = -A6 * sb - A7 * cb;
+    const float Q6 = -A6 * cb + A7 * sb;
+    a.ax[0] = ax2;
+    a.ax[1] = ax3;
+    a.ax[2] = ax3 + A6 * cb - A7 * sb;
+    a.az[0] = az2;
+    a.az[1] = az3;
+    a.az[2] = az3 - A6 * sb - A7 * cb;
+    a.axq[0][0] = az2;            a.axq[0][1] = 0.f;           a.axq[0][2] = 0.f;
+    a.axq[1][0] = az2 + D3;       a.axq[1][1] = -D3;           a.axq[1][2] = 0.f;
+    a.axq[2][0] = az2 + D3 + P6;  a.axq[2][1] = -(D3 + P6);    a.axq[2][2] = -P6;
+    a.azq[0][0] = -ax2;           a.azq[0][1] = 0.f;           a.azq[0][2] = 0.f;
+    a.azq[1][0] = -ax2 + E3;      a.azq[1][1] = -E3;           a.azq[1][2] = 0.f;
+    a.azq[2][0] = -ax2 + E3 + Q6; a.azq[2][1] = -(E3 + Q6);    a.azq[2][2] = -Q6;
+  }
+
+  // wedge_slack with its six points over the lanes of the team (point r on
+  // lane r % T), each point's max over the faces in its lane, the points'
+  // accumulators merged by max_acc_team.  Every lane ends with the same
+  // smax and sq.
+  template <int T, class C>
+  __device__ static float wedge_team(const wb::ArmFK& a, const C& c, int lane, float* sq) {
+    float live = 0.f;
+    for (int h = 0; h < c.n_hp; ++h) live += c.p(c.L.hpm + h);
+    wb::MaxAcc<3> m;
+    m.init();
+    if (live > 0.f) {
+#pragma unroll
+      for (int rr = 0; rr < (6 + T - 1) / T; ++rr) {
+        const int r = rr * T + lane;
+        if (r >= 6) continue;
+        // wb::HP_POINTS[r]
+        const float h0 = r == 0 || r == 2 ? 0.5f : (r == 1 ? 1.f : 0.f);
+        const float h1 = r == 2 || r == 4 ? 0.5f : (r == 3 ? 1.f : 0.f);
+        const float h2 = r == 4 ? 0.5f : (r == 5 ? 1.f : 0.f);
+        const float hw[3] = {h0, h1, h2};
+        float px = 0.f, pz = 0.f;
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          px += hw[p] * a.ax[p];
+          pz += hw[p] * a.az[p];
+        }
+        float dmax = -INFINITY, en0 = 0.f, en2 = 0.f, cnt = 0.f;
+        for (int h = 0; h < c.n_hp; ++h) {
+          const float n0 = c.p(c.L.hpn + 3 * h), n1 = c.p(c.L.hpn + 3 * h + 1),
+                      n2 = c.p(c.L.hpn + 3 * h + 2);
+          const float d = c.p(c.L.hpm + h) > 0.f
+                              ? n0 * (c.p(c.L.hpp + 3 * h) - px) + n1 * c.p(c.L.hpp + 3 * h + 1) +
+                                    n2 * (c.p(c.L.hpp + 3 * h + 2) - pz)
+                              : NEG_BIG;
+          const bool gt = d > dmax || isnan(d);
+          const bool eq = d == dmax;
+          dmax = gt ? d : dmax;
+          cnt = gt ? 1.f : (eq ? cnt + 1.f : cnt);
+          en0 = gt ? n0 : (eq ? en0 + n0 : en0);
+          en2 = gt ? n2 : (eq ? en2 + n2 : en2);
+        }
+        float g[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          float AX = 0.f, AZ = 0.f;
+#pragma unroll
+          for (int p = 0; p < 3; ++p) {
+            AX += hw[p] * a.axq[p][i];
+            AZ += hw[p] * a.azq[p][i];
+          }
+          g[i] = (en0 * AX + en2 * AZ) / cnt;
+        }
+        m.add(-dmax, g);
+      }
+    }
+    max_acc_team<T>(m);
+    const float gs = m.grad_scale();
+#pragma unroll
+    for (int i = 0; i < 3; ++i) sq[i] = m.gsum[i] * gs;
+    return m.smax();
+  }
+
+  // The four self-collision rows (selfcol) in every lane: values sv[r],
+  // q-gradients sg[r].  With BWD_SELF_SHUFFLE, row r on lane r % T and
+  // exchanged by shuffles; else each lane computes all four.
+  template <int T>
+  __device__ static void self_team(const wb::ArmFK& a, int lane, float (&sv)[4],
+                                   float (&sg)[4][3]) {
+    if constexpr (BWD_SELF_SHUFFLE) {
+      constexpr int RS = (4 + T - 1) / T;
+      float v[RS], g[RS][3];
+#pragma unroll
+      for (int rr = 0; rr < RS; ++rr) {
+        const int r = min(rr * T + lane, 3);
+        // wb::SELF_DIFF[r]
+        const float dw[3] = {r == 0 ? 0.f : (r == 2 ? 1.f : 0.5f), r == 3 ? 0.5f : 0.f, -1.f};
+        float vx = 0.f, vz = 0.f;
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          vx += dw[p] * a.ax[p];
+          vz += dw[p] * a.az[p];
+        }
+        const float n = sqrtf(vx * vx + vz * vz + wb::EPS);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          float AX = 0.f, AZ = 0.f;
+#pragma unroll
+          for (int p = 0; p < 3; ++p) {
+            AX += dw[p] * a.axq[p][i];
+            AZ += dw[p] * a.azq[p][i];
+          }
+          g[rr][i] = -(vx * AX + vz * AZ) / n;
+        }
+        v[rr] = wb::SELF_R - n;
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        sv[r] = __shfl_sync(TEAM_FULL, v[r / T], r % T, T);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) sg[r][i] = __shfl_sync(TEAM_FULL, g[r / T][i], r % T, T);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) sv[r] = selfcol(a, r, sg[r]);
+    }
+  }
+
+  // The expansion of one stage (or the terminal) that the lanes share.
+  template <int T>
+  struct Expand {
+    float e[3], sq[3], sm, sv[4], sg[4][3];
+
+    template <class C>
+    __device__ __forceinline__ Expand(const float* x, const C& c, int row, int lane) {
+      wb::ArmFK a;
+      fk_team<T>(x, lane, a);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) e[i] = x[i] - c.p(c.L.xref + row * 3 + i);
+      sm = wedge_team<T>(a, c, lane, sq);
+      self_team<T>(a, lane, sv, sg);
+    }
+
+    // x row t = rho T + lane (a task past the x rows adds nothing): the
+    // tracking with weights W, the q-box rows (multipliers lam[0..5]) and
+    // the self-collision rows (lam[r_self..]); x[t] = xt
+    template <class C>
+    __device__ __forceinline__ void add_row(int rho, int lane, float xt, const C& c, int W,
+                                            const float* lam, int S, int r_self, float mu,
+                                            float& q, float (&acc)[NX]) const {
+      const int t = rho * T + lane;
+      const bool live = t < NX;
+      const int tc = live ? t : NX - 1;
+      const float two_s = 2.f * c.inv_scale;
+      const float w = c.ex(S_W);
+      const float wsm = w * sm;
+      const float st = ric::pick<T, NX>(rho, lane, [&](int i) { return sq[i]; });
+      float we = 0.f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) we += c.p(W + tc * 3 + j) * e[j];
+      q = live ? q + two_s * (we + wsm * st) : q;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float h = two_s * (c.p(W + tc * 3 + j) + w * (st * sq[j]));
+        acc[j] = live ? acc[j] + h : acc[j];
+      }
+      // q.box_x of rows t (q - hi) and 3 + t (lo - q)
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        const bool hi = side == 0;
+        const float val = hi ? xt - c.ex(S_QHI + tc) : c.ex(S_QLO + tc) - xt;
+        const float tv = fmaxf(lam[(hi ? tc : 3 + tc) * S] + mu * val, 0.f);
+        q = live ? q + (hi ? 1.f : -1.f) * tv : q;
+        const float d = tv > 0.f ? mu : 0.f;
+#pragma unroll
+        for (int j = 0; j < NX; ++j) acc[j] = live && j == t ? acc[j] + d : acc[j];
+      }
+      // q.row_x of the self-collision rows
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float tv = fmaxf(lam[(r_self + r) * S] + mu * sv[r], 0.f);
+        const float ma = tv > 0.f ? mu : 0.f;
+        const float gt = ric::pick<T, NX>(rho, lane, [&](int i) { return sg[r][i]; });
+        q = live ? q + tv * gt : q;
+#pragma unroll
+        for (int j = 0; j < NX; ++j) {
+          const float h = ma * (gt * sg[r][j]);
+          acc[j] = live ? acc[j] + h : acc[j];
+        }
+      }
+    }
+  };
+
+  // The terminal (term_quad) -> Vx, Vxx of the lane's rows: in[e * S] holds
+  // x_N, then lamt.
+  template <int T, class C>
+  __device__ static void team_term(const float* in, int S, const C& c, float mu, int lane,
+                                   ric::TeamTile<NX, NU>& tt) {
+    float x[NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = in[i * S];
+    const Expand<T> ex(x, c, c.N, lane);
+#pragma unroll
+    for (int rho = 0; rho < (NX + T - 1) / T; ++rho) {
+      const int t = rho * T + lane;
+      float q = 0.f, acc[NX];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) acc[j] = 0.f;
+      ex.add_row(rho, lane, in[(t < NX ? t : 0) * S], c, c.L.P, in + NX * S, S, 6, mu, q, acc);
+      if (t < NX) {
+        tt.vx[t] = q;
+#pragma unroll
+        for (int j = 0; j < NX; ++j) tt.V[t][j] = acc[j];
+      }
+    }
+  }
+
+  // A stage's rows (stage_quad) of the lane's tasks: in[e * S] holds x_k,
+  // u_k, lam_k.
+  template <int T, class C>
+  __device__ static void team_rows(const float* x, const float* in, int S, int k, const C& c,
+                                   float mu, int lane, float (&q)[ric::rounds<NX, NU, T>()],
+                                   float (&acc)[ric::rounds<NX, NU, T>()][NX],
+                                   float (&uu)[ric::rounds<NX, NU, T>()][NU]) {
+    constexpr int R = ric::rounds<NX, NU, T>();
+    const float two_s = 2.f * c.inv_scale;
+    const float* lam = in + (NX + NU) * S;
+    {
+      const Expand<T> ex(x, c, k, lane);
+#pragma unroll
+      for (int rho = 0; rho < R; ++rho) {
+        if (rho * T >= NX) continue;     // no x row in this round
+        const int t = rho * T + lane;
+        ex.add_row(rho, lane, in[(t < NX ? t : 0) * S], c, c.L.Q, lam, S, 12, mu, q[rho],
+                   acc[rho]);
+      }
+    }
+    float eu[NU], edu[NU];
+#pragma unroll
+    for (int j = 0; j < NU; ++j) {
+      const float uj = in[(NX + j) * S];
+      eu[j] = uj - c.p(c.L.uref + k * NU + j);
+      edu[j] = uj - c.p(c.L.ulast + k * NU + j);
+    }
+#pragma unroll
+    for (int rho = 0; rho < R; ++rho) {
+      if ((rho + 1) * T <= NX) continue;  // no u row in this round
+      const int t = rho * T + lane;
+      const bool urow = t >= NX && t < NX + NU;
+      const int i = urow ? t - NX : 0;
+      const int Ri = c.L.R + i * NU, Mi = c.L.M + i * NU;
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < NU; ++j) s += c.p(Ri + j) * eu[j] + c.p(Mi + j) * edu[j];
+      q[rho] = urow ? q[rho] + two_s * s : q[rho];
+#pragma unroll
+      for (int j = 0; j < NU; ++j)
+        uu[rho][j] = urow ? uu[rho][j] + two_s * (c.p(Ri + j) + c.p(Mi + j)) : uu[rho][j];
+      // the rate-box rows 6 + i and 9 + i (q.box_u)
+      const float ed = in[(NX + i) * S] - c.p(c.L.ulast + k * NU + i);
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        const bool hi = side == 0;
+        const float val = hi ? ed - c.ex(S_DDHI + i) : c.ex(S_DDLO + i) - ed;
+        const float tv = fmaxf(lam[(hi ? 6 + i : 9 + i) * S] + mu * val, 0.f);
+        q[rho] = urow ? q[rho] + (hi ? 1.f : -1.f) * tv : q[rho];
+        const float d = tv > 0.f ? mu : 0.f;
+#pragma unroll
+        for (int j = 0; j < NU; ++j) uu[rho][j] = urow && j == i ? uu[rho][j] + d : uu[rho][j];
+      }
+    }
+  }
 };
 
 }  // namespace gen

@@ -9,10 +9,10 @@
 // dynamics Jacobians, plus the stage's scaled Gauss-Newton model and its PHR
 // rows, one Riccati step (Cholesky of Quu + reg I, kff = -Quu^-1 Qu,
 // K = -Quu^-1 Qux), the value update, and Vxx symmetrised.  A formulation
-// without BWD_TEAM (demo, base, arm) runs one thread a scenario on
-// ric::riccati_step (riccati_step.cuh); one with it (endpoint) runs the
-// team kernel below on ric::team_step (riccati_team.cuh), which kernel E
-// shares with dense Jacobians.  The plain PyTorch version is
+// without BWD_TEAM (demo, base) runs one thread a scenario on
+// ric::riccati_step (riccati_step.cuh); one with it (arm, endpoint) runs
+// the team kernel below on ric::team_step (riccati_team.cuh), which kernel
+// E shares with dense Jacobians.  The plain PyTorch version is
 // ops/generic_bwd.py::plain_bwd.
 //
 // The formulation F supplies, besides the members listed in
@@ -182,8 +182,8 @@ generic_bwd_kernel(const __grid_constant__ Statics<F> st,
 //   team_term<T>(in, S, c, mu, lane, tile)           terminal -> V, vx
 //   team_rows<T>(x, in, S, k, c, mu, lane, q, acc, uu)  the stage's rows
 // add the rows of the lane's tasks.  A ragged batch runs on the clamped
-// scenario index with masked stores.  The other formulations keep the
-// one-thread kernel above.
+// scenario index with masked stores.  The other formulations (demo, base)
+// keep the one-thread kernel above.
 template <class F, class = void>
 struct BwdTeam {
   static constexpr int value = 0;
@@ -191,22 +191,6 @@ struct BwdTeam {
 template <class F>
 struct BwdTeam<F, std::void_t<decltype(F::BWD_TEAM)>> {
   static constexpr int value = F::BWD_TEAM;
-};
-
-// What the team kernel's hooks read: the statics and the packed params in
-// shared memory, their layout, and the horizon (the members of Ctx).
-template <class F>
-struct SmemCtx {
-  const float* sv;
-  const float* pp;
-  typename F::Layout L;
-  float dt, inv_scale;
-  int N, n_obs, n_hp;
-
-  __device__ __forceinline__ float p(int i) const { return pp[i]; }
-  __device__ __forceinline__ float ex(int i) const {
-    return sv[Statics<F>::EXTRA + i];
-  }
 };
 
 // The formulation's Jacobians in registers, as the team step takes them.

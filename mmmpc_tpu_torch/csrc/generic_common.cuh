@@ -68,6 +68,22 @@ struct Ctx {
   }
 };
 
+// What the team kernels' hooks read: the statics and the packed params in
+// shared memory, their layout, and the horizon (the members of Ctx).
+template <class F>
+struct SmemCtx {
+  const float* sv;
+  const float* pp;
+  typename F::Layout L;
+  float dt, inv_scale;
+  int N, n_obs, n_hp;
+
+  __device__ __forceinline__ float p(int i) const { return pp[i]; }
+  __device__ __forceinline__ float ex(int i) const {
+    return sv[Statics<F>::EXTRA + i];
+  }
+};
+
 template <class F>
 __device__ __forceinline__ Ctx<F> make_ctx(const Statics<F>& st,
                                            const float* pp, int N) {
@@ -103,6 +119,50 @@ __device__ __forceinline__ float wrap_pi(float a) {
   return a - TWO_PI_F * floorf((a + PI_F) / TWO_PI_F);
 }
 
+constexpr unsigned TEAM_FULL = 0xffffffffu;
+
+// sincosf of NA angles over the T lanes of a team: angle a on lane a % T in
+// round a / T, ang(a) giving it there (a known at run time, so ang picks
+// by selects), then exchanged by shuffles.  Every lane ends with every
+// angle's sine and cosine, the bits of sincosf.
+template <int T, int NA, class Ang>
+__device__ __forceinline__ void sincos_team(Ang&& ang, int lane, float (&s)[NA],
+                                            float (&c)[NA]) {
+  constexpr int RA = (NA + T - 1) / T;
+  float sa[RA], ca[RA];
+#pragma unroll
+  for (int ra = 0; ra < RA; ++ra)
+    sincosf(ang(min(ra * T + lane, NA - 1)), &sa[ra], &ca[ra]);
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+    s[a] = __shfl_sync(TEAM_FULL, sa[a / T], a % T, T);
+    c[a] = __shfl_sync(TEAM_FULL, ca[a / T], a % T, T);
+  }
+}
+
+// A relu(max) accumulator merged across the T lanes of a team by a
+// butterfly of shuffles: a larger max replaces, equal maxima add their
+// counts and gradients, a NaN max stays NaN.  Every lane ends with the
+// same accumulator.
+template <int T, int NV>
+__device__ __forceinline__ void max_acc_team(wb::MaxAcc<NV>& m) {
+#pragma unroll
+  for (int off = 1; off < T; off <<= 1) {
+    const float og = __shfl_xor_sync(TEAM_FULL, m.gmax, off, T);
+    const float oc = __shfl_xor_sync(TEAM_FULL, m.cnt, off, T);
+    const bool nan = isnan(og) || isnan(m.gmax);
+    const bool take = !nan && og > m.gmax;
+    const bool add = nan || og == m.gmax;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const float o = __shfl_xor_sync(TEAM_FULL, m.gsum[i], off, T);
+      m.gsum[i] = take ? o : (add ? m.gsum[i] + o : m.gsum[i]);
+    }
+    m.cnt = take ? oc : (add ? m.cnt + oc : m.cnt);
+    m.gmax = nan ? NAN : (take ? og : m.gmax);
+  }
+}
+
 // relu(max) of the ground circles (r_obs + radius) - |(px, py) - obs| over
 // the n_obs rows [x, y, r] at offset off; with sxy, also its (px, py)
 // gradient with the even tie split of the VJP of jnp.max.
@@ -132,9 +192,9 @@ __device__ __forceinline__ float ground_slack(const C& c, int off, float px,
 // The C entries of formulation F under the name `name`: launches of both
 // kernels (statics is a HOST pointer, copied into the kernel argument; the
 // other pointers are device memory; each returns cudaGetLastError() after
-// the launch), the backward's launch geometry at batch B (team, threads,
-// blocks, shared-memory bytes), and the two layout sizes for the wrappers'
-// check.
+// the launch), the forward's launch geometry at batch B with n_alpha step
+// sizes and the backward's at batch B (team, threads, blocks, shared-memory
+// bytes), and the two layout sizes for the wrappers' check.
 #define GEN_ENTRIES(name, F)                                                  \
   extern "C" int gen_fwd_##name(                                              \
       const float* statics, const float* params, const float* X,             \
@@ -151,6 +211,16 @@ __device__ __forceinline__ float ground_slack(const C& c, int off, float px,
       void* stream) {                                                         \
     return gen::launch_bwd<F>(statics, params, X, U, lam, lamt, lame, reg,   \
                               kff, K, mu, N, B, stream);                     \
+  }                                                                           \
+  extern "C" int gen_fwd_geometry_##name(int N, int n_obs, int n_hp,         \
+                                         int n_alpha, int B, int* out) {      \
+    const gen::FwdGeometry g =                                                \
+        gen::fwd_geometry<F>(N, n_obs, n_hp, n_alpha, B);                     \
+    out[0] = g.team;                                                          \
+    out[1] = g.threads;                                                       \
+    out[2] = g.blocks;                                                        \
+    out[3] = g.smem;                                                          \
+    return 0;                                                                 \
   }                                                                           \
   extern "C" int gen_bwd_geometry_##name(int N, int n_obs, int n_hp, int B,  \
                                          int* out) {                          \

@@ -510,6 +510,133 @@ struct Endpoint {
       }
     }
   }
+
+  // ---- the team line search (generic_fwd.cuh, generic_fwd_team_kernel):
+  // teams of FWD_TEAM lanes a candidate.  The FK's four sincos over the
+  // lanes (sincos_team), the step in every lane; the ground circles, the
+  // rows of the Q, R and W forms and the PHR rows as items over the lanes.
+  static constexpr int FWD_TEAM = 2;
+  // a candidate's vector: x, u, then the errors e (pose), eu, ed
+  enum : int {
+    FV_E = NX + NU,
+    FV_EU = FV_E + 4,
+    FV_ED = FV_EU + NU,
+    FWD_NV = (FV_ED + NU) | 1,
+  };
+  static constexpr int FWD_ROWS = 4 * NC;
+
+  // The PHR row table: {bound, sign, live, vector index} of the stage rows
+  // [x_hi, x_lo, du_hi, du_lo] (the terminal rows are the first 2 NX).
+  __device__ static void fwd_team_rows(const float* sv, float* rt) {
+    const float* ex = sv + Statics<Endpoint>::EXTRA;
+#pragma unroll
+    for (int r = 0; r < NC; ++r) {
+      const bool isx = r < 2 * NX;
+      const bool hi = isx ? r < NX : r < 2 * NX + NU;
+      const int e = isx ? (hi ? r : r - NX) : (hi ? r - 2 * NX : r - 2 * NX - NU);
+      const int bound = isx ? (hi ? S_XHI : S_XLO) : (hi ? S_DUHI : S_DULO);
+      const int mask = isx ? (hi ? S_XMHI : S_XMLO) : (hi ? S_DUMHI : S_DUMLO);
+      rt[4 * r] = ex[bound + e];
+      rt[4 * r + 1] = hi ? 1.f : -1.f;
+      rt[4 * r + 2] = ex[mask + e] != 0.f ? 1.f : 0.f;
+      rt[4 * r + 3] = __int_as_float(isx ? e : FV_ED + e);
+    }
+  }
+
+  // The end effector's world point (wb::fk's pt[2]) and the base yaw's
+  // cos / sin, the four sincos over the lanes of the team.
+  template <int T>
+  __device__ static void fk_ee_team(const float* x, int lane, float& cp, float& sp,
+                                    float* pe) {
+    const float th = x[6] - x[7];
+    float s[4], cs[4];
+    sincos_team<T, 4>(
+        [&](int i) { return i == 0 ? x[6] : (i == 1 ? th : (i == 2 ? th - x[8] : x[2])); },
+        lane, s, cs);
+    using namespace wb;
+    const float s1 = s[0], c1 = cs[0], st = s[1], ct = cs[1], sb = s[2], cb = cs[2];
+    sp = s[3];
+    cp = cs[3];
+    const float ax2 = A2 * s1 + A3 * c1;
+    const float az2 = A2 * c1 - A3 * s1;
+    const float ax3 = ax2 - A3 * ct + A5 * st;
+    const float az3 = az2 + A3 * st + A5 * ct;
+    const float axe = ax3 + A6 * cb - A7 * sb;
+    const float aze = az3 - A6 * sb - A7 * cb;
+    const float r = axe + BX;
+    pe[0] = x[0] + r * cp;
+    pe[1] = x[1] + r * sp;
+    pe[2] = aze + BZ;
+  }
+
+  // relu(max) of the ground circles over the lanes of the team (values
+  // only; NaN stays NaN); every lane ends with it.
+  template <int T, class C>
+  __device__ static float ground_team(const C& c, float px, float py, int lane) {
+    float m = -INFINITY;
+    for (int o = lane; o < c.n_obs; o += T) {
+      const float dx = px - c.p(c.L.obs + 3 * o);
+      const float dy = py - c.p(c.L.obs + 3 * o + 1);
+      const float d = sqrtf(dx * dx + dy * dy + wb::EPS);
+      const float v = (c.p(c.L.obs + 3 * o + 2) + c.ex(S_RADIUS)) - d;
+      m = (v > m || isnan(v)) ? v : m;
+    }
+#pragma unroll
+    for (int off = 1; off < T; off <<= 1) {
+      const float v = __shfl_xor_sync(TEAM_FULL, m, off, T);
+      m = (v > m || isnan(v)) ? v : m;
+    }
+    return m < 0.f ? 0.f : m;
+  }
+
+  // The pose error of x against reference row `row` into the team's vector
+  // (then __syncwarp: the vector is complete); the cost share of
+  // S relu(max)^2 (lane 0) and of the pose form with weights W; with u,
+  // x_{k+1} into xn.
+  template <int T, class C>
+  __device__ static float pose_team(const float* x, const float* u, int row, int W, const C& c,
+                                    float* v, int lane, float* xn) {
+    float cp, sp, pe[3];
+    fk_ee_team<T>(x, lane, cp, sp, pe);
+    if (u != nullptr) wb::step(x, u, c.dt, cp, sp, xn);
+    float e[4];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) e[i] = pe[i] - c.p(c.L.xref + row * 4 + i);
+    e[3] = x[2] - c.p(c.L.xref + row * 4 + 3);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[FV_E + i] = e[i];
+    __syncwarp();
+    const float sm = ground_team<T>(c, x[0], x[1], lane);
+    const float tr = lane == 0 ? c.p(c.L.S) * sm * sm : 0.f;
+    return tr + qform_rows<T, 4>(c, W, e, v + FV_E, lane);
+  }
+
+  template <int T, class C>
+  __device__ static float fwd_team_stage(const float* x, const float* u, int k, const C& c,
+                                         float* v, const float* rt, const float* lam, int SC,
+                                         float mu, int lane, float* xn) {
+    float eu[NU], ed[NU];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      eu[i] = u[i] - c.p(c.L.uref + k * NU + i);
+      ed[i] = u[i] - c.p(c.L.ulast + k * NU + i);
+      v[FV_EU + i] = eu[i];
+      v[FV_ED + i] = ed[i];
+    }
+    float tr = pose_team<T>(x, u, k, c.L.Q, c, v, lane, xn);
+    tr += qform_rows<T, NU>(c, c.L.R, eu, v + FV_EU, lane);
+    tr += qform_rows<T, NU>(c, c.L.W, ed, v + FV_ED, lane);
+    const float pen = phr_rows<T, NC>(rt, v, lam, SC, mu, lane);
+    return c.inv_scale * tr + pen * (0.5f / mu);
+  }
+
+  template <int T, class C>
+  __device__ static float fwd_team_terminal(const float* x, const C& c, float* v, const float* rt,
+                                            const float* lamt, int SC, float mu, int lane) {
+    const float tr = pose_team<T>(x, nullptr, c.N, c.L.P, c, v, lane, nullptr);
+    const float pen = phr_rows<T, NCT>(rt, v, lamt, SC, mu, lane);
+    return c.inv_scale * tr + pen * (0.5f / mu);
+  }
 };
 
 }  // namespace gen

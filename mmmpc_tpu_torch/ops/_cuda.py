@@ -74,10 +74,10 @@ _FLOAT = ctypes.c_float
 # the packed params for (N, n_obs, n_hp).  Riccati sweep: 12 device pointers,
 # N, B, the stream; its geometry (B) writes five ints (team, threads,
 # blocks, shared-memory bytes, blocks an SM).  FMA microkernel: 2 device
-# pointers, the trip count, blocks, threads, the stream.  The whole-body
-# backward's geometry (N, n_obs, n_hp, B), the forward's (N, n_obs, n_hp,
-# n_alpha, B) and each generic backward's (N, n_obs, n_hp, B) write four
-# ints (team, threads, blocks, shared-memory bytes).
+# pointers, the trip count, blocks, threads, the stream.  The backwards'
+# geometries (N, n_obs, n_hp, B) and the forwards' (N, n_obs, n_hp,
+# n_alpha, B), whole-body and generic, write four ints (team, threads,
+# blocks, shared-memory bytes).
 _FWD = [_VOID] * 13 + [_FLOAT, _INT, _INT, _VOID]
 _BWD = [_VOID] * 10 + [_FLOAT, _INT, _INT, _VOID]
 _RIC = [_VOID] * 12 + [_INT, _INT, _VOID]
@@ -90,6 +90,7 @@ SIGNATURES = {
     "wb_statics_size": [], "wb_params_size": [_INT, _INT, _INT],
     **{k: v for name in FORMULATIONS for k, v in (
         (f"gen_fwd_{name}", _FWD), (f"gen_bwd_{name}", _BWD),
+        (f"gen_fwd_geometry_{name}", [_INT] * 5 + [_VOID]),
         (f"gen_bwd_geometry_{name}", [_INT] * 4 + [_VOID]),
         (f"gen_statics_size_{name}", []),
         (f"gen_params_size_{name}", [_INT, _INT, _INT]))},

@@ -13,9 +13,10 @@ one pass over the horizon computes
 and adds the terminal AL cost, so the returned per-candidate costs are
 complete.  On CUDA tensors the call launches ``gen_fwd_<name>`` of the
 kernel library, the template ``csrc/generic_fwd.cuh`` instantiated with the
-formulation struct of ``csrc/generic_<name>.cu``; on CPU tensors it runs
-``plain_fwd``, built from the OCP's own callables.  There is no fallback
-between them.
+formulation struct of ``csrc/generic_<name>.cu``: the endpoint's with teams
+of lanes a candidate, the others one thread a candidate; on CPU tensors it
+runs ``plain_fwd``, built from the OCP's own callables.  There is no
+fallback between them.
 
 A controller describes its instance as a ``Formulation``: the C name, the
 packed per-problem buffer's layout and the formulation's own statics (both
@@ -26,6 +27,7 @@ compiled library reports.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -38,6 +40,16 @@ from mmmpc_tpu_torch.ops._cuda import (
 from mmmpc_tpu_torch.solver.al_ilqr import _al_penalty_eq, _al_penalty_ineq
 
 LAUNCHES = {name: LaunchCounter() for name in FORMULATIONS}
+
+
+def launch_geometry(lib, name, N, n_obs, n_hp, n_alpha, B):
+    """{team, threads, blocks, smem_bytes}: the lanes a candidate, threads a
+    block, blocks and dynamic shared-memory bytes with which the library's
+    ``gen_fwd_<name>`` launches at batch ``B`` with ``n_alpha`` step sizes,
+    as its ``gen_fwd_geometry_<name>`` reports them."""
+    out = (ctypes.c_int * 4)()
+    getattr(lib, f"gen_fwd_geometry_{name}")(N, n_obs, n_hp, n_alpha, B, out)
+    return dict(team=out[0], threads=out[1], blocks=out[2], smem_bytes=out[3])
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,13 +1,15 @@
-"""The two kernels on the team Riccati step at each team size, on the card.
+"""The kernels on a team of lanes at each team size, on the card.
 
 Kernel E, ``mmmpc_tpu_torch/csrc/riccati.cu``, takes its lanes a scenario
-from one rule, ``ric_team(nx, nu)``; kernel D.endpoint,
-``csrc/generic_endpoint.cu``, from ``Endpoint::BWD_TEAM``.  From those
-sources this script builds, for each team size T of ``TEAMS``, a library of
-E's four pairs (the rule replaced by ``return T;``) and a library of the
-endpoint formulation (``BWD_TEAM = T``), one ``nvcc`` a library, all
-started together, into ``build/torch_kernels/teams/``, prints each build's
-ptxas registers and spills, and for each T:
+from one rule, ``ric_team(nx, nu)``; kernels D.endpoint and D.arm
+(``csrc/generic_endpoint.cu``, ``csrc/generic_arm.cu``) from their
+formulation's ``BWD_TEAM``, and kernel C.endpoint from ``Endpoint::FWD_TEAM``
+(lanes a candidate).  From those sources this script builds, for each team
+size T of ``TEAMS``, a library of each kernel of ``RULES`` (the rule
+replaced by T; ``arm_recompute`` is D.arm with every lane computing the four
+self-collision rows, ``Arm::BWD_SELF_SHUFFLE = false``), one ``nvcc`` a
+library, all started together, into ``build/torch_kernels/teams/``, prints
+each build's ptxas registers and spills, and for each T:
 
 - E at each pair against its plain version on the Pallas test's random SPD
   blocks (N=4, B=1024) at rtol = atol = 2e-4 (its ``[kernel]`` line), and
@@ -15,16 +17,18 @@ ptxas registers and spills, and for each T:
   horizon (CUDA-graph replay of 20 launches, as ``chip_smoke.py``'s
   ``[kernel]``), with the launch geometry and the blocks an SM holds
   (``[team]``);
-- D.endpoint on the inputs of ``chip_smoke.py``'s ``[kernel]`` check of
-  the endpoint row at batch 8192, against its plain version at its
-  tolerance (atol 2e-4, rtol 1e-4), and its device time per launch, with
-  the launch geometry (``[team]``).
+- D.endpoint, D.arm and C.endpoint on the inputs of ``chip_smoke.py``'s
+  ``[kernel]`` check of their row at batch 8192, against their plain
+  versions at its tolerances (D.endpoint atol 2e-4, rtol 1e-4; D.arm the
+  p99 / float64 form; C.endpoint X / U atol 2e-5, cost rtol = atol 2e-3),
+  and their device time per launch, with the launch geometry (``[team]``).
 
 Needs a CUDA card and ``nvcc``:
 
-    python3 team_sweep.py [T ...]
+    python3 team_sweep.py [--only KERNEL,...] [T ...]
 
-Exits nonzero if a build or a check fails.
+(``--only`` takes names of ``RULES``.)  Exits nonzero if a build or a check
+fails.
 """
 
 from __future__ import annotations
@@ -44,25 +48,42 @@ from mmmpc_tpu_torch.ops import _cuda  # noqa: E402
 
 OUT = _cuda.BUILD_DIR / "teams"
 TEAMS = (1, 2, 4, 8, 16)
-# each kernel: (its source, the team rule in it, prefix of its C entries)
+# each kernel: (its source, the lines of its team rule, their text at team
+# size T, prefix of its C entries)
 RULES = {
     "riccati": ("riccati.cu", "  int t = 1;\n"
                 "  while (4 * t < nx + nu && t < 8) t *= 2;\n"
-                "  return t;\n", "ric_"),
+                "  return t;\n", "  return {T};\n", "ric_"),
     "endpoint": ("generic_endpoint.cu",
-                 "  static constexpr int BWD_TEAM = 8;\n", "gen_"),
+                 "  static constexpr int BWD_TEAM = 8;\n",
+                 "  static constexpr int BWD_TEAM = {T};\n", "gen_"),
+    "arm": ("generic_arm.cu", "  static constexpr int BWD_TEAM = 4;\n",
+            "  static constexpr int BWD_TEAM = {T};\n", "gen_"),
+    "arm_recompute": ("generic_arm.cu",
+                      "  static constexpr int BWD_TEAM = 4;\n"
+                      "  // the self-collision rows: one a lane, exchanged by"
+                      " shuffles (true), or\n"
+                      "  // all four in every lane (false)\n"
+                      "  static constexpr bool BWD_SELF_SHUFFLE = true;\n",
+                      "  static constexpr int BWD_TEAM = {T};\n"
+                      "  static constexpr bool BWD_SELF_SHUFFLE = false;\n",
+                      "gen_"),
+    "endpoint_fwd": ("generic_endpoint.cu",
+                     "  static constexpr int FWD_TEAM = 2;\n",
+                     "  static constexpr int FWD_TEAM = {T};\n", "gen_"),
 }
+# the formulation of each generic kernel, the wrapper it runs under, and
+# its bench row
+FORMULATION = {"endpoint": "endpoint", "arm": "arm", "arm_recompute": "arm",
+               "endpoint_fwd": "endpoint"}
+ROW = {"endpoint": "wholebody_endpoint", "arm": "arm_only"}
 
 
-def _variant(kernel, team):
-    return (f"  return {team};\n" if kernel == "riccati"
-            else f"  static constexpr int BWD_TEAM = {team};\n")
-
-
-def build(teams):
+def build(teams, kernels=tuple(RULES)):
     """One library of each kernel a team size; returns (kernel, T) -> path."""
     procs = {}
-    for kernel, (src_name, rule, _) in RULES.items():
+    for kernel in kernels:
+        src_name, rule, variant, _ = RULES[kernel]
         for team in teams:
             src_dir = OUT / f"{kernel}_T{team}"
             if src_dir.exists():
@@ -73,7 +94,7 @@ def build(teams):
                 raise ValueError(f"{src_name}: the team rule is not as "
                                  f"expected")
             (src_dir / src_name).write_text(
-                src.replace(rule, _variant(kernel, team)))
+                src.replace(rule, variant.format(T=team)))
             procs[kernel, team] = subprocess.Popen(
                 [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o",
                  str(OUT / f"lib{kernel}_T{team}.so"), str(src_dir / src_name)],
@@ -93,19 +114,21 @@ def load(kernel, path):
     """The library at ``path`` with the signatures of ``kernel``'s C
     entries that it holds."""
     lib = ctypes.CDLL(str(path))
-    prefix = RULES[kernel][2]
+    prefix = RULES[kernel][3]
     for name, argtypes in _cuda.SIGNATURES.items():
-        if name.startswith(prefix) and (kernel == "riccati"
-                                        or name.endswith("_endpoint")):
+        if name.startswith(prefix) and (
+                kernel == "riccati"
+                or name.endswith(f"_{FORMULATION[kernel]}")):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
 
 
-def endpoint_args(device):
-    """The endpoint row's fused backward and its arguments at batch 8192,
-    made as ``chip_smoke.check_generic`` makes them."""
+def row_args(device, name):
+    """The line search and fused backward of formulation ``name``'s bench
+    row at batch 8192 and their arguments, made as
+    ``chip_smoke.check_generic`` makes them: (fwd, bwd, fargs, bargs)."""
     import numpy as np
 
     import chip_smoke
@@ -113,36 +136,81 @@ def endpoint_args(device):
     from mmmpc_tpu_torch.solver.al_ilqr import rollout
 
     for row, mpc, x0, _, params in problems(chip_smoke.BATCH, device):
-        if row != "wholebody_endpoint":
+        if row != ROW[name]:
             continue
         rng = np.random.default_rng(chip_smoke.SEED)
         N, B, nx, nu = mpc.N, chip_smoke.BATCH, mpc.NX, mpc.NU
+        fwd = mpc.ocp.lanes_fwd_factory(mpc.solver_config, params)
         bwd = mpc.ocp.lanes_bwd_factory(mpc.solver_config, params)
+        nc, nct = bwd.form.nc, bwd.form.nct
 
         def t(a):
             return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
         X, U = rollout(mpc.ocp, x0.T,
                        t(0.3 * rng.standard_normal((N, nu, B))), params)
-        # the draws of chip_smoke's forward arguments, then the backward's
-        for shape in ((N, nu, B), (N, nu, nx, B)):
-            rng.standard_normal(shape)
-        rng.standard_normal((N, bwd.form.nc, B))
-        rng.standard_normal((bwd.form.nct, B))
-        return bwd, (X, U, t(0.3 * np.abs(rng.standard_normal(
-            (N, bwd.form.nc, B)))), t(0.3 * np.abs(rng.standard_normal(
-                (bwd.form.nct, B)))), t(np.zeros((0, B))), 10.0,
-            torch.full((B,), 1e-6, device=device))
-    raise ValueError("no wholebody_endpoint row")
+        lame = t(np.zeros((0, B)))
+        fargs = (X[:-1], U, t(0.05 * rng.standard_normal((N, nu, B))),
+                 t(0.05 * rng.standard_normal((N, nu, nx, B))),
+                 t(np.abs(rng.standard_normal((N, nc, B)))),
+                 t(np.abs(rng.standard_normal((nct, B)))), lame, 10.0)
+        bargs = (X, U, t(0.3 * np.abs(rng.standard_normal((N, nc, B)))),
+                 t(0.3 * np.abs(rng.standard_normal((nct, B)))), lame, 10.0,
+                 torch.full((B,), 1e-6, device=device))
+        return fwd, bwd, fargs, bargs
+    raise ValueError(f"no {ROW[name]} row")
+
+
+def endpoint_args(device):
+    """The endpoint row's fused backward and its arguments at batch 8192."""
+    _, bwd, _, bargs = row_args(device, "endpoint")
+    return bwd, bargs
+
+
+def check_generic(kernel, team, fwd, bwd, fargs, bargs):
+    """One team size of a generic kernel against its plain version at its
+    ``[kernel]`` tolerance: (name, max abs error, the call that launches
+    it, the launch geometry)."""
+    import chip_smoke
+    from mmmpc_tpu_torch.ops import generic_bwd, generic_fwd
+    from mmmpc_tpu_torch.ops.generic_bwd import plain_bwd
+
+    f = FORMULATION[kernel]
+    tag = f"{kernel} T={team}"
+    lib = _cuda.LIBRARY.lib
+    if kernel == "endpoint_fwd":
+        got, ref = fwd.cuda(*fargs), fwd.plain(*fargs)
+        torch.cuda.synchronize()
+        err = max(chip_smoke._fwd_errors(tag, got, ref))
+        return (f"generic_fwd.{f}", err, lambda: fwd.cuda(*fargs),
+                generic_fwd.launch_geometry(
+                    lib, f, fwd.ocp.N, fwd.form.n_obs, fwd.form.n_hp,
+                    len(fwd.alphas), chip_smoke.BATCH))
+    got, ref = bwd.cuda(*bargs), bwd.plain(*bargs)
+    torch.cuda.synchronize()
+    if f == "arm":
+        truth = plain_bwd(bwd.ocp, {k: v.double() for k, v in
+                                    bwd.form.unpack(bwd.flat).items()},
+                          bwd.inv_scale,
+                          *(a.double() if torch.is_tensor(a) else a
+                            for a in bargs))
+        err = chip_smoke._check_f64(tag, got, ref, truth)
+    else:
+        err = chip_smoke._gains_check(tag, 1e-4, 2e-4)(got, ref, bargs)
+    return (f"generic_bwd.{f}", err, lambda: bwd.cuda(*bargs),
+            generic_bwd.launch_geometry(lib, f, bwd.ocp.N, bwd.form.n_obs,
+                                        bwd.form.n_hp, chip_smoke.BATCH))
 
 
 def main(argv):
     if not torch.cuda.is_available():
         print("team_sweep: no CUDA card", file=sys.stderr)
         return 1
+    kernels = tuple(RULES)
+    if argv[:1] == ["--only"]:
+        kernels, argv = tuple(argv[1].split(",")), argv[2:]
     teams = [int(a) for a in argv] or list(TEAMS)
     import chip_smoke
-    from mmmpc_tpu_torch.ops import generic_bwd
     from mmmpc_tpu_torch.ops.riccati import (
         launch_geometry, riccati_backward_bm,
     )
@@ -154,20 +222,23 @@ def main(argv):
     print(f"[device] nvidia_smi={smi!r}", flush=True)
     device = torch.device("cuda", 0)
     OUT.mkdir(parents=True, exist_ok=True)
-    libs = build(teams)
-    bwd, bargs = endpoint_args(device)
-    for team in teams:
-        _cuda.LIBRARY.lib = load("endpoint", libs["endpoint", team])
-        got, ref = bwd.cuda(*bargs), bwd.plain(*bargs)
-        torch.cuda.synchronize()
-        err = chip_smoke._gains_check(f"generic_bwd.endpoint T={team}", 1e-4,
-                                      2e-4)(got, ref, bargs)
-        ms = chip_smoke._kernel_ms(lambda: bwd.cuda(*bargs), 20)
-        print(f"[team] name=generic_bwd.endpoint N={bwd.ocp.N} "
-              f"B={chip_smoke.BATCH} max_abs_err={err:.4g} ms={ms:.5g} "
-              + " ".join(f"{k}={v}" for k, v in generic_bwd.launch_geometry(
-                  _cuda.LIBRARY.lib, "endpoint", bwd.ocp.N, bwd.form.n_obs,
-                  bwd.form.n_hp, chip_smoke.BATCH).items()), flush=True)
+    libs = build(teams, kernels)
+    rows = {f: row_args(device, f) for f in
+            {FORMULATION[k] for k in kernels if k != "riccati"}}
+    for kernel in kernels:
+        if kernel == "riccati":
+            continue
+        for team in teams:
+            _cuda.LIBRARY.lib = load(kernel, libs[kernel, team])
+            name, err, call, geometry = check_generic(
+                kernel, team, *rows[FORMULATION[kernel]])
+            ms = chip_smoke._kernel_ms(call, 20)
+            print(f"[team] name={name} kernel={kernel} N=20 "
+                  f"B={chip_smoke.BATCH} max_abs_err={err:.4g} ms={ms:.5g} "
+                  + " ".join(f"{k}={v}" for k, v in geometry.items()),
+                  flush=True)
+    if "riccati" not in kernels:
+        return 0
     for team in teams:
         _cuda.LIBRARY.lib = load("riccati", libs["riccati", team])
         for nx, nu in _cuda.RICCATI_INSTANCES:

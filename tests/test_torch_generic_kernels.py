@@ -1,7 +1,8 @@
 """Parity of the plain versions of the two generic fused kernels with the JAX
 package, for each of the four formulations that run them (demo, base, arm,
-whole-body endpoint), and (on a CUDA card) of each CUDA kernel instance with
-its plain version.
+whole-body endpoint), and the launch geometries the kernel library reports
+(each CUDA kernel instance against its plain version on a card:
+tests/test_torch_cuda.py).
 
 float32, B=64, N=5, on the problems of tests/test_generic_fwd.py and
 tests/test_generic_bwd.py (the base with two ground obstacles, the arm with
@@ -37,7 +38,6 @@ from mmmpc_tpu_torch import controllers as ctl_t
 from mmmpc_tpu_torch.models import obstacles as obs_t
 from mmmpc_tpu_torch.models import robots as robots_t
 from mmmpc_tpu_torch.ops.generic_bwd import plain_bwd
-from mmmpc_tpu_torch.solver.al_ilqr import rollout
 from mmmpc_tpu_torch.utils.configs import SolverConfig
 from mmmpc_tpu_torch.utils.convert import params_from_numpy
 
@@ -259,9 +259,10 @@ def test_bwd_launch_geometry_reports_the_library():
     """``launch_geometry`` of a formulation's fused backward reports the
     lanes a scenario, threads, blocks and shared-memory bytes with which
     the library's ``gen_bwd_<name>`` launches, as its
-    ``gen_bwd_geometry_<name>`` (here a stand-in) writes them: the
-    endpoint's team kernel (8 lanes, 16 scenarios a block), another
-    formulation's one thread a scenario."""
+    ``gen_bwd_geometry_<name>`` (here a stand-in) writes them: the team
+    kernel of the endpoint (8 lanes, 16 scenarios a block) and of the arm
+    (4 lanes, 32 scenarios a block), another formulation's one thread a
+    scenario."""
     from mmmpc_tpu_torch.ops.generic_bwd import launch_geometry
 
     class Library:
@@ -270,60 +271,53 @@ def test_bwd_launch_geometry_reports_the_library():
             out[0], out[1], out[2], out[3] = 8, 128, -(-batch // 16), 4 * n
             return 0
 
+        def gen_bwd_geometry_arm(self, n, n_obs, n_hp, batch, out):
+            assert (n, n_obs, n_hp) == (N, 0, 2)
+            out[0], out[1], out[2], out[3] = 4, 128, -(-batch // 32), 8 * n
+            return 0
+
         def gen_bwd_geometry_demo(self, n, n_obs, n_hp, batch, out):
             out[0], out[1], out[2], out[3] = 1, 128, -(-batch // 128), 0
             return 0
 
     assert launch_geometry(Library(), "endpoint", N, 3, 0, 8191) == dict(
         team=8, threads=128, blocks=512, smem_bytes=4 * N)
+    assert launch_geometry(Library(), "arm", N, 0, 2, 8191) == dict(
+        team=4, threads=128, blocks=256, smem_bytes=8 * N)
+    assert launch_geometry(Library(), "arm", N, 0, 2, 1)["blocks"] == 1
     assert launch_geometry(Library(), "demo", N, 0, 0, 129)["blocks"] == 2
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
-@pytest.mark.parametrize("name", FORMULATIONS)
-def test_cuda_generic_kernel_matches_plain(name, kernel):
-    """Each CUDA kernel instance against its plain version on the card."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
-    _, mpc_t, x0_b, U0_b, _, p_t = make_problem(name)
-    dev = torch.device("cuda")
-    p = params_from_numpy(p_t, dev, torch.float32)
-    rng = np.random.default_rng(5)
-    nx, nu = mpc_t.NX, mpc_t.NU
+def test_fwd_launch_geometry_reports_the_library():
+    """``launch_geometry`` of a formulation's fused line search reports the
+    lanes a candidate, threads, blocks and shared-memory bytes with which
+    the library's ``gen_fwd_<name>`` launches at a batch and a number of
+    step sizes, as its ``gen_fwd_geometry_<name>`` (here a stand-in) writes
+    them: the endpoint's team kernel (2 lanes a candidate, so 21 scenarios
+    of 3 candidates a block), the demo's, base's and arm's one thread a
+    candidate."""
+    from mmmpc_tpu_torch.ops.generic_fwd import launch_geometry
 
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    class Library:
+        def gen_fwd_geometry_endpoint(self, n, n_obs, n_hp, n_alpha, batch,
+                                      out):
+            assert (n, n_obs, n_hp) == (N, 3, 0)
+            scen = min(64 // n_alpha, 32)
+            out[0], out[1], out[2], out[3] = 2, 128, -(-batch // scen), 4 * n
+            return 0
 
-    X, U = rollout(mpc_t.ocp, t(x0_b).T, t(U0_b).permute(1, 2, 0), p)
-    if kernel == "fwd":
-        f = mpc_t.ocp.lanes_fwd_factory(mpc_t.solver_config, p)
-        args = (X[:-1], U, t(0.05 * rng.standard_normal((N, nu, B))),
-                t(0.05 * rng.standard_normal((N, nu, nx, B))),
-                t(np.abs(rng.standard_normal((N, f.form.nc, B)))),
-                t(np.abs(rng.standard_normal((f.form.nct, B)))),
-                t(np.zeros((0, B))), 10.0)
-        got, ref = f.cuda(*args), f.plain(*args)
-        torch.cuda.synchronize()
-        for g, r, tol in zip(got, ref, [(0.0, 2e-5)] * 3 + [(2e-3, 2e-3)]):
-            torch.testing.assert_close(g, r, rtol=tol[0], atol=tol[1])
-        return
-    f = mpc_t.ocp.lanes_bwd_factory(mpc_t.solver_config, p)
-    args = (X, U, t(0.3 * np.abs(rng.standard_normal((N, f.form.nc, B)))),
-            t(0.3 * np.abs(rng.standard_normal((f.form.nct, B)))),
-            t(np.zeros((0, B))), 10.0, torch.full((B,), 1e-6, device=dev))
-    got, ref = f.cuda(*args), f.plain(*args)
-    torch.cuda.synchronize()
-    if name != "arm":
-        for g, r in zip(got, ref):
-            torch.testing.assert_close(g, r, rtol=1e-4, atol=BWD_ATOL[name])
-        return
-    truth = plain_bwd(mpc_t.ocp, {k: v.double() for k, v in p.items()},
-                      f.inv_scale, *(a.double() if torch.is_tensor(a) else a
-                                     for a in args))
-    for g, r, tr in zip(got, ref, truth):
-        cross = (g - r).abs().double()
-        assert torch.quantile(cross.flatten(), 0.99) < 5e-4
-        e_kernel = (g.double() - tr).abs().max()
-        assert e_kernel <= max(2.0 * (r.double() - tr).abs().max(), 1e-3)
-        assert e_kernel < 0.15
+        def one_thread(self, n, n_obs, n_hp, n_alpha, batch, out):
+            out[0], out[1] = 1, 128
+            out[2], out[3] = -(-(n_alpha * batch) // 128), 0
+            return 0
+
+        gen_fwd_geometry_demo = gen_fwd_geometry_base = one_thread
+        gen_fwd_geometry_arm = one_thread
+
+    assert launch_geometry(Library(), "endpoint", N, 3, 0, 3, 8192) == dict(
+        team=2, threads=128, blocks=391, smem_bytes=4 * N)
+    assert launch_geometry(Library(), "endpoint", N, 3, 0, 1, 8191)[
+        "blocks"] == 256
+    for name in ("demo", "base", "arm"):
+        assert launch_geometry(Library(), name, N, 0, 2, 3, 8192) == dict(
+            team=1, threads=128, blocks=192, smem_bytes=0)

@@ -1,6 +1,6 @@
 """Parity of the plain versions of the two fused kernels with the JAX
-package's plain references, and (on a CUDA card) of each CUDA kernel with
-its plain version.
+package's plain references (each CUDA kernel against its plain version on a
+card: tests/test_torch_cuda.py).
 
 float32, B=64, N=5, on the problem of tests/test_fwd_lanes.py (one ground
 obstacle and one half-plane, so every constraint family is live).  The JAX
@@ -27,7 +27,6 @@ from mmmpc_tpu.utils.configs import SolverConfig as SolverConfigJ
 from mmmpc_tpu_torch.controllers import MPCWholeBody
 from mmmpc_tpu_torch.models.obstacles import Obstacles
 from mmmpc_tpu_torch.models.robots import MobileManipulator
-from mmmpc_tpu_torch.solver.al_ilqr import rollout
 from mmmpc_tpu_torch.utils.configs import SolverConfig
 from mmmpc_tpu_torch.utils.convert import params_from_numpy
 
@@ -142,49 +141,6 @@ def test_bwd_plain_matches_jax(eq_mask):
                                np.asarray(kff_r), rtol=5e-3, atol=5e-3)
     np.testing.assert_allclose(K.permute(3, 0, 1, 2).numpy(),
                                np.asarray(K_r), rtol=5e-3, atol=5e-3)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("kernel, batch", [
-    pytest.param("wholebody_fwd", B, id="wholebody_fwd"),
-    pytest.param("wholebody_bwd", B, id="wholebody_bwd"),
-    pytest.param("wholebody_bwd", 1, id="wholebody_bwd-1"),
-    pytest.param("wholebody_bwd", 37, id="wholebody_bwd-37")])
-def test_cuda_kernel_matches_plain(kernel, batch):
-    """The CUDA kernel against its plain version on the card, same inputs;
-    the backward kernel also on the first 1 and 37 scenarios (a partial
-    block of its teams)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
-    _, mpc_t, x0_b, U0_b, params = make_problem(1.0)
-    dev = torch.device("cuda")
-    p = params_from_numpy(params, dev, torch.float32)
-    rng = np.random.default_rng(5)
-
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
-
-    X, U = rollout(mpc_t.ocp, t(x0_b).T, t(U0_b).permute(1, 2, 0), p)
-    lam = t(np.abs(rng.standard_normal((N, 28, B))))
-    lamt = t(np.abs(rng.standard_normal((18, B))))
-    lame = t(0.1 * rng.standard_normal((2, B)))
-    if kernel == "wholebody_fwd":
-        f = mpc_t.ocp.lanes_fwd_factory(mpc_t.solver_config, p)
-        args = (X[:-1], U, t(0.05 * rng.standard_normal((N, 5, B))),
-                t(0.05 * rng.standard_normal((N, 5, 9, B))), lam, lamt, lame,
-                10.0)
-        tols = [(0.0, 2e-5)] * 3 + [(2e-3, 2e-3)]
-    else:
-        f = mpc_t.ocp.lanes_bwd_factory(mpc_t.solver_config, p)
-        args = (X, U, lam, lamt, lame, 10.0,
-                torch.full((B,), 1e-6, device=dev))
-        args = tuple(a[..., :batch].contiguous() if torch.is_tensor(a) else a
-                     for a in args)
-        tols = [(5e-3, 5e-3)] * 2
-    got, ref = f.cuda(*args), f.plain(*args)
-    torch.cuda.synchronize()
-    for g, r, (rtol, atol) in zip(got, ref, tols):
-        torch.testing.assert_close(g, r, rtol=rtol, atol=atol)
 
 
 def test_layout_check_rejects_a_size_mismatch():

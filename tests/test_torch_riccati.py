@@ -1,7 +1,8 @@
 """Parity of the port's Riccati sweep on precomputed blocks (kernel E's plain
 version, ``ops/riccati.py``) and of its batch-last AL expansion with the JAX
-package, the plain FMA recurrence of the peak microkernel (kernel F), and
-(on a CUDA card) of each CUDA instance with its plain version.
+package, and the plain FMA recurrence of the peak microkernel (kernel F)
+(each CUDA instance against its plain version on a card:
+tests/test_torch_cuda.py).
 
 - ``plain_riccati_bm`` against the JAX package's plain sweep, the vmapped
   ``build_core(...).backward_scan`` (no Pallas interpret mode), on the random
@@ -361,40 +362,3 @@ def test_count_inputs_count_the_trips():
 def test_peak_needs_a_card():
     with pytest.raises(ValueError, match="CUDA"):
         roofline.measure_fp32_peak("cpu")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dims", (*RICCATI_INSTANCES, (4, 2)))
-def test_cuda_riccati_matches_plain(dims):
-    """Each CUDA instance against the plain sweep on the card, same SPD
-    blocks, at the Pallas test's 2e-4; (4, 2) builds its own library on its
-    first use."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
-    args = [_bl(a).cuda() for a in spd_blocks(*dims)]
-    reg = torch.full((B,), 1e-6, device="cuda")
-    got = riccati.riccati_backward_bm(*args, reg)
-    ref = riccati.plain_riccati_bm(*args, reg)
-    torch.cuda.synchronize()
-    for g, r in zip(got, ref):
-        torch.testing.assert_close(g, r, rtol=2e-4, atol=2e-4)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("nacc", FMA_NACC)
-def test_cuda_fma_peak_matches_plain(nacc):
-    """At 16 trips and at 1003 (3 mod 8: the remainder of the trip loop
-    unrolled by 8 runs): every trip runs (inputs that count them exactly),
-    and the microkernel's one rounding per trip against plain torch's two
-    at rtol 1e-5, atol 1e-6."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
-    x = roofline.fma_inputs(nacc, 4 * 256, "cuda")
-    for inner in (16, 1003):
-        count = roofline.count_inputs(nacc, 4 * 256, "cuda")
-        assert torch.equal(roofline.fma_peak(count, nacc, inner, 4, 256),
-                           count[:nacc] + inner)
-        got = roofline.fma_peak(x, nacc, inner, 4, 256)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, roofline.plain_fma(x, nacc, inner),
-                                   rtol=1e-5, atol=1e-6)
