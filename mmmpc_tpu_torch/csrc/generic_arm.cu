@@ -260,10 +260,10 @@ struct Arm {
   // its u rows.  Rows picked at run time read x, u and the multipliers
   // from the stage buffer (in[e * S]: x, u, lam) and the sampled rows by
   // selects (ric::pick).
+  // Lanes a scenario: 4 was the fastest of 1, 2, 4 and 8 at batch 8192,
+  // and the self-collision rows' shuffles faster than every lane computing
+  // all four (the times of each in PERF.md).
   static constexpr int BWD_TEAM = 4;
-  // the self-collision rows: one a lane, exchanged by shuffles (true), or
-  // all four in every lane (false)
-  static constexpr bool BWD_SELF_SHUFFLE = true;
 
   // arm_fk with its three sincos over the lanes of the team.
   template <int T>
@@ -359,47 +359,41 @@ struct Arm {
   }
 
   // The four self-collision rows (selfcol) in every lane: values sv[r],
-  // q-gradients sg[r].  With BWD_SELF_SHUFFLE, row r on lane r % T and
-  // exchanged by shuffles; else each lane computes all four.
+  // q-gradients sg[r]; row r on lane r % T, exchanged by shuffles.
   template <int T>
   __device__ static void self_team(const wb::ArmFK& a, int lane, float (&sv)[4],
                                    float (&sg)[4][3]) {
-    if constexpr (BWD_SELF_SHUFFLE) {
-      constexpr int RS = (4 + T - 1) / T;
-      float v[RS], g[RS][3];
+    constexpr int RS = (4 + T - 1) / T;
+    float v[RS], g[RS][3];
 #pragma unroll
-      for (int rr = 0; rr < RS; ++rr) {
-        const int r = min(rr * T + lane, 3);
-        // wb::SELF_DIFF[r]
-        const float dw[3] = {r == 0 ? 0.f : (r == 2 ? 1.f : 0.5f), r == 3 ? 0.5f : 0.f, -1.f};
-        float vx = 0.f, vz = 0.f;
+    for (int rr = 0; rr < RS; ++rr) {
+      const int r = min(rr * T + lane, 3);
+      // wb::SELF_DIFF[r]
+      const float dw[3] = {r == 0 ? 0.f : (r == 2 ? 1.f : 0.5f), r == 3 ? 0.5f : 0.f, -1.f};
+      float vx = 0.f, vz = 0.f;
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        vx += dw[p] * a.ax[p];
+        vz += dw[p] * a.az[p];
+      }
+      const float n = sqrtf(vx * vx + vz * vz + wb::EPS);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        float AX = 0.f, AZ = 0.f;
 #pragma unroll
         for (int p = 0; p < 3; ++p) {
-          vx += dw[p] * a.ax[p];
-          vz += dw[p] * a.az[p];
+          AX += dw[p] * a.axq[p][i];
+          AZ += dw[p] * a.azq[p][i];
         }
-        const float n = sqrtf(vx * vx + vz * vz + wb::EPS);
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          float AX = 0.f, AZ = 0.f;
-#pragma unroll
-          for (int p = 0; p < 3; ++p) {
-            AX += dw[p] * a.axq[p][i];
-            AZ += dw[p] * a.azq[p][i];
-          }
-          g[rr][i] = -(vx * AX + vz * AZ) / n;
-        }
-        v[rr] = wb::SELF_R - n;
+        g[rr][i] = -(vx * AX + vz * AZ) / n;
       }
+      v[rr] = wb::SELF_R - n;
+    }
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        sv[r] = __shfl_sync(TEAM_FULL, v[r / T], r % T, T);
+    for (int r = 0; r < 4; ++r) {
+      sv[r] = __shfl_sync(TEAM_FULL, v[r / T], r % T, T);
 #pragma unroll
-        for (int i = 0; i < 3; ++i) sg[r][i] = __shfl_sync(TEAM_FULL, g[r / T][i], r % T, T);
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) sv[r] = selfcol(a, r, sg[r]);
+      for (int i = 0; i < 3; ++i) sg[r][i] = __shfl_sync(TEAM_FULL, g[r / T][i], r % T, T);
     }
   }
 

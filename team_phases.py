@@ -1,13 +1,14 @@
-"""Where the time of the two kernels on the team Riccati step goes, on the
+"""Where the time of the kernels on the team Riccati step goes, on the
 card: each kernel built with one part of its work taken out.
 
 No profiler that counts a kernel's stalls runs on the card's machine, so
 this script times variants instead.  From ``mmmpc_tpu_torch/csrc`` it
-builds kernel E (``riccati.cu``, its four pairs) and kernel D.endpoint
-(``generic_endpoint.cu``) once as they are and once for each variant of
-``VARIANTS``, the part taken out between preprocessor guards that the
-script writes into a copy of the sources (one ``nvcc`` a library, all
-started together, into ``build/torch_kernels/phases/``):
+builds kernel E (``riccati.cu``, its four pairs), kernel D.endpoint
+(``generic_endpoint.cu``) and kernel D.arm (``generic_arm.cu``) once as
+they are and once for each variant of ``VARIANTS``, the part taken out
+between preprocessor guards that the script writes into a copy of the
+sources (one ``nvcc`` a library, all started together, into
+``build/torch_kernels/phases/``):
 
 - ``no_loads``: the stage inputs are never copied into shared memory (the
   kernel computes on what the buffer holds): the compute alone;
@@ -16,15 +17,20 @@ started together, into ``build/torch_kernels/phases/``):
 - ``no_rows``: the row tasks of the step (the Q-block products and the
   stage's own rows, for D.endpoint its expansion) are skipped;
 - ``no_expansion`` (D.endpoint only): the stage's own rows are not added;
-- ``no_update``: the value update and the symmetrisation are skipped.
+- ``no_update``: the value update and the symmetrisation are skipped;
+- ``no_fk``, ``no_wedge``, ``no_self`` (D.arm only): the expansion's FK
+  (its sincos and algebra), its wedge points, or its self-collision rows
+  are not computed (zeros in their place).
 
 A variant's outputs are not the kernel's; only its time is read.  Each is
 timed as ``chip_smoke.py``'s ``[kernel]`` (CUDA-graph replay of 20 launches)
-at N=20, B=8192: E at each pair on random SPD blocks, D.endpoint on the
-inputs of its ``[kernel]`` check (``[phase-time]`` lines).  Needs a CUDA
-card and ``nvcc``:
+at N=20, B=8192: E at each pair on random SPD blocks, D.endpoint and D.arm
+on the inputs of their ``[kernel]`` checks (``[phase-time]`` lines).  Needs
+a CUDA card and ``nvcc``:
 
-    python3 team_phases.py
+    python3 team_phases.py [KERNEL ...]
+
+(KERNEL among ``riccati``, ``endpoint``, ``arm``; all three by default.)
 
 Exits nonzero if a build fails or a guard's anchor is not in the source.
 """
@@ -46,15 +52,20 @@ from mmmpc_tpu_torch.ops import _cuda  # noqa: E402
 
 OUT = _cuda.BUILD_DIR / "phases"
 # variant -> the kernels it applies to
-VARIANTS = {"full": ("riccati", "endpoint"),
-            "no_loads": ("riccati", "endpoint"),
-            "no_step": ("riccati", "endpoint"),
-            "no_rows": ("riccati", "endpoint"),
-            "no_expansion": ("endpoint",),
-            "no_update": ("riccati", "endpoint")}
-SOURCE = {"riccati": "riccati.cu", "endpoint": "generic_endpoint.cu"}
-# (file, text the guard starts before, text it ends after or before, macro);
-# a guard whose end is None takes one statement: the start text itself
+VARIANTS = {"full": ("riccati", "endpoint", "arm"),
+            "no_loads": ("riccati", "endpoint", "arm"),
+            "no_step": ("riccati", "endpoint", "arm"),
+            "no_rows": ("riccati", "endpoint", "arm"),
+            "no_expansion": ("endpoint", "arm"),
+            "no_update": ("riccati", "endpoint", "arm"),
+            "no_fk": ("arm",),
+            "no_wedge": ("arm",),
+            "no_self": ("arm",)}
+SOURCE = {"riccati": "riccati.cu", "endpoint": "generic_endpoint.cu",
+          "arm": "generic_arm.cu"}
+# (file, text the guard starts before, text it ends after or before, macro,
+# and optionally the text in its place); a guard whose end is None takes
+# one statement: the start text itself
 GUARDS = (
     ("riccati_team.cuh", "  float acc[R][NX], uu[R][NU], q[R];",
      "  // ---- Cholesky of Quu + reg I in every lane", "NO_ROWS"),
@@ -65,6 +76,13 @@ GUARDS = (
      "NO_STEP"),
     ("generic_bwd.cuh", "    ric::team_step<NX, NU, T>(", "  }\n}\n\n// The launch",
      "NO_STEP"),
+    ("generic_arm.cu", "      fk_team<T>(x, lane, a);\n", None, "NO_FK",
+     "      a = wb::ArmFK{};\n"),
+    ("generic_arm.cu", "      sm = wedge_team<T>(a, c, lane, sq);\n", None,
+     "NO_WEDGE", "      sm = sq[0] = sq[1] = sq[2] = 0.f;\n"),
+    ("generic_arm.cu", "      self_team<T>(a, lane, sv, sg);\n", None,
+     "NO_SELF", "      for (int r = 0; r < 4; ++r)\n"
+     "        sv[r] = sg[r][0] = sg[r][1] = sg[r][2] = 0.f;\n"),
 )
 LOADS = (("riccati.cu", "  auto issue_stage = [&](int k) {\n"),
          ("generic_bwd.cuh", "  auto issue_stage = [&](int k) {\n"))
@@ -76,14 +94,16 @@ def guarded_sources(dst: Path) -> None:
     if dst.exists():
         shutil.rmtree(dst)
     shutil.copytree(_cuda.CSRC, dst)
-    for name, start, end, macro in GUARDS:
+    for name, start, end, macro, *alt in GUARDS:
         path = dst / name
         s = path.read_text()
         a = s.find(start)
         b = a + len(start) if end is None else s.find(end, a)
         if a < 0 or b < 0:
             raise ValueError(f"{name}: no anchor for {macro}")
-        path.write_text(f"{s[:a]}#ifndef {macro}\n{s[a:b]}\n#endif\n{s[b:]}")
+        other = f"#else\n{alt[0]}" if alt else ""
+        path.write_text(f"{s[:a]}#ifndef {macro}\n{s[a:b]}\n{other}#endif\n"
+                        f"{s[b:]}")
     for name, start in LOADS:
         path = dst / name
         s = path.read_text()
@@ -93,14 +113,15 @@ def guarded_sources(dst: Path) -> None:
             start, start + "#ifdef NO_LOADS\n    return;\n#endif\n"))
 
 
-def build():
-    """One library a (variant, kernel); returns (variant, kernel) -> path."""
+def build(only=tuple(SOURCE)):
+    """One library a (variant, kernel) of the kernels ``only``; returns
+    (variant, kernel) -> path."""
     src = OUT / "src"
     guarded_sources(src)
     procs = {}
     for variant, kernels in VARIANTS.items():
         flag = [] if variant == "full" else [f"-D{variant.upper()}"]
-        for kernel in kernels:
+        for kernel in (k for k in kernels if k in only):
             procs[variant, kernel] = subprocess.Popen(
                 [_cuda._nvcc(), *_cuda.NVCC_FLAGS, *flag, "-shared", "-o",
                  str(OUT / f"lib{kernel}_{variant}.so"),
@@ -113,7 +134,7 @@ def build():
     return {v: OUT / f"lib{v[1]}_{v[0]}.so" for v in procs}
 
 
-def main():
+def main(argv):
     if not torch.cuda.is_available():
         print("team_phases: no CUDA card", file=sys.stderr)
         return 1
@@ -127,17 +148,20 @@ def main():
     print(f"[device] nvidia_smi={smi!r}", flush=True)
     device = torch.device("cuda", 0)
     OUT.mkdir(parents=True, exist_ok=True)
-    libs = build()
-    bwd, bargs = team_sweep.endpoint_args(device)
+    only = tuple(argv) or tuple(SOURCE)
+    libs = build(only)
+    rows = {f: team_sweep.row_args(device, f)[1::2]
+            for f in ("endpoint", "arm") if f in only}
     blocks = {dims: (*chip_smoke.spd_blocks(device, B=chip_smoke.BATCH, N=20,
                                             nx=dims[0], nu=dims[1]),
                      torch.full((chip_smoke.BATCH,), 1e-6, device=device))
               for dims in _cuda.RICCATI_INSTANCES}
     for (variant, kernel), path in libs.items():
         _cuda.LIBRARY.lib = team_sweep.load(kernel, path)
-        if kernel == "endpoint":
+        if kernel in rows:
+            bwd, bargs = rows[kernel]
             ms = chip_smoke._kernel_ms(lambda: bwd.cuda(*bargs), 20)
-            print(f"[phase-time] name=generic_bwd.endpoint variant={variant} "
+            print(f"[phase-time] name=generic_bwd.{kernel} variant={variant} "
                   f"ms={ms:.5g}", flush=True)
             continue
         for (nx, nu), args in blocks.items():
@@ -148,4 +172,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -6,10 +6,9 @@ from one rule, ``ric_team(nx, nu)``; kernels D.endpoint and D.arm
 formulation's ``BWD_TEAM``, and kernel C.endpoint from ``Endpoint::FWD_TEAM``
 (lanes a candidate).  From those sources this script builds, for each team
 size T of ``TEAMS``, a library of each kernel of ``RULES`` (the rule
-replaced by T; ``arm_recompute`` is D.arm with every lane computing the four
-self-collision rows, ``Arm::BWD_SELF_SHUFFLE = false``), one ``nvcc`` a
-library, all started together, into ``build/torch_kernels/teams/``, prints
-each build's ptxas registers and spills, and for each T:
+replaced by T), one ``nvcc`` a library, all started together, into
+``build/torch_kernels/teams/``, prints each build's ptxas registers and
+spills, and for each T:
 
 - E at each pair against its plain version on the Pallas test's random SPD
   blocks (N=4, B=1024) at rtol = atol = 2e-4 (its ``[kernel]`` line), and
@@ -59,23 +58,13 @@ RULES = {
                  "  static constexpr int BWD_TEAM = {T};\n", "gen_"),
     "arm": ("generic_arm.cu", "  static constexpr int BWD_TEAM = 4;\n",
             "  static constexpr int BWD_TEAM = {T};\n", "gen_"),
-    "arm_recompute": ("generic_arm.cu",
-                      "  static constexpr int BWD_TEAM = 4;\n"
-                      "  // the self-collision rows: one a lane, exchanged by"
-                      " shuffles (true), or\n"
-                      "  // all four in every lane (false)\n"
-                      "  static constexpr bool BWD_SELF_SHUFFLE = true;\n",
-                      "  static constexpr int BWD_TEAM = {T};\n"
-                      "  static constexpr bool BWD_SELF_SHUFFLE = false;\n",
-                      "gen_"),
     "endpoint_fwd": ("generic_endpoint.cu",
                      "  static constexpr int FWD_TEAM = 2;\n",
                      "  static constexpr int FWD_TEAM = {T};\n", "gen_"),
 }
 # the formulation of each generic kernel, the wrapper it runs under, and
 # its bench row
-FORMULATION = {"endpoint": "endpoint", "arm": "arm", "arm_recompute": "arm",
-               "endpoint_fwd": "endpoint"}
+FORMULATION = {"endpoint": "endpoint", "arm": "arm", "endpoint_fwd": "endpoint"}
 ROW = {"endpoint": "wholebody_endpoint", "arm": "arm_only"}
 
 

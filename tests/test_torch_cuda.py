@@ -8,8 +8,9 @@ does), so it runs where the card is, without the repo's ``conftest.py``:
 
 (``chip_smoke.py`` runs that command in a phase of its own.)  The inputs are
 made from seeded numpy, as the parity tests against the JAX package make
-them, at small sizes (N=5, batch 64 and a partial block of 37; N=4, batch
-64 for the Riccati sweep), at the tolerances of those tests:
+them, at small sizes (N=5, batch 64 and a partial block of 37, the arm's
+backward at 1024 and 1000; N=4, batch 64 for the Riccati sweep), at the
+tolerances of those tests:
 
 - the whole-body qref pair (A, B) on the problem of
   tests/test_torch_kernels.py: X / U atol 2e-5, cost rtol = atol = 2e-3;
@@ -40,6 +41,11 @@ from mmmpc_tpu_torch.utils.configs import SolverConfig
 from mmmpc_tpu_torch.utils.convert import params_from_numpy
 
 B, N = 64, 5
+# the arm's backward at the JAX test's batch (tests/test_generic_bwd.py):
+# its p99 form is set for a batch where the ill-conditioned scenarios are
+# the tail; at 64 scenarios they pass the 1% of entries (the one-thread
+# kernel fails it there too), and 1000 leaves a partial block of its teams
+ARM_BATCH, ARM_PART = 1024, 1000
 FORMULATIONS = ("demo", "base", "arm", "endpoint")
 # gains tolerance (atol) of each generic backward kernel; rtol 1e-4
 BWD_ATOL = {"demo": 1e-5, "base": 1e-3, "endpoint": 2e-4}
@@ -85,9 +91,10 @@ def qref_problem():
     return mpc, x0_b, U0_b, params
 
 
-def generic_problem(name):
+def generic_problem(name, batch=B):
     """The problem of one formulation in tests/test_torch_generic_kernels.py:
-    (controller, x0_b (B, nx), U0_b (B, N, nu), params as numpy)."""
+    (controller, x0_b (batch, nx), U0_b (batch, N, nu), params as
+    numpy)."""
     cfg = SolverConfig(al_iters=2, ilqr_iters=4, n_alpha=3, alpha_decay=0.4)
     if name == "demo":
         mpc = ctl.MPC(robots.RobotDemo(0.1), N=N, solver_config=cfg)
@@ -105,28 +112,28 @@ def generic_problem(name):
                                        N=N, solver_config=cfg)
     rng = np.random.default_rng(0)
     if name == "demo":
-        x0_b = np.stack([rng.uniform(-2, 2, B), rng.uniform(-0.9, 0.9, B)],
+        x0_b = np.stack([rng.uniform(-2, 2, batch), rng.uniform(-0.9, 0.9, batch)],
                         axis=1)
         traj, nu = np.linspace([0.0, 0.0], [3.0, 0.0], N + 1), 1
     elif name == "base":
-        x0_b = rng.standard_normal((B, 6)) * np.array(
+        x0_b = rng.standard_normal((batch, 6)) * np.array(
             [0.4, 0.4, 0.6, 0.2, 0.2, 0.2])
         traj = np.linspace(np.zeros(6), np.array([2.0, 0.4, 0.5, 0, 0, 0]),
                            N + 1)
         nu = 2
     elif name == "arm":
         q0 = np.array([0.3, -1.2, 1.2])
-        x0_b = np.clip(q0[None] + rng.standard_normal((B, 3)) * 0.2,
+        x0_b = np.clip(q0[None] + rng.standard_normal((batch, 3)) * 0.2,
                        mpc.qlim[0] + 1e-3, mpc.qlim[1] - 1e-3)
         traj, nu = np.linspace(q0, [0.0, -0.6, 0.9], N + 1), 3
     else:
         x0 = np.zeros(9)
         x0[6:] = [-np.pi / 4, -np.pi / 2, np.pi / 2]
-        x0_b = x0[None] + 0.05 * rng.standard_normal((B, 9)) * np.array(
+        x0_b = x0[None] + 0.05 * rng.standard_normal((batch, 9)) * np.array(
             [1, 1, 0.5, 0.2, 0.2, 0.2, 0.3, 0.3, 0.3])
         traj = np.linspace([0.6, 0.1, 1.1, 0.0], [0.8, 0.2, 1.0, 0.3], N + 1)
         nu = 5
-    U0_b = 0.3 * rng.standard_normal((B, N, nu))
+    U0_b = 0.3 * rng.standard_normal((batch, N, nu))
     extra = {"U_last": np.zeros((N, nu))} if name in ("arm", "endpoint") else {}
     params = {k: np.asarray(v, np.float64) for k, v in dict(
         mpc.make_params(traj, np.zeros((N, nu))), **extra).items()}
@@ -198,14 +205,18 @@ def test_cuda_kernel_matches_plain(device, kernel, batch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [B, 37])
+@pytest.mark.parametrize("part", [False, True], ids=["all", "part"])
 @pytest.mark.parametrize("kernel", ["fwd", "bwd"])
 @pytest.mark.parametrize("name", FORMULATIONS)
-def test_cuda_generic_kernel_matches_plain(device, name, kernel, batch):
+def test_cuda_generic_kernel_matches_plain(device, name, kernel, part):
     """Each generic CUDA kernel instance against its plain version on the
-    card, on the whole batch and on its first 37 scenarios (a partial
-    block of the team kernels: C.endpoint, D.arm, D.endpoint)."""
-    mpc, x0_b, U0_b, params = generic_problem(name)
+    card, on the whole batch and on its first scenarios, a partial block of
+    the team kernels (C.endpoint, D.arm, D.endpoint): 64 and 37, the arm's
+    backward 1024 and 1000."""
+    arm_bwd = name == "arm" and kernel == "bwd"
+    full = ARM_BATCH if arm_bwd else B
+    batch = (ARM_PART if arm_bwd else 37) if part else full
+    mpc, x0_b, U0_b, params = generic_problem(name, full)
     p = params_from_numpy(params, device, torch.float32)
     rng = np.random.default_rng(5)
     nx, nu = mpc.NX, mpc.NU
@@ -214,11 +225,11 @@ def test_cuda_generic_kernel_matches_plain(device, name, kernel, batch):
     if kernel == "fwd":
         f = mpc.ocp.lanes_fwd_factory(mpc.solver_config, p)
         args = _first((
-            X[:-1], U, _t(0.05 * rng.standard_normal((N, nu, B)), device),
-            _t(0.05 * rng.standard_normal((N, nu, nx, B)), device),
-            _t(np.abs(rng.standard_normal((N, f.form.nc, B))), device),
-            _t(np.abs(rng.standard_normal((f.form.nct, B))), device),
-            _t(np.zeros((0, B)), device), 10.0), batch)
+            X[:-1], U, _t(0.05 * rng.standard_normal((N, nu, full)), device),
+            _t(0.05 * rng.standard_normal((N, nu, nx, full)), device),
+            _t(np.abs(rng.standard_normal((N, f.form.nc, full))), device),
+            _t(np.abs(rng.standard_normal((f.form.nct, full))), device),
+            _t(np.zeros((0, full)), device), 10.0), batch)
         got, ref = f.cuda(*args), f.plain(*args)
         torch.cuda.synchronize()
         for g, r, tol in zip(got, ref, [(0.0, 2e-5)] * 3 + [(2e-3, 2e-3)]):
@@ -226,10 +237,10 @@ def test_cuda_generic_kernel_matches_plain(device, name, kernel, batch):
         return
     f = mpc.ocp.lanes_bwd_factory(mpc.solver_config, p)
     args = _first((
-        X, U, _t(0.3 * np.abs(rng.standard_normal((N, f.form.nc, B))), device),
-        _t(0.3 * np.abs(rng.standard_normal((f.form.nct, B))), device),
-        _t(np.zeros((0, B)), device), 10.0,
-        torch.full((B,), 1e-6, device=device)), batch)
+        X, U, _t(0.3 * np.abs(rng.standard_normal((N, f.form.nc, full))), device),
+        _t(0.3 * np.abs(rng.standard_normal((f.form.nct, full))), device),
+        _t(np.zeros((0, full)), device), 10.0,
+        torch.full((full,), 1e-6, device=device)), batch)
     got, ref = f.cuda(*args), f.plain(*args)
     torch.cuda.synchronize()
     if name != "arm":
