@@ -297,61 +297,110 @@ struct Arm {
   }
 
   // wedge_slack with its six points over the lanes of the team (point r on
-  // lane r % T), each point's max over the faces in its lane, the points'
-  // accumulators merged by max_acc_team.  Every lane ends with the same
-  // smax and sq.
+  // lane r % T), each point's max over the faces in its lane (the faces in
+  // the outer loop: a face is loaded once for the lane's points, and their
+  // chains overlap).  First the values alone, their max merged across the
+  // team: where it is below 0 in every team of the warp, the group's
+  // gradient scale is 0 (no point is active, nor NaN), so smax = 0 and
+  // sq = 0 and the gradient is not formed.  Else the points' relu(max)
+  // accumulators with their tie-split gradients, merged by max_acc_team.
+  // Every lane ends with the same smax and sq.
   template <int T, class C>
   __device__ static float wedge_team(const wb::ArmFK& a, const C& c, int lane, float* sq) {
+    constexpr int RP = (6 + T - 1) / T;   // points a lane
     float live = 0.f;
     for (int h = 0; h < c.n_hp; ++h) live += c.p(c.L.hpm + h);
+    float hw[RP][3], px[RP], pz[RP];
+#pragma unroll
+    for (int rr = 0; rr < RP; ++rr) {
+      const int r = min(rr * T + lane, 5);   // past 5: a copy, not taken
+      // wb::HP_POINTS[r]
+      hw[rr][0] = r == 0 || r == 2 ? 0.5f : (r == 1 ? 1.f : 0.f);
+      hw[rr][1] = r == 2 || r == 4 ? 0.5f : (r == 3 ? 1.f : 0.f);
+      hw[rr][2] = r == 4 ? 0.5f : (r == 5 ? 1.f : 0.f);
+      px[rr] = 0.f;
+      pz[rr] = 0.f;
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        px[rr] += hw[rr][p] * a.ax[p];
+        pz[rr] += hw[rr][p] * a.az[p];
+      }
+    }
+    // face h's distance from point rr, NEG_BIG for a masked face
+    auto dist = [&](int h, int rr, float& n0, float& n2) {
+      n0 = c.p(c.L.hpn + 3 * h);
+      n2 = c.p(c.L.hpn + 3 * h + 2);
+      return c.p(c.L.hpm + h) > 0.f
+                 ? n0 * (c.p(c.L.hpp + 3 * h) - px[rr]) +
+                       c.p(c.L.hpn + 3 * h + 1) * c.p(c.L.hpp + 3 * h + 1) +
+                       n2 * (c.p(c.L.hpp + 3 * h + 2) - pz[rr])
+                 : NEG_BIG;
+    };
     wb::MaxAcc<3> m;
     m.init();
     if (live > 0.f) {
+      float dmax[RP];
 #pragma unroll
-      for (int rr = 0; rr < (6 + T - 1) / T; ++rr) {
-        const int r = rr * T + lane;
-        if (r >= 6) continue;
-        // wb::HP_POINTS[r]
-        const float h0 = r == 0 || r == 2 ? 0.5f : (r == 1 ? 1.f : 0.f);
-        const float h1 = r == 2 || r == 4 ? 0.5f : (r == 3 ? 1.f : 0.f);
-        const float h2 = r == 4 ? 0.5f : (r == 5 ? 1.f : 0.f);
-        const float hw[3] = {h0, h1, h2};
-        float px = 0.f, pz = 0.f;
+      for (int rr = 0; rr < RP; ++rr) dmax[rr] = -INFINITY;
+#pragma unroll 2
+      for (int h = 0; h < c.n_hp; ++h) {
 #pragma unroll
-        for (int p = 0; p < 3; ++p) {
-          px += hw[p] * a.ax[p];
-          pz += hw[p] * a.az[p];
+        for (int rr = 0; rr < RP; ++rr) {
+          float n0, n2;
+          const float d = dist(h, rr, n0, n2);
+          dmax[rr] = d > dmax[rr] || isnan(d) ? d : dmax[rr];
         }
-        float dmax = -INFINITY, en0 = 0.f, en2 = 0.f, cnt = 0.f;
+      }
+      float vmax = -INFINITY;
+#pragma unroll
+      for (int rr = 0; rr < RP; ++rr) {
+        const float v = -dmax[rr];
+        if (rr * T + lane < 6) vmax = v > vmax || isnan(v) ? v : vmax;
+      }
+#pragma unroll
+      for (int off = 1; off < T; off <<= 1) {
+        const float v = __shfl_xor_sync(TEAM_FULL, vmax, off, T);
+        vmax = v > vmax || isnan(v) ? v : vmax;
+      }
+      if (__any_sync(TEAM_FULL, !(vmax < 0.f))) {
+        float en0[RP], en2[RP], cnt[RP];
+#pragma unroll
+        for (int rr = 0; rr < RP; ++rr) {
+          dmax[rr] = -INFINITY;
+          en0[rr] = en2[rr] = cnt[rr] = 0.f;
+        }
         for (int h = 0; h < c.n_hp; ++h) {
-          const float n0 = c.p(c.L.hpn + 3 * h), n1 = c.p(c.L.hpn + 3 * h + 1),
-                      n2 = c.p(c.L.hpn + 3 * h + 2);
-          const float d = c.p(c.L.hpm + h) > 0.f
-                              ? n0 * (c.p(c.L.hpp + 3 * h) - px) + n1 * c.p(c.L.hpp + 3 * h + 1) +
-                                    n2 * (c.p(c.L.hpp + 3 * h + 2) - pz)
-                              : NEG_BIG;
-          const bool gt = d > dmax || isnan(d);
-          const bool eq = d == dmax;
-          dmax = gt ? d : dmax;
-          cnt = gt ? 1.f : (eq ? cnt + 1.f : cnt);
-          en0 = gt ? n0 : (eq ? en0 + n0 : en0);
-          en2 = gt ? n2 : (eq ? en2 + n2 : en2);
-        }
-        float g[3];
 #pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          float AX = 0.f, AZ = 0.f;
-#pragma unroll
-          for (int p = 0; p < 3; ++p) {
-            AX += hw[p] * a.axq[p][i];
-            AZ += hw[p] * a.azq[p][i];
+          for (int rr = 0; rr < RP; ++rr) {
+            float n0, n2;
+            const float d = dist(h, rr, n0, n2);
+            const bool gt = d > dmax[rr] || isnan(d);
+            const bool eq = d == dmax[rr];
+            dmax[rr] = gt ? d : dmax[rr];
+            cnt[rr] = gt ? 1.f : (eq ? cnt[rr] + 1.f : cnt[rr]);
+            en0[rr] = gt ? n0 : (eq ? en0[rr] + n0 : en0[rr]);
+            en2[rr] = gt ? n2 : (eq ? en2[rr] + n2 : en2[rr]);
           }
-          g[i] = (en0 * AX + en2 * AZ) / cnt;
         }
-        m.add(-dmax, g);
+#pragma unroll
+        for (int rr = 0; rr < RP; ++rr) {
+          if (rr * T + lane >= 6) continue;
+          float g[3];
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            float AX = 0.f, AZ = 0.f;
+#pragma unroll
+            for (int p = 0; p < 3; ++p) {
+              AX += hw[rr][p] * a.axq[p][i];
+              AZ += hw[rr][p] * a.azq[p][i];
+            }
+            g[i] = (en0[rr] * AX + en2[rr] * AZ) / cnt[rr];
+          }
+          m.add(-dmax[rr], g);
+        }
+        max_acc_team<T>(m);
       }
     }
-    max_acc_team<T>(m);
     const float gs = m.grad_scale();
 #pragma unroll
     for (int i = 0; i < 3; ++i) sq[i] = m.gsum[i] * gs;
