@@ -672,7 +672,8 @@ def report_timing(tag, run, args, batch, counters, reps=REPS, **kv):
     of a long trace now and then (an unfused qref solve runs some 73,000
     device ops), so a solve whose counts differ is profiled again, up to
     ``PROFILE_ATTEMPTS`` times, and the phase fails only if every profile
-    differs.  Returns the median solve seconds."""
+    differs.  Returns the median solve seconds and the solves run here
+    (``reps`` timed, one a profile)."""
     ts = time_solves(run, args, reps)
     q1, med, q3 = np.percentile(ts, [25, 50, 75])
     _line(tag, **kv, batch=batch, reps=reps, solve_s_median=f"{med:.4f}",
@@ -687,7 +688,7 @@ def report_timing(tag, run, args, batch, counters, reps=REPS, **kv):
         if prof is None:
             _line(tag + "-profile", **kv, batch=batch, device_ops=(
                 "not measured (the profiler saw no device activity)"))
-            return med
+            return med, reps + attempt
         n_ops, busy_ms, ours = prof
         differ = {name: (ours[name][0], c.cuda - before[name])
                   for name, c in counters.items()
@@ -708,7 +709,7 @@ def report_timing(tag, run, args, batch, counters, reps=REPS, **kv):
           idle_share_of_median_solve=f"{1 - busy_ms / (1e3 * med):.3f}",
           **{f"{k}_calls": v[0] for k, v in ours.items()},
           **{f"{k}_ms": f"{v[1]:.3f}" for k, v in ours.items()})
-    return med
+    return med, reps + attempt
 
 
 def check_result(res, mpc, batch, device):
@@ -762,9 +763,9 @@ def run_slice(device):
     torch.cuda.synchronize()
     launches = count_launches(counters, per_solve, 1)
 
-    med = report_timing("slice-timing", run, (x0, U0, params), BATCH,
-                        counters)
-    count_launches(counters, per_solve, 2 + REPS)
+    med, solves = report_timing("slice-timing", run, (x0, U0, params),
+                                BATCH, counters)
+    count_launches(counters, per_solve, 1 + solves)
     check_result(res, mpc, BATCH, device)
     conv = float(stats.n_converged) / float(stats.n_solved)
     maxv = float(stats.max_violation)
@@ -804,9 +805,9 @@ def run_unfused(device, fused):
     torch.cuda.synchronize()
     launches = count_launches(counters, per_solve, 1, absent)
 
-    med = report_timing("unfused-timing", run, (x0, U0, params), BATCH,
-                        counters, reps=UNFUSED_REPS)
-    count_launches(counters, per_solve, 2 + UNFUSED_REPS, absent)
+    med, solves = report_timing("unfused-timing", run, (x0, U0, params),
+                                BATCH, counters, reps=UNFUSED_REPS)
+    count_launches(counters, per_solve, 1 + solves, absent)
     check_result(res, mpc, BATCH, device)
     conv = float(stats.n_converged) / float(stats.n_solved)
     maxv = float(stats.max_violation)
@@ -908,9 +909,10 @@ def run_formulations(device):
         launches.update(count_launches(counters, per_solve, 1))
         results[row] = (res, stats)
 
-        med = report_timing("formulations-timing", run, (x0, U0, params),
-                            BATCH, counters, row=row)
-        count_launches(counters, per_solve, 2 + REPS)
+        med, solves = report_timing("formulations-timing", run,
+                                    (x0, U0, params), BATCH, counters,
+                                    row=row)
+        count_launches(counters, per_solve, 1 + solves)
         check_result(res, mpc, BATCH, device)
         conv = float(stats.n_converged) / float(stats.n_solved)
         maxv = float(stats.max_violation)
@@ -956,10 +958,10 @@ def run_formulations_unfused(device, fused):
         torch.cuda.synchronize()
         launches[row] = count_launches(counters, per_solve, 1, absent)[ric]
 
-        med = report_timing("formulations-unfused-timing", run,
-                            (x0, U0, params), BATCH, counters,
-                            reps=UNFUSED_REPS, row=row)
-        count_launches(counters, per_solve, 2 + UNFUSED_REPS, absent)
+        med, solves = report_timing("formulations-unfused-timing", run,
+                                    (x0, U0, params), BATCH, counters,
+                                    reps=UNFUSED_REPS, row=row)
+        count_launches(counters, per_solve, 1 + solves, absent)
         check_result(res, mpc, BATCH, device)
         conv = float(stats.n_converged) / float(stats.n_solved)
         maxv = float(stats.max_violation)
