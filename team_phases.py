@@ -20,17 +20,24 @@ sources (one ``nvcc`` a library, all started together, into
 - ``no_update``: the value update and the symmetrisation are skipped;
 - ``no_fk``, ``no_wedge``, ``no_self`` (D.arm only): the expansion's FK
   (its sincos and algebra), its wedge points, or its self-collision rows
-  are not computed (zeros in their place).
+  are not computed (zeros in their place);
+- for kernel C.endpoint (``endpoint_fwd``, the team line search of
+  ``generic_fwd.cuh`` with ``generic_endpoint.cu``'s hooks): ``no_loads``
+  as above; ``no_fk_ee`` (the FK's four sincos), ``no_ground`` (the
+  ground circles), ``no_forms`` (the R and W forms), ``no_phr`` (the
+  stage's PHR rows) are not computed.
 
 A variant's outputs are not the kernel's; only its time is read.  Each is
 timed as ``chip_smoke.py``'s ``[kernel]`` (CUDA-graph replay of 20 launches)
-at N=20, B=8192: E at each pair on random SPD blocks, D.endpoint and D.arm
-on the inputs of their ``[kernel]`` checks (``[phase-time]`` lines).  Needs
+at N=20, B=8192: E at each pair on random SPD blocks, D.endpoint, D.arm
+and C.endpoint on the inputs of their ``[kernel]`` checks
+(``[phase-time]`` lines).  Needs
 a CUDA card and ``nvcc``:
 
     python3 team_phases.py [KERNEL ...]
 
-(KERNEL among ``riccati``, ``endpoint``, ``arm``; all three by default.)
+(KERNEL among ``riccati``, ``endpoint``, ``arm``, ``endpoint_fwd``; all
+by default.)
 
 Exits nonzero if a build fails or a guard's anchor is not in the source.
 """
@@ -52,17 +59,21 @@ from mmmpc_tpu_torch.ops import _cuda  # noqa: E402
 
 OUT = _cuda.BUILD_DIR / "phases"
 # variant -> the kernels it applies to
-VARIANTS = {"full": ("riccati", "endpoint", "arm"),
-            "no_loads": ("riccati", "endpoint", "arm"),
+VARIANTS = {"full": ("riccati", "endpoint", "arm", "endpoint_fwd"),
+            "no_loads": ("riccati", "endpoint", "arm", "endpoint_fwd"),
             "no_step": ("riccati", "endpoint", "arm"),
             "no_rows": ("riccati", "endpoint", "arm"),
             "no_expansion": ("endpoint", "arm"),
             "no_update": ("riccati", "endpoint", "arm"),
             "no_fk": ("arm",),
             "no_wedge": ("arm",),
-            "no_self": ("arm",)}
+            "no_self": ("arm",),
+            "no_fk_ee": ("endpoint_fwd",),
+            "no_ground": ("endpoint_fwd",),
+            "no_forms": ("endpoint_fwd",),
+            "no_phr": ("endpoint_fwd",)}
 SOURCE = {"riccati": "riccati.cu", "endpoint": "generic_endpoint.cu",
-          "arm": "generic_arm.cu"}
+          "arm": "generic_arm.cu", "endpoint_fwd": "generic_endpoint.cu"}
 # (file, text the guard starts before, text it ends after or before, macro,
 # and optionally the text in its place); a guard whose end is None takes
 # one statement: the start text itself
@@ -83,9 +94,21 @@ GUARDS = (
     ("generic_arm.cu", "      self_team<T>(a, lane, sv, sg);\n", None,
      "NO_SELF", "      for (int r = 0; r < 4; ++r)\n"
      "        sv[r] = sg[r][0] = sg[r][1] = sg[r][2] = 0.f;\n"),
+    ("generic_endpoint.cu", "    sincos_team<T, 4>(\n", "    using namespace wb;",
+     "NO_FK_EE", "    for (int i = 0; i < 4; ++i) s[i] = cs[i] = 0.f;\n"),
+    ("generic_endpoint.cu",
+     "    const float sm = ground_team<T>(c, x[0], x[1], lane);\n", None,
+     "NO_GROUND", "    const float sm = 0.f;\n"),
+    ("generic_endpoint.cu",
+     "    tr += qform_rows<T, NU>(c, c.L.R, eu, v + FV_EU, lane);\n",
+     "    const float pen = phr_rows<T, NC>", "NO_FORMS"),
+    ("generic_endpoint.cu",
+     "    const float pen = phr_rows<T, NC>(rt, v, lam, SC, mu, lane);\n",
+     None, "NO_PHR", "    const float pen = 0.f;\n"),
 )
 LOADS = (("riccati.cu", "  auto issue_stage = [&](int k) {\n"),
-         ("generic_bwd.cuh", "  auto issue_stage = [&](int k) {\n"))
+         ("generic_bwd.cuh", "  auto issue_stage = [&](int k) {\n"),
+         ("generic_fwd.cuh", "  auto issue_stage = [&](int k) {\n"))
 
 
 def guarded_sources(dst: Path) -> None:
@@ -152,6 +175,8 @@ def main(argv):
     libs = build(only)
     rows = {f: team_sweep.row_args(device, f)[1::2]
             for f in ("endpoint", "arm") if f in only}
+    if "endpoint_fwd" in only:
+        rows["endpoint_fwd"] = team_sweep.row_args(device, "endpoint")[::2]
     blocks = {dims: (*chip_smoke.spd_blocks(device, B=chip_smoke.BATCH, N=20,
                                             nx=dims[0], nu=dims[1]),
                      torch.full((chip_smoke.BATCH,), 1e-6, device=device))
@@ -159,10 +184,12 @@ def main(argv):
     for (variant, kernel), path in libs.items():
         _cuda.LIBRARY.lib = team_sweep.load(kernel, path)
         if kernel in rows:
-            bwd, bargs = rows[kernel]
-            ms = chip_smoke._kernel_ms(lambda: bwd.cuda(*bargs), 20)
-            print(f"[phase-time] name=generic_bwd.{kernel} variant={variant} "
-                  f"ms={ms:.5g}", flush=True)
+            f, args = rows[kernel]
+            ms = chip_smoke._kernel_ms(lambda: f.cuda(*args), 20)
+            name = ("generic_fwd.endpoint" if kernel == "endpoint_fwd"
+                    else f"generic_bwd.{kernel}")
+            print(f"[phase-time] name={name} variant={variant} ms={ms:.5g}",
+                  flush=True)
             continue
         for (nx, nu), args in blocks.items():
             ms = chip_smoke._kernel_ms(lambda: riccati_backward_bm(*args), 20)
