@@ -133,8 +133,7 @@ generic_fwd_kernel(const __grid_constant__ Statics<F> st,
 //   holds (128 / T) / n_alpha scenarios, at most FWD_SCEN; the teams left
 //   over shadow the last candidate and store nothing.
 // - Shared memory per block (FwdTeamSmem): F's table of its PHR rows
-//   (built once a block by F::fwd_team_rows), a ring of FWD_STAGES buffers
-//   of each
+//   (built once a block by F::fwd_team_rows), a two-stage buffer of each
 //   stage's inputs X_k, U_k, kff_k, K_k, lam_k of the block's scenarios
 //   (element-major, scenario fastest) filled by cp.async one stage ahead,
 //   each scenario's inputs loaded once and read by all of its candidates;
@@ -180,9 +179,6 @@ struct FwdTeam<F, std::void_t<decltype(F::FWD_TEAM)>> {
 constexpr int FWD_TEAM_THREADS = 128;
 // The most scenarios a block holds: the stride of the stage buffer.
 constexpr int FWD_SCEN = 32;
-// Stages of the input ring: FWD_STAGES - 1 stages in flight ahead of the
-// one computed.
-constexpr int FWD_STAGES = 3;
 
 // The scenarios of a block: its teams over the step sizes, at most
 // FWD_SCEN.
@@ -213,7 +209,7 @@ __host__ __device__ inline FwdTeamSmem fwd_team_smem(int N, int n_obs, int n_hp)
   FwdTeamSmem m;
   int o = 0;
   m.rows = o;  o += F::FWD_ROWS;
-  m.in = o;    o += FWD_STAGES * FwdIn<F>::SIZE * FWD_SCEN;
+  m.in = o;    o += 2 * FwdIn<F>::SIZE * FWD_SCEN;
   m.term = o;  o += F::NCT * FWD_SCEN;
   m.vec = o;   o += 2 * F::FWD_NV * (FWD_TEAM_THREADS / FwdTeam<F>::value);
   m.sv = o;    o += Statics<F>::SIZE;
@@ -292,7 +288,7 @@ generic_fwd_team_kernel(const __grid_constant__ Statics<F> st,
   const typename F::Layout L = F::layout(N, n_obs, n_hp);
   const FwdTeamSmem M = fwd_team_smem<F>(N, n_obs, n_hp);
   float* rt = smem + M.rows;      // PHR row table
-  float* inbuf = smem + M.in;     // stage inputs, a ring of FWD_STAGES
+  float* inbuf = smem + M.in;     // stage inputs, two parities
   float* tb = smem + M.term;      // terminal multipliers
   float* vec = smem + M.vec;      // the teams' vectors, two parities
   float* sv = smem + M.sv;        // statics
@@ -321,9 +317,9 @@ generic_fwd_team_kernel(const __grid_constant__ Statics<F> st,
 #pragma unroll 4
     for (int i = ci; i < n; i += per, p += step) wb::cp_async4(dst + i * SC, p);
   };
-  // stage k's inputs into buffer k % FWD_STAGES
+  // stage k's inputs into buffer k & 1
   auto issue_stage = [&](int k) {
-    float* dst = inbuf + (k % FWD_STAGES) * In::SIZE * SC + cs;
+    float* dst = inbuf + (k & 1) * In::SIZE * SC + cs;
     copy_rows(dst + In::X * SC, X, k * NX, NX);
     copy_rows(dst + In::U * SC, U, k * NU, NU);
     copy_rows(dst + In::KFF * SC, kff, k * NU, NU);
@@ -345,16 +341,12 @@ generic_fwd_team_kernel(const __grid_constant__ Statics<F> st,
     }
   };
 
-  // ---- the params, the terminal multipliers and the first FWD_STAGES - 1
-  // stages in flight (a commit group each); the statics and the row table
-  // meanwhile
+  // ---- the params, the terminal multipliers and stage 0 in flight; the
+  // statics and the row table meanwhile
   for (int i = tid; i < L.size; i += FWD_TEAM_THREADS) wb::cp_async4(ps + i, pp + i);
   copy_rows(tb + cs, lamt, 0, NCT);
-#pragma unroll
-  for (int j = 0; j < FWD_STAGES - 1; ++j) {
-    if (j < N) issue_stage(j);
-    wb::cp_async_commit();
-  }
+  issue_stage(0);
+  wb::cp_async_commit();
   for (int i = tid; i < Statics<F>::SIZE; i += FWD_TEAM_THREADS) sv[i] = st.v[i];
   if (tid == 0) F::fwd_team_rows(st.v, rt);
   const SmemCtx<F> c{sv, ps, L, st.v[GST_DT], st.v[GST_INV_SCALE], N, n_obs, n_hp};
@@ -363,15 +355,12 @@ generic_fwd_team_kernel(const __grid_constant__ Statics<F> st,
   float x[NX];
   float acc = 0.f;   // this lane's partial cost
   for (int k = 0; k < N; ++k) {
-    // stage k's group has landed (later stages' may still fly); after the
-    // barrier every team is done with stage k - 1, whose buffer takes
-    // stage k + FWD_STAGES - 1
-    wb::cp_async_wait<FWD_STAGES - 2>();
+    wb::cp_async_wait<0>();
     __syncthreads();
-    if (k + FWD_STAGES - 1 < N) issue_stage(k + FWD_STAGES - 1);
+    if (k + 1 < N) issue_stage(k + 1);
     wb::cp_async_commit();
     if (k > 0) store_out(k - 1);
-    const float* in = inbuf + (k % FWD_STAGES) * In::SIZE * SC + s;
+    const float* in = inbuf + (k & 1) * In::SIZE * SC + s;
     if (k == 0) {
 #pragma unroll
       for (int i = 0; i < NX; ++i) x[i] = in[(In::X + i) * SC];
