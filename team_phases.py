@@ -23,9 +23,9 @@ sources (one ``nvcc`` a library, all started together, into
   are not computed (zeros in their place);
 - for kernel C.endpoint (``endpoint_fwd``, the team line search of
   ``generic_fwd.cuh`` with ``generic_endpoint.cu``'s hooks): ``no_loads``
-  as above; ``no_fk_ee`` (the FK's four sincos), ``no_ground`` (the
-  ground circles), ``no_forms`` (the R and W forms), ``no_phr`` (the
-  stage's PHR rows) are not computed.
+  as above; ``no_fk`` (the FK's four sincos), ``no_ground`` (the ground
+  circles), ``no_forms`` (the R and W forms), ``no_phr`` (the stage's PHR
+  rows) are not computed.
 
 A variant's outputs are not the kernel's; only its time is read.  Each is
 timed as ``chip_smoke.py``'s ``[kernel]`` (CUDA-graph replay of 20 launches)
@@ -65,10 +65,9 @@ VARIANTS = {"full": ("riccati", "endpoint", "arm", "endpoint_fwd"),
             "no_rows": ("riccati", "endpoint", "arm"),
             "no_expansion": ("endpoint", "arm"),
             "no_update": ("riccati", "endpoint", "arm"),
-            "no_fk": ("arm",),
+            "no_fk": ("arm", "endpoint_fwd"),
             "no_wedge": ("arm",),
             "no_self": ("arm",),
-            "no_fk_ee": ("endpoint_fwd",),
             "no_ground": ("endpoint_fwd",),
             "no_forms": ("endpoint_fwd",),
             "no_phr": ("endpoint_fwd",)}
@@ -94,8 +93,9 @@ GUARDS = (
     ("generic_arm.cu", "      self_team<T>(a, lane, sv, sg);\n", None,
      "NO_SELF", "      for (int r = 0; r < 4; ++r)\n"
      "        sv[r] = sg[r][0] = sg[r][1] = sg[r][2] = 0.f;\n"),
-    ("generic_endpoint.cu", "    sincos_team<T, 4>(\n", "    using namespace wb;",
-     "NO_FK_EE", "    for (int i = 0; i < 4; ++i) s[i] = cs[i] = 0.f;\n"),
+    ("generic_endpoint.cu", "    sincos_team<T, 4>(\n",
+     "    const float s1 = s[0], c1 = cs[0]", "NO_FK",
+     "    for (int i = 0; i < 4; ++i) s[i] = cs[i] = 0.f;\n"),
     ("generic_endpoint.cu",
      "    const float sm = ground_team<T>(c, x[0], x[1], lane);\n", None,
      "NO_GROUND", "    const float sm = 0.f;\n"),

@@ -150,12 +150,6 @@ def row_args(device, name):
     raise ValueError(f"no {ROW[name]} row")
 
 
-def endpoint_args(device):
-    """The endpoint row's fused backward and its arguments at batch 8192."""
-    _, bwd, _, bargs = row_args(device, "endpoint")
-    return bwd, bargs
-
-
 def check_generic(kernel, team, fwd, bwd, fargs, bargs):
     """One team size of a generic kernel against its plain version at its
     ``[kernel]`` tolerance: (name, max abs error, the call that launches
