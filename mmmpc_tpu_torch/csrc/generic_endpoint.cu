@@ -249,20 +249,25 @@ struct Endpoint {
   // multipliers from the stage buffer (in[e * S]: x, u, lam) and pick Jp's
   // column by selects.
   static constexpr int BWD_TEAM = 8;
+  static constexpr unsigned FULL = 0xffffffffu;
 
-  // wb::fk with its four sincos (q1, q1 - q2, q1 - q2 - q3, psi) over the
-  // lanes of the team (sincos_team): the same algebra, so every lane ends
-  // with fk's values.
+  // wb::fk with its four sincos (q1, q1 - q2, q1 - q2 - q3, psi) split over
+  // lanes 4m .. 4m + 3 of the team and exchanged by shuffles: the same
+  // algebra, so every lane ends with fk's values.
   template <int T>
   __device__ static void fk_team(const float* x, int lane, wb::FK& f) {
+    static_assert(T % 4 == 0 && T <= 32, "fk_team splits over four lanes");
+    const int qd = lane & 3;
     const float th = x[6] - x[7];
-    float s[4], cs[4];
-    sincos_team<T, 4>(
-        [&](int i) { return i == 0 ? x[6] : (i == 1 ? th : (i == 2 ? th - x[8] : x[2])); },
-        lane, s, cs);
-    const float s1 = s[0], c1 = cs[0], st = s[1], ct = cs[1], sb = s[2], cb = cs[2];
-    f.sp = s[3];
-    f.cp = cs[3];
+    const float ang = qd == 0 ? x[6] : qd == 1 ? th : qd == 2 ? th - x[8] : x[2];
+    float sa, ca;
+    sincosf(ang, &sa, &ca);
+    const int b = lane & ~3;
+    const float s1 = __shfl_sync(FULL, sa, b, T), c1 = __shfl_sync(FULL, ca, b, T);
+    const float st = __shfl_sync(FULL, sa, b + 1, T), ct = __shfl_sync(FULL, ca, b + 1, T);
+    const float sb = __shfl_sync(FULL, sa, b + 2, T), cb = __shfl_sync(FULL, ca, b + 2, T);
+    f.sp = __shfl_sync(FULL, sa, b + 3, T);
+    f.cp = __shfl_sync(FULL, ca, b + 3, T);
     using namespace wb;
     const float ax2 = A2 * s1 + A3 * c1;
     const float az2 = A2 * c1 - A3 * s1;
@@ -292,8 +297,9 @@ struct Endpoint {
   }
 
   // ground_slack with its circles over the lanes of the team, each into its
-  // own relu(max) accumulator, merged by max_acc_team.  Every lane ends
-  // with the same smax and sxy.
+  // own relu(max) accumulator, merged by a butterfly of shuffles: a larger
+  // max replaces, equal maxima add their counts and gradients, a NaN max
+  // stays NaN.  Every lane ends with the same smax and sxy.
   template <int T, class C>
   __device__ static float ground_slack_team(const C& c, float px, float py,
                                             float* sxy, int lane) {
@@ -306,7 +312,21 @@ struct Endpoint {
       const float g[2] = {-dx / d, -dy / d};
       m.add((c.p(c.L.obs + 3 * o + 2) + c.ex(S_RADIUS)) - d, g);
     }
-    max_acc_team<T>(m);
+#pragma unroll
+    for (int off = 1; off < T; off <<= 1) {
+      const float og = __shfl_xor_sync(FULL, m.gmax, off, T);
+      const float oc = __shfl_xor_sync(FULL, m.cnt, off, T);
+      const bool nan = isnan(og) || isnan(m.gmax);
+      const bool take = !nan && og > m.gmax;
+      const bool add = nan || og == m.gmax;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float o = __shfl_xor_sync(FULL, m.gsum[i], off, T);
+        m.gsum[i] = take ? o : (add ? m.gsum[i] + o : m.gsum[i]);
+      }
+      m.cnt = take ? oc : (add ? m.cnt + oc : m.cnt);
+      m.gmax = nan ? NAN : (take ? og : m.gmax);
+    }
     const float gs = m.grad_scale();
     sxy[0] = m.gsum[0] * gs;
     sxy[1] = m.gsum[1] * gs;
@@ -493,10 +513,13 @@ struct Endpoint {
 
   // ---- the team line search (generic_fwd.cuh, generic_fwd_team_kernel):
   // teams of FWD_TEAM lanes a candidate.  The FK's four sincos over the
-  // lanes (fk_team), the step in every lane; the ground circles, the
+  // lanes (sincos_team), the step in every lane; the ground circles, the
   // rows of the Q, R and W forms and the PHR rows as items over the lanes.
   // Lanes a candidate: 2 was the fastest of 1, 2, 4 and 8 at batch 8192
-  // (PERF.md), as for kernel A.
+  // on the H100 (PERF.md), as for kernel A.  It keeps an FK of its own
+  // (fk_ee_team): D's fk_team splits over four lanes, and routing that and
+  // D's circle merge through the shared team helpers slowed D.endpoint by
+  // 8% on the H100 (PERF.md).
   static constexpr int FWD_TEAM = 2;
   // a candidate's vector: x, u, then the errors e (pose), eu, ed
   enum : int {
@@ -523,6 +546,32 @@ struct Endpoint {
       rt[4 * r + 2] = ex[mask + e] != 0.f ? 1.f : 0.f;
       rt[4 * r + 3] = __int_as_float(isx ? e : FV_ED + e);
     }
+  }
+
+  // The end effector's world point (wb::fk's pt[2]) and the base yaw's
+  // cos / sin, the four sincos over the lanes of the team.
+  template <int T>
+  __device__ static void fk_ee_team(const float* x, int lane, float& cp, float& sp,
+                                    float* pe) {
+    const float th = x[6] - x[7];
+    float s[4], cs[4];
+    sincos_team<T, 4>(
+        [&](int i) { return i == 0 ? x[6] : (i == 1 ? th : (i == 2 ? th - x[8] : x[2])); },
+        lane, s, cs);
+    using namespace wb;
+    const float s1 = s[0], c1 = cs[0], st = s[1], ct = cs[1], sb = s[2], cb = cs[2];
+    sp = s[3];
+    cp = cs[3];
+    const float ax2 = A2 * s1 + A3 * c1;
+    const float az2 = A2 * c1 - A3 * s1;
+    const float ax3 = ax2 - A3 * ct + A5 * st;
+    const float az3 = az2 + A3 * st + A5 * ct;
+    const float axe = ax3 + A6 * cb - A7 * sb;
+    const float aze = az3 - A6 * sb - A7 * cb;
+    const float r = axe + BX;
+    pe[0] = x[0] + r * cp;
+    pe[1] = x[1] + r * sp;
+    pe[2] = aze + BZ;
   }
 
   // relu(max) of the ground circles over the lanes of the team (values
@@ -552,11 +601,13 @@ struct Endpoint {
   template <int T, class C>
   __device__ static float pose_team(const float* x, const float* u, int row, int W, const C& c,
                                     float* v, int lane, float* xn) {
-    wb::FK f;   // its partials are not read: only the points' algebra runs
-    fk_team<T>(x, lane, f);
-    if (u != nullptr) wb::step(x, u, c.dt, f.cp, f.sp, xn);
+    float cp, sp, pe[3];
+    fk_ee_team<T>(x, lane, cp, sp, pe);
+    if (u != nullptr) wb::step(x, u, c.dt, cp, sp, xn);
     float e[4];
-    pose_err(x, f, c, row, e);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) e[i] = pe[i] - c.p(c.L.xref + row * 4 + i);
+    e[3] = x[2] - c.p(c.L.xref + row * 4 + 3);
 #pragma unroll
     for (int i = 0; i < 4; ++i) v[FV_E + i] = e[i];
     __syncwarp();

@@ -93,8 +93,8 @@ GUARDS = (
     ("generic_arm.cu", "      self_team<T>(a, lane, sv, sg);\n", None,
      "NO_SELF", "      for (int r = 0; r < 4; ++r)\n"
      "        sv[r] = sg[r][0] = sg[r][1] = sg[r][2] = 0.f;\n"),
-    ("generic_endpoint.cu", "    sincos_team<T, 4>(\n",
-     "    const float s1 = s[0], c1 = cs[0]", "NO_FK",
+    ("generic_endpoint.cu", "    sincos_team<T, 4>(\n", "    using namespace wb;",
+     "NO_FK",
      "    for (int i = 0; i < 4; ++i) s[i] = cs[i] = 0.f;\n"),
     ("generic_endpoint.cu",
      "    const float sm = ground_team<T>(c, x[0], x[1], lane);\n", None,
