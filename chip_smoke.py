@@ -96,6 +96,7 @@ import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -116,9 +117,6 @@ FP32_FLOP_PER_S = 67e12
 ROWS = {"demo_1d": "demo", "base_only": "base", "arm_only": "arm",
         "wholebody_endpoint": "endpoint"}
 GENERIC = tuple(ROWS.values())
-# gains tolerance (atol) of each formulation's generic backward kernel, rtol
-# 1e-4 (tests/test_generic_bwd.py); the arm is held in the p99 / float64 form
-BWD_ATOL = {"demo": 1e-5, "base": 1e-3, "endpoint": 2e-4}
 # (nx, nu) of each generic formulation: its Riccati sweep instance
 DIMS = {"demo": (2, 1), "base": (6, 2), "arm": (3, 3), "endpoint": (9, 5)}
 # device-kernel names (as the profiler reports them) of each wrapper; a
@@ -403,28 +401,20 @@ def _riccati_batches(inputs, blocks, reg, check):
                   lambda n: launch_geometry(nx, nu, n), inputs=inputs)
 
 
+def _test_problems_path():
+    """Make tests/torch_problems.py importable as ``torch_problems``, by
+    its directory: the name ``tests`` may belong to an installed package."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+
+
 def spd_blocks(device, B=1024, N=4, nx=9, nu=5):
     """The random SPD blocks of tests/test_pallas_riccati.py (seed 3, its
-    batch and horizon), batch-last on ``device``."""
-    rng = np.random.default_rng(3)
-
-    def mk(*s):
-        return rng.standard_normal(s).astype(np.float32)
-
-    def spd(a, n):
-        return a @ np.swapaxes(a, -1, -2) + 5 * np.eye(n, dtype=np.float32)
-
-    lx, lu = mk(B, N, nx), mk(B, N, nu)
-    lxx = spd(mk(B, N, nx, nx), nx)
-    luu = spd(mk(B, N, nu, nu), nu)
-    lux = mk(B, N, nu, nx)
-    A = mk(B, N, nx, nx) * 0.1 + np.eye(nx, dtype=np.float32)
-    Bm = mk(B, N, nx, nu) * 0.1
-    tg = mk(B, nx)
-    tH = spd(mk(B, nx, nx), nx)
-    return tuple(torch.as_tensor(np.ascontiguousarray(np.moveaxis(a, 0, -1)),
-                                 device=device)
-                 for a in (lx, lu, lxx, luu, lux, A, Bm, tg, tH))
+    batch and horizon; tests/torch_problems.py), batch-last on ``device``."""
+    _test_problems_path()
+    from torch_problems import batch_last, spd_blocks as blocks
+    return tuple(batch_last(a, device) for a in blocks(nx, nu, B, N))
 
 
 def check_new_pair(device, peak, dims=(4, 2)):
@@ -548,6 +538,10 @@ def check_generic(device, peak, kinds):
     from mmmpc_tpu_torch.solver.al_ilqr import (
         rollout, stage_al_blocks, terminal_al_blocks,
     )
+    # gains tolerance (atol) of each generic backward kernel, rtol 1e-4; the
+    # arm is held in the p99 / float64 form
+    _test_problems_path()
+    from torch_problems import BWD_ATOL
     out = {}
     for row, mpc, x0, _, params in problems(BATCH, device):
         if row not in ROWS:
@@ -1117,7 +1111,6 @@ def run_cuda_tests():
     root: each kernel against its plain version on small inputs.  Fails
     unless pytest exits 0 with every selected test passed (a test that
     skips on the card is a failure here)."""
-    from pathlib import Path
     cmd = [sys.executable, "-m", "pytest", "--noconftest", "-p",
            "no:cacheprovider", "-m", "cuda", "-q", "tests/test_torch_cuda.py"]
     proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,

@@ -42,15 +42,12 @@ struct Arm {
   }
 
   // relu(max over the sampled points of the half-plane union) of the arm
-  // frame points (y == 0), and with sq its q-gradient (the tie-split mean of
-  // the maximal faces' normals through dP/dq, the even tie split over the
-  // points).  No live face: an empty group.
+  // frame points (y == 0).  No live face: an empty group (0).
   template <class C>
-  __device__ static float wedge_slack(const wb::ArmFK& a, const C& c, float* sq) {
+  __device__ static float wedge_slack(const wb::ArmFK& a, const C& c) {
     float live = 0.f;
     for (int h = 0; h < c.n_hp; ++h) live += c.p(c.L.hpm + h);
-    wb::MaxAcc<3> m;
-    m.init();
+    float gmax = -INFINITY;
     if (live > 0.f) {
 #pragma unroll
       for (int r = 0; r < 6; ++r) {
@@ -60,7 +57,7 @@ struct Arm {
           px += wb::HP_POINTS[r][p] * a.ax[p];
           pz += wb::HP_POINTS[r][p] * a.az[p];
         }
-        float dmax = -INFINITY, en0 = 0.f, en2 = 0.f, cnt = 0.f;
+        float dmax = -INFINITY;
         for (int h = 0; h < c.n_hp; ++h) {
           const float n0 = c.p(c.L.hpn + 3 * h), n1 = c.p(c.L.hpn + 3 * h + 1),
                       n2 = c.p(c.L.hpn + 3 * h + 2);
@@ -68,57 +65,23 @@ struct Arm {
                               ? n0 * (c.p(c.L.hpp + 3 * h) - px) + n1 * c.p(c.L.hpp + 3 * h + 1) +
                                     n2 * (c.p(c.L.hpp + 3 * h + 2) - pz)
                               : NEG_BIG;
-          const bool gt = d > dmax || isnan(d);
-          const bool eq = d == dmax;
-          dmax = gt ? d : dmax;
-          cnt = gt ? 1.f : (eq ? cnt + 1.f : cnt);
-          en0 = gt ? n0 : (eq ? en0 + n0 : en0);
-          en2 = gt ? n2 : (eq ? en2 + n2 : en2);
+          dmax = d > dmax || isnan(d) ? d : dmax;
         }
-        float g[3];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          float AX = 0.f, AZ = 0.f;
-#pragma unroll
-          for (int p = 0; p < 3; ++p) {
-            AX += wb::HP_POINTS[r][p] * a.axq[p][i];
-            AZ += wb::HP_POINTS[r][p] * a.azq[p][i];
-          }
-          g[i] = (en0 * AX + en2 * AZ) / cnt;
-        }
-        m.add(-dmax, g);
+        wb::max_in(gmax, -dmax);
       }
     }
-    if (sq != nullptr) {
-      const float gs = m.grad_scale();
-#pragma unroll
-      for (int i = 0; i < 3; ++i) sq[i] = m.gsum[i] * gs;
-    }
-    return m.smax();
+    return gmax < 0.f ? 0.f : gmax;
   }
 
-  // self-collision row r: SELF_R - |check - ee| (arm frame), and its q-gradient
-  __device__ static float selfcol(const wb::ArmFK& a, int r, float* g) {
+  // self-collision row r: SELF_R - |check - ee| (arm frame)
+  __device__ static float selfcol(const wb::ArmFK& a, int r) {
     float vx = 0.f, vz = 0.f;
 #pragma unroll
     for (int p = 0; p < 3; ++p) {
       vx += wb::SELF_DIFF[r][p] * a.ax[p];
       vz += wb::SELF_DIFF[r][p] * a.az[p];
     }
-    const float n = sqrtf(vx * vx + vz * vz + wb::EPS);
-    if (g != nullptr) {
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        float AX = 0.f, AZ = 0.f;
-#pragma unroll
-        for (int p = 0; p < 3; ++p) {
-          AX += wb::SELF_DIFF[r][p] * a.axq[p][i];
-          AZ += wb::SELF_DIFF[r][p] * a.azq[p][i];
-        }
-        g[i] = -(vx * AX + vz * AZ) / n;
-      }
-    }
-    return wb::SELF_R - n;
+    return wb::SELF_R - sqrtf(vx * vx + vz * vz + wb::EPS);
   }
 
   // rows [q - hi (3), lo - q (3)]
@@ -148,7 +111,7 @@ struct Arm {
       eu[i] = u[i] - c.p(c.L.uref + k * 3 + i);
       edu[i] = u[i] - c.p(c.L.ulast + k * 3 + i);
     }
-    const float sm = wedge_slack(a, c, nullptr);
+    const float sm = wedge_slack(a, c);
     qbox(x, c, g);
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
@@ -156,7 +119,7 @@ struct Arm {
       g[9 + i] = c.ex(S_DDLO + i) - edu[i];
     }
 #pragma unroll
-    for (int r = 0; r < 4; ++r) g[12 + r] = selfcol(a, r, nullptr);
+    for (int r = 0; r < 4; ++r) g[12 + r] = selfcol(a, r);
     return qform<3>(c, c.L.Q, e) + qform<3>(c, c.L.R, eu) + qform<3>(c, c.L.M, edu) +
            c.ex(S_W) * sm * sm;
   }
@@ -167,10 +130,10 @@ struct Arm {
     float e[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) e[i] = x[i] - c.p(c.L.xref + c.N * 3 + i);
-    const float sm = wedge_slack(a, c, nullptr);
+    const float sm = wedge_slack(a, c);
     qbox(x, c, gt);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) gt[6 + r] = selfcol(a, r, nullptr);
+    for (int r = 0; r < 4; ++r) gt[6 + r] = selfcol(a, r);
     return qform<3>(c, c.L.P, e) + c.ex(S_W) * sm * sm;
   }
 
@@ -186,68 +149,6 @@ struct Arm {
       Bm[i][i] = c.dt;
     }
   }
-  // two_s (W e + w smax sq) and two_s (W + w sq sq^T), then the q-box rows
-  // 0-5 and the self-collision rows from row r_self on
-  template <class C, class Q>
-  __device__ static void tracking(const float* x, const C& c, int row, int W, int r_self, Q& q) {
-    const float two_s = 2.f * c.inv_scale;
-    wb::ArmFK a;
-    wb::arm_fk(x[0], x[1], x[2], a);
-    float e[3], sq[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) e[i] = x[i] - c.p(c.L.xref + row * 3 + i);
-    const float sm = wedge_slack(a, c, sq);
-    const float w = c.ex(S_W);
-    const float wsm = w * sm;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      float we = 0.f;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) we += c.p(W + i * 3 + j) * e[j];
-      q.x[i] += two_s * (we + wsm * sq[i]);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) q.xx[i][j] += two_s * (c.p(W + i * 3 + j) + w * (sq[i] * sq[j]));
-    }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      q.box_x(i, true, x[i] - c.ex(S_QHI + i), i, 1.f);
-      q.box_x(3 + i, true, c.ex(S_QLO + i) - x[i], i, -1.f);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float g[3];
-      const float v = selfcol(a, r, g);
-      q.row_x(r_self + r, v, g);
-    }
-  }
-  template <class C, class Q>
-  __device__ static void stage_quad(const float* x, const float* u, int k, const C& c, Q& q) {
-    const float two_s = 2.f * c.inv_scale;
-    tracking(x, c, k, c.L.Q, 12, q);
-    float eu[3], edu[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      eu[i] = u[i] - c.p(c.L.uref + k * 3 + i);
-      edu[i] = u[i] - c.p(c.L.ulast + k * 3 + i);
-    }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        s += c.p(c.L.R + i * 3 + j) * eu[j] + c.p(c.L.M + i * 3 + j) * edu[j];
-      q.u[i] += two_s * s;
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        q.uu[i][j] += two_s * (c.p(c.L.R + i * 3 + j) + c.p(c.L.M + i * 3 + j));
-      q.box_u(6 + i, true, edu[i] - c.ex(S_DDHI + i), i, 1.f);
-      q.box_u(9 + i, true, c.ex(S_DDLO + i) - edu[i], i, -1.f);
-    }
-  }
-  template <class C, class Q>
-  __device__ static void term_quad(const float* x, const C& c, Q& q) {
-    tracking(x, c, c.N, c.L.P, 6, q);
-  }
 
   // ---- the team backward (generic_bwd.cuh, generic_bwd_team_kernel):
   // teams of BWD_TEAM lanes a scenario.  The lanes share the stage's
@@ -255,9 +156,10 @@ struct Arm {
   // (a point's max over the faces in the lane that owns it, the points'
   // relu(max) merged across the team), the four self-collision rows (each
   // on one lane, its value and gradient exchanged by shuffles); then every
-  // lane adds the rows of its tasks in tracking's and stage_quad's order
-  // of operations, the q-box rows to its x rows and the rate-box rows to
-  // its u rows.  Rows picked at run time read x, u and the multipliers
+  // lane adds the rows of its tasks in the order of operations of the JAX
+  // hooks (lanes_bwd_factory): tracking with weights W plus the wedge's
+  // two_s w sq sq^T, the q-box and self-collision rows to its x rows, the
+  // R and M forms and the rate-box rows to its u rows.  Rows picked at run time read x, u and the multipliers
   // from the stage buffer (in[e * S]: x, u, lam) and the sampled rows by
   // selects (ric::pick).
   // Lanes a scenario: 4 was the fastest of 1, 2, 4 and 8 at batch 8192,
@@ -296,8 +198,9 @@ struct Arm {
     a.azq[2][0] = -ax2 + E3 + Q6; a.azq[2][1] = -(E3 + Q6);    a.azq[2][2] = -Q6;
   }
 
-  // wedge_slack with its six points over the lanes of the team (point r on
-  // lane r % T), each point's max over the faces in its lane (the faces in
+  // wedge_slack and its q-gradient sq (the tie-split mean of the maximal
+  // faces' normals through dP/dq, the even tie split over the points), the
+  // six points over the lanes of the team (point r on lane r % T), each point's max over the faces in its lane (the faces in
   // the outer loop: a face is loaded once for the lane's points, and their
   // chains overlap).  First the values alone, their max merged across the
   // team: where it is below 0 in every team of the warp, the group's
@@ -408,7 +311,7 @@ struct Arm {
   }
 
   // The four self-collision rows (selfcol) in every lane: values sv[r],
-  // q-gradients sg[r]; row r on lane r % T, exchanged by shuffles.
+  // q-gradients sg[r] (-(v . dv/dq) / |v|); row r on lane r % T, exchanged by shuffles.
   template <int T>
   __device__ static void self_team(const wb::ArmFK& a, int lane, float (&sv)[4],
                                    float (&sg)[4][3]) {
@@ -511,8 +414,8 @@ struct Arm {
     }
   };
 
-  // The terminal (term_quad) -> Vx, Vxx of the lane's rows: in[e * S] holds
-  // x_N, then lamt.
+  // The terminal (tracking with P, the q-box and self-collision rows) ->
+  // Vx, Vxx of the lane's rows: in[e * S] holds x_N, then lamt.
   template <int T, class C>
   __device__ static void team_term(const float* in, int S, const C& c, float mu, int lane,
                                    ric::TeamTile<NX, NU>& tt) {
@@ -535,8 +438,8 @@ struct Arm {
     }
   }
 
-  // A stage's rows (stage_quad) of the lane's tasks: in[e * S] holds x_k,
-  // u_k, lam_k.
+  // A stage's rows (tracking with Q, the input and rate forms, every box
+  // row) of the lane's tasks: in[e * S] holds x_k, u_k, lam_k.
   template <int T, class C>
   __device__ static void team_rows(const float* x, const float* in, int S, int k, const C& c,
                                    float mu, int lane, float (&q)[ric::rounds<NX, NU, T>()],

@@ -21,10 +21,13 @@
 //                               of A = df/dx and B = df/du
 //   dyn_jac(x, u, c, A, Bm)     their values (entries outside the masks are
 //                               never read)
+// and, for the one-thread kernel:
 //   stage_quad(x, u, k, c, q)   adds the scaled stage model into the Q blocks
 //                               q.x, q.u, q.xx, q.uu, q.ux and declares its
 //                               rows through q.box_x / q.box_u / q.row_x
 //   term_quad(x, c, q)          the same for the terminal (q.x, q.xx)
+// A formulation with BWD_TEAM supplies the team hooks team_term and
+// team_rows (listed at the team kernel below) instead of these two.
 // Every array index in the hooks and the loops here is a constant after
 // unrolling, so the arrays live in registers and the masks fold at compile
 // time (the counterpart of the TPU kernel's trace-time literal folding;

@@ -10,9 +10,14 @@
 //   __host__ __device__ static Layout layout(int N, int n_obs, int n_hp);
 // plus the forward hooks (dyn, stage, terminal; generic_fwd.cuh) and the
 // backward hooks (a_nz, b_nz, dyn_jac, stage_quad, term_quad;
-// generic_bwd.cuh).  Its Python twin (controllers/<name>.py) writes the
-// packed buffer and the extra statics in the same order; every launch checks
-// both sizes against gen_params_size_<name>() / gen_statics_size_<name>().
+// generic_bwd.cuh) of the one-thread kernels.  A formulation that declares
+// BWD_TEAM supplies a_nz, b_nz, dyn_jac and the team hooks team_term and
+// team_rows in place of stage_quad and term_quad; one that declares
+// FWD_TEAM supplies the team line search's hooks (fwd_team_rows,
+// fwd_team_stage, fwd_team_terminal) in place of dyn, stage and terminal.
+// Its Python twin (controllers/<name>.py) writes the packed buffer and the
+// extra statics in the same order; every launch checks both sizes against
+// gen_params_size_<name>() / gen_statics_size_<name>().
 #pragma once
 
 #include <cuda_runtime.h>

@@ -67,54 +67,6 @@ struct Endpoint {
   __device__ static bool dulive(const C& c, int i, bool hi) {
     return c.ex((hi ? S_DUMHI : S_DUMLO) + i) != 0.f;
   }
-  // rows [x - hi (9), lo - x (9)], NEG_BIG where masked
-  template <class C>
-  __device__ static void xbox(const float* x, const C& c, float* g) {
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      g[i] = xlive(c, i, true) ? x[i] - c.ex(S_XHI + i) : NEG_BIG;
-      g[NX + i] = xlive(c, i, false) ? c.ex(S_XLO + i) - x[i] : NEG_BIG;
-    }
-  }
-
-  // ---- forward hooks
-  template <class C>
-  __device__ static void dyn(const float* x, const float* u, const C& c, float* xn) {
-    float sp, cp;
-    sincosf(x[2], &sp, &cp);
-    wb::step(x, u, c.dt, cp, sp, xn);
-  }
-  template <class C>
-  __device__ static float stage(const float* x, const float* u, int k, const C& c, float* g) {
-    wb::FK f;
-    wb::fk(x, f);
-    float e[4], eu[NU], edu[NU];
-    pose_err(x, f, c, k, e);
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      eu[i] = u[i] - c.p(c.L.uref + k * NU + i);
-      edu[i] = u[i] - c.p(c.L.ulast + k * NU + i);
-    }
-    const float sm = ground_slack(c, c.L.obs, x[0], x[1], c.ex(S_RADIUS), nullptr);
-    xbox(x, c, g);
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      g[2 * NX + i] = dulive(c, i, true) ? edu[i] - c.ex(S_DUHI + i) : NEG_BIG;
-      g[2 * NX + NU + i] = dulive(c, i, false) ? c.ex(S_DULO + i) - edu[i] : NEG_BIG;
-    }
-    return qform<4>(c, c.L.Q, e) + qform<NU>(c, c.L.R, eu) + qform<NU>(c, c.L.W, edu) +
-           c.p(c.L.S) * sm * sm;
-  }
-  template <class C>
-  __device__ static float terminal(const float* x, const C& c, float* gt) {
-    wb::FK f;
-    wb::fk(x, f);
-    float e[4];
-    pose_err(x, f, c, c.N, e);
-    const float sm = ground_slack(c, c.L.obs, x[0], x[1], c.ex(S_RADIUS), nullptr);
-    xbox(x, c, gt);
-    return qform<4>(c, c.L.P, e) + c.p(c.L.S) * sm * sm;
-  }
 
   // ---- backward hooks: wholebody_step's Jacobians
   // (models/mobile_manipulator.py::wholebody_jacobians)
@@ -147,107 +99,15 @@ struct Endpoint {
 #pragma unroll
     for (int i = 1; i < NU; ++i) Bm[4 + i][i] = J.dt;
   }
-  // two_s (Jp^T W e + S smax sx) and two_s (Jp^T W Jp + S sx sx^T), sx
-  // nonzero on (px, py); then the state-box rows
-  template <class C, class Q>
-  __device__ static void tracking(const float* x, const C& c, int row, int W, Q& q) {
-    const float two_s = 2.f * c.inv_scale;
-    wb::FK f;
-    wb::fk(x, f);
-    float e[4];
-    pose_err(x, f, c, row, e);
-    float Jp[4][NX];
-    Jp[0][0] = 1.f;
-    Jp[0][2] = -f.r[2] * f.sp;
-    Jp[1][1] = 1.f;
-    Jp[1][2] = f.r[2] * f.cp;
-    Jp[3][2] = 1.f;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      Jp[0][6 + i] = f.cp * f.axq[2][i];
-      Jp[1][6 + i] = f.sp * f.axq[2][i];
-      Jp[2][6 + i] = f.azq[2][i];
-    }
-    float sxy[2];
-    const float sm = ground_slack(c, c.L.obs, x[0], x[1], c.ex(S_RADIUS), sxy);
-    const float S = c.p(c.L.S);
-    float We[4], WJ[4][NX];
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      float s = 0.f;
-#pragma unroll
-      for (int l = 0; l < 4; ++l) s += c.p(W + p * 4 + l) * e[l];
-      We[p] = s;
-#pragma unroll
-      for (int j = 0; j < NX; ++j) {
-        float t = -0.f;
-#pragma unroll
-        for (int l = 0; l < 4; ++l)
-          if (jp_nz(l, j)) t += c.p(W + p * 4 + l) * Jp[l][j];
-        WJ[p][j] = t;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      if (!col_nz(i)) continue;
-      float g = -0.f;
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-        if (jp_nz(p, i)) g += Jp[p][i] * We[p];
-      q.x[i] += two_s * (i < 2 ? g + S * sm * sxy[i] : g);
-#pragma unroll
-      for (int j = 0; j < NX; ++j) {
-        if (!col_nz(j)) continue;
-        float h = -0.f;
-#pragma unroll
-        for (int p = 0; p < 4; ++p)
-          if (jp_nz(p, i)) h += Jp[p][i] * WJ[p][j];
-        q.xx[i][j] += two_s * (i < 2 && j < 2 ? h + S * (sxy[i] * sxy[j]) : h);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      q.box_x(i, xlive(c, i, true), x[i] - c.ex(S_XHI + i), i, 1.f);
-      q.box_x(NX + i, xlive(c, i, false), c.ex(S_XLO + i) - x[i], i, -1.f);
-    }
-  }
-  template <class C, class Q>
-  __device__ static void stage_quad(const float* x, const float* u, int k, const C& c, Q& q) {
-    const float two_s = 2.f * c.inv_scale;
-    tracking(x, c, k, c.L.Q, q);
-    float eu[NU], edu[NU];
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      eu[i] = u[i] - c.p(c.L.uref + k * NU + i);
-      edu[i] = u[i] - c.p(c.L.ulast + k * NU + i);
-    }
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < NU; ++j)
-        s += c.p(c.L.R + i * NU + j) * eu[j] + c.p(c.L.W + i * NU + j) * edu[j];
-      q.u[i] += two_s * s;
-#pragma unroll
-      for (int j = 0; j < NU; ++j)
-        q.uu[i][j] += two_s * (c.p(c.L.R + i * NU + j) + c.p(c.L.W + i * NU + j));
-      q.box_u(2 * NX + i, dulive(c, i, true), edu[i] - c.ex(S_DUHI + i), i, 1.f);
-      q.box_u(2 * NX + NU + i, dulive(c, i, false), c.ex(S_DULO + i) - edu[i], i, -1.f);
-    }
-  }
-  template <class C, class Q>
-  __device__ static void term_quad(const float* x, const C& c, Q& q) {
-    tracking(x, c, c.N, c.L.P, q);
-  }
 
   // ---- the team backward (generic_bwd.cuh, generic_bwd_team_kernel): teams
   // of 8 lanes a scenario.  The lanes share the stage's FK (its four sincos
   // over four lanes, exchanged by shuffles) and its ground circles (one a
   // lane, merged across the team), then every lane computes the pose error
-  // and Jp and adds the rows of its tasks, in tracking's and stage_quad's
-  // order of operations.  Rows picked at run time read x, u and the
-  // multipliers from the stage buffer (in[e * S]: x, u, lam) and pick Jp's
-  // column by selects.
+  // and Jp and adds the rows of its tasks, in the order of operations of
+  // the JAX hooks (lanes_bwd_factory).  Rows picked at run time read x, u
+  // and the multipliers from the stage buffer (in[e * S]: x, u, lam) and
+  // pick Jp's column by selects.
   static constexpr int BWD_TEAM = 8;
   static constexpr unsigned FULL = 0xffffffffu;
 
@@ -426,8 +286,8 @@ struct Endpoint {
     }
   }
 
-  // The terminal (term_quad) -> Vx, Vxx of the lane's rows: in[e * S] holds
-  // x_N, then lamt.
+  // The terminal (tracking with P and the state-box rows) -> Vx, Vxx of
+  // the lane's rows: in[e * S] holds x_N, then lamt.
   template <int T, class C>
   __device__ static void team_term(const float* in, int S, const C& c,
                                    float mu, int lane,
@@ -453,8 +313,8 @@ struct Endpoint {
     }
   }
 
-  // A stage's rows (stage_quad) of the lane's tasks: in[e * S] holds x_k,
-  // u_k, lam_k.
+  // A stage's rows (tracking with Q, the R and W forms, every box row) of
+  // the lane's tasks: in[e * S] holds x_k, u_k, lam_k.
   template <int T, class C>
   __device__ static void team_rows(const float* x, const float* in, int S, int k,
                                    const C& c, float mu, int lane,

@@ -14,10 +14,12 @@
 // PyTorch version is ops/generic_fwd.py::plain_fwd.
 //
 // The formulation F supplies, besides the members listed in
-// generic_common.cuh:
+// generic_common.cuh, for the one-thread kernel:
 //   dyn(x, u, c, xn)            x_{k+1}
 //   stage(x, u, k, c, g) -> raw stage cost; writes the NC row values g
 //   terminal(x, c, gt)   -> raw terminal cost; writes the NCT row values gt
+// A formulation with FWD_TEAM supplies the team hooks (listed at the team
+// kernel below) instead of these three.
 //
 // What bounds it on this card: one thread runs a serial recurrence of N
 // stages (a few sincosf and a few hundred dependent FLOPs per stage), so the
@@ -154,7 +156,7 @@ generic_fwd_kernel(const __grid_constant__ Statics<F> st,
 //   scenario index min(b, B - 1) and only stores are masked, so every
 //   __syncthreads, __syncwarp and shuffle is reached by every thread.
 //
-// F supplies, besides the one-thread kernel's hooks:
+// F supplies, in place of the one-thread kernel's dyn, stage and terminal:
 //   FWD_NV                  floats of a team's vector (odd: the teams'
 //                           vectors fall on different banks); x, u first
 //   FWD_ROWS                floats of its PHR row table

@@ -7,8 +7,8 @@ does), so it runs where the card is, without the repo's ``conftest.py``:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 (``chip_smoke.py`` runs that command in a phase of its own.)  The inputs are
-made from seeded numpy, as the parity tests against the JAX package make
-them, at small sizes (N=5, batch 64 and a partial block of 37, the arm's
+made from seeded numpy by tests/torch_problems.py, whose builders the parity
+tests against the JAX package use too, at small sizes (N=5, batch 64 and a partial block of 37, the arm's
 backward at 1024 and 1000; N=4, batch 64 for the Riccati sweep), at the
 tolerances of those tests:
 
@@ -30,28 +30,22 @@ import numpy as np
 import pytest
 import torch
 
-from mmmpc_tpu_torch import controllers as ctl
 from mmmpc_tpu_torch import roofline
-from mmmpc_tpu_torch.models import obstacles, robots
 from mmmpc_tpu_torch.ops import riccati
 from mmmpc_tpu_torch.ops._cuda import FMA_NACC, RICCATI_INSTANCES
 from mmmpc_tpu_torch.ops.generic_bwd import plain_bwd
 from mmmpc_tpu_torch.solver.al_ilqr import rollout
-from mmmpc_tpu_torch.utils.configs import SolverConfig
 from mmmpc_tpu_torch.utils.convert import params_from_numpy
 
-B, N = 64, 5
-# the arm's backward at the JAX test's batch (tests/test_generic_bwd.py):
-# its p99 form is set for a batch where the ill-conditioned scenarios are
-# the tail; at 64 scenarios they pass the 1% of entries (the one-thread
-# kernel fails it there too), and 1000 leaves a partial block of its teams
-ARM_BATCH, ARM_PART = 1024, 1000
-FORMULATIONS = ("demo", "base", "arm", "endpoint")
-# gains tolerance (atol) of each generic backward kernel; rtol 1e-4
-BWD_ATOL = {"demo": 1e-5, "base": 1e-3, "endpoint": 2e-4}
-WEDGE = ([np.array([[1 / np.sqrt(2), 0, 1 / np.sqrt(2)]]),
-          np.array([[-1 / np.sqrt(2), 0, 1 / np.sqrt(2)]])],
-         np.array([0.0, 0.0, 0.35]))
+from torch_problems import (
+    ARM_BATCH, B, BWD_ATOL, FORMULATIONS, N, batch_last, generic_problem,
+    qref_problem, spd_blocks,
+)
+
+# at 64 scenarios the arm's ill-conditioned ones pass the 1% of entries of
+# its p99 form (the one-thread kernel fails it there too), so its backward
+# runs at ARM_BATCH, and 1000 leaves a partial block of its teams
+ARM_PART = 1000
 
 
 @pytest.fixture
@@ -63,104 +57,6 @@ def device():
 
 def _t(a, dev):
     return torch.as_tensor(np.asarray(a, np.float32), device=dev)
-
-
-def qref_problem():
-    """The whole-body qref problem of tests/test_torch_kernels.py (one
-    ground obstacle, one half-plane, the terminal position equality):
-    (controller, x0_b (B, 9), U0_b (B, N, 5), params as numpy)."""
-    cfg = SolverConfig(al_iters=2, ilqr_iters=4, n_alpha=3, alpha_decay=0.4,
-                       cost_scale=1e5)
-    mpc = ctl.MPCWholeBody(robots.MobileManipulator(0.1),
-                           [obstacles.Obstacles(1.0, 0.2, 0.3)],
-                           [(np.array([0.8, 0.1, 1.0]),
-                             np.array([[1.0, 0.0, 0.0]]))],
-                           N=N, solver_config=cfg)
-    mpc.add_terminal_position_constraint()
-    rng = np.random.default_rng(7)
-    x0 = np.zeros(9)
-    x0[6:] = [-np.pi / 4, -np.pi / 2, np.pi / 2]
-    x0_b = x0[None] + 0.02 * rng.standard_normal((B, 9)) * np.array(
-        [1, 1, 0.2, 0, 0, 0, 0.1, 0.1, 0.1])
-    U0_b = 0.1 * rng.standard_normal((B, N, 5))
-    target = np.concatenate([[0.5, 0.1, 0, 0, 0, 0], x0[6:]])
-    traj = np.linspace(x0, target, N + 1)
-    params = {k: np.asarray(v, np.float64) for k, v in dict(
-        mpc.make_params(traj, np.zeros((N, 5))),
-        U_last=np.zeros((N, 5))).items()}
-    return mpc, x0_b, U0_b, params
-
-
-def generic_problem(name, batch=B):
-    """The problem of one formulation in tests/test_torch_generic_kernels.py:
-    (controller, x0_b (batch, nx), U0_b (batch, N, nu), params as
-    numpy)."""
-    cfg = SolverConfig(al_iters=2, ilqr_iters=4, n_alpha=3, alpha_decay=0.4)
-    if name == "demo":
-        mpc = ctl.MPC(robots.RobotDemo(0.1), N=N, solver_config=cfg)
-    elif name == "base":
-        mpc = ctl.MPCBase(robots.Base(0.1),
-                          [obstacles.Obstacles(1.2, 0.15, 0.3),
-                           obstacles.Obstacles(0.4, -0.4, 0.25)],
-                          N=N, solver_config=cfg)
-    elif name == "arm":
-        mpc = ctl.MPCManipulator3DoF(robots.ManipulatorPanda3DoF(0.1), *WEDGE,
-                                     N=N, solver_config=cfg)
-    else:
-        mpc = ctl.MPCWholeBodyEndpoint(robots.MobileManipulator(0.1),
-                                       [obstacles.Obstacles(1.0, 0.2, 0.3)],
-                                       N=N, solver_config=cfg)
-    rng = np.random.default_rng(0)
-    if name == "demo":
-        x0_b = np.stack([rng.uniform(-2, 2, batch), rng.uniform(-0.9, 0.9, batch)],
-                        axis=1)
-        traj, nu = np.linspace([0.0, 0.0], [3.0, 0.0], N + 1), 1
-    elif name == "base":
-        x0_b = rng.standard_normal((batch, 6)) * np.array(
-            [0.4, 0.4, 0.6, 0.2, 0.2, 0.2])
-        traj = np.linspace(np.zeros(6), np.array([2.0, 0.4, 0.5, 0, 0, 0]),
-                           N + 1)
-        nu = 2
-    elif name == "arm":
-        q0 = np.array([0.3, -1.2, 1.2])
-        x0_b = np.clip(q0[None] + rng.standard_normal((batch, 3)) * 0.2,
-                       mpc.qlim[0] + 1e-3, mpc.qlim[1] - 1e-3)
-        traj, nu = np.linspace(q0, [0.0, -0.6, 0.9], N + 1), 3
-    else:
-        x0 = np.zeros(9)
-        x0[6:] = [-np.pi / 4, -np.pi / 2, np.pi / 2]
-        x0_b = x0[None] + 0.05 * rng.standard_normal((batch, 9)) * np.array(
-            [1, 1, 0.5, 0.2, 0.2, 0.2, 0.3, 0.3, 0.3])
-        traj = np.linspace([0.6, 0.1, 1.1, 0.0], [0.8, 0.2, 1.0, 0.3], N + 1)
-        nu = 5
-    U0_b = 0.3 * rng.standard_normal((batch, N, nu))
-    extra = {"U_last": np.zeros((N, nu))} if name in ("arm", "endpoint") else {}
-    params = {k: np.asarray(v, np.float64) for k, v in dict(
-        mpc.make_params(traj, np.zeros((N, nu))), **extra).items()}
-    return mpc, x0_b, U0_b, params
-
-
-def spd_blocks(nx, nu, batch=B, horizon=4):
-    """The random blocks of tests/test_pallas_riccati.py, batch-last
-    float32 tensors: (lx, lu, lxx, luu, lux, A, Bm, term_g, term_H)."""
-    rng = np.random.default_rng(3)
-
-    def mk(*s):
-        return rng.standard_normal(s).astype(np.float32)
-
-    def spd(a, n):
-        return a @ np.swapaxes(a, -1, -2) + 5 * np.eye(n, dtype=np.float32)
-
-    lx, lu = mk(batch, horizon, nx), mk(batch, horizon, nu)
-    lxx = spd(mk(batch, horizon, nx, nx), nx)
-    luu = spd(mk(batch, horizon, nu, nu), nu)
-    lux = mk(batch, horizon, nu, nx)
-    A = mk(batch, horizon, nx, nx) * 0.1 + np.eye(nx, dtype=np.float32)
-    Bm = mk(batch, horizon, nx, nu) * 0.1
-    tg = mk(batch, nx)
-    tH = spd(mk(batch, nx, nx), nx)
-    return [torch.as_tensor(np.ascontiguousarray(np.moveaxis(a, 0, -1)))
-            for a in (lx, lu, lxx, luu, lux, A, Bm, tg, tH)]
 
 
 def _first(args, batch):
@@ -179,7 +75,7 @@ def test_cuda_kernel_matches_plain(device, kernel, batch):
     """The whole-body CUDA kernel against its plain version on the card,
     same inputs; the backward kernel also on the first 1 and 37 scenarios
     (a partial block of its teams)."""
-    mpc, x0_b, U0_b, params = qref_problem()
+    mpc, x0_b, U0_b, params = qref_problem(eq_mask=1.0)
     p = params_from_numpy(params, device, torch.float32)
     rng = np.random.default_rng(5)
     X, U = rollout(mpc.ocp, _t(x0_b, device).T,
@@ -264,7 +160,7 @@ def test_cuda_riccati_matches_plain(device, dims):
     """Each CUDA instance of the Riccati sweep against the plain sweep on
     the card, same SPD blocks, at the Pallas test's 2e-4; (4, 2) builds its
     own library on its first use."""
-    args = [a.to(device) for a in spd_blocks(*dims)]
+    args = [batch_last(a, device) for a in spd_blocks(*dims)]
     reg = torch.full((B,), 1e-6, device=device)
     got = riccati.riccati_backward_bm(*args, reg)
     ref = riccati.plain_riccati_bm(*args, reg)

@@ -34,83 +34,29 @@ from mmmpc_tpu.models import obstacles as obs_j
 from mmmpc_tpu.models import robots as robots_j
 from mmmpc_tpu.solver.al_ilqr import build_core, rollout as rollout_j
 from mmmpc_tpu.utils.configs import SolverConfig as SolverConfigJ
-from mmmpc_tpu_torch import controllers as ctl_t
-from mmmpc_tpu_torch.models import obstacles as obs_t
-from mmmpc_tpu_torch.models import robots as robots_t
 from mmmpc_tpu_torch.ops.generic_bwd import plain_bwd
 from mmmpc_tpu_torch.utils.configs import SolverConfig
 from mmmpc_tpu_torch.utils.convert import params_from_numpy
 
-B, N = 64, 5
-ARM_BATCH = 1024
+import torch_problems as tp
+from torch_problems import ARM_BATCH, B, BWD_ATOL, FORMULATIONS, N
+
 F32 = jnp.float32
-CFG = dict(al_iters=2, ilqr_iters=4, n_alpha=3, alpha_decay=0.4)
-FORMULATIONS = ("demo", "base", "arm", "endpoint")
-# gains tolerance (atol) of each formulation's backward pass; rtol 1e-4
-BWD_ATOL = {"demo": 1e-5, "base": 1e-3, "endpoint": 2e-4}
-WEDGE = ([np.array([[1 / np.sqrt(2), 0, 1 / np.sqrt(2)]]),
-          np.array([[-1 / np.sqrt(2), 0, 1 / np.sqrt(2)]])],
-         np.array([0.0, 0.0, 0.35]))
+CFG = tp.GENERIC_CFG
 
 torch.set_num_threads(1)    # batch 64: threads only contend with the others
 
 
-def _controllers(name, cfg_kw):
-    """(JAX controller, port controller) of one formulation, same data."""
-    def build(ctl, obs, robots, cfg):
-        if name == "demo":
-            return ctl.MPC(robots.RobotDemo(0.1), N=N, solver_config=cfg)
-        if name == "base":
-            return ctl.MPCBase(robots.Base(0.1),
-                               [obs.Obstacles(1.2, 0.15, 0.3),
-                                obs.Obstacles(0.4, -0.4, 0.25)],
-                               N=N, solver_config=cfg)
-        if name == "arm":
-            return ctl.MPCManipulator3DoF(robots.ManipulatorPanda3DoF(0.1),
-                                          *WEDGE, N=N, solver_config=cfg)
-        return ctl.MPCWholeBodyEndpoint(robots.MobileManipulator(0.1),
-                                        [obs.Obstacles(1.0, 0.2, 0.3)], N=N,
-                                        solver_config=cfg)
-    return (build(ctl_j, obs_j, robots_j, SolverConfigJ(**cfg_kw)),
-            build(ctl_t, obs_t, robots_t, SolverConfig(**cfg_kw)))
-
-
 @functools.lru_cache(maxsize=None)
 def make_problem(name, batch=B, cfg_items=tuple(CFG.items())):
-    """Both packages' controllers and identical float64 numpy data: starts
-    x0_b (batch, nx), inputs U0_b (batch, N, nu), and each package's params
-    (the port's in float64 as numpy)."""
-    mpc_j, mpc_t = _controllers(name, dict(cfg_items))
-    rng = np.random.default_rng(0)
-    if name == "demo":
-        x0_b = np.stack([rng.uniform(-2, 2, batch),
-                         rng.uniform(-0.9, 0.9, batch)], axis=1)
-        traj, nu = np.linspace([0.0, 0.0], [3.0, 0.0], N + 1), 1
-    elif name == "base":
-        x0_b = rng.standard_normal((batch, 6)) * np.array(
-            [0.4, 0.4, 0.6, 0.2, 0.2, 0.2])
-        traj = np.linspace(np.zeros(6), np.array([2.0, 0.4, 0.5, 0, 0, 0]),
-                           N + 1)
-        nu = 2
-    elif name == "arm":
-        q0 = np.array([0.3, -1.2, 1.2])
-        x0_b = np.clip(q0[None] + rng.standard_normal((batch, 3)) * 0.2,
-                       mpc_t.qlim[0] + 1e-3, mpc_t.qlim[1] - 1e-3)
-        traj, nu = np.linspace(q0, [0.0, -0.6, 0.9], N + 1), 3
-    else:
-        x0 = np.zeros(9)
-        x0[6:] = [-np.pi / 4, -np.pi / 2, np.pi / 2]
-        x0_b = x0[None] + 0.05 * rng.standard_normal((batch, 9)) * np.array(
-            [1, 1, 0.5, 0.2, 0.2, 0.2, 0.3, 0.3, 0.3])
-        traj = np.linspace([0.6, 0.1, 1.1, 0.0], [0.8, 0.2, 1.0, 0.3], N + 1)
-        nu = 5
-    U0_b = 0.3 * rng.standard_normal((batch, N, nu))
-    extra = {"U_last": np.zeros((N, nu))} if name in ("arm", "endpoint") else {}
-    p_j = {k: np.asarray(v, np.float64) for k, v in dict(
-        mpc_j.make_params(traj, np.zeros((N, nu))), **extra).items()}
-    p_t = {k: np.asarray(v, np.float64) for k, v in dict(
-        mpc_t.make_params(traj, np.zeros((N, nu))), **extra).items()}
-    return mpc_j, mpc_t, x0_b, U0_b, p_j, p_t
+    """Both packages' controllers and identical float64 numpy data
+    (tests/torch_problems.py): starts x0_b (batch, nx), inputs U0_b (batch,
+    N, nu), and each package's params (the port's in float64 as numpy)."""
+    mpc_t, x0_b, U0_b, p_t = tp.generic_problem(
+        name, batch, SolverConfig(**dict(cfg_items)))
+    mpc_j = tp.generic_controller(name, SolverConfigJ(**dict(cfg_items)),
+                                  (ctl_j, obs_j, robots_j))
+    return mpc_j, mpc_t, x0_b, U0_b, tp.generic_params(mpc_j, name), p_t
 
 
 def _jax_rollout(mpc_j, x0_b, U0_b, p_j, dtype):

@@ -19,49 +19,30 @@ import numpy as np
 import pytest
 import torch
 
-from mmmpc_tpu.controllers import MPCWholeBody as MPCWholeBodyJ
-from mmmpc_tpu.models.obstacles import Obstacles as ObstaclesJ
-from mmmpc_tpu.models.robots import MobileManipulator as MobileManipulatorJ
+from mmmpc_tpu import controllers as controllers_j
+from mmmpc_tpu.models import obstacles as obstacles_j
+from mmmpc_tpu.models import robots as robots_j
 from mmmpc_tpu.solver.al_ilqr import build_core, rollout as rollout_j
 from mmmpc_tpu.utils.configs import SolverConfig as SolverConfigJ
-from mmmpc_tpu_torch.controllers import MPCWholeBody
-from mmmpc_tpu_torch.models.obstacles import Obstacles
-from mmmpc_tpu_torch.models.robots import MobileManipulator
 from mmmpc_tpu_torch.utils.configs import SolverConfig
 from mmmpc_tpu_torch.utils.convert import params_from_numpy
 
-B, N = 64, 5
+import torch_problems as tp
+from torch_problems import B, N
+
 F32 = jnp.float32
-CFG = dict(al_iters=2, ilqr_iters=4, n_alpha=3, alpha_decay=0.4,
-           cost_scale=1e5)
+CFG = tp.QREF_CFG
 
 torch.set_num_threads(1)    # batch 64: threads only contend with the others
 
 
 def make_problem(eq_mask=0.0):
-    """Both packages' controllers on identical data; inputs from numpy."""
-    obstacles = [(1.0, 0.2, 0.3)]
-    halfplanes = [(np.array([0.8, 0.1, 1.0]), np.array([[1.0, 0.0, 0.0]]))]
-    mpc_j = MPCWholeBodyJ(MobileManipulatorJ(0.1),
-                          [ObstaclesJ(*o) for o in obstacles], halfplanes,
-                          N=N, solver_config=SolverConfigJ(**CFG))
-    mpc_t = MPCWholeBody(MobileManipulator(0.1),
-                         [Obstacles(*o) for o in obstacles], halfplanes,
-                         N=N, solver_config=SolverConfig(**CFG))
-    if eq_mask:
-        mpc_j.add_terminal_position_constraint()
-        mpc_t.add_terminal_position_constraint()
-    rng = np.random.default_rng(7)
-    x0 = np.zeros(9)
-    x0[6:] = [-np.pi / 4, -np.pi / 2, np.pi / 2]
-    x0_b = x0[None] + 0.02 * rng.standard_normal((B, 9)) * np.array(
-        [1, 1, 0.2, 0, 0, 0, 0.1, 0.1, 0.1])
-    U0_b = 0.1 * rng.standard_normal((B, N, 5))
-    target = np.concatenate([[0.5, 0.1, 0, 0, 0, 0], x0[6:]])
-    traj = np.linspace(x0, target, N + 1)
-    params = {k: np.asarray(v, np.float64) for k, v in dict(
-        mpc_j.make_params(traj, np.zeros((N, 5))),
-        U_last=np.zeros((N, 5))).items()}
+    """Both packages' controllers on identical data (tests/torch_problems.py);
+    the params are the JAX package's."""
+    mpc_t, x0_b, U0_b, _ = tp.qref_problem(eq_mask, SolverConfig(**CFG))
+    mpc_j, _, _, params = tp.qref_problem(
+        eq_mask, SolverConfigJ(**CFG),
+        (controllers_j, obstacles_j, robots_j))
     return mpc_j, mpc_t, x0_b, U0_b, params
 
 

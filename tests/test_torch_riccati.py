@@ -45,6 +45,8 @@ from mmmpc_tpu_torch.solver.al_ilqr import (
 from mmmpc_tpu_torch.utils.convert import params_from_numpy
 from tests import test_torch_generic_kernels as gk
 from tests import test_torch_kernels as wk
+from torch_problems import batch_last as _bl
+from torch_problems import spd_blocks
 
 B, N = 64, 4
 F32 = jnp.float32
@@ -53,33 +55,6 @@ FORMULATION = {(2, 1): "demo", (6, 2): "base", (3, 3): "arm",
                (9, 5): "endpoint"}
 
 torch.set_num_threads(1)    # batch 64: threads only contend with the others
-
-
-def spd_blocks(nx, nu, batch=B, horizon=N):
-    """The random blocks of tests/test_pallas_riccati.py, batch-major
-    float32 numpy: (lx, lu, lxx, luu, lux, A, Bm, term_g, term_H)."""
-    rng = np.random.default_rng(3)
-
-    def mk(*s):
-        return rng.standard_normal(s).astype(np.float32)
-
-    def spd(a, n):
-        return a @ np.swapaxes(a, -1, -2) + 5 * np.eye(n, dtype=np.float32)
-
-    lx, lu = mk(batch, horizon, nx), mk(batch, horizon, nu)
-    lxx = spd(mk(batch, horizon, nx, nx), nx)
-    luu = spd(mk(batch, horizon, nu, nu), nu)
-    lux = mk(batch, horizon, nu, nx)
-    A = mk(batch, horizon, nx, nx) * 0.1 + np.eye(nx, dtype=np.float32)
-    Bm = mk(batch, horizon, nx, nu) * 0.1
-    tg = mk(batch, nx)
-    tH = spd(mk(batch, nx, nx), nx)
-    return lx, lu, lxx, luu, lux, A, Bm, tg, tH
-
-
-def _bl(a):
-    """Batch-major numpy -> batch-last contiguous tensor."""
-    return torch.as_tensor(np.ascontiguousarray(np.moveaxis(a, 0, -1)))
 
 
 @functools.lru_cache(maxsize=None)
