@@ -35,7 +35,8 @@ Phases, each reported on its own lines; any failure exits nonzero:
    call and the plain version's (CUDA events), and the least time the card
    could take (bytes moved over 3.35 TB/s against operations over the
    published 67 TFLOP/s float32, and over the measured peak); kernels A,
-   B, C.endpoint, D.arm, D.endpoint and E (at (9, 5) on the qref blocks,
+   B, the generic team kernels (C.arm, C.endpoint, D.base, D.arm,
+   D.endpoint) and E (at (9, 5) on the qref blocks,
    at (4, 2) on the SPD blocks) also at the ragged batches 8191, 1000 and
    1 against their plain versions, with their launch geometry
    (``[kernel-batch]``; E's with the blocks an SM holds); kernel E also at (nx, nu) = (4, 2), which the
@@ -117,6 +118,11 @@ FP32_FLOP_PER_S = 67e12
 ROWS = {"demo_1d": "demo", "base_only": "base", "arm_only": "arm",
         "wholebody_endpoint": "endpoint"}
 GENERIC = tuple(ROWS.values())
+# the formulations whose line search (C) and fused backward (D) run on the
+# team kernels of generic_fwd.cuh / generic_bwd.cuh; the others run one
+# thread a candidate or a scenario
+FWD_TEAMS = ("arm", "endpoint")
+BWD_TEAMS = ("base", "arm", "endpoint")
 # (nx, nu) of each generic formulation: its Riccati sweep instance
 DIMS = {"demo": (2, 1), "base": (6, 2), "arm": (3, 3), "endpoint": (9, 5)}
 # device-kernel names (as the profiler reports them) of each wrapper; a
@@ -127,11 +133,12 @@ KERNEL_SYMBOLS = {"wholebody_fwd": "wb::fwd_kernel",
                   **{f"generic_{d}.{f}":
                      f"gen::generic_{d}_kernel<gen::{f.capitalize()}>"
                      for f in GENERIC for d in ("fwd", "bwd")},
-                  "generic_fwd.endpoint":
-                  "gen::generic_fwd_team_kernel<gen::Endpoint>",
+                  **{f"generic_fwd.{f}":
+                     f"gen::generic_fwd_team_kernel<gen::{f.capitalize()}>"
+                     for f in FWD_TEAMS},
                   **{f"generic_bwd.{f}":
                      f"gen::generic_bwd_team_kernel<gen::{f.capitalize()}>"
-                     for f in ("arm", "endpoint")},
+                     for f in BWD_TEAMS},
                   **{f"riccati_bwd.{nx}x{nu}":
                      f"ric::riccati_team_kernel<{nx}, {nu}>"
                      for nx, nu in DIMS.values()}}
@@ -584,18 +591,19 @@ def check_generic(device, peak, kinds):
                               lambda g, r, bargs=bargs, check=bwd_check:
                               check(g, r, bargs), peak, kinds))
         form = bwd.form
-        # the team kernels (D.arm, D.endpoint, C.endpoint) at ragged batches
-        if f in ("arm", "endpoint") and "generic_bwd" in kinds:
+        # the team kernels at ragged batches
+        if f in BWD_TEAMS and "generic_bwd" in kinds:
             check_batches(
                 f"generic_bwd.{f}", bwd.cuda, bwd.plain, bargs, bwd_check,
                 lambda n, f=f, form=form: gen_bwd_geometry(
                     LIBRARY.get(), f, N, form.n_obs, form.n_hp, n))
-        if f == "endpoint" and "generic_fwd" in kinds:
+        if f in FWD_TEAMS and "generic_fwd" in kinds:
             check_batches(
-                "generic_fwd.endpoint", fwd.cuda, fwd.plain, fargs,
-                lambda g, r, a: max(_fwd_errors("generic_fwd.endpoint", g, r)),
-                lambda n, form=form: gen_fwd_geometry(
-                    LIBRARY.get(), "endpoint", N, form.n_obs, form.n_hp,
+                f"generic_fwd.{f}", fwd.cuda, fwd.plain, fargs,
+                lambda g, r, a, f=f: max(_fwd_errors(f"generic_fwd.{f}", g,
+                                                     r)),
+                lambda n, f=f, form=form: gen_fwd_geometry(
+                    LIBRARY.get(), f, N, form.n_obs, form.n_hp,
                     len(fwd.alphas), n))
         if "riccati_bwd" not in kinds:
             continue

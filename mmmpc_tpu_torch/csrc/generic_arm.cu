@@ -41,102 +41,6 @@ struct Arm {
     return L;
   }
 
-  // relu(max over the sampled points of the half-plane union) of the arm
-  // frame points (y == 0).  No live face: an empty group (0).
-  template <class C>
-  __device__ static float wedge_slack(const wb::ArmFK& a, const C& c) {
-    float live = 0.f;
-    for (int h = 0; h < c.n_hp; ++h) live += c.p(c.L.hpm + h);
-    float gmax = -INFINITY;
-    if (live > 0.f) {
-#pragma unroll
-      for (int r = 0; r < 6; ++r) {
-        float px = 0.f, pz = 0.f;
-#pragma unroll
-        for (int p = 0; p < 3; ++p) {
-          px += wb::HP_POINTS[r][p] * a.ax[p];
-          pz += wb::HP_POINTS[r][p] * a.az[p];
-        }
-        float dmax = -INFINITY;
-        for (int h = 0; h < c.n_hp; ++h) {
-          const float n0 = c.p(c.L.hpn + 3 * h), n1 = c.p(c.L.hpn + 3 * h + 1),
-                      n2 = c.p(c.L.hpn + 3 * h + 2);
-          const float d = c.p(c.L.hpm + h) > 0.f
-                              ? n0 * (c.p(c.L.hpp + 3 * h) - px) + n1 * c.p(c.L.hpp + 3 * h + 1) +
-                                    n2 * (c.p(c.L.hpp + 3 * h + 2) - pz)
-                              : NEG_BIG;
-          dmax = d > dmax || isnan(d) ? d : dmax;
-        }
-        wb::max_in(gmax, -dmax);
-      }
-    }
-    return gmax < 0.f ? 0.f : gmax;
-  }
-
-  // self-collision row r: SELF_R - |check - ee| (arm frame)
-  __device__ static float selfcol(const wb::ArmFK& a, int r) {
-    float vx = 0.f, vz = 0.f;
-#pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      vx += wb::SELF_DIFF[r][p] * a.ax[p];
-      vz += wb::SELF_DIFF[r][p] * a.az[p];
-    }
-    return wb::SELF_R - sqrtf(vx * vx + vz * vz + wb::EPS);
-  }
-
-  // rows [q - hi (3), lo - q (3)]
-  template <class C>
-  __device__ static void qbox(const float* x, const C& c, float* g) {
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      g[i] = x[i] - c.ex(S_QHI + i);
-      g[3 + i] = c.ex(S_QLO + i) - x[i];
-    }
-  }
-
-  // ---- forward hooks
-  template <class C>
-  __device__ static void dyn(const float* x, const float* u, const C& c, float* xn) {
-#pragma unroll
-    for (int i = 0; i < 3; ++i) xn[i] = x[i] + c.dt * u[i];
-  }
-  template <class C>
-  __device__ static float stage(const float* x, const float* u, int k, const C& c, float* g) {
-    wb::ArmFK a;
-    wb::arm_fk(x[0], x[1], x[2], a);
-    float e[3], eu[3], edu[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      e[i] = x[i] - c.p(c.L.xref + k * 3 + i);
-      eu[i] = u[i] - c.p(c.L.uref + k * 3 + i);
-      edu[i] = u[i] - c.p(c.L.ulast + k * 3 + i);
-    }
-    const float sm = wedge_slack(a, c);
-    qbox(x, c, g);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      g[6 + i] = edu[i] - c.ex(S_DDHI + i);
-      g[9 + i] = c.ex(S_DDLO + i) - edu[i];
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) g[12 + r] = selfcol(a, r);
-    return qform<3>(c, c.L.Q, e) + qform<3>(c, c.L.R, eu) + qform<3>(c, c.L.M, edu) +
-           c.ex(S_W) * sm * sm;
-  }
-  template <class C>
-  __device__ static float terminal(const float* x, const C& c, float* gt) {
-    wb::ArmFK a;
-    wb::arm_fk(x[0], x[1], x[2], a);
-    float e[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) e[i] = x[i] - c.p(c.L.xref + c.N * 3 + i);
-    const float sm = wedge_slack(a, c);
-    qbox(x, c, gt);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) gt[6 + r] = selfcol(a, r);
-    return qform<3>(c, c.L.P, e) + c.ex(S_W) * sm * sm;
-  }
-
   // ---- backward hooks: A = I, B = dt I
   __host__ __device__ static constexpr bool a_nz(int i, int j) { return i == j; }
   __host__ __device__ static constexpr bool b_nz(int i, int j) { return i == j; }
@@ -492,6 +396,169 @@ struct Arm {
         for (int j = 0; j < NU; ++j) uu[rho][j] = urow && j == i ? uu[rho][j] + d : uu[rho][j];
       }
     }
+  }
+
+  // ---- the team line search (generic_fwd.cuh, generic_fwd_team_kernel):
+  // teams of FWD_TEAM lanes a candidate.  The FK's three sincos over the
+  // lanes (fk_team), the step q + dt dq in every lane; the six wedge points
+  // (values only, the faces in the outer loop), the four self rows (one a
+  // lane), the rows of the Q, R and M forms and the PHR rows as items over
+  // the lanes.
+  static constexpr int FWD_TEAM = 2;
+  // a candidate's vector: x, u, then the errors e, eu, ed and the self
+  // rows' values
+  enum : int {
+    FV_E = NX + NU,
+    FV_EU = FV_E + 3,
+    FV_ED = FV_EU + 3,
+    FV_S = FV_ED + 3,
+    FWD_NV = (FV_S + 4) | 1,
+  };
+  // the stage rows' table, then the terminal rows'
+  static constexpr int FWD_ROWS = 4 * (NC + NCT);
+
+  // The PHR row tables: {bound, sign, live, vector index} of the stage rows
+  // [q_hi, q_lo, du_hi, du_lo, self] and of the terminal rows [q_hi, q_lo,
+  // self]; a self row's value is in the vector (bound 0).
+  __device__ static void fwd_team_rows(const float* sv, float* rt) {
+    const float* ex = sv + Statics<Arm>::EXTRA;
+#pragma unroll
+    for (int r = 0; r < NC + NCT; ++r) {
+      const int g = r < NC ? r : (r - NC < 6 ? r - NC : r - NC + 6);   // its stage row
+      const int i = g % 3;
+      const int kind = g / 3;   // 0 q_hi, 1 q_lo, 2 du_hi, 3 du_lo, 4.. self
+      rt[4 * r] = kind == 0 ? ex[S_QHI + i] : kind == 1 ? ex[S_QLO + i]
+                : kind == 2 ? ex[S_DDHI + i] : kind == 3 ? ex[S_DDLO + i] : 0.f;
+      rt[4 * r + 1] = kind == 1 || kind == 3 ? -1.f : 1.f;
+      rt[4 * r + 2] = 1.f;
+      rt[4 * r + 3] = __int_as_float(kind < 2 ? i : (kind < 4 ? FV_ED + i : FV_S + g - 12));
+    }
+  }
+
+  // relu(max) of the wedge's six points over the lanes of the team (point r
+  // on lane r % T), each point's max over the faces in its lane with the
+  // faces in the outer loop, merged across the team (values only; NaN
+  // stays NaN).  No live face: an empty group (0).  Every lane ends with it.
+  template <int T, class C>
+  __device__ static float wedge_value_team(const wb::ArmFK& a, const C& c, int lane) {
+    constexpr int RP = (6 + T - 1) / T;   // points a lane
+    float live = 0.f;
+    for (int h = 0; h < c.n_hp; ++h) live += c.p(c.L.hpm + h);
+    float vmax = -INFINITY;
+    if (live > 0.f) {
+      float px[RP], pz[RP], dmax[RP];
+#pragma unroll
+      for (int rr = 0; rr < RP; ++rr) {
+        const int r = min(rr * T + lane, 5);   // past 5: a copy, not taken
+        // wb::HP_POINTS[r]
+        const float hw[3] = {r == 0 || r == 2 ? 0.5f : (r == 1 ? 1.f : 0.f),
+                             r == 2 || r == 4 ? 0.5f : (r == 3 ? 1.f : 0.f),
+                             r == 4 ? 0.5f : (r == 5 ? 1.f : 0.f)};
+        px[rr] = 0.f;
+        pz[rr] = 0.f;
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          px[rr] += hw[p] * a.ax[p];
+          pz[rr] += hw[p] * a.az[p];
+        }
+        dmax[rr] = -INFINITY;
+      }
+#pragma unroll 2
+      for (int h = 0; h < c.n_hp; ++h) {
+        const float n0 = c.p(c.L.hpn + 3 * h), n1 = c.p(c.L.hpn + 3 * h + 1),
+                    n2 = c.p(c.L.hpn + 3 * h + 2);
+        const float p0 = c.p(c.L.hpp + 3 * h), p1 = c.p(c.L.hpp + 3 * h + 1),
+                    p2 = c.p(c.L.hpp + 3 * h + 2);
+        const bool on = c.p(c.L.hpm + h) > 0.f;
+#pragma unroll
+        for (int rr = 0; rr < RP; ++rr) {
+          const float d = on ? n0 * (p0 - px[rr]) + n1 * p1 + n2 * (p2 - pz[rr]) : NEG_BIG;
+          dmax[rr] = d > dmax[rr] || isnan(d) ? d : dmax[rr];
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < RP; ++rr) {
+        const float v = -dmax[rr];
+        if (rr * T + lane < 6) vmax = v > vmax || isnan(v) ? v : vmax;
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < T; off <<= 1) {
+      const float v = __shfl_xor_sync(TEAM_FULL, vmax, off, T);
+      vmax = v > vmax || isnan(v) ? v : vmax;
+    }
+    return vmax < 0.f ? 0.f : vmax;
+  }
+
+  // The self rows' values SELF_R - |check - ee| (arm frame) into
+  // v[FV_S + r], row r on lane r % T.
+  template <int T>
+  __device__ static void self_value_team(const wb::ArmFK& a, int lane, float* v) {
+#pragma unroll
+    for (int rr = 0; rr < (4 + T - 1) / T; ++rr) {
+      const int r = rr * T + lane;
+      const int rc = min(r, 3);
+      // wb::SELF_DIFF[rc]
+      const float dw[3] = {rc == 0 ? 0.f : (rc == 2 ? 1.f : 0.5f), rc == 3 ? 0.5f : 0.f, -1.f};
+      float vx = 0.f, vz = 0.f;
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        vx += dw[p] * a.ax[p];
+        vz += dw[p] * a.az[p];
+      }
+      if (r < 4) v[FV_S + r] = wb::SELF_R - sqrtf(vx * vx + vz * vz + wb::EPS);
+    }
+  }
+
+  // The FK of x, the self rows into the team's vector (then __syncwarp:
+  // the vector is complete) and the lane's share of W relu(max)^2 (lane 0)
+  // and of the form e^T W e, e at v[FV_E].
+  template <int T, class C>
+  __device__ static float track_team(const float* x, const float* e, int W, const C& c,
+                                     float* v, int lane) {
+    wb::ArmFK a;
+    fk_team<T>(x, lane, a);
+    self_value_team<T>(a, lane, v);
+    __syncwarp();
+    const float sm = wedge_value_team<T>(a, c, lane);
+    const float tr = lane == 0 ? c.ex(S_W) * sm * sm : 0.f;
+    return tr + qform_rows<T, 3>(c, W, e, v + FV_E, lane);
+  }
+
+  template <int T, class C>
+  __device__ static float fwd_team_stage(const float* x, const float* u, int k, const C& c,
+                                         float* v, const float* rt, const float* lam, int SC,
+                                         float mu, int lane, float* xn) {
+    float e[3], eu[3], ed[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      e[i] = x[i] - c.p(c.L.xref + k * 3 + i);
+      eu[i] = u[i] - c.p(c.L.uref + k * 3 + i);
+      ed[i] = u[i] - c.p(c.L.ulast + k * 3 + i);
+      v[FV_E + i] = e[i];
+      v[FV_EU + i] = eu[i];
+      v[FV_ED + i] = ed[i];
+      xn[i] = x[i] + c.dt * u[i];
+    }
+    float tr = track_team<T>(x, e, c.L.Q, c, v, lane);
+    tr += qform_rows<T, 3>(c, c.L.R, eu, v + FV_EU, lane);
+    tr += qform_rows<T, 3>(c, c.L.M, ed, v + FV_ED, lane);
+    const float pen = phr_rows<T, NC>(rt, v, lam, SC, mu, lane);
+    return c.inv_scale * tr + pen * (0.5f / mu);
+  }
+
+  template <int T, class C>
+  __device__ static float fwd_team_terminal(const float* x, const C& c, float* v, const float* rt,
+                                            const float* lamt, int SC, float mu, int lane) {
+    float e[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      e[i] = x[i] - c.p(c.L.xref + c.N * 3 + i);
+      v[FV_E + i] = e[i];
+    }
+    const float tr = track_team<T>(x, e, c.L.P, c, v, lane);
+    const float pen = phr_rows<T, NCT>(rt + 4 * NC, v, lamt, SC, mu, lane);
+    return c.inv_scale * tr + pen * (0.5f / mu);
   }
 };
 

@@ -3,11 +3,13 @@ card: each kernel built with one part of its work taken out.
 
 No profiler that counts a kernel's stalls runs on the card's machine, so
 this script times variants instead.  From ``mmmpc_tpu_torch/csrc`` it
-builds kernel E (``riccati.cu``, its four pairs), kernel D.endpoint
-(``generic_endpoint.cu``) and kernel D.arm (``generic_arm.cu``) once as
-they are and once for each variant of ``VARIANTS``, the part taken out
-between preprocessor guards that the script writes into a copy of the
-sources (one ``nvcc`` a library, all started together, into
+builds kernel E (``riccati.cu``, its four pairs), kernels D.endpoint,
+D.arm and D.base (``generic_endpoint.cu``, ``generic_arm.cu``,
+``generic_base.cu``) and the team line searches C.endpoint and C.arm
+(``endpoint_fwd``, ``arm_fwd``: ``generic_fwd.cuh`` with those files'
+hooks) once as they are and once for each variant of ``VARIANTS``, the
+part taken out between preprocessor guards that the script writes into a
+copy of the sources (one ``nvcc`` a library, all started together, into
 ``build/torch_kernels/phases/``):
 
 - ``no_loads``: the stage inputs are never copied into shared memory (the
@@ -15,29 +17,26 @@ sources (one ``nvcc`` a library, all started together, into
 - ``no_step``: the team step is not run (the stage inputs still stream
   through the buffer): the loads and the barriers alone;
 - ``no_rows``: the row tasks of the step (the Q-block products and the
-  stage's own rows, for D.endpoint its expansion) are skipped;
-- ``no_expansion`` (D.endpoint only): the stage's own rows are not added;
+  stage's own rows, for the D kernels their expansion) are skipped;
+- ``no_expansion`` (the D kernels): the stage's own rows are not added;
 - ``no_update``: the value update and the symmetrisation are skipped;
-- ``no_fk``, ``no_wedge``, ``no_self`` (D.arm only): the expansion's FK
-  (its sincos and algebra), its wedge points, or its self-collision rows
-  are not computed (zeros in their place);
-- for kernel C.endpoint (``endpoint_fwd``, the team line search of
-  ``generic_fwd.cuh`` with ``generic_endpoint.cu``'s hooks): ``no_loads``
-  as above; ``no_fk`` (the FK's four sincos), ``no_ground`` (the ground
-  circles), ``no_forms`` (the R and W forms), ``no_phr`` (the stage's PHR
-  rows) are not computed.
+- ``no_fk``, ``no_wedge``, ``no_self`` (D.arm and C.arm): the FK (its
+  sincos and algebra), the wedge points, or the self-collision rows are not
+  computed (zeros in their place);
+- ``no_circles`` (D.base): the ground circles are not computed;
+- ``no_ground``, ``no_forms`` (C.endpoint): the ground circles, or the R
+  and W forms, are not computed; ``no_phr`` (C.endpoint and C.arm): the
+  stage's PHR rows.
 
 A variant's outputs are not the kernel's; only its time is read.  Each is
 timed as ``chip_smoke.py``'s ``[kernel]`` (CUDA-graph replay of 20 launches)
-at N=20, B=8192: E at each pair on random SPD blocks, D.endpoint, D.arm
-and C.endpoint on the inputs of their ``[kernel]`` checks
-(``[phase-time]`` lines).  Needs
+at N=20, B=8192: E at each pair on random SPD blocks, the generic kernels
+on the inputs of their ``[kernel]`` checks (``[phase-time]`` lines).  Needs
 a CUDA card and ``nvcc``:
 
     python3 team_phases.py [KERNEL ...]
 
-(KERNEL among ``riccati``, ``endpoint``, ``arm``, ``endpoint_fwd``; all
-by default.)
+(KERNEL among the keys of ``SOURCE``; all by default.)
 
 Exits nonzero if a build fails or a guard's anchor is not in the source.
 """
@@ -59,20 +58,24 @@ from mmmpc_tpu_torch.ops import _cuda  # noqa: E402
 
 OUT = _cuda.BUILD_DIR / "phases"
 # variant -> the kernels it applies to
-VARIANTS = {"full": ("riccati", "endpoint", "arm", "endpoint_fwd"),
-            "no_loads": ("riccati", "endpoint", "arm", "endpoint_fwd"),
-            "no_step": ("riccati", "endpoint", "arm"),
-            "no_rows": ("riccati", "endpoint", "arm"),
-            "no_expansion": ("endpoint", "arm"),
-            "no_update": ("riccati", "endpoint", "arm"),
-            "no_fk": ("arm", "endpoint_fwd"),
-            "no_wedge": ("arm",),
-            "no_self": ("arm",),
+VARIANTS = {"full": ("riccati", "endpoint", "arm", "base", "endpoint_fwd",
+                     "arm_fwd"),
+            "no_loads": ("riccati", "endpoint", "arm", "base", "endpoint_fwd",
+                         "arm_fwd"),
+            "no_step": ("riccati", "endpoint", "arm", "base"),
+            "no_rows": ("riccati", "endpoint", "arm", "base"),
+            "no_expansion": ("endpoint", "arm", "base"),
+            "no_update": ("riccati", "endpoint", "arm", "base"),
+            "no_fk": ("arm", "endpoint_fwd", "arm_fwd"),
+            "no_wedge": ("arm", "arm_fwd"),
+            "no_self": ("arm", "arm_fwd"),
+            "no_circles": ("base",),
             "no_ground": ("endpoint_fwd",),
             "no_forms": ("endpoint_fwd",),
-            "no_phr": ("endpoint_fwd",)}
+            "no_phr": ("endpoint_fwd", "arm_fwd")}
 SOURCE = {"riccati": "riccati.cu", "endpoint": "generic_endpoint.cu",
-          "arm": "generic_arm.cu", "endpoint_fwd": "generic_endpoint.cu"}
+          "arm": "generic_arm.cu", "base": "generic_base.cu",
+          "endpoint_fwd": "generic_endpoint.cu", "arm_fwd": "generic_arm.cu"}
 # (file, text the guard starts before, text it ends after or before, macro,
 # and optionally the text in its place); a guard whose end is None takes
 # one statement: the start text itself
@@ -105,6 +108,19 @@ GUARDS = (
     ("generic_endpoint.cu",
      "    const float pen = phr_rows<T, NC>(rt, v, lam, SC, mu, lane);\n",
      None, "NO_PHR", "    const float pen = 0.f;\n"),
+    ("generic_arm.cu", "    wb::ArmFK a;\n    fk_team<T>(x, lane, a);\n", None,
+     "NO_FK", "    wb::ArmFK a{};\n"),
+    ("generic_arm.cu",
+     "    const float sm = wedge_value_team<T>(a, c, lane);\n", None,
+     "NO_WEDGE", "    const float sm = 0.f;\n"),
+    ("generic_arm.cu", "    self_value_team<T>(a, lane, v);\n", None,
+     "NO_SELF"),
+    ("generic_arm.cu",
+     "    const float pen = phr_rows<T, NC>(rt, v, lam, SC, mu, lane);\n",
+     None, "NO_PHR", "    const float pen = 0.f;\n"),
+    ("generic_base.cu",
+     "      sm = ground_team<T>(c, x[0], x[1], lane, sxy);\n", None,
+     "NO_CIRCLES", "      sm = sxy[0] = sxy[1] = 0.f;\n"),
 )
 LOADS = (("riccati.cu", "  auto issue_stage = [&](int k) {\n"),
          ("generic_bwd.cuh", "  auto issue_stage = [&](int k) {\n"),
@@ -173,10 +189,10 @@ def main(argv):
     OUT.mkdir(parents=True, exist_ok=True)
     only = tuple(argv) or tuple(SOURCE)
     libs = build(only)
-    rows = {f: team_sweep.row_args(device, f)[1::2]
-            for f in ("endpoint", "arm") if f in only}
-    if "endpoint_fwd" in only:
-        rows["endpoint_fwd"] = team_sweep.row_args(device, "endpoint")[::2]
+    # each generic kernel's (wrapper, arguments): a forward kernel's line
+    # search, a backward kernel's fused backward
+    rows = {k: team_sweep.row_args(device, team_sweep.FORMULATION[k])[
+        (0 if k.endswith("_fwd") else 1)::2] for k in only if k != "riccati"}
     blocks = {dims: (*chip_smoke.spd_blocks(device, B=chip_smoke.BATCH, N=20,
                                             nx=dims[0], nu=dims[1]),
                      torch.full((chip_smoke.BATCH,), 1e-6, device=device))
@@ -186,8 +202,8 @@ def main(argv):
         if kernel in rows:
             f, args = rows[kernel]
             ms = chip_smoke._kernel_ms(lambda: f.cuda(*args), 20)
-            name = ("generic_fwd.endpoint" if kernel == "endpoint_fwd"
-                    else f"generic_bwd.{kernel}")
+            name = ("generic_fwd." if kernel.endswith("_fwd")
+                    else "generic_bwd.") + team_sweep.FORMULATION[kernel]
             print(f"[phase-time] name={name} variant={variant} ms={ms:.5g}",
                   flush=True)
             continue

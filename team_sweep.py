@@ -1,10 +1,11 @@
 """The kernels on a team of lanes at each team size, on the card.
 
 Kernel E, ``mmmpc_tpu_torch/csrc/riccati.cu``, takes its lanes a scenario
-from one rule, ``ric_team(nx, nu)``; kernels D.endpoint and D.arm
-(``csrc/generic_endpoint.cu``, ``csrc/generic_arm.cu``) from their
-formulation's ``BWD_TEAM``, and kernel C.endpoint from ``Endpoint::FWD_TEAM``
-(lanes a candidate).  From those sources this script builds, for each team
+from one rule, ``ric_team(nx, nu)``; kernels D.endpoint, D.arm and D.base
+(``csrc/generic_endpoint.cu``, ``csrc/generic_arm.cu``,
+``csrc/generic_base.cu``) from their formulation's ``BWD_TEAM``, and
+kernels C.endpoint and C.arm from their formulation's ``FWD_TEAM`` (lanes a
+candidate).  From those sources this script builds, for each team
 size T of ``TEAMS``, a library of each kernel of ``RULES`` (the rule
 replaced by T), one ``nvcc`` a library, all started together, into
 ``build/torch_kernels/teams/``, prints each build's ptxas registers and
@@ -16,11 +17,12 @@ spills, and for each T:
   horizon (CUDA-graph replay of 20 launches, as ``chip_smoke.py``'s
   ``[kernel]``), with the launch geometry and the blocks an SM holds
   (``[team]``);
-- D.endpoint, D.arm and C.endpoint on the inputs of ``chip_smoke.py``'s
-  ``[kernel]`` check of their row at batch 8192, against their plain
-  versions at its tolerances (D.endpoint atol 2e-4, rtol 1e-4; D.arm the
-  p99 / float64 form; C.endpoint X / U atol 2e-5, cost rtol = atol 2e-3),
-  and their device time per launch, with the launch geometry (``[team]``).
+- D.endpoint, D.arm, D.base, C.endpoint and C.arm on the inputs of
+  ``chip_smoke.py``'s ``[kernel]`` check of their row at batch 8192,
+  against their plain versions at its tolerances (D.endpoint atol 2e-4,
+  D.base atol 1e-3, rtol 1e-4; D.arm the p99 / float64 form; C X / U atol
+  2e-5, cost rtol = atol 2e-3), and their device time per launch, with the
+  launch geometry (``[team]``).
 
 Needs a CUDA card and ``nvcc``:
 
@@ -61,11 +63,17 @@ RULES = {
     "endpoint_fwd": ("generic_endpoint.cu",
                      "  static constexpr int FWD_TEAM = 2;\n",
                      "  static constexpr int FWD_TEAM = {T};\n", "gen_"),
+    "base": ("generic_base.cu", "  static constexpr int BWD_TEAM = 2;\n",
+             "  static constexpr int BWD_TEAM = {T};\n", "gen_"),
+    "arm_fwd": ("generic_arm.cu", "  static constexpr int FWD_TEAM = 2;\n",
+                "  static constexpr int FWD_TEAM = {T};\n", "gen_"),
 }
-# the formulation of each generic kernel, the wrapper it runs under, and
-# its bench row
-FORMULATION = {"endpoint": "endpoint", "arm": "arm", "endpoint_fwd": "endpoint"}
-ROW = {"endpoint": "wholebody_endpoint", "arm": "arm_only"}
+# the formulation of each generic kernel (a forward kernel's name ends in
+# _fwd), and the bench row of each formulation
+FORMULATION = {"endpoint": "endpoint", "arm": "arm", "endpoint_fwd": "endpoint",
+               "base": "base", "arm_fwd": "arm"}
+ROW = {"endpoint": "wholebody_endpoint", "arm": "arm_only",
+       "base": "base_only"}
 
 
 def build(teams, kernels=tuple(RULES)):
@@ -161,7 +169,7 @@ def check_generic(kernel, team, fwd, bwd, fargs, bargs):
     f = FORMULATION[kernel]
     tag = f"{kernel} T={team}"
     lib = _cuda.LIBRARY.lib
-    if kernel == "endpoint_fwd":
+    if kernel.endswith("_fwd"):
         got, ref = fwd.cuda(*fargs), fwd.plain(*fargs)
         torch.cuda.synchronize()
         err = max(chip_smoke._fwd_errors(tag, got, ref))
@@ -179,7 +187,9 @@ def check_generic(kernel, team, fwd, bwd, fargs, bargs):
                             for a in bargs))
         err = chip_smoke._check_f64(tag, got, ref, truth)
     else:
-        err = chip_smoke._gains_check(tag, 1e-4, 2e-4)(got, ref, bargs)
+        chip_smoke._test_problems_path()
+        from torch_problems import BWD_ATOL
+        err = chip_smoke._gains_check(tag, 1e-4, BWD_ATOL[f])(got, ref, bargs)
     return (f"generic_bwd.{f}", err, lambda: bwd.cuda(*bargs),
             generic_bwd.launch_geometry(lib, f, bwd.ocp.N, bwd.form.n_obs,
                                         bwd.form.n_hp, chip_smoke.BATCH))
