@@ -35,11 +35,11 @@ Phases, each reported on its own lines; any failure exits nonzero:
    call and the plain version's (CUDA events), and the least time the card
    could take (bytes moved over 3.35 TB/s against operations over the
    published 67 TFLOP/s float32, and over the measured peak); kernels A,
-   B, the generic team kernels (C.arm, C.endpoint, D.base, D.arm,
-   D.endpoint) and E (at (9, 5) on the qref blocks,
-   at (4, 2) on the SPD blocks) also at the ragged batches 8191, 1000 and
-   1 against their plain versions, with their launch geometry
-   (``[kernel-batch]``; E's with the blocks an SM holds); kernel E also at (nx, nu) = (4, 2), which the
+   B, C.arm, C.endpoint, D.base, D.arm, D.endpoint and E (at (9, 5) on
+   the qref blocks, at (4, 2) on the SPD blocks) also at the ragged
+   batches 8191, 1000 and 1 against their plain versions, with their
+   launch geometry (``[kernel-batch]``; E's with the blocks an SM holds);
+   kernel E also at (nx, nu) = (4, 2), which the
    kernel library does not hold: the pair's own library built on its first
    call (``[build-pair]``: seconds, the pair's launches in that call; ptxas
    registers / spills), then against its plain version on the SPD blocks
@@ -122,7 +122,7 @@ GENERIC = tuple(ROWS.values())
 # team kernels of generic_fwd.cuh / generic_bwd.cuh; the others run one
 # thread a candidate or a scenario
 FWD_TEAMS = ("arm", "endpoint")
-BWD_TEAMS = ("base", "arm", "endpoint")
+BWD_TEAMS = ("arm", "endpoint")
 # (nx, nu) of each generic formulation: its Riccati sweep instance
 DIMS = {"demo": (2, 1), "base": (6, 2), "arm": (3, 3), "endpoint": (9, 5)}
 # device-kernel names (as the profiler reports them) of each wrapper; a
@@ -591,8 +591,8 @@ def check_generic(device, peak, kinds):
                               lambda g, r, bargs=bargs, check=bwd_check:
                               check(g, r, bargs), peak, kinds))
         form = bwd.form
-        # the team kernels at ragged batches
-        if f in BWD_TEAMS and "generic_bwd" in kinds:
+        # the redesigned kernels at ragged batches (D.base: its stage buffer)
+        if f in (*BWD_TEAMS, "base") and "generic_bwd" in kinds:
             check_batches(
                 f"generic_bwd.{f}", bwd.cuda, bwd.plain, bargs, bwd_check,
                 lambda n, f=f, form=form: gen_bwd_geometry(

@@ -5,7 +5,10 @@
 // sampled link points, and hard rows [q box (6), input-rate box (6),
 // self-collision (4)] at every stage, [q box, self-collision] at the
 // terminal.  Hooks of mmmpc_tpu/controllers/manipulator.py::lanes_fwd_factory
-// / lanes_bwd_factory with is_cartesian_ref=False.
+// / lanes_bwd_factory with is_cartesian_ref=False.  Both kernels run on
+// teams of lanes: the line search (C.arm) on generic_fwd.cuh's team
+// kernel, the fused backward (D.arm) on generic_bwd.cuh's, over the team
+// Riccati step.
 #include "generic_bwd.cuh"
 #include "generic_fwd.cuh"
 
@@ -291,7 +294,7 @@ struct Arm {
         const float h = two_s * (c.p(W + tc * 3 + j) + w * (st * sq[j]));
         acc[j] = live ? acc[j] + h : acc[j];
       }
-      // q.box_x of rows t (q - hi) and 3 + t (lo - q)
+      // the q-box rows t (q - hi) and 3 + t (lo - q)
 #pragma unroll
       for (int side = 0; side < 2; ++side) {
         const bool hi = side == 0;
@@ -302,7 +305,7 @@ struct Arm {
 #pragma unroll
         for (int j = 0; j < NX; ++j) acc[j] = live && j == t ? acc[j] + d : acc[j];
       }
-      // q.row_x of the self-collision rows
+      // the self-collision rows, dense in x
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const float tv = fmaxf(lam[(r_self + r) * S] + mu * sv[r], 0.f);
@@ -383,7 +386,7 @@ struct Arm {
 #pragma unroll
       for (int j = 0; j < NU; ++j)
         uu[rho][j] = urow ? uu[rho][j] + two_s * (c.p(Ri + j) + c.p(Mi + j)) : uu[rho][j];
-      // the rate-box rows 6 + i and 9 + i (q.box_u)
+      // the rate-box rows 6 + i and 9 + i
       const float ed = in[(NX + i) * S] - c.p(c.L.ulast + k * NU + i);
 #pragma unroll
       for (int side = 0; side < 2; ++side) {
@@ -403,7 +406,9 @@ struct Arm {
   // lanes (fk_team), the step q + dt dq in every lane; the six wedge points
   // (values only, the faces in the outer loop), the four self rows (one a
   // lane), the rows of the Q, R and M forms and the PHR rows as items over
-  // the lanes.
+  // the lanes.  Lanes a candidate: 2 was the fastest of 1, 2, 4 and 8 at
+  // batch 8192, 0.0537 / 0.0475 / 0.0718 / 0.1225 ms against the one-thread
+  // kernel's 0.066 (H100 80GB HBM3, 700.00 W; PERF.md), as for C.endpoint.
   static constexpr int FWD_TEAM = 2;
   // a candidate's vector: x, u, then the errors e, eu, ed and the self
   // rows' values

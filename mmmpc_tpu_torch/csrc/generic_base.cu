@@ -4,6 +4,14 @@
 // and the five-wide box on (px, py, dx, dy, dpsi) at every stage and at the
 // terminal.  Hooks of mmmpc_tpu/controllers/base.py::lanes_fwd_factory /
 // lanes_bwd_factory.
+//
+// Both kernels run one thread a scenario (candidate): the line search on
+// generic_fwd.cuh's one-thread kernel (C.base), the fused backward on
+// generic_bwd.cuh's one-thread kernel with its stage buffer (D.base).  On
+// the team Riccati step (BWD_TEAM) D.base ran slower at every team size:
+// 0.0694 / 0.0601 / 0.0573 / 0.0594 ms at 1 / 2 / 4 / 8 lanes a scenario
+// against the one-thread kernel's 0.0375 (N=20, B=8192, H100 80GB HBM3,
+// 700.00 W; team_sweep.py at 3322bab, PERF.md).
 #include "generic_bwd.cuh"
 #include "generic_fwd.cuh"
 
@@ -106,148 +114,53 @@ struct Base {
     Bm[4][0] = dt * s;
     Bm[5][1] = dt;
   }
-
-  // ---- the team backward (generic_bwd.cuh, generic_bwd_team_kernel):
-  // teams of BWD_TEAM lanes a scenario.  Every lane computes the state
-  // error (the floored yaw wrap) and the Jacobians (their sincos); the
-  // ground circles run over the lanes (circle o on lane o % T), merged by
-  // max_acc_team; then every lane adds the rows of its tasks in the order
-  // of operations of the JAX hooks (lanes_bwd_factory): tracking with
-  // weights W plus the slack's two_s M (smax sx, sx sx^T) on (px, py) and
-  // the box rows to its x rows, the R form to its u rows.  Rows picked at
-  // run time read x, u and the multipliers from the stage buffer (in[e * S]:
-  // x, u, lam).
-  static constexpr int BWD_TEAM = 2;
-
-  // ground_slack with its gradient, the circles over the lanes of the team,
-  // each lane's relu(max) accumulator merged by max_acc_team: every lane
-  // ends with the same smax and sxy.
-  template <int T, class C>
-  __device__ static float ground_team(const C& c, float px, float py, int lane, float* sxy) {
-    wb::MaxAcc<2> m;
-    m.init();
-    for (int o = lane; o < c.n_obs; o += T) {
-      const float dx = px - c.p(c.L.obs + 3 * o);
-      const float dy = py - c.p(c.L.obs + 3 * o + 1);
-      const float d = sqrtf(dx * dx + dy * dy + wb::EPS);
-      const float g[2] = {-dx / d, -dy / d};
-      m.add((c.p(c.L.obs + 3 * o + 2) + c.ex(S_RADIUS)) - d, g);
-    }
-    max_acc_team<T>(m);
-    const float gs = m.grad_scale();
-    sxy[0] = m.gsum[0] * gs;
-    sxy[1] = m.gsum[1] * gs;
-    return m.smax();
-  }
-
-  // The expansion of one stage (or the terminal) that the lanes share.
-  template <int T>
-  struct Expand {
-    float e[NX], sxy[2], sm;
-
-    template <class C>
-    __device__ __forceinline__ Expand(const float* x, const C& c, int row, int lane) {
-      state_err(x, c, row, e);
-      sm = ground_team<T>(c, x[0], x[1], lane, sxy);
-    }
-
-    // x row t = rho T + lane (a task past the x rows adds nothing): the
-    // tracking with weights W and the slack, then the box rows of state t
-    // (multipliers lam[r * S]; none for the yaw); x[t] = xt
-    template <class C>
-    __device__ __forceinline__ void add_row(int rho, int lane, float xt, const C& c, int W,
-                                            const float* lam, int S, float mu, float& q,
-                                            float (&acc)[NX]) const {
-      const int t = rho * T + lane;
-      const bool live = t < NX;
-      const int tc = live ? t : NX - 1;
-      const float two_s = 2.f * c.inv_scale;
-      const float M = c.p(c.L.M);
-      const float st = t == 0 ? sxy[0] : sxy[1];   // read for t < 2 only
+  // two_s (W e + M smax sx) and two_s (W + M sx sx^T), sx nonzero on (px, py)
+  template <class C, class Q>
+  __device__ static void tracking(const float* x, const C& c, int row, int W, Q& q) {
+    const float two_s = 2.f * c.inv_scale;
+    float e[NX], sxy[2];
+    state_err(x, c, row, e);
+    const float sm = ground_slack(c, c.L.obs, x[0], x[1], c.ex(S_RADIUS), sxy);
+    const float M = c.p(c.L.M);
+    const float Msm = M * sm;
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
       float we = 0.f;
 #pragma unroll
-      for (int j = 0; j < NX; ++j) we += c.p(W + tc * NX + j) * e[j];
-      q = live ? q + two_s * (t < 2 ? we + (M * sm) * st : we) : q;
+      for (int j = 0; j < NX; ++j) we += c.p(W + i * NX + j) * e[j];
+      q.x[i] += two_s * (i < 2 ? we + Msm * sxy[i] : we);
 #pragma unroll
       for (int j = 0; j < NX; ++j) {
-        const float w = c.p(W + tc * NX + j);
-        const float h = two_s * (t < 2 && j < 2 ? w + M * (st * sxy[j]) : w);
-        acc[j] = live ? acc[j] + h : acc[j];
-      }
-      // q.box_x of rows r (v - hi) and 5 + r (lo - v), r the box row of t
-      const bool boxed = live && t != 2;
-      const int r = tc < 2 ? tc : tc - 1;
-#pragma unroll
-      for (int side = 0; side < 2; ++side) {
-        const bool hi = side == 0;
-        const float val = hi ? xt - c.ex(S_XHI + r) : c.ex(S_XLO + r) - xt;
-        const float tv = fmaxf(lam[(hi ? r : 5 + r) * S] + mu * val, 0.f);
-        q = boxed ? q + (hi ? 1.f : -1.f) * tv : q;
-        const float d = tv > 0.f ? mu : 0.f;
-#pragma unroll
-        for (int j = 0; j < NX; ++j) acc[j] = boxed && j == t ? acc[j] + d : acc[j];
-      }
-    }
-  };
-
-  // The terminal (tracking with P, the box rows) -> Vx, Vxx of the lane's
-  // rows: in[e * S] holds x_N, then lamt.
-  template <int T, class C>
-  __device__ static void team_term(const float* in, int S, const C& c, float mu, int lane,
-                                   ric::TeamTile<NX, NU>& tt) {
-    float x[NX];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) x[i] = in[i * S];
-    const Expand<T> ex(x, c, c.N, lane);
-#pragma unroll
-    for (int rho = 0; rho < (NX + T - 1) / T; ++rho) {
-      const int t = rho * T + lane;
-      float q = 0.f, acc[NX];
-#pragma unroll
-      for (int j = 0; j < NX; ++j) acc[j] = 0.f;
-      ex.add_row(rho, lane, in[(t < NX ? t : 0) * S], c, c.L.P, in + NX * S, S, mu, q, acc);
-      if (t < NX) {
-        tt.vx[t] = q;
-#pragma unroll
-        for (int j = 0; j < NX; ++j) tt.V[t][j] = acc[j];
+        const float w = c.p(W + i * NX + j);
+        q.xx[i][j] += two_s * (i < 2 && j < 2 ? w + M * (sxy[i] * sxy[j]) : w);
       }
     }
   }
-
-  // A stage's rows (tracking with Q, the box rows, the R form) of the
-  // lane's tasks: in[e * S] holds x_k, u_k, lam_k.
-  template <int T, class C>
-  __device__ static void team_rows(const float* x, const float* in, int S, int k, const C& c,
-                                   float mu, int lane, float (&q)[ric::rounds<NX, NU, T>()],
-                                   float (&acc)[ric::rounds<NX, NU, T>()][NX],
-                                   float (&uu)[ric::rounds<NX, NU, T>()][NU]) {
-    constexpr int R = ric::rounds<NX, NU, T>();
+  template <class C, class Q>
+  __device__ static void box_quad(const float* x, const C& c, Q& q) {
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {
+      q.box_x(r, true, x[box(r)] - c.ex(S_XHI + r), box(r), 1.f);
+      q.box_x(5 + r, true, c.ex(S_XLO + r) - x[box(r)], box(r), -1.f);
+    }
+  }
+  template <class C, class Q>
+  __device__ static void stage_quad(const float* x, const float* u, int k, const C& c, Q& q) {
     const float two_s = 2.f * c.inv_scale;
-    const float* lam = in + (NX + NU) * S;
-    {
-      const Expand<T> ex(x, c, k, lane);
+    tracking(x, c, k, c.L.Q, q);
+    const float eu[2] = {u[0] - c.p(c.L.uref + k * NU), u[1] - c.p(c.L.uref + k * NU + 1)};
 #pragma unroll
-      for (int rho = 0; rho < R; ++rho) {
-        if (rho * T >= NX) continue;     // no x row in this round
-        const int t = rho * T + lane;
-        ex.add_row(rho, lane, in[(t < NX ? t : 0) * S], c, c.L.Q, lam, S, mu, q[rho],
-                   acc[rho]);
-      }
+    for (int i = 0; i < NU; ++i) {
+      q.u[i] += two_s * (c.p(c.L.R + i * NU) * eu[0] + c.p(c.L.R + i * NU + 1) * eu[1]);
+#pragma unroll
+      for (int j = 0; j < NU; ++j) q.uu[i][j] += two_s * c.p(c.L.R + i * NU + j);
     }
-    const float eu[NU] = {in[NX * S] - c.p(c.L.uref + k * NU),
-                          in[(NX + 1) * S] - c.p(c.L.uref + k * NU + 1)};
-#pragma unroll
-    for (int rho = 0; rho < R; ++rho) {
-      if ((rho + 1) * T <= NX) continue;  // no u row in this round
-      const int t = rho * T + lane;
-      const bool urow = t >= NX && t < NX + NU;
-      const int Ri = c.L.R + (urow ? t - NX : 0) * NU;
-      const float s = c.p(Ri) * eu[0] + c.p(Ri + 1) * eu[1];
-      q[rho] = urow ? q[rho] + two_s * s : q[rho];
-#pragma unroll
-      for (int j = 0; j < NU; ++j)
-        uu[rho][j] = urow ? uu[rho][j] + two_s * c.p(Ri + j) : uu[rho][j];
-    }
+    box_quad(x, c, q);
+  }
+  template <class C, class Q>
+  __device__ static void term_quad(const float* x, const C& c, Q& q) {
+    tracking(x, c, c.N, c.L.P, q);
+    box_quad(x, c, q);
   }
 };
 

@@ -24,7 +24,7 @@
 // and, for the one-thread kernel:
 //   stage_quad(x, u, k, c, q)   adds the scaled stage model into the Q blocks
 //                               q.x, q.u, q.xx, q.uu, q.ux and declares its
-//                               rows through q.box_x / q.box_u / q.row_x
+//                               box rows through q.box_x
 //   term_quad(x, c, q)          the same for the terminal (q.x, q.xx)
 // A formulation with BWD_TEAM supplies the team hooks team_term and
 // team_rows (listed at the team kernel below) instead of these two.
@@ -34,10 +34,16 @@
 // nvcc may not fold x * 0.f, so zeros are skipped, never multiplied).
 //
 // What bounds the one-thread kernel on this card: a serial recurrence of N
-// stages per thread, each a few thousand dependent FLOPs on an NX x NX
-// value function, and registers: Vxx and the Q blocks are live together.
-// At the bench batch of 8192 the grid is 64 blocks of 128 threads on 132
-// SMs.
+// stages a thread, each a few hundred dependent FLOPs on an NX x NX value
+// function in registers, so one warp's chain; the grid (64 blocks of 128
+// threads at the bench batch of 8192) does not: blocks of 64 or 32 threads
+// ran as fast (PERF.md).  Its stage inputs x_k, u_k, lam_k come through a
+// two-stage buffer in shared memory, each thread's own column, filled by
+// cp.async one stage ahead, so their loads leave the chain: D.base 0.0375
+// -> 0.0328 ms, D.demo 0.0145 -> 0.0075 (H100 80GB HBM3, 700 W).  D.base
+// stays here, not on the team kernel: on the team step it ran 0.055-0.069
+// ms at 1, 2, 4 or 8 lanes a scenario, for a (6, 2) step the exchange
+// costs more than the lanes save (PERF.md).
 #pragma once
 
 #include <type_traits>
@@ -57,11 +63,9 @@ namespace gen {
 template <int NX, int NU>
 struct QBlocks : ric::QStage<NX, NU> {
   using ric::QStage<NX, NU>::x;
-  using ric::QStage<NX, NU>::u;
   using ric::QStage<NX, NU>::xx;
-  using ric::QStage<NX, NU>::uu;
   const float* lam;  // the multipliers of the current rows: row r at lam[r * B]
-  int B;
+  int B;             // their stride
   float mu;
 
   // row whose gradient is sign * e_i in x
@@ -71,29 +75,6 @@ struct QBlocks : ric::QStage<NX, NU> {
     const float t = fmaxf(lam[r * B] + mu * val, 0.f);
     x[i] += sign * t;
     xx[i][i] += t > 0.f ? mu : 0.f;
-  }
-  // row whose gradient is sign * e_i in u
-  __device__ __forceinline__ void box_u(int r, bool live, float val, int i,
-                                        float sign) {
-    if (!live) return;
-    const float t = fmaxf(lam[r * B] + mu * val, 0.f);
-    u[i] += sign * t;
-    uu[i][i] += t > 0.f ? mu : 0.f;
-  }
-  // row with a dense gradient gx in x (none in u)
-  __device__ __forceinline__ void row_x(int r, float val, const float* gx) {
-    const float t = fmaxf(lam[r * B] + mu * val, 0.f);
-    const float ma = t > 0.f ? mu : 0.f;
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      x[i] += t * gx[i];
-#pragma unroll
-      for (int j = 0; j <= i; ++j) {
-        const float h = ma * (gx[i] * gx[j]);
-        xx[i][j] += h;
-        if (j != i) xx[j][i] += h;
-      }
-    }
   }
 };
 
@@ -111,49 +92,88 @@ struct JacRegs {
   __device__ __forceinline__ float b(int i, int j) const { return Bm[i][j]; }
 };
 
+constexpr int BWD_THREADS = 128;
+
+// The one-thread kernel: thread b owns scenario b; its stage inputs are the
+// column tid of the block's buffer (element-major, thread fastest), two
+// parities.  No thread reads another's column, so cp.async's own wait
+// orders a thread's copies before its reads and no barrier is needed; a
+// thread past the batch returns at once.
 template <class F>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(BWD_THREADS)
 generic_bwd_kernel(const __grid_constant__ Statics<F> st,
                    const float* __restrict__ pp, const float* __restrict__ X,
                    const float* __restrict__ U, const float* __restrict__ lam,
                    const float* __restrict__ lamt,
                    const float* __restrict__ reg, float* __restrict__ kff_out,
                    float* __restrict__ K_out, float mu, int N, int B) {
-  constexpr int NX = F::NX, NU = F::NU, NC = F::NC;
+  constexpr int NX = F::NX, NU = F::NU, NC = F::NC, NCT = F::NCT;
+  constexpr int NIN = NX + NU + NC, S = BWD_THREADS;  // stage inputs, stride
   static_assert(F::NE == 0, "the generic kernels take no terminal equality");
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  static_assert(NX + NCT <= NIN, "the terminal inputs fill one stage slot");
+  __shared__ float inbuf[2 * NIN * S];
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x * blockDim.x + tid;
   if (b >= B) return;
+
+  // element i of a batch-last array from row `first` on into the buffer
+  auto copy_rows = [&](float* dst, const float* src, int first, int n) {
+#pragma unroll
+    for (int i = 0; i < n; ++i)
+      wb::cp_async4(dst + i * S, src + static_cast<long long>(first + i) * B + b);
+  };
+  // stage k's inputs into parity k & 1
+  auto issue_stage = [&](int k) {
+    float* dst = inbuf + (k & 1) * NIN * S + tid;
+    copy_rows(dst, X, k * NX, NX);
+    copy_rows(dst + NX * S, U, k * NU, NU);
+    copy_rows(dst + (NX + NU) * S, lam, k * NC, NC);
+  };
+  // the terminal inputs x_N, lamt into parity N & 1, then stage N - 1
+  float* const term = inbuf + (N & 1) * NIN * S + tid;
+  copy_rows(term, X, N * NX, NX);
+  copy_rows(term + NX * S, lamt, 0, NCT);
+  wb::cp_async_commit();
+  issue_stage(N - 1);
+  wb::cp_async_commit();
 
   const Ctx<F> c = make_ctx<F>(st, pp, N);
   const float rg = reg[b];
   QBlocks<NX, NU> q;
-  q.B = B;
+  q.B = S;
   q.mu = mu;
   float Vx[NX];
 
   // ---------------- terminal expansion -> Vx, Vxx (= q.xx) ----------------
+  wb::cp_async_wait<1>();
   {
     float x[NX];
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
-      x[i] = X[(N * NX + i) * B + b];
+      x[i] = term[i * S];
       q.x[i] = 0.f;
 #pragma unroll
       for (int j = 0; j < NX; ++j) q.xx[i][j] = 0.f;
     }
-    q.lam = lamt + b;
+    q.lam = term + NX * S;
     F::term_quad(x, c, q);
 #pragma unroll
     for (int i = 0; i < NX; ++i) Vx[i] = q.x[i];
   }
 
   // ---------------- backward over the stages ----------------
+  // Stage k's inputs have landed after the wait; stage k - 1's go into the
+  // parity that stage k + 1 (or the terminal) has finished with.
   for (int k = N - 1; k >= 0; --k) {
+    wb::cp_async_wait<0>();
+    if (k > 0) issue_stage(k - 1);
+    wb::cp_async_commit();
+    const float* in = inbuf + (k & 1) * NIN * S + tid;
     float x[NX], u[NU];
 #pragma unroll
-    for (int i = 0; i < NX; ++i) x[i] = X[(k * NX + i) * B + b];
+    for (int i = 0; i < NX; ++i) x[i] = in[i * S];
 #pragma unroll
-    for (int i = 0; i < NU; ++i) u[i] = U[(k * NU + i) * B + b];
+    for (int i = 0; i < NU; ++i) u[i] = in[(NX + i) * S];
     JacRegs<F> jac;
     F::dyn_jac(x, u, c, jac.A, jac.Bm);
 
@@ -161,7 +181,7 @@ generic_bwd_kernel(const __grid_constant__ Statics<F> st,
     // between the Q-block products and the Cholesky
     ric::riccati_step<NX, NU>(
         jac, [&]() {
-          q.lam = lam + static_cast<long long>(k) * NC * B + b;
+          q.lam = in + (NX + NU) * S;
           F::stage_quad(x, u, k, c, q);
         },
         q, Vx, rg, kff_out + static_cast<long long>(k) * NU * B + b,
@@ -326,7 +346,7 @@ BwdGeometry bwd_geometry(int N, int n_obs, int n_hp, int B) {
     return {BwdTeam<F>::value, TEAM_THREADS, (B + S - 1) / S,
             team_smem_floats<F>(N, n_obs, n_hp) * 4};
   } else {
-    return {1, 128, (B + 127) / 128, 0};
+    return {1, BWD_THREADS, (B + BWD_THREADS - 1) / BWD_THREADS, 0};
   }
 }
 

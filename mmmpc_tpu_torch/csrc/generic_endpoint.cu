@@ -265,8 +265,8 @@ struct Endpoint {
     }
   };
 
-  // The state-box rows of x row t (q.box_x of rows t and NX + t): the
-  // multipliers at lam[r * S], x[t] = xt.
+  // The state-box rows t and NX + t of x row t: the multipliers at
+  // lam[r * S], x[t] = xt.
   template <class C>
   __device__ __forceinline__ static void team_box_x(int t, float xt,
                                                     const float* lam, int S,
@@ -355,7 +355,7 @@ struct Endpoint {
 #pragma unroll
       for (int j = 0; j < NU; ++j)
         uu[rho][j] = urow ? uu[rho][j] + two_s * (c.p(Ri + j) + c.p(Wi + j)) : uu[rho][j];
-      // the rate-box rows 2 NX + i and 2 NX + NU + i (q.box_u)
+      // the rate-box rows 2 NX + i and 2 NX + NU + i
       const float ed = in[(NX + i) * S] - c.p(c.L.ulast + k * NU + i);
 #pragma unroll
       for (int side = 0; side < 2; ++side) {

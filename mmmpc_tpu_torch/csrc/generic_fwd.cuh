@@ -27,12 +27,13 @@
 // bench shape (B = 8192, 3 step sizes) gives 192 blocks of 128 on 132 SMs.
 // Bytes are small: X, U, kff, K, lam in, the candidates out.
 //
-// Design of the one-thread kernel (demo, base, arm): a loop over the
-// stages inside the thread with x and the running cost in registers;
-// batch-last loads and stores coalesce across the warp; the packed buffer
-// is read through the read-only cache; the statics are a __grid_constant__
-// kernel argument.  A formulation with FWD_TEAM (endpoint) runs the team
-// kernel below instead, on kernel A's design (wholebody_fwd.cu).
+// Design of the one-thread kernel (demo, base): a loop over the stages
+// inside the thread with x and the running cost in registers; batch-last
+// loads and stores coalesce across the warp; the packed buffer is read
+// through the read-only cache; the statics are a __grid_constant__ kernel
+// argument.  A formulation with FWD_TEAM (arm, endpoint) runs the team
+// kernel below instead, on kernel A's design (wholebody_fwd.cu), which
+// splits the chain's stage over the lanes of a team.
 #pragma once
 
 #include <type_traits>

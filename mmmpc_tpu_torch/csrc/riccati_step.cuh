@@ -1,8 +1,11 @@
-// One backward Riccati step of a batched iLQR sweep, shared by the generic
-// fused backward kernel (generic_bwd.cuh, kernel D) and the plain Riccati
-// sweep on precomputed blocks (riccati.cu, kernel E).  Device code for
-// NVIDIA Hopper (sm_90a); the counterpart of
-// ops/entry_algebra.py::riccati_stage + the Vxx symmetrisation.
+// One backward Riccati step of a batched iLQR sweep, for the one-thread
+// form of the generic fused backward kernel (generic_bwd.cuh): D.demo and
+// D.base, whose small steps lose more to a team's exchange than its lanes
+// save (E at (2, 1) and D.base on the team step ran slower; PERF.md).
+// Kernel E and the team D kernels (D.arm, D.endpoint) step on
+// riccati_team.cuh.  Device code for NVIDIA Hopper (sm_90a); the
+// counterpart of ops/entry_algebra.py::riccati_stage + the Vxx
+// symmetrisation.
 //
 // One thread owns one scenario.  From the next stage's value function (Vx,
 // Vxx; Vxx held in q.xx) and the dynamics Jacobians:
@@ -19,7 +22,7 @@
 // Every index is a constant after unrolling, so an all-false mask entry
 // drops its term at compile time (kernel D's sparse dynamics; nvcc may not
 // fold x * 0.f, so zeros are skipped, never multiplied), and an all-true
-// mask (kernel E) gives the dense products.
+// mask gives the dense products.
 #pragma once
 
 namespace ric {

@@ -12,8 +12,9 @@ kff = -Quu^-1 Qu and K = -Quu^-1 Qux; Vxx is symmetrised after every step.
 On CUDA tensors the call launches ``gen_bwd_<name>`` of the kernel library,
 the template ``csrc/generic_bwd.cuh`` instantiated with the formulation
 struct of ``csrc/generic_<name>.cu``: the arm's and the endpoint's on the
-team Riccati step (``csrc/riccati_team.cuh``), the others one thread a
-scenario; on CPU tensors it runs ``plain_bwd``:
+team Riccati step (``csrc/riccati_team.cuh``), the demo's and the base's
+one thread a scenario with their stage inputs loaded one stage ahead; on
+CPU tensors it runs ``plain_bwd``:
 the controller's structured AL expansion at every stage
 (``solver.al_ilqr.stage_al_blocks``), then the plain Riccati sweep
 (``ops.riccati.plain_riccati_bm``), the two halves of the unfused path.

@@ -13,8 +13,9 @@ one pass over the horizon computes
 and adds the terminal AL cost, so the returned per-candidate costs are
 complete.  On CUDA tensors the call launches ``gen_fwd_<name>`` of the
 kernel library, the template ``csrc/generic_fwd.cuh`` instantiated with the
-formulation struct of ``csrc/generic_<name>.cu``: the endpoint's with teams
-of lanes a candidate, the others one thread a candidate; on CPU tensors it
+formulation struct of ``csrc/generic_<name>.cu``: the arm's and the
+endpoint's with teams of lanes a candidate, the others one thread a
+candidate; on CPU tensors it
 runs ``plain_fwd``, built from the OCP's own callables.  There is no
 fallback between them.
 

@@ -1,11 +1,12 @@
-"""Where the time of the kernels on the team Riccati step goes, on the
-card: each kernel built with one part of its work taken out.
+"""Where the time of the redesigned fused kernels goes, on the card: each
+kernel built with one part of its work taken out.
 
 No profiler that counts a kernel's stalls runs on the card's machine, so
 this script times variants instead.  From ``mmmpc_tpu_torch/csrc`` it
 builds kernel E (``riccati.cu``, its four pairs), kernels D.endpoint,
 D.arm and D.base (``generic_endpoint.cu``, ``generic_arm.cu``,
-``generic_base.cu``) and the team line searches C.endpoint and C.arm
+``generic_base.cu``; D.base one thread a scenario on
+``riccati_step.cuh``) and the team line searches C.endpoint and C.arm
 (``endpoint_fwd``, ``arm_fwd``: ``generic_fwd.cuh`` with those files'
 hooks) once as they are and once for each variant of ``VARIANTS``, the
 part taken out between preprocessor guards that the script writes into a
@@ -17,13 +18,15 @@ copy of the sources (one ``nvcc`` a library, all started together, into
 - ``no_step``: the team step is not run (the stage inputs still stream
   through the buffer): the loads and the barriers alone;
 - ``no_rows``: the row tasks of the step (the Q-block products and the
-  stage's own rows, for the D kernels their expansion) are skipped;
+  stage's own rows, for the team D kernels their expansion) are skipped;
+  for the one-thread D.base, the Q-block products of ``riccati_step.cuh``;
 - ``no_expansion`` (the D kernels): the stage's own rows are not added;
 - ``no_update``: the value update and the symmetrisation are skipped;
 - ``no_fk``, ``no_wedge``, ``no_self`` (D.arm and C.arm): the FK (its
   sincos and algebra), the wedge points, or the self-collision rows are not
   computed (zeros in their place);
-- ``no_circles`` (D.base): the ground circles are not computed;
+- ``no_circles`` (D.base, one thread a scenario on ``riccati_step.cuh``
+  with its stage buffer): the ground circles are not computed;
 - ``no_ground``, ``no_forms`` (C.endpoint): the ground circles, or the R
   and W forms, are not computed; ``no_phr`` (C.endpoint and C.arm): the
   stage's PHR rows.
@@ -118,9 +121,18 @@ GUARDS = (
     ("generic_arm.cu",
      "    const float pen = phr_rows<T, NC>(rt, v, lam, SC, mu, lane);\n",
      None, "NO_PHR", "    const float pen = 0.f;\n"),
+    # D.base: the one-thread kernel on riccati_step.cuh
+    ("riccati_step.cuh", "  // ---- Q blocks of the next value function.",
+     "  // ---- + the stage's own blocks", "NO_ROWS"),
+    ("riccati_step.cuh", "  add_stage();\n", None, "NO_EXPANSION"),
+    ("riccati_step.cuh", "  // ---- value update (Quu without reg):",
+     "}\n\n}  // namespace ric", "NO_UPDATE"),
+    ("generic_bwd.cuh", "    ric::riccati_step<NX, NU>(",
+     "  }\n}\n\n// ---------------- the team kernel", "NO_STEP"),
     ("generic_base.cu",
-     "      sm = ground_team<T>(c, x[0], x[1], lane, sxy);\n", None,
-     "NO_CIRCLES", "      sm = sxy[0] = sxy[1] = 0.f;\n"),
+     "    const float sm = ground_slack(c, c.L.obs, x[0], x[1], "
+     "c.ex(S_RADIUS), sxy);\n", None, "NO_CIRCLES",
+     "    const float sm = 0.f;\n    sxy[0] = sxy[1] = 0.f;\n"),
 )
 LOADS = (("riccati.cu", "  auto issue_stage = [&](int k) {\n"),
          ("generic_bwd.cuh", "  auto issue_stage = [&](int k) {\n"),

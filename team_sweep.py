@@ -1,15 +1,14 @@
 """The kernels on a team of lanes at each team size, on the card.
 
 Kernel E, ``mmmpc_tpu_torch/csrc/riccati.cu``, takes its lanes a scenario
-from one rule, ``ric_team(nx, nu)``; kernels D.endpoint, D.arm and D.base
-(``csrc/generic_endpoint.cu``, ``csrc/generic_arm.cu``,
-``csrc/generic_base.cu``) from their formulation's ``BWD_TEAM``, and
-kernels C.endpoint and C.arm from their formulation's ``FWD_TEAM`` (lanes a
-candidate).  From those sources this script builds, for each team
-size T of ``TEAMS``, a library of each kernel of ``RULES`` (the rule
-replaced by T), one ``nvcc`` a library, all started together, into
-``build/torch_kernels/teams/``, prints each build's ptxas registers and
-spills, and for each T:
+from one rule, ``ric_team(nx, nu)``; kernels D.endpoint and D.arm
+(``csrc/generic_endpoint.cu``, ``csrc/generic_arm.cu``) from their
+formulation's ``BWD_TEAM``, and kernels C.endpoint and C.arm from their
+formulation's ``FWD_TEAM`` (lanes a candidate).  From those sources this
+script builds, for each size T of ``TEAMS``, a library of each kernel of
+``RULES`` (the rule replaced by T), one ``nvcc`` a library, all started
+together, into ``build/torch_kernels/teams/``, prints each build's ptxas
+registers and spills, and for each T:
 
 - E at each pair against its plain version on the Pallas test's random SPD
   blocks (N=4, B=1024) at rtol = atol = 2e-4 (its ``[kernel]`` line), and
@@ -17,16 +16,22 @@ spills, and for each T:
   horizon (CUDA-graph replay of 20 launches, as ``chip_smoke.py``'s
   ``[kernel]``), with the launch geometry and the blocks an SM holds
   (``[team]``);
-- D.endpoint, D.arm, D.base, C.endpoint and C.arm on the inputs of
-  ``chip_smoke.py``'s ``[kernel]`` check of their row at batch 8192,
-  against their plain versions at its tolerances (D.endpoint atol 2e-4,
-  D.base atol 1e-3, rtol 1e-4; D.arm the p99 / float64 form; C X / U atol
-  2e-5, cost rtol = atol 2e-3), and their device time per launch, with the
-  launch geometry (``[team]``).
+- the generic kernels on the inputs of ``chip_smoke.py``'s ``[kernel]``
+  check of their row at batch 8192, against their plain versions at its
+  tolerances (gains rtol 1e-4 with atol 2e-4 for D.endpoint, 1e-3 for
+  D.base; D.arm the p99 / float64 form; C X / U atol 2e-5, cost rtol =
+  atol 2e-3), and their device time per launch, with the launch geometry
+  (``[team]``).
+
+The ``*_1t`` kernels of ``RULES`` are one-thread kernels at T threads a
+block, not lanes: C.arm's and D.base's (the latter also in its stage
+buffer's stride), a control for a redesign.  They run only when ``--only``
+names them, on the sources of ``--csrc DIR`` (the parent's ``csrc``, from
+``git archive``) where the kernel is no longer one thread a scenario.
 
 Needs a CUDA card and ``nvcc``:
 
-    python3 team_sweep.py [--only KERNEL,...] [T ...]
+    python3 team_sweep.py [--only KERNEL,...] [--csrc DIR] [T ...]
 
 (``--only`` takes names of ``RULES``.)  Exits nonzero if a build or a check
 fails.
@@ -49,49 +54,66 @@ from mmmpc_tpu_torch.ops import _cuda  # noqa: E402
 
 OUT = _cuda.BUILD_DIR / "teams"
 TEAMS = (1, 2, 4, 8, 16)
-# each kernel: (its source, the lines of its team rule, their text at team
-# size T, prefix of its C entries)
+_FWD_1T = ("    return {1, 128, static_cast<int>((total + 127) / 128), 0};\n",
+           "    return {{1, {T}, static_cast<int>((total + {T} - 1) / {T}), "
+           "0}};\n")
+# each kernel: (its source, the file that holds its rule, ((the rule's
+# lines, their text at size T), ...): the first pair whose lines the file
+# holds).  The size is the team's lanes, or for a one-thread kernel
+# (``*_1t``) the threads of its block: a control for a redesign, run on the
+# parent's sources (``--csrc``).
 RULES = {
-    "riccati": ("riccati.cu", "  int t = 1;\n"
-                "  while (4 * t < nx + nu && t < 8) t *= 2;\n"
-                "  return t;\n", "  return {T};\n", "ric_"),
-    "endpoint": ("generic_endpoint.cu",
-                 "  static constexpr int BWD_TEAM = 8;\n",
-                 "  static constexpr int BWD_TEAM = {T};\n", "gen_"),
-    "arm": ("generic_arm.cu", "  static constexpr int BWD_TEAM = 4;\n",
-            "  static constexpr int BWD_TEAM = {T};\n", "gen_"),
-    "endpoint_fwd": ("generic_endpoint.cu",
-                     "  static constexpr int FWD_TEAM = 2;\n",
-                     "  static constexpr int FWD_TEAM = {T};\n", "gen_"),
-    "base": ("generic_base.cu", "  static constexpr int BWD_TEAM = 2;\n",
-             "  static constexpr int BWD_TEAM = {T};\n", "gen_"),
-    "arm_fwd": ("generic_arm.cu", "  static constexpr int FWD_TEAM = 2;\n",
-                "  static constexpr int FWD_TEAM = {T};\n", "gen_"),
+    "riccati": ("riccati.cu", "riccati.cu",
+                (("  int t = 1;\n"
+                  "  while (4 * t < nx + nu && t < 8) t *= 2;\n"
+                  "  return t;\n", "  return {T};\n"),)),
+    "endpoint": ("generic_endpoint.cu", "generic_endpoint.cu",
+                 (("  static constexpr int BWD_TEAM = 8;\n",
+                   "  static constexpr int BWD_TEAM = {T};\n"),)),
+    "arm": ("generic_arm.cu", "generic_arm.cu",
+            (("  static constexpr int BWD_TEAM = 4;\n",
+              "  static constexpr int BWD_TEAM = {T};\n"),)),
+    "endpoint_fwd": ("generic_endpoint.cu", "generic_endpoint.cu",
+                     (("  static constexpr int FWD_TEAM = 2;\n",
+                       "  static constexpr int FWD_TEAM = {T};\n"),)),
+    "arm_fwd": ("generic_arm.cu", "generic_arm.cu",
+                (("  static constexpr int FWD_TEAM = 2;\n",
+                  "  static constexpr int FWD_TEAM = {T};\n"),)),
+    "arm_fwd_1t": ("generic_arm.cu", "generic_fwd.cuh", (_FWD_1T,)),
+    "base_1t": ("generic_base.cu", "generic_bwd.cuh",
+                (("constexpr int BWD_THREADS = 128;\n",
+                  "constexpr int BWD_THREADS = {T};\n"),
+                 ("    return {1, 128, (B + 127) / 128, 0};\n",
+                  "    return {{1, {T}, (B + {T} - 1) / {T}, 0}};\n"))),
 }
-# the formulation of each generic kernel (a forward kernel's name ends in
-# _fwd), and the bench row of each formulation
-FORMULATION = {"endpoint": "endpoint", "arm": "arm", "endpoint_fwd": "endpoint",
-               "base": "base", "arm_fwd": "arm"}
+# the formulation of each generic kernel of this script and of
+# team_phases.py (a line search's name holds _fwd), and the bench row of
+# each formulation
+FORMULATION = {"endpoint": "endpoint", "arm": "arm", "base": "base",
+               "endpoint_fwd": "endpoint", "arm_fwd": "arm",
+               "arm_fwd_1t": "arm", "base_1t": "base"}
 ROW = {"endpoint": "wholebody_endpoint", "arm": "arm_only",
        "base": "base_only"}
 
 
-def build(teams, kernels=tuple(RULES)):
-    """One library of each kernel a team size; returns (kernel, T) -> path."""
+def build(teams, kernels=tuple(RULES), csrc=_cuda.CSRC):
+    """One library of each kernel a size, from the sources ``csrc``;
+    returns (kernel, T) -> path."""
     procs = {}
     for kernel in kernels:
-        src_name, rule, variant, _ = RULES[kernel]
+        src_name, rule_file, rules = RULES[kernel]
         for team in teams:
             src_dir = OUT / f"{kernel}_T{team}"
             if src_dir.exists():
                 shutil.rmtree(src_dir)
-            shutil.copytree(_cuda.CSRC, src_dir)
-            src = (src_dir / src_name).read_text()
-            if rule not in src:
-                raise ValueError(f"{src_name}: the team rule is not as "
-                                 f"expected")
-            (src_dir / src_name).write_text(
-                src.replace(rule, variant.format(T=team)))
+            shutil.copytree(csrc, src_dir)
+            text = (src_dir / rule_file).read_text()
+            rule = next((r for r in rules if r[0] in text), None)
+            if rule is None:
+                raise ValueError(f"{rule_file}: the rule of {kernel} is not "
+                                 f"as expected")
+            (src_dir / rule_file).write_text(
+                text.replace(rule[0], rule[1].format(T=team)))
             procs[kernel, team] = subprocess.Popen(
                 [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o",
                  str(OUT / f"lib{kernel}_T{team}.so"), str(src_dir / src_name)],
@@ -111,7 +133,7 @@ def load(kernel, path):
     """The library at ``path`` with the signatures of ``kernel``'s C
     entries that it holds."""
     lib = ctypes.CDLL(str(path))
-    prefix = RULES[kernel][3]
+    prefix = "ric_" if kernel == "riccati" else "gen_"
     for name, argtypes in _cuda.SIGNATURES.items():
         if name.startswith(prefix) and (
                 kernel == "riccati"
@@ -169,7 +191,7 @@ def check_generic(kernel, team, fwd, bwd, fargs, bargs):
     f = FORMULATION[kernel]
     tag = f"{kernel} T={team}"
     lib = _cuda.LIBRARY.lib
-    if kernel.endswith("_fwd"):
+    if "_fwd" in kernel:
         got, ref = fwd.cuda(*fargs), fwd.plain(*fargs)
         torch.cuda.synchronize()
         err = max(chip_smoke._fwd_errors(tag, got, ref))
@@ -199,9 +221,14 @@ def main(argv):
     if not torch.cuda.is_available():
         print("team_sweep: no CUDA card", file=sys.stderr)
         return 1
-    kernels = tuple(RULES)
-    if argv[:1] == ["--only"]:
-        kernels, argv = tuple(argv[1].split(",")), argv[2:]
+    kernels = tuple(k for k in RULES if not k.endswith("_1t"))
+    csrc = _cuda.CSRC
+    while argv[:1] in (["--only"], ["--csrc"]):
+        if argv[0] == "--only":
+            kernels = tuple(argv[1].split(","))
+        else:
+            csrc = Path(argv[1]).resolve()
+        argv = argv[2:]
     teams = [int(a) for a in argv] or list(TEAMS)
     import chip_smoke
     from mmmpc_tpu_torch.ops.riccati import (
@@ -215,7 +242,7 @@ def main(argv):
     print(f"[device] nvidia_smi={smi!r}", flush=True)
     device = torch.device("cuda", 0)
     OUT.mkdir(parents=True, exist_ok=True)
-    libs = build(teams, kernels)
+    libs = build(teams, kernels, csrc)
     rows = {f: row_args(device, f) for f in
             {FORMULATION[k] for k in kernels if k != "riccati"}}
     for kernel in kernels:

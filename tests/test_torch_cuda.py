@@ -107,8 +107,9 @@ def test_cuda_kernel_matches_plain(device, kernel, batch):
 def test_cuda_generic_kernel_matches_plain(device, name, kernel, part):
     """Each generic CUDA kernel instance against its plain version on the
     card, on the whole batch and on its first scenarios, a partial block of
-    the team kernels (C.endpoint, D.arm, D.endpoint): 64 and 37, the arm's
-    backward 1024 and 1000."""
+    the team kernels (C.arm, C.endpoint, D.arm, D.endpoint) and of the
+    one-thread kernels with their stage buffer (D.base, D.demo): 64 and 37,
+    the arm's backward 1024 and 1000."""
     arm_bwd = name == "arm" and kernel == "bwd"
     full = ARM_BATCH if arm_bwd else B
     batch = (ARM_PART if arm_bwd else 37) if part else full

@@ -207,8 +207,9 @@ def test_bwd_launch_geometry_reports_the_library():
     the library's ``gen_bwd_<name>`` launches, as its
     ``gen_bwd_geometry_<name>`` (here a stand-in) writes them: the team
     kernel of the endpoint (8 lanes, 16 scenarios a block) and of the arm
-    (4 lanes, 32 scenarios a block), another formulation's one thread a
-    scenario."""
+    (4 lanes, 32 scenarios a block), the demo's and the base's one thread
+    a scenario (128 a block, their stage buffer in static shared memory, so
+    no dynamic bytes)."""
     from mmmpc_tpu_torch.ops.generic_bwd import launch_geometry
 
     class Library:
@@ -222,9 +223,11 @@ def test_bwd_launch_geometry_reports_the_library():
             out[0], out[1], out[2], out[3] = 4, 128, -(-batch // 32), 8 * n
             return 0
 
-        def gen_bwd_geometry_demo(self, n, n_obs, n_hp, batch, out):
+        def one_thread(self, n, n_obs, n_hp, batch, out):
             out[0], out[1], out[2], out[3] = 1, 128, -(-batch // 128), 0
             return 0
+
+        gen_bwd_geometry_demo = gen_bwd_geometry_base = one_thread
 
     assert launch_geometry(Library(), "endpoint", N, 3, 0, 8191) == dict(
         team=8, threads=128, blocks=512, smem_bytes=4 * N)
@@ -232,6 +235,9 @@ def test_bwd_launch_geometry_reports_the_library():
         team=4, threads=128, blocks=256, smem_bytes=8 * N)
     assert launch_geometry(Library(), "arm", N, 0, 2, 1)["blocks"] == 1
     assert launch_geometry(Library(), "demo", N, 0, 0, 129)["blocks"] == 2
+    assert launch_geometry(Library(), "base", N, 2, 0, 8191) == dict(
+        team=1, threads=128, blocks=64, smem_bytes=0)
+    assert launch_geometry(Library(), "base", N, 2, 0, 1)["blocks"] == 1
 
 
 def test_fwd_launch_geometry_reports_the_library():
@@ -239,9 +245,9 @@ def test_fwd_launch_geometry_reports_the_library():
     lanes a candidate, threads, blocks and shared-memory bytes with which
     the library's ``gen_fwd_<name>`` launches at a batch and a number of
     step sizes, as its ``gen_fwd_geometry_<name>`` (here a stand-in) writes
-    them: the endpoint's team kernel (2 lanes a candidate, so 21 scenarios
-    of 3 candidates a block), the demo's, base's and arm's one thread a
-    candidate."""
+    them: the team kernel of the endpoint and of the arm (2 lanes a
+    candidate, so 21 scenarios of 3 candidates a block), the demo's and
+    base's one thread a candidate."""
     from mmmpc_tpu_torch.ops.generic_fwd import launch_geometry
 
     class Library:
@@ -252,18 +258,26 @@ def test_fwd_launch_geometry_reports_the_library():
             out[0], out[1], out[2], out[3] = 2, 128, -(-batch // scen), 4 * n
             return 0
 
+        def gen_fwd_geometry_arm(self, n, n_obs, n_hp, n_alpha, batch, out):
+            assert (n, n_obs, n_hp) == (N, 0, 2)
+            scen = min(64 // n_alpha, 32)
+            out[0], out[1], out[2], out[3] = 2, 128, -(-batch // scen), 2 * n
+            return 0
+
         def one_thread(self, n, n_obs, n_hp, n_alpha, batch, out):
             out[0], out[1] = 1, 128
             out[2], out[3] = -(-(n_alpha * batch) // 128), 0
             return 0
 
         gen_fwd_geometry_demo = gen_fwd_geometry_base = one_thread
-        gen_fwd_geometry_arm = one_thread
 
     assert launch_geometry(Library(), "endpoint", N, 3, 0, 3, 8192) == dict(
         team=2, threads=128, blocks=391, smem_bytes=4 * N)
     assert launch_geometry(Library(), "endpoint", N, 3, 0, 1, 8191)[
         "blocks"] == 256
-    for name in ("demo", "base", "arm"):
+    assert launch_geometry(Library(), "arm", N, 0, 2, 3, 8192) == dict(
+        team=2, threads=128, blocks=391, smem_bytes=2 * N)
+    assert launch_geometry(Library(), "arm", N, 0, 2, 3, 1)["blocks"] == 1
+    for name in ("demo", "base"):
         assert launch_geometry(Library(), name, N, 0, 2, 3, 8192) == dict(
             team=1, threads=128, blocks=192, smem_bytes=0)
