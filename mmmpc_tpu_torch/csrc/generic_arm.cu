@@ -407,8 +407,9 @@ struct Arm {
   // (values only, the faces in the outer loop), the four self rows (one a
   // lane), the rows of the Q, R and M forms and the PHR rows as items over
   // the lanes.  Lanes a candidate: 2 was the fastest of 1, 2, 4 and 8 at
-  // batch 8192, 0.0537 / 0.0475 / 0.0718 / 0.1225 ms against the one-thread
-  // kernel's 0.066 (H100 80GB HBM3, 700.00 W; PERF.md), as for C.endpoint.
+  // batch 8192, 0.0537 / 0.0475 / 0.0718 / 0.1225 ms a launch against the
+  // one-thread kernel's 0.0655-0.0669 (N=20; H100 80GB HBM3, 700.00 W;
+  // PERF.md), as for C.endpoint.
   static constexpr int FWD_TEAM = 2;
   // a candidate's vector: x, u, then the errors e, eu, ed and the self
   // rows' values

@@ -7,11 +7,12 @@
 //
 // Both kernels run one thread a scenario (candidate): the line search on
 // generic_fwd.cuh's one-thread kernel (C.base), the fused backward on
-// generic_bwd.cuh's one-thread kernel with its stage buffer (D.base).  On
-// the team Riccati step (BWD_TEAM) D.base ran slower at every team size:
-// 0.0694 / 0.0601 / 0.0573 / 0.0594 ms at 1 / 2 / 4 / 8 lanes a scenario
-// against the one-thread kernel's 0.0375 (N=20, B=8192, H100 80GB HBM3,
-// 700.00 W; team_sweep.py at 3322bab, PERF.md).
+// generic_bwd.cuh's one-thread kernel with its stage buffer (D.base), its
+// circles' gradient without divisions (ground_slack): 0.0292 ms a launch
+// against 0.0377 before both.  On the team Riccati step (BWD_TEAM) D.base
+// ran slower at every team size: 0.0694 / 0.0601 / 0.0573 / 0.0594 ms at
+// 1 / 2 / 4 / 8 lanes a scenario (N=20, B=8192; H100 80GB HBM3, 700.00 W;
+// PERF.md).
 #include "generic_bwd.cuh"
 #include "generic_fwd.cuh"
 

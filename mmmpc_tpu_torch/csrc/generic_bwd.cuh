@@ -39,11 +39,11 @@
 // threads at the bench batch of 8192) does not: blocks of 64 or 32 threads
 // ran as fast (PERF.md).  Its stage inputs x_k, u_k, lam_k come through a
 // two-stage buffer in shared memory, each thread's own column, filled by
-// cp.async one stage ahead, so their loads leave the chain: D.base 0.0375
-// -> 0.0328 ms, D.demo 0.0145 -> 0.0075 (H100 80GB HBM3, 700 W).  D.base
-// stays here, not on the team kernel: on the team step it ran 0.055-0.069
-// ms at 1, 2, 4 or 8 lanes a scenario, for a (6, 2) step the exchange
-// costs more than the lanes save (PERF.md).
+// cp.async one stage ahead, so their loads leave the chain: D.base 0.0377
+// -> 0.0324 ms a launch, D.demo 0.0142 -> 0.0073 (N=20, B=8192; H100 80GB
+// HBM3, 700.00 W; PERF.md).  D.base stays here, not on the team kernel: on
+// the team step it ran 0.0573-0.0694 ms at 1, 2, 4 or 8 lanes a scenario;
+// for a (6, 2) step the exchange costs more than the lanes save.
 #pragma once
 
 #include <type_traits>

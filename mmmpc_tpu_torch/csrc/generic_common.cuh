@@ -170,7 +170,12 @@ __device__ __forceinline__ void max_acc_team(wb::MaxAcc<NV>& m) {
 
 // relu(max) of the ground circles (r_obs + radius) - |(px, py) - obs| over
 // the n_obs rows [x, y, r] at offset off; with sxy, also its (px, py)
-// gradient with the even tie split of the VJP of jnp.max.
+// gradient with the even tie split of the VJP of jnp.max.  The gradient
+// keeps divisions off D.base's chain, which they held for 10% of its time
+// on the H100 (PERF.md): a circle's -(px, py - obs) / |.| takes rsqrtf
+// beside the exact root of the value, and the split's scale
+// MaxAcc::grad_scale multiplies by a correctly rounded reciprocal, which
+// gives its quotient's bits (live is 0, 1/2 or 1).
 template <class C>
 __device__ __forceinline__ float ground_slack(const C& c, int off, float px,
                                               float py, float radius,
@@ -180,12 +185,15 @@ __device__ __forceinline__ float ground_slack(const C& c, int off, float px,
   for (int o = 0; o < c.n_obs; ++o) {
     const float dx = px - c.p(off + 3 * o);
     const float dy = py - c.p(off + 3 * o + 1);
-    const float d = sqrtf(dx * dx + dy * dy + wb::EPS);
-    const float g[2] = {-dx / d, -dy / d};
+    const float dd = dx * dx + dy * dy + wb::EPS;
+    const float d = sqrtf(dd);
+    const float r = rsqrtf(dd);
+    const float g[2] = {-dx * r, -dy * r};
     m.add((c.p(off + 3 * o + 2) + radius) - d, g);
   }
   if (sxy != nullptr) {
-    const float gs = m.grad_scale();
+    const float live = m.gmax > 0.f ? 1.f : (m.gmax == 0.f ? 0.5f : 0.f);
+    const float gs = m.cnt > 0.f ? live * __frcp_rn(m.cnt) : 0.f;
     sxy[0] = m.gsum[0] * gs;
     sxy[1] = m.gsum[1] * gs;
   }
