@@ -100,7 +100,7 @@ constexpr int BWD_THREADS = 128;
 // orders a thread's copies before its reads and no barrier is needed; a
 // thread past the batch returns at once.
 template <class F>
-__global__ void __launch_bounds__(BWD_THREADS)
+__global__ void __launch_bounds__(BWD_THREADS, 4)
 generic_bwd_kernel(const __grid_constant__ Statics<F> st,
                    const float* __restrict__ pp, const float* __restrict__ X,
                    const float* __restrict__ U, const float* __restrict__ lam,
