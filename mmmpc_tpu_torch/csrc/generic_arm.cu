@@ -57,6 +57,20 @@ struct Arm {
     }
   }
 
+  // Row r of wb::HP_POINTS (a wedge point's weights over the arm points)
+  // and of wb::SELF_DIFF (a self row's), by selects: the teams pick r at
+  // run time.
+  __device__ __forceinline__ static void hp_weights(int r, float (&w)[3]) {
+    w[0] = r == 0 || r == 2 ? 0.5f : (r == 1 ? 1.f : 0.f);
+    w[1] = r == 2 || r == 4 ? 0.5f : (r == 3 ? 1.f : 0.f);
+    w[2] = r == 4 ? 0.5f : (r == 5 ? 1.f : 0.f);
+  }
+  __device__ __forceinline__ static void self_weights(int r, float (&w)[3]) {
+    w[0] = r == 0 ? 0.f : (r == 2 ? 1.f : 0.5f);
+    w[1] = r == 3 ? 0.5f : 0.f;
+    w[2] = -1.f;
+  }
+
   // ---- the team backward (generic_bwd.cuh, generic_bwd_team_kernel):
   // teams of BWD_TEAM lanes a scenario.  The lanes share the stage's
   // expansion: the FK's three sincos (sincos_team), the six wedge points
@@ -124,10 +138,7 @@ struct Arm {
 #pragma unroll
     for (int rr = 0; rr < RP; ++rr) {
       const int r = min(rr * T + lane, 5);   // past 5: a copy, not taken
-      // wb::HP_POINTS[r]
-      hw[rr][0] = r == 0 || r == 2 ? 0.5f : (r == 1 ? 1.f : 0.f);
-      hw[rr][1] = r == 2 || r == 4 ? 0.5f : (r == 3 ? 1.f : 0.f);
-      hw[rr][2] = r == 4 ? 0.5f : (r == 5 ? 1.f : 0.f);
+      hp_weights(r, hw[rr]);
       px[rr] = 0.f;
       pz[rr] = 0.f;
 #pragma unroll
@@ -227,8 +238,8 @@ struct Arm {
 #pragma unroll
     for (int rr = 0; rr < RS; ++rr) {
       const int r = min(rr * T + lane, 3);
-      // wb::SELF_DIFF[r]
-      const float dw[3] = {r == 0 ? 0.f : (r == 2 ? 1.f : 0.5f), r == 3 ? 0.5f : 0.f, -1.f};
+      float dw[3];
+      self_weights(r, dw);
       float vx = 0.f, vz = 0.f;
 #pragma unroll
       for (int p = 0; p < 3; ++p) {
@@ -456,10 +467,8 @@ struct Arm {
 #pragma unroll
       for (int rr = 0; rr < RP; ++rr) {
         const int r = min(rr * T + lane, 5);   // past 5: a copy, not taken
-        // wb::HP_POINTS[r]
-        const float hw[3] = {r == 0 || r == 2 ? 0.5f : (r == 1 ? 1.f : 0.f),
-                             r == 2 || r == 4 ? 0.5f : (r == 3 ? 1.f : 0.f),
-                             r == 4 ? 0.5f : (r == 5 ? 1.f : 0.f)};
+        float hw[3];
+        hp_weights(r, hw);
         px[rr] = 0.f;
         pz[rr] = 0.f;
 #pragma unroll
@@ -504,8 +513,8 @@ struct Arm {
     for (int rr = 0; rr < (4 + T - 1) / T; ++rr) {
       const int r = rr * T + lane;
       const int rc = min(r, 3);
-      // wb::SELF_DIFF[rc]
-      const float dw[3] = {rc == 0 ? 0.f : (rc == 2 ? 1.f : 0.5f), rc == 3 ? 0.5f : 0.f, -1.f};
+      float dw[3];
+      self_weights(rc, dw);
       float vx = 0.f, vz = 0.f;
 #pragma unroll
       for (int p = 0; p < 3; ++p) {
