@@ -35,8 +35,8 @@ Phases, each reported on its own lines; any failure exits nonzero:
    call and the plain version's (CUDA events), and the least time the card
    could take (bytes moved over 3.35 TB/s against operations over the
    published 67 TFLOP/s float32, and over the measured peak); kernels A,
-   B, C.arm, C.endpoint, D.base, D.arm, D.endpoint and E (at (9, 5) on
-   the qref blocks, at (4, 2) on the SPD blocks) also at the ragged
+   B, C (each formulation's), D.base, D.arm, D.endpoint and E (at (9, 5)
+   on the qref blocks, at (4, 2) on the SPD blocks) also at the ragged
    batches 8191, 1000 and 1 against their plain versions, with their
    launch geometry (``[kernel-batch]``; E's with the blocks an SM holds);
    kernel E also at (nx, nu) = (4, 2), which the
@@ -119,9 +119,9 @@ ROWS = {"demo_1d": "demo", "base_only": "base", "arm_only": "arm",
         "wholebody_endpoint": "endpoint"}
 GENERIC = tuple(ROWS.values())
 # the formulations whose line search (C) and fused backward (D) run on the
-# team kernels of generic_fwd.cuh / generic_bwd.cuh; the others run one
-# thread a candidate or a scenario
-FWD_TEAMS = ("arm", "endpoint")
+# team kernels of generic_fwd.cuh / generic_bwd.cuh; the others (C.demo,
+# D.demo, D.base) run one thread a candidate or a scenario
+FWD_TEAMS = ("base", "arm", "endpoint")
 BWD_TEAMS = ("arm", "endpoint")
 # (nx, nu) of each generic formulation: its Riccati sweep instance
 DIMS = {"demo": (2, 1), "base": (6, 2), "arm": (3, 3), "endpoint": (9, 5)}
@@ -591,13 +591,14 @@ def check_generic(device, peak, kinds):
                               lambda g, r, bargs=bargs, check=bwd_check:
                               check(g, r, bargs), peak, kinds))
         form = bwd.form
-        # the redesigned kernels at ragged batches (D.base: its stage buffer)
+        # the redesigned kernels at ragged batches (D.base: its stage
+        # buffer; every C)
         if f in (*BWD_TEAMS, "base") and "generic_bwd" in kinds:
             check_batches(
                 f"generic_bwd.{f}", bwd.cuda, bwd.plain, bargs, bwd_check,
                 lambda n, f=f, form=form: gen_bwd_geometry(
                     LIBRARY.get(), f, N, form.n_obs, form.n_hp, n))
-        if f in FWD_TEAMS and "generic_fwd" in kinds:
+        if "generic_fwd" in kinds:
             check_batches(
                 f"generic_fwd.{f}", fwd.cuda, fwd.plain, fargs,
                 lambda g, r, a, f=f: max(_fwd_errors(f"generic_fwd.{f}", g,

@@ -5,14 +5,14 @@
 // terminal.  Hooks of mmmpc_tpu/controllers/base.py::lanes_fwd_factory /
 // lanes_bwd_factory.
 //
-// Both kernels run one thread a scenario (candidate): the line search on
-// generic_fwd.cuh's one-thread kernel (C.base), the fused backward on
-// generic_bwd.cuh's one-thread kernel with its stage buffer (D.base), its
-// circles' gradient without divisions (ground_slack): 0.0292 ms a launch
-// against 0.0377 before both.  On the team Riccati step (BWD_TEAM) D.base
-// ran slower at every team size: 0.0694 / 0.0601 / 0.0573 / 0.0594 ms at
-// 1 / 2 / 4 / 8 lanes a scenario (N=20, B=8192; H100 80GB HBM3, 700.00 W;
-// PERF.md).
+// The line search (C.base) runs generic_fwd.cuh's team kernel at FWD_TEAM
+// lanes a candidate: 0.0360 ms a launch against 0.0528 for the one-thread
+// kernel it replaced.  The fused backward (D.base) runs generic_bwd.cuh's
+// one-thread kernel with its stage buffer, its circles' gradient without
+// divisions (ground_slack): 0.0292 ms a launch against 0.0377 before both.
+// On the team Riccati step (BWD_TEAM) D.base ran slower at every team
+// size: 0.0694 / 0.0601 / 0.0573 / 0.0594 ms at 1 / 2 / 4 / 8 lanes a
+// scenario (N=20, B=8192; H100 80GB HBM3, 700.00 W; PERF.md).
 #include "generic_bwd.cuh"
 #include "generic_fwd.cuh"
 
@@ -45,45 +45,6 @@ struct Base {
 #pragma unroll
     for (int i = 0; i < NX; ++i) e[i] = x[i] - c.p(c.L.xref + row * NX + i);
     e[2] = wrap_pi(e[2]);
-  }
-  // box rows [v - hi (5), lo - v (5)] of v = x[BOX]
-  template <class C>
-  __device__ static void box_rows(const float* x, const C& c, float* g) {
-#pragma unroll
-    for (int r = 0; r < 5; ++r) {
-      g[r] = x[box(r)] - c.ex(S_XHI + r);
-      g[5 + r] = c.ex(S_XLO + r) - x[box(r)];
-    }
-  }
-
-  // ---- forward hooks
-  template <class C>
-  __device__ static void dyn(const float* x, const float* u, const C& c, float* xn) {
-    float s, co;
-    sincosf(x[2], &s, &co);
-    xn[0] = x[0] + c.dt * x[3];
-    xn[1] = x[1] + c.dt * x[4];
-    xn[2] = x[2] + c.dt * x[5];
-    xn[3] = x[3] + c.dt * (u[0] * co - x[4] * x[5]);
-    xn[4] = x[4] + c.dt * (u[0] * s + x[3] * x[5]);
-    xn[5] = x[5] + c.dt * u[1];
-  }
-  template <class C>
-  __device__ static float stage(const float* x, const float* u, int k, const C& c, float* g) {
-    float e[NX];
-    state_err(x, c, k, e);
-    const float eu[2] = {u[0] - c.p(c.L.uref + k * NU), u[1] - c.p(c.L.uref + k * NU + 1)};
-    const float sm = ground_slack(c, c.L.obs, x[0], x[1], c.ex(S_RADIUS), nullptr);
-    box_rows(x, c, g);
-    return qform<NX>(c, c.L.Q, e) + qform<NU>(c, c.L.R, eu) + c.p(c.L.M) * sm * sm;
-  }
-  template <class C>
-  __device__ static float terminal(const float* x, const C& c, float* gt) {
-    float e[NX];
-    state_err(x, c, c.N, e);
-    const float sm = ground_slack(c, c.L.obs, x[0], x[1], c.ex(S_RADIUS), nullptr);
-    box_rows(x, c, gt);
-    return qform<NX>(c, c.L.P, e) + c.p(c.L.M) * sm * sm;
   }
 
   // ---- backward hooks: base_step's Jacobians (models/base.py::base_jacobians)
@@ -162,6 +123,82 @@ struct Base {
   __device__ static void term_quad(const float* x, const C& c, Q& q) {
     tracking(x, c, c.N, c.L.P, q);
     box_quad(x, c, q);
+  }
+
+  // ---- the team line search (generic_fwd.cuh, generic_fwd_team_kernel):
+  // teams of FWD_TEAM lanes a candidate.  The step x + dt f(x, u) with its
+  // sincos in every lane; the ground circles (values only, one a lane), the
+  // rows of the Q and R forms and the PHR rows as items over the lanes.
+  // Lanes a candidate: 2 was the fastest of 1, 2, 4 and 8 at batch 8192,
+  // 0.0410 / 0.0364 / 0.0617 / 0.0884 ms a launch against the one-thread
+  // kernel's 0.0495-0.0530 at 128, 64 and 32 threads a block (N=20; H100
+  // 80GB HBM3, 700.00 W; PERF.md).  The stage's loads hide behind it; its
+  // circles, forms and PHR rows take 0.002-0.003 ms each.
+  static constexpr int FWD_TEAM = 2;
+  // a candidate's vector: x, u, then the errors e, eu
+  enum : int { FV_E = NX + NU, FV_EU = FV_E + NX, FWD_NV = (FV_EU + NU) | 1 };
+  // the stage rows' table, then the terminal rows'
+  static constexpr int FWD_ROWS = 4 * (NC + NCT);
+
+  // The PHR row tables: {bound, sign, live, vector index} of the box rows
+  // [v - hi (5), lo - v (5)] of v = x[box], at the stages and the terminal.
+  __device__ static void fwd_team_rows(const float* sv, float* rt) {
+    const float* ex = sv + Statics<Base>::EXTRA;
+#pragma unroll
+    for (int r = 0; r < NC + NCT; ++r) {
+      const int g = r % NC, i = g % 5;
+      const bool hi = g < 5;
+      rt[4 * r] = ex[(hi ? S_XHI : S_XLO) + i];
+      rt[4 * r + 1] = hi ? 1.f : -1.f;
+      rt[4 * r + 2] = 1.f;
+      rt[4 * r + 3] = __int_as_float(box(i));
+    }
+  }
+
+  // The error of x against reference row `row` into the team's vector and
+  // the lane's share of M relu(max g)^2 (lane 0) and of the form e^T W e.
+  template <int T, class C>
+  __device__ static float track_team(const float* x, int row, int W, const C& c, float* v,
+                                     int lane) {
+    float e[NX];
+    state_err(x, c, row, e);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) v[FV_E + i] = e[i];
+    const float sm = ground_value_team<T>(c, c.L.obs, x[0], x[1], c.ex(S_RADIUS), lane);
+    const float tr = lane == 0 ? c.p(c.L.M) * sm * sm : 0.f;
+    return tr + qform_rows<T, NX>(c, W, e, v + FV_E, lane);
+  }
+
+  template <int T, class C>
+  __device__ static float fwd_team_stage(const float* x, const float* u, int k, const C& c,
+                                         float* v, const float* rt, const float* lam, int SC,
+                                         float mu, int lane, float* xn) {
+    float sn, cs;
+    sincosf(x[2], &sn, &cs);
+    xn[0] = x[0] + c.dt * x[3];
+    xn[1] = x[1] + c.dt * x[4];
+    xn[2] = x[2] + c.dt * x[5];
+    xn[3] = x[3] + c.dt * (u[0] * cs - x[4] * x[5]);
+    xn[4] = x[4] + c.dt * (u[0] * sn + x[3] * x[5]);
+    xn[5] = x[5] + c.dt * u[1];
+    float eu[NU];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      eu[i] = u[i] - c.p(c.L.uref + k * NU + i);
+      v[FV_EU + i] = eu[i];
+    }
+    float tr = track_team<T>(x, k, c.L.Q, c, v, lane);
+    tr += qform_rows<T, NU>(c, c.L.R, eu, v + FV_EU, lane);
+    const float pen = phr_rows<T, NC>(rt, v, lam, SC, mu, lane);
+    return c.inv_scale * tr + pen * (0.5f / mu);
+  }
+
+  template <int T, class C>
+  __device__ static float fwd_team_terminal(const float* x, const C& c, float* v, const float* rt,
+                                            const float* lamt, int SC, float mu, int lane) {
+    const float tr = track_team<T>(x, c.N, c.L.P, c, v, lane);
+    const float pen = phr_rows<T, NCT>(rt + 4 * NC, v, lamt, SC, mu, lane);
+    return c.inv_scale * tr + pen * (0.5f / mu);
   }
 };
 

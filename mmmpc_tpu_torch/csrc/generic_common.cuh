@@ -8,13 +8,14 @@
 //   enum { ..., N_EXTRA };                      // its own statics
 //   struct Layout { ..., size; };               // offsets in the packed buffer
 //   __host__ __device__ static Layout layout(int N, int n_obs, int n_hp);
-// plus the forward hooks (dyn, stage, terminal; generic_fwd.cuh) and the
-// backward hooks (a_nz, b_nz, dyn_jac, stage_quad, term_quad;
-// generic_bwd.cuh) of the one-thread kernels.  A formulation that declares
-// BWD_TEAM supplies a_nz, b_nz, dyn_jac and the team hooks team_term and
-// team_rows in place of stage_quad and term_quad; one that declares
-// FWD_TEAM supplies the team line search's hooks (fwd_team_rows,
-// fwd_team_stage, fwd_team_terminal) in place of dyn, stage and terminal.
+// plus FWD_TEAM, the line search's lanes a candidate, and the hooks of its
+// kernel (generic_fwd.cuh): with FWD_TEAM = 0 the one-thread kernel's dyn,
+// stage and terminal, else the team kernel's fwd_team_rows, fwd_team_stage
+// and fwd_team_terminal; and the backward hooks (a_nz, b_nz, dyn_jac,
+// stage_quad, term_quad; generic_bwd.cuh) of the one-thread backward
+// kernel.  A formulation that declares BWD_TEAM supplies a_nz, b_nz,
+// dyn_jac and the team hooks team_term and team_rows in place of
+// stage_quad and term_quad.
 // Its Python twin (controllers/<name>.py) writes the packed buffer and the
 // extra statics in the same order; every launch checks both sizes against
 // gen_params_size_<name>() / gen_statics_size_<name>().
@@ -169,13 +170,13 @@ __device__ __forceinline__ void max_acc_team(wb::MaxAcc<NV>& m) {
 }
 
 // relu(max) of the ground circles (r_obs + radius) - |(px, py) - obs| over
-// the n_obs rows [x, y, r] at offset off; with sxy, also its (px, py)
-// gradient with the even tie split of the VJP of jnp.max.  The gradient
-// keeps divisions off D.base's chain, which they held for 10% of its time
-// on the H100 (PERF.md): a circle's -(px, py - obs) / |.| takes rsqrtf
-// beside the exact root of the value, and the split's scale
-// MaxAcc::grad_scale multiplies by a correctly rounded reciprocal, which
-// gives its quotient's bits (live is 0, 1/2 or 1).
+// the n_obs rows [x, y, r] at offset off, and its (px, py) gradient sxy
+// with the even tie split of the VJP of jnp.max.  The gradient keeps
+// divisions off D.base's chain, which they held for 10% of its time on the
+// H100 (PERF.md): a circle's -(px, py - obs) / |.| takes rsqrtf beside the
+// exact root of the value, and the split's scale MaxAcc::grad_scale
+// multiplies by a correctly rounded reciprocal, which gives its quotient's
+// bits (live is 0, 1/2 or 1).
 template <class C>
 __device__ __forceinline__ float ground_slack(const C& c, int off, float px,
                                               float py, float radius,
@@ -191,13 +192,37 @@ __device__ __forceinline__ float ground_slack(const C& c, int off, float px,
     const float g[2] = {-dx * r, -dy * r};
     m.add((c.p(off + 3 * o + 2) + radius) - d, g);
   }
-  if (sxy != nullptr) {
-    const float live = m.gmax > 0.f ? 1.f : (m.gmax == 0.f ? 0.5f : 0.f);
-    const float gs = m.cnt > 0.f ? live * __frcp_rn(m.cnt) : 0.f;
-    sxy[0] = m.gsum[0] * gs;
-    sxy[1] = m.gsum[1] * gs;
-  }
+  const float live = m.gmax > 0.f ? 1.f : (m.gmax == 0.f ? 0.5f : 0.f);
+  const float gs = m.cnt > 0.f ? live * __frcp_rn(m.cnt) : 0.f;
+  sxy[0] = m.gsum[0] * gs;
+  sxy[1] = m.gsum[1] * gs;
   return m.smax();
+}
+
+// The value of ground_slack over the T lanes of a team (the team line
+// searches): circle o on lane o % T, each lane's max merged by a butterfly
+// of shuffles when there is more than one circle (NaN stays NaN).  Lane 0
+// ends with it; every lane does where there is more than one circle.
+template <int T, class C>
+__device__ __forceinline__ float ground_value_team(const C& c, int off, float px,
+                                                   float py, float radius,
+                                                   int lane) {
+  float m = -INFINITY;
+  for (int o = lane; o < c.n_obs; o += T) {
+    const float dx = px - c.p(off + 3 * o);
+    const float dy = py - c.p(off + 3 * o + 1);
+    const float d = sqrtf(dx * dx + dy * dy + wb::EPS);
+    const float v = (c.p(off + 3 * o + 2) + radius) - d;
+    m = (v > m || isnan(v)) ? v : m;
+  }
+  if (c.n_obs > 1) {
+#pragma unroll
+    for (int step = 1; step < T; step <<= 1) {
+      const float v = __shfl_xor_sync(TEAM_FULL, m, step, T);
+      m = (v > m || isnan(v)) ? v : m;
+    }
+  }
+  return m < 0.f ? 0.f : m;
 }
 
 }  // namespace gen

@@ -434,26 +434,6 @@ struct Endpoint {
     pe[2] = aze + BZ;
   }
 
-  // relu(max) of the ground circles over the lanes of the team (values
-  // only; NaN stays NaN); every lane ends with it.
-  template <int T, class C>
-  __device__ static float ground_team(const C& c, float px, float py, int lane) {
-    float m = -INFINITY;
-    for (int o = lane; o < c.n_obs; o += T) {
-      const float dx = px - c.p(c.L.obs + 3 * o);
-      const float dy = py - c.p(c.L.obs + 3 * o + 1);
-      const float d = sqrtf(dx * dx + dy * dy + wb::EPS);
-      const float v = (c.p(c.L.obs + 3 * o + 2) + c.ex(S_RADIUS)) - d;
-      m = (v > m || isnan(v)) ? v : m;
-    }
-#pragma unroll
-    for (int off = 1; off < T; off <<= 1) {
-      const float v = __shfl_xor_sync(TEAM_FULL, m, off, T);
-      m = (v > m || isnan(v)) ? v : m;
-    }
-    return m < 0.f ? 0.f : m;
-  }
-
   // The pose error of x against reference row `row` into the team's vector
   // (then __syncwarp: the vector is complete); the cost share of
   // S relu(max)^2 (lane 0) and of the pose form with weights W; with u,
@@ -471,7 +451,7 @@ struct Endpoint {
 #pragma unroll
     for (int i = 0; i < 4; ++i) v[FV_E + i] = e[i];
     __syncwarp();
-    const float sm = ground_team<T>(c, x[0], x[1], lane);
+    const float sm = ground_value_team<T>(c, c.L.obs, x[0], x[1], c.ex(S_RADIUS), lane);
     const float tr = lane == 0 ? c.p(c.L.S) * sm * sm : 0.f;
     return tr + qform_rows<T, 4>(c, W, e, v + FV_E, lane);
   }

@@ -13,38 +13,60 @@
 // -lam^2 / (2 mu), as in the JAX package's core.al_stage.  The plain
 // PyTorch version is ops/generic_fwd.py::plain_fwd.
 //
-// The formulation F supplies, besides the members listed in
-// generic_common.cuh, for the one-thread kernel:
-//   dyn(x, u, c, xn)            x_{k+1}
-//   stage(x, u, k, c, g) -> raw stage cost; writes the NC row values g
-//   terminal(x, c, gt)   -> raw terminal cost; writes the NCT row values gt
-// A formulation with FWD_TEAM supplies the team hooks (listed at the team
-// kernel below) instead of these three.
+// What bounds it on this card: a serial recurrence of N stages (a sincosf
+// and a few dozen dependent FLOPs a stage on the chain, up to a few hundred
+// off it), so the time is that chain's latency and how many chains an SM
+// keeps in flight.  Bytes are small: X, U, kff, K, lam in, the candidates
+// out.
 //
-// What bounds it on this card: one thread runs a serial recurrence of N
-// stages (a few sincosf and a few hundred dependent FLOPs per stage), so the
-// time is that chain's latency; with one thread per (scenario, alpha) the
-// bench shape (B = 8192, 3 step sizes) gives 192 blocks of 128 on 132 SMs.
-// Bytes are small: X, U, kff, K, lam in, the candidates out.
-//
-// Design of the one-thread kernel (demo, base): a loop over the stages
-// inside the thread with x and the running cost in registers; batch-last
-// loads and stores coalesce across the warp; the packed buffer is read
-// through the read-only cache; the statics are a __grid_constant__ kernel
-// argument.  A formulation with FWD_TEAM (arm, endpoint) runs the team
-// kernel below instead, on kernel A's design (wholebody_fwd.cu), which
-// splits the chain's stage over the lanes of a team.
+// Two kernels, chosen by the formulation's FWD_TEAM, both with their stage
+// inputs loaded ahead of the chain by cp.async.  The demo (FWD_TEAM = 0)
+// runs one thread a candidate: its stage is so short that a team's
+// exchanges and barriers cost more than its lanes save (0.0170 ms a launch
+// at 2 lanes, 0.0173 / 0.0241 / 0.0415 at 1 / 4 / 8, against 0.0076 here).
+// The base, the arm and the endpoint run the team kernel at 2 lanes a
+// candidate, each scenario's inputs loaded once for its candidates; the
+// sweeps that chose the sizes are in the hooks' comments.  N=20, B=8192;
+// H100 80GB HBM3, 700.00 W; PERF.md.
 #pragma once
-
-#include <type_traits>
 
 #include "cp_async.cuh"
 #include "generic_common.cuh"
 
 namespace gen {
 
+// One scenario's inputs of a stage, in the stage buffers' element order.
 template <class F>
-__global__ void __launch_bounds__(128)
+struct FwdIn {
+  static constexpr int X = 0;
+  static constexpr int U = X + F::NX;
+  static constexpr int KFF = U + F::NU;
+  static constexpr int K = KFF + F::NU;
+  static constexpr int LAM = K + F::NU * F::NX;
+  static constexpr int SIZE = LAM + F::NC;
+};
+
+// ---------------- the one-thread kernel (FWD_TEAM = 0) ----------------
+//
+// One thread a candidate t = a B + b, 128 threads a block, the stage loop in
+// the thread with x and the running cost in registers; the packed params
+// through the read-only cache, the statics a __grid_constant__ argument.
+// Each thread's stage inputs X_k, U_k, kff_k, K_k, lam_k go by cp.async
+// into its own column of a ring of FWD_RING stages in shared memory,
+// FWD_RING - 1 stages ahead (generic_bwd.cuh's one-thread kernel loads the
+// same way, one stage ahead): a thread reads only what it copied, so no
+// barrier is needed, and a thread past the batch returns at once.  A ring
+// of 8 was the fastest of 2, 3, 4, 6, 8 and 12 for C.demo, 0.0085 / 0.0104
+// / 0.0104 / 0.0080 / 0.0076 / 0.0081 ms a launch (N=20, B=8192; H100 80GB
+// HBM3, 700.00 W; PERF.md); 16 does not fit 48 KB.  F supplies
+//   dyn(x, u, c, xn)            x_{k+1}
+//   stage(x, u, k, c, g) -> raw stage cost; writes the NC row values g
+//   terminal(x, c, gt)   -> raw terminal cost; writes the NCT row values gt
+constexpr int FWD_THREADS = 128;
+constexpr int FWD_RING = 8;
+
+template <class F>
+__global__ void __launch_bounds__(FWD_THREADS)
 generic_fwd_kernel(const __grid_constant__ Statics<F> st,
                    const float* __restrict__ pp, const float* __restrict__ X,
                    const float* __restrict__ U, const float* __restrict__ kff,
@@ -53,34 +75,67 @@ generic_fwd_kernel(const __grid_constant__ Statics<F> st,
                    float* __restrict__ Uc, float* __restrict__ xlast,
                    float* __restrict__ cost, float mu, int N, int B) {
   constexpr int NX = F::NX, NU = F::NU, NC = F::NC, NCT = F::NCT;
+  constexpr int S = FWD_THREADS;   // the ring's stride
+  using In = FwdIn<F>;
   static_assert(F::NE == 0, "the generic kernels take no terminal equality");
+  static_assert(FWD_RING >= 2, "the ring holds the stage read and the next");
+  __shared__ float ring[FWD_RING * In::SIZE * S];
   const int n_alpha = static_cast<int>(st.v[GST_N_ALPHA]);
-  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  const long long t = blockIdx.x * static_cast<long long>(S) + threadIdx.x;
   if (t >= static_cast<long long>(n_alpha) * B) return;
   const int a = static_cast<int>(t / B);
   const int b = static_cast<int>(t % B);
+
+  // rows [0, n) of a batch-last array from row `first` on, into the
+  // thread's column at dst
+  auto copy_rows = [&](float* dst, const float* src, int first, int n) {
+#pragma unroll
+    for (int i = 0; i < n; ++i)
+      wb::cp_async4(dst + i * S, src + static_cast<long long>(first + i) * B + b);
+  };
+  // stage k's inputs into slot k % FWD_RING, one commit group a stage
+  auto issue_stage = [&](int k) {
+    if (k < N) {
+      float* dst = ring + (k % FWD_RING) * In::SIZE * S + threadIdx.x;
+      copy_rows(dst + In::X * S, X, k * NX, NX);
+      copy_rows(dst + In::U * S, U, k * NU, NU);
+      copy_rows(dst + In::KFF * S, kff, k * NU, NU);
+      copy_rows(dst + In::K * S, K, k * NU * NX, NU * NX);
+      copy_rows(dst + In::LAM * S, lam, k * NC, NC);
+    }
+    wb::cp_async_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < FWD_RING - 1; ++k) issue_stage(k);
 
   const Ctx<F> c = make_ctx<F>(st, pp, N);
   const float alpha = st.v[GST_ALPHAS + a];
   const float inv2mu = 0.5f / mu;
 
   float x[NX];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) x[i] = X[i * B + b];
   float acc = 0.f;
-
   for (int k = 0; k < N; ++k) {
+    // stage k has landed; stage k + FWD_RING - 1 goes into the slot that
+    // stage k - 1 has finished with
+    wb::cp_async_wait<FWD_RING - 2>();
+    issue_stage(k + FWD_RING - 1);
+    const float* in = ring + (k % FWD_RING) * In::SIZE * S + threadIdx.x;
+    if (k == 0) {
+#pragma unroll
+      for (int i = 0; i < NX; ++i) x[i] = in[(In::X + i) * S];
+    }
+
     // ---- control: feedforward + feedback, clamped to the input box
     float dxk[NX];
 #pragma unroll
-    for (int j = 0; j < NX; ++j) dxk[j] = x[j] - X[(k * NX + j) * B + b];
+    for (int j = 0; j < NX; ++j) dxk[j] = x[j] - in[(In::X + j) * S];
     float u[NU];
 #pragma unroll
     for (int i = 0; i < NU; ++i) {
       float fb = 0.f;
 #pragma unroll
-      for (int j = 0; j < NX; ++j) fb += K[((k * NU + i) * NX + j) * B + b] * dxk[j];
-      const float v = U[(k * NU + i) * B + b] + alpha * kff[(k * NU + i) * B + b] + fb;
+      for (int j = 0; j < NX; ++j) fb += in[(In::K + i * NX + j) * S] * dxk[j];
+      const float v = in[(In::U + i) * S] + alpha * in[(In::KFF + i) * S] + fb;
       u[i] = clampf(v, st.v[Statics<F>::ULO + i], st.v[Statics<F>::UHI + i]);
     }
 
@@ -90,17 +145,18 @@ generic_fwd_kernel(const __grid_constant__ Statics<F> st,
     float pen = 0.f;
 #pragma unroll
     for (int r = 0; r < NC; ++r) {
-      const float l = lam[(k * NC + r) * B + b];
+      const float l = in[(In::LAM + r) * S];
       const float tr = fmaxf(l + mu * g[r], 0.f);
       pen += tr * tr - l * l;
     }
     acc += c.inv_scale * raw + pen * inv2mu;
 
     // ---- outputs + carry
+    const long long row = static_cast<long long>(k * n_alpha + a);
 #pragma unroll
-    for (int i = 0; i < NX; ++i) Xc[((k * n_alpha + a) * NX + i) * B + b] = x[i];
+    for (int i = 0; i < NX; ++i) Xc[(row * NX + i) * B + b] = x[i];
 #pragma unroll
-    for (int i = 0; i < NU; ++i) Uc[((k * n_alpha + a) * NU + i) * B + b] = u[i];
+    for (int i = 0; i < NU; ++i) Uc[(row * NU + i) * B + b] = u[i];
     float xn[NX];
     F::dyn(x, u, c, xn);
 #pragma unroll
@@ -113,22 +169,22 @@ generic_fwd_kernel(const __grid_constant__ Statics<F> st,
   float pen = 0.f;
 #pragma unroll
   for (int r = 0; r < NCT; ++r) {
-    const float l = lamt[r * B + b];
+    const float l = lamt[r * static_cast<long long>(B) + b];
     const float tr = fmaxf(l + mu * gt[r], 0.f);
     pen += tr * tr - l * l;
   }
   acc += c.inv_scale * rawN + pen * inv2mu;
 
 #pragma unroll
-  for (int i = 0; i < NX; ++i) xlast[(a * NX + i) * B + b] = x[i];
-  cost[a * B + b] = acc;
+  for (int i = 0; i < NX; ++i) xlast[(a * NX + i) * static_cast<long long>(B) + b] = x[i];
+  cost[a * static_cast<long long>(B) + b] = acc;
 }
 
-// ---------------- the team kernel (formulations with FWD_TEAM) ----------------
+// ---------------- the team kernel (FWD_TEAM = T > 0) ----------------
 //
-// A formulation F that declares FWD_TEAM = T runs its line search on the
-// kernel below, after kernel A's design (wholebody_fwd.cu, whose head note
-// says why):
+// A formulation F with FWD_TEAM = T > 0 runs its line search on the kernel
+// below, after kernel A's design (wholebody_fwd.cu, whose head note says
+// why):
 //
 // - A team of T lanes of one warp per candidate, 128 threads a block, at
 //   most 128 registers a thread (__launch_bounds__).  The n_alpha
@@ -149,7 +205,7 @@ generic_fwd_kernel(const __grid_constant__ Statics<F> st,
 //   lane, so every lane holds the same x.
 // - Off the chain, in F's hooks, as items over the lanes: the stage cost's
 //   rows and the PHR rows, each into a partial cost of its lane (masked
-//   rows stay in the sum, as the one-thread kernel keeps them).  The
+//   rows stay in the sum, as the plain version keeps them).  The
 //   partials are summed once, after the terminal cost, by a butterfly whose
 //   every step adds a + b on one side and b + a on the other: every lane
 //   ends with the same bits.
@@ -157,7 +213,8 @@ generic_fwd_kernel(const __grid_constant__ Statics<F> st,
 //   scenario index min(b, B - 1) and only stores are masked, so every
 //   __syncthreads, __syncwarp and shuffle is reached by every thread.
 //
-// F supplies, in place of the one-thread kernel's dyn, stage and terminal:
+// F supplies:
+//   FWD_TEAM                lanes a candidate
 //   FWD_NV                  floats of a team's vector (odd: the teams'
 //                           vectors fall on different banks); x, u first
 //   FWD_ROWS                floats of its PHR row table
@@ -168,16 +225,9 @@ generic_fwd_kernel(const __grid_constant__ Statics<F> st,
 //          and u written, lam[r * SC] the stage's multipliers
 //   fwd_team_terminal<T>(x, c, v, rt, lamt, SC, mu, lane)
 //       -> the lane's share of the terminal AL cost
-// The controls and the states are computed as the one-thread kernel
-// computes them; the cost is summed in another order.
-template <class F, class = void>
-struct FwdTeam {
-  static constexpr int value = 0;
-};
-template <class F>
-struct FwdTeam<F, std::void_t<decltype(F::FWD_TEAM)>> {
-  static constexpr int value = F::FWD_TEAM;
-};
+// The controls and the states take the plain version's order of operations
+// (U + alpha kff + K dx, then F's step); the cost is summed in another
+// order.
 
 constexpr int FWD_TEAM_THREADS = 128;
 // The most scenarios a block holds: the stride of the stage buffer.
@@ -189,17 +239,6 @@ __host__ __device__ constexpr int fwd_scen(int team, int n_alpha) {
   return (FWD_TEAM_THREADS / team) / n_alpha < FWD_SCEN
              ? (FWD_TEAM_THREADS / team) / n_alpha : FWD_SCEN;
 }
-
-// One scenario's inputs of a stage, in the buffer's element order.
-template <class F>
-struct FwdIn {
-  static constexpr int X = 0;
-  static constexpr int U = X + F::NX;
-  static constexpr int KFF = U + F::NU;
-  static constexpr int K = KFF + F::NU;
-  static constexpr int LAM = K + F::NU * F::NX;
-  static constexpr int SIZE = LAM + F::NC;
-};
 
 // Offsets (floats) of the parts of a block's shared memory; the row table
 // first, so that its float4 reads are aligned.
@@ -214,7 +253,7 @@ __host__ __device__ inline FwdTeamSmem fwd_team_smem(int N, int n_obs, int n_hp)
   m.rows = o;  o += F::FWD_ROWS;
   m.in = o;    o += 2 * FwdIn<F>::SIZE * FWD_SCEN;
   m.term = o;  o += F::NCT * FWD_SCEN;
-  m.vec = o;   o += 2 * F::FWD_NV * (FWD_TEAM_THREADS / FwdTeam<F>::value);
+  m.vec = o;   o += 2 * F::FWD_NV * (FWD_TEAM_THREADS / F::FWD_TEAM);
   m.sv = o;    o += Statics<F>::SIZE;
   m.ps = o;    o += F::layout(N, n_obs, n_hp).size;
   m.size = o;
@@ -276,7 +315,7 @@ generic_fwd_team_kernel(const __grid_constant__ Statics<F> st,
                         float* __restrict__ xlast, float* __restrict__ cost,
                         float mu, int N, int B) {
   constexpr int NX = F::NX, NU = F::NU, NC = F::NC, NCT = F::NCT;
-  constexpr int T = FwdTeam<F>::value, TEAMS = FWD_TEAM_THREADS / T;
+  constexpr int T = F::FWD_TEAM, TEAMS = FWD_TEAM_THREADS / T;
   constexpr int SC = FWD_SCEN;             // the stage buffer's stride
   constexpr int ROWS = (NU + T - 1) / T;   // control rows a lane
   constexpr int NV = F::FWD_NV, NOUT = NX + NU;
@@ -347,7 +386,7 @@ generic_fwd_team_kernel(const __grid_constant__ Statics<F> st,
   // ---- the params, the terminal multipliers and stage 0 in flight; the
   // statics and the row table meanwhile
   for (int i = tid; i < L.size; i += FWD_TEAM_THREADS) wb::cp_async4(ps + i, pp + i);
-  copy_rows(tb + cs, lamt, 0, NCT);
+  if constexpr (NCT > 0) copy_rows(tb + cs, lamt, 0, NCT);
   issue_stage(0);
   wb::cp_async_commit();
   for (int i = tid; i < Statics<F>::SIZE; i += FWD_TEAM_THREADS) sv[i] = st.v[i];
@@ -435,13 +474,13 @@ struct FwdGeometry {
 
 template <class F>
 FwdGeometry fwd_geometry(int N, int n_obs, int n_hp, int n_alpha, int B) {
-  if constexpr (FwdTeam<F>::value > 0) {
-    const int scen = fwd_scen(FwdTeam<F>::value, n_alpha);
-    return {FwdTeam<F>::value, FWD_TEAM_THREADS, (B + scen - 1) / scen,
+  if constexpr (F::FWD_TEAM > 0) {
+    const int scen = fwd_scen(F::FWD_TEAM, n_alpha);
+    return {F::FWD_TEAM, FWD_TEAM_THREADS, (B + scen - 1) / scen,
             fwd_team_smem<F>(N, n_obs, n_hp).size * 4};
   } else {
     const long long total = static_cast<long long>(n_alpha) * B;
-    return {1, 128, static_cast<int>((total + 127) / 128), 0};
+    return {1, FWD_THREADS, static_cast<int>((total + FWD_THREADS - 1) / FWD_THREADS), 0};
   }
 }
 
@@ -459,11 +498,10 @@ int launch_fwd(const float* statics, const float* params, const float* X,
   const FwdGeometry g = fwd_geometry<F>(
       N, static_cast<int>(st.v[GST_N_OBS]), static_cast<int>(st.v[GST_N_HP]), na, B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (FwdTeam<F>::value > 0) {
+  if constexpr (F::FWD_TEAM > 0) {
     if (g.smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
-          generic_fwd_team_kernel<F>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+          generic_fwd_team_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
     generic_fwd_team_kernel<F><<<g.blocks, g.threads, g.smem, s>>>(

@@ -12,12 +12,12 @@ one pass over the horizon computes
 
 and adds the terminal AL cost, so the returned per-candidate costs are
 complete.  On CUDA tensors the call launches ``gen_fwd_<name>`` of the
-kernel library, the template ``csrc/generic_fwd.cuh`` instantiated with the
-formulation struct of ``csrc/generic_<name>.cu``: the arm's and the
-endpoint's with teams of lanes a candidate, the others one thread a
-candidate; on CPU tensors it
-runs ``plain_fwd``, built from the OCP's own callables.  There is no
-fallback between them.
+kernel library, a kernel of ``csrc/generic_fwd.cuh`` instantiated with the
+formulation struct of ``csrc/generic_<name>.cu`` and chosen by its
+``FWD_TEAM``: the demo's one thread a candidate, the base's, the arm's and
+the endpoint's a team of lanes a candidate (``launch_geometry`` reports the
+launch); on CPU tensors it runs ``plain_fwd``, built from the OCP's own
+callables.  There is no fallback between them.
 
 A controller describes its instance as a ``Formulation``: the C name, the
 packed per-problem buffer's layout and the formulation's own statics (both

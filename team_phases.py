@@ -6,15 +6,16 @@ this script times variants instead.  From ``mmmpc_tpu_torch/csrc`` it
 builds kernel E (``riccati.cu``, its four pairs), kernels D.endpoint,
 D.arm and D.base (``generic_endpoint.cu``, ``generic_arm.cu``,
 ``generic_base.cu``; D.base one thread a scenario on
-``riccati_step.cuh``) and the team line searches C.endpoint and C.arm
-(``endpoint_fwd``, ``arm_fwd``: ``generic_fwd.cuh`` with those files'
-hooks) once as they are and once for each variant of ``VARIANTS``, the
-part taken out between preprocessor guards that the script writes into a
-copy of the sources (one ``nvcc`` a library, all started together, into
-``build/torch_kernels/phases/``):
+``riccati_step.cuh``), the team line searches C.endpoint, C.arm and C.base
+(``endpoint_fwd``, ``arm_fwd``, ``base_fwd``: ``generic_fwd.cuh`` with
+those files' hooks) and the one-thread line search C.demo (``demo_fwd``,
+with its stage ring) once as they are and once for each variant of
+``VARIANTS``, the part taken out between preprocessor guards that the
+script writes into a copy of the sources (one ``nvcc`` a library, all
+started together, into ``build/torch_kernels/phases/``):
 
 - ``no_loads``: the stage inputs are never copied into shared memory (the
-  kernel computes on what the buffer holds): the compute alone;
+  kernel computes on what the buffer or ring holds): the compute alone;
 - ``no_step``: the team step is not run (the stage inputs still stream
   through the buffer): the loads and the barriers alone;
 - ``no_rows``: the row tasks of the step (the Q-block products and the
@@ -27,9 +28,12 @@ copy of the sources (one ``nvcc`` a library, all started together, into
   computed (zeros in their place);
 - ``no_circles`` (D.base, one thread a scenario on ``riccati_step.cuh``
   with its stage buffer): the ground circles are not computed;
-- ``no_ground``, ``no_forms`` (C.endpoint): the ground circles, or the R
-  and W forms, are not computed; ``no_phr`` (C.endpoint and C.arm): the
-  stage's PHR rows.
+- ``no_sincos`` (C.base): the step's sincos is not computed (0 and 1 in
+  its place);
+- ``no_ground`` (C.endpoint, C.base): the ground circles are not computed;
+  ``no_forms``: the stage's quadratic forms are not (C.endpoint's R and W,
+  C.base's Q and R and its terminal's P, C.demo's Q and R); ``no_phr`` (the
+  four line searches): the stage's PHR rows.
 
 A variant's outputs are not the kernel's; only its time is read.  Each is
 timed as ``chip_smoke.py``'s ``[kernel]`` (CUDA-graph replay of 20 launches)
@@ -62,9 +66,9 @@ from mmmpc_tpu_torch.ops import _cuda  # noqa: E402
 OUT = _cuda.BUILD_DIR / "phases"
 # variant -> the kernels it applies to
 VARIANTS = {"full": ("riccati", "endpoint", "arm", "base", "endpoint_fwd",
-                     "arm_fwd"),
+                     "arm_fwd", "base_fwd", "demo_fwd"),
             "no_loads": ("riccati", "endpoint", "arm", "base", "endpoint_fwd",
-                         "arm_fwd"),
+                         "arm_fwd", "base_fwd", "demo_fwd"),
             "no_step": ("riccati", "endpoint", "arm", "base"),
             "no_rows": ("riccati", "endpoint", "arm", "base"),
             "no_expansion": ("endpoint", "arm", "base"),
@@ -73,12 +77,14 @@ VARIANTS = {"full": ("riccati", "endpoint", "arm", "base", "endpoint_fwd",
             "no_wedge": ("arm", "arm_fwd"),
             "no_self": ("arm", "arm_fwd"),
             "no_circles": ("base",),
-            "no_ground": ("endpoint_fwd",),
-            "no_forms": ("endpoint_fwd",),
-            "no_phr": ("endpoint_fwd", "arm_fwd")}
+            "no_sincos": ("base_fwd",),
+            "no_ground": ("endpoint_fwd", "base_fwd"),
+            "no_forms": ("endpoint_fwd", "base_fwd", "demo_fwd"),
+            "no_phr": ("endpoint_fwd", "arm_fwd", "base_fwd", "demo_fwd")}
 SOURCE = {"riccati": "riccati.cu", "endpoint": "generic_endpoint.cu",
           "arm": "generic_arm.cu", "base": "generic_base.cu",
-          "endpoint_fwd": "generic_endpoint.cu", "arm_fwd": "generic_arm.cu"}
+          "endpoint_fwd": "generic_endpoint.cu", "arm_fwd": "generic_arm.cu",
+          "base_fwd": "generic_base.cu", "demo_fwd": "generic_demo.cu"}
 # (file, text the guard starts before, text it ends after or before, macro,
 # and optionally the text in its place); a guard whose end is None takes
 # one statement: the start text itself
@@ -103,8 +109,8 @@ GUARDS = (
      "NO_FK",
      "    for (int i = 0; i < 4; ++i) s[i] = cs[i] = 0.f;\n"),
     ("generic_endpoint.cu",
-     "    const float sm = ground_team<T>(c, x[0], x[1], lane);\n", None,
-     "NO_GROUND", "    const float sm = 0.f;\n"),
+     "    const float sm = ground_value_team<T>(c, c.L.obs, x[0], x[1], "
+     "c.ex(S_RADIUS), lane);\n", None, "NO_GROUND", "    const float sm = 0.f;\n"),
     ("generic_endpoint.cu",
      "    tr += qform_rows<T, NU>(c, c.L.R, eu, v + FV_EU, lane);\n",
      "    const float pen = phr_rows<T, NC>", "NO_FORMS"),
@@ -121,6 +127,28 @@ GUARDS = (
     ("generic_arm.cu",
      "    const float pen = phr_rows<T, NC>(rt, v, lam, SC, mu, lane);\n",
      None, "NO_PHR", "    const float pen = 0.f;\n"),
+    # C.base and C.demo
+    ("generic_base.cu", "    sincosf(x[2], &sn, &cs);\n", None, "NO_SINCOS",
+     "    sn = 0.f;\n    cs = 1.f;\n"),
+    ("generic_base.cu",
+     "    const float sm = ground_value_team<T>(c, c.L.obs, x[0], x[1], "
+     "c.ex(S_RADIUS), lane);\n", None, "NO_GROUND", "    const float sm = 0.f;\n"),
+    ("generic_base.cu",
+     "    return tr + qform_rows<T, NX>(c, W, e, v + FV_E, lane);\n", None,
+     "NO_FORMS", "    return tr;\n"),
+    ("generic_base.cu",
+     "    tr += qform_rows<T, NU>(c, c.L.R, eu, v + FV_EU, lane);\n", None,
+     "NO_FORMS"),
+    ("generic_base.cu",
+     "    const float pen = phr_rows<T, NC>(rt, v, lam, SC, mu, lane);\n",
+     None, "NO_PHR", "    const float pen = 0.f;\n"),
+    ("generic_demo.cu",
+     "    return qform<2>(c, c.L.Q, ex) + qform<1>(c, c.L.R, eu);\n", None,
+     "NO_FORMS", "    return 0.f;\n"),
+    ("generic_fwd.cuh",
+     "    for (int r = 0; r < NC; ++r) {\n"
+     "      const float l = in[(In::LAM + r) * S];\n", "    acc += c.inv_scale",
+     "NO_PHR"),
     # D.base: the one-thread kernel on riccati_step.cuh
     ("riccati_step.cuh", "  // ---- Q blocks of the next value function.",
      "  // ---- + the stage's own blocks", "NO_ROWS"),

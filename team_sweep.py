@@ -3,12 +3,12 @@
 Kernel E, ``mmmpc_tpu_torch/csrc/riccati.cu``, takes its lanes a scenario
 from one rule, ``ric_team(nx, nu)``; kernels D.endpoint and D.arm
 (``csrc/generic_endpoint.cu``, ``csrc/generic_arm.cu``) from their
-formulation's ``BWD_TEAM``, and kernels C.endpoint and C.arm from their
-formulation's ``FWD_TEAM`` (lanes a candidate).  From those sources this
-script builds, for each size T of ``TEAMS``, a library of each kernel of
-``RULES`` (the rule replaced by T), one ``nvcc`` a library, all started
-together, into ``build/torch_kernels/teams/``, prints each build's ptxas
-registers and spills, and for each T:
+formulation's ``BWD_TEAM``, and kernels C.endpoint, C.arm, C.base and
+C.demo from their formulation's ``FWD_TEAM`` (lanes a candidate).  From
+those sources this script builds, for each size T of ``TEAMS``, a library
+of each kernel of ``RULES`` (the rule replaced by T), one ``nvcc`` a
+library, all started together, into ``build/torch_kernels/teams/``,
+prints each build's ptxas registers and spills, and for each T:
 
 - E at each pair against its plain version on the Pallas test's random SPD
   blocks (N=4, B=1024) at rtol = atol = 2e-4 (its ``[kernel]`` line), and
@@ -24,10 +24,14 @@ registers and spills, and for each T:
   (``[team]``).
 
 The ``*_1t`` kernels of ``RULES`` are one-thread kernels at T threads a
-block, not lanes: C.arm's and D.base's (the latter also in its stage
-buffer's stride), a control for a redesign.  They run only when ``--only``
-names them, on the sources of ``--csrc DIR`` (the parent's ``csrc``, from
-``git archive``) where the kernel is no longer one thread a scenario.
+block, not lanes: C.arm's, C.base's, C.demo's and D.base's (the latter
+also in its stage buffer's stride), a control for a redesign.  They run
+only when ``--only`` names them, on the sources of ``--csrc DIR`` (the
+parent's ``csrc``, from ``git archive``) where the kernel is no longer one
+thread a scenario.  ``demo_fwd`` builds C.demo on the team kernel (its
+shipped kernel is the one-thread one), and ``demo_fwd_ring``, run only when
+``--only`` names it, the one-thread C.demo with a ring of T stages (its
+``FWD_RING``; at most 12 fit the 48 KB of static shared memory).
 
 Needs a CUDA card and ``nvcc``:
 
@@ -79,7 +83,18 @@ RULES = {
     "arm_fwd": ("generic_arm.cu", "generic_arm.cu",
                 (("  static constexpr int FWD_TEAM = 2;\n",
                   "  static constexpr int FWD_TEAM = {T};\n"),)),
+    "base_fwd": ("generic_base.cu", "generic_base.cu",
+                 (("  static constexpr int FWD_TEAM = 2;\n",
+                   "  static constexpr int FWD_TEAM = {T};\n"),)),
+    "demo_fwd": ("generic_demo.cu", "generic_demo.cu",
+                 (("  static constexpr int FWD_TEAM = 0;\n",
+                   "  static constexpr int FWD_TEAM = {T};\n"),)),
+    "demo_fwd_ring": ("generic_demo.cu", "generic_fwd.cuh",
+                      (("constexpr int FWD_RING = 8;\n",
+                        "constexpr int FWD_RING = {T};\n"),)),
     "arm_fwd_1t": ("generic_arm.cu", "generic_fwd.cuh", (_FWD_1T,)),
+    "base_fwd_1t": ("generic_base.cu", "generic_fwd.cuh", (_FWD_1T,)),
+    "demo_fwd_1t": ("generic_demo.cu", "generic_fwd.cuh", (_FWD_1T,)),
     "base_1t": ("generic_base.cu", "generic_bwd.cuh",
                 (("constexpr int BWD_THREADS = 128;\n",
                   "constexpr int BWD_THREADS = {T};\n"),
@@ -91,9 +106,11 @@ RULES = {
 # each formulation
 FORMULATION = {"endpoint": "endpoint", "arm": "arm", "base": "base",
                "endpoint_fwd": "endpoint", "arm_fwd": "arm",
-               "arm_fwd_1t": "arm", "base_1t": "base"}
+               "base_fwd": "base", "demo_fwd": "demo", "demo_fwd_ring": "demo",
+               "arm_fwd_1t": "arm", "base_fwd_1t": "base",
+               "demo_fwd_1t": "demo", "base_1t": "base"}
 ROW = {"endpoint": "wholebody_endpoint", "arm": "arm_only",
-       "base": "base_only"}
+       "base": "base_only", "demo": "demo_1d"}
 
 
 def build(teams, kernels=tuple(RULES), csrc=_cuda.CSRC):
@@ -221,7 +238,7 @@ def main(argv):
     if not torch.cuda.is_available():
         print("team_sweep: no CUDA card", file=sys.stderr)
         return 1
-    kernels = tuple(k for k in RULES if not k.endswith("_1t"))
+    kernels = tuple(k for k in RULES if not k.endswith(("_1t", "_ring")))
     csrc = _cuda.CSRC
     while argv[:1] in (["--only"], ["--csrc"]):
         if argv[0] == "--only":

@@ -8,9 +8,10 @@ does), so it runs where the card is, without the repo's ``conftest.py``:
 
 (``chip_smoke.py`` runs that command in a phase of its own.)  The inputs are
 made from seeded numpy by tests/torch_problems.py, whose builders the parity
-tests against the JAX package use too, at small sizes (N=5, batch 64 and a partial block of 37, the arm's
-backward at 1024 and 1000; N=4, batch 64 for the Riccati sweep), at the
-tolerances of those tests:
+tests against the JAX package use too, at small sizes (N=5, batch 64 and a
+partial block of 37, the line searches also at 1, the arm's backward at 1024
+and 1000; N=4, batch 64 for the Riccati sweep), at the tolerances of those
+tests:
 
 - the whole-body qref pair (A, B) on the problem of
   tests/test_torch_kernels.py: X / U atol 2e-5, cost rtol = atol = 2e-3;
@@ -101,18 +102,21 @@ def test_cuda_kernel_matches_plain(device, kernel, batch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("part", [False, True], ids=["all", "part"])
-@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+@pytest.mark.parametrize("kernel, part", [
+    ("fwd", "all"), ("fwd", "part"), ("fwd", "one"), ("bwd", "all"),
+    ("bwd", "part")])
 @pytest.mark.parametrize("name", FORMULATIONS)
 def test_cuda_generic_kernel_matches_plain(device, name, kernel, part):
     """Each generic CUDA kernel instance against its plain version on the
     card, on the whole batch and on its first scenarios, a partial block of
-    the team kernels (C.arm, C.endpoint, D.arm, D.endpoint) and of the
-    one-thread kernels with their stage buffer (D.base, D.demo): 64 and 37,
-    the arm's backward 1024 and 1000."""
+    the team kernels (C.base, C.arm, C.endpoint, D.arm, D.endpoint) and of
+    the one-thread kernels with their stage buffers (C.demo, D.base,
+    D.demo): 64 and 37, the arm's backward 1024 and 1000; the line searches
+    also on one scenario (a team block of one scenario and its idle teams;
+    a one-thread block where all but one thread return)."""
     arm_bwd = name == "arm" and kernel == "bwd"
     full = ARM_BATCH if arm_bwd else B
-    batch = (ARM_PART if arm_bwd else 37) if part else full
+    batch = {"all": full, "part": ARM_PART if arm_bwd else 37, "one": 1}[part]
     mpc, x0_b, U0_b, params = generic_problem(name, full)
     p = params_from_numpy(params, device, torch.float32)
     rng = np.random.default_rng(5)

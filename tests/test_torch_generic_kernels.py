@@ -35,6 +35,7 @@ from mmmpc_tpu.models import robots as robots_j
 from mmmpc_tpu.solver.al_ilqr import build_core, rollout as rollout_j
 from mmmpc_tpu.utils.configs import SolverConfig as SolverConfigJ
 from mmmpc_tpu_torch.ops.generic_bwd import plain_bwd
+from mmmpc_tpu_torch.solver.al_ilqr import rollout
 from mmmpc_tpu_torch.utils.configs import SolverConfig
 from mmmpc_tpu_torch.utils.convert import params_from_numpy
 
@@ -245,39 +246,82 @@ def test_fwd_launch_geometry_reports_the_library():
     lanes a candidate, threads, blocks and shared-memory bytes with which
     the library's ``gen_fwd_<name>`` launches at a batch and a number of
     step sizes, as its ``gen_fwd_geometry_<name>`` (here a stand-in) writes
-    them: the team kernel of the endpoint and of the arm (2 lanes a
-    candidate, so 21 scenarios of 3 candidates a block), the demo's and
-    base's one thread a candidate."""
+    them: the team line search of the base, the arm and the endpoint (2
+    lanes a candidate, so a block of 128 threads holds min((128 / 2) /
+    n_alpha, 32) scenarios), the demo's one thread a candidate (its stage
+    ring in static shared memory, so no dynamic bytes); the demo and the
+    base also at the ragged batches 8191, 1000 and 1 at which chip_smoke.py
+    checks them on the card."""
     from mmmpc_tpu_torch.ops.generic_fwd import launch_geometry
 
+    # packed-buffer floats (a stand-in for the shared bytes) and (n_obs,
+    # n_hp) of each team instance
+    SMEM = {"base": 3 * N, "arm": 2 * N, "endpoint": 4 * N}
+    OBS = {"demo": (0, 0), "base": (2, 0), "arm": (0, 2), "endpoint": (3, 0)}
+
     class Library:
-        def gen_fwd_geometry_endpoint(self, n, n_obs, n_hp, n_alpha, batch,
-                                      out):
-            assert (n, n_obs, n_hp) == (N, 3, 0)
-            scen = min(64 // n_alpha, 32)
-            out[0], out[1], out[2], out[3] = 2, 128, -(-batch // scen), 4 * n
-            return 0
+        def __getattr__(self, entry):
+            name = entry.removeprefix("gen_fwd_geometry_")
 
-        def gen_fwd_geometry_arm(self, n, n_obs, n_hp, n_alpha, batch, out):
-            assert (n, n_obs, n_hp) == (N, 0, 2)
-            scen = min(64 // n_alpha, 32)
-            out[0], out[1], out[2], out[3] = 2, 128, -(-batch // scen), 2 * n
-            return 0
+            def team(n, n_obs, n_hp, n_alpha, batch, out):
+                assert (n, n_obs, n_hp) == (N, *OBS[name])
+                scen = min(64 // n_alpha, 32)
+                out[0], out[1] = 2, 128
+                out[2], out[3] = -(-batch // scen), SMEM[name]
+                return 0
 
-        def one_thread(self, n, n_obs, n_hp, n_alpha, batch, out):
-            out[0], out[1] = 1, 128
-            out[2], out[3] = -(-(n_alpha * batch) // 128), 0
-            return 0
+            def one_thread(n, n_obs, n_hp, n_alpha, batch, out):
+                assert (n, n_obs, n_hp) == (N, *OBS[name])
+                out[0], out[1] = 1, 128
+                out[2], out[3] = -(-(n_alpha * batch) // 128), 0
+                return 0
+            return one_thread if name == "demo" else team
 
-        gen_fwd_geometry_demo = gen_fwd_geometry_base = one_thread
+    for name in ("base", "arm", "endpoint"):
+        assert launch_geometry(Library(), name, N, *OBS[name], 3, 8192) == dict(
+            team=2, threads=128, blocks=391, smem_bytes=SMEM[name])
+        assert launch_geometry(Library(), name, N, *OBS[name], 1, 8191)[
+            "blocks"] == 256
+    assert launch_geometry(Library(), "demo", N, 0, 0, 3, 8192) == dict(
+        team=1, threads=128, blocks=192, smem_bytes=0)
+    for name, blocks in (("demo", [192, 24, 1]), ("base", [391, 48, 1])):
+        assert [launch_geometry(Library(), name, N, *OBS[name], 3, batch)[
+            "blocks"] for batch in (8191, 1000, 1)] == blocks
 
-    assert launch_geometry(Library(), "endpoint", N, 3, 0, 3, 8192) == dict(
-        team=2, threads=128, blocks=391, smem_bytes=4 * N)
-    assert launch_geometry(Library(), "endpoint", N, 3, 0, 1, 8191)[
-        "blocks"] == 256
-    assert launch_geometry(Library(), "arm", N, 0, 2, 3, 8192) == dict(
-        team=2, threads=128, blocks=391, smem_bytes=2 * N)
-    assert launch_geometry(Library(), "arm", N, 0, 2, 3, 1)["blocks"] == 1
-    for name in ("demo", "base"):
-        assert launch_geometry(Library(), name, N, 0, 2, 3, 8192) == dict(
-            team=1, threads=128, blocks=192, smem_bytes=0)
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a, np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_bench_batch(name, batch=8192):
+    """Formulation ``name``'s line search on CPU tensors, its inputs at the
+    bench batch (the problem of tests/torch_problems.py, the inputs as
+    tests/test_torch_cuda.py makes them) and its results there."""
+    mpc, x0_b, U0_b, params = tp.generic_problem(name, batch)
+    p = params_from_numpy(params, "cpu", torch.float32)
+    rng = np.random.default_rng(5)
+    nx, nu = mpc.NX, mpc.NU
+    X, U = rollout(mpc.ocp, _t(x0_b).T, _t(U0_b).permute(1, 2, 0), p)
+    f = mpc.ocp.lanes_fwd_factory(mpc.solver_config, p)
+    args = (X[:-1], U, _t(0.05 * rng.standard_normal((N, nu, batch))),
+            _t(0.05 * rng.standard_normal((N, nu, nx, batch))),
+            _t(np.abs(rng.standard_normal((N, f.form.nc, batch)))),
+            _t(np.abs(rng.standard_normal((f.form.nct, batch)))),
+            _t(np.zeros((0, batch))), 10.0)
+    return f, args, f(*args)
+
+
+@pytest.mark.parametrize("batch", (8191, 1000, 1))
+@pytest.mark.parametrize("name", ("demo", "base"))
+def test_generic_fwd_cpu_at_ragged_batch(name, batch):
+    """The line search's wrapper on CPU tensors at the ragged batches at
+    which chip_smoke.py holds C.demo and C.base on the card: its checks
+    take the first ``batch`` scenarios of the bench batch's inputs, and
+    each scenario's candidates equal its candidates in the whole batch."""
+    f, args, full = _fwd_bench_batch(name)
+    part = f(*(a[..., :batch].contiguous() if torch.is_tensor(a) else a
+               for a in args))
+    for got, ref in zip(part, full):
+        assert got.shape == ref.shape[:-1] + (batch,)
+        torch.testing.assert_close(got, ref[..., :batch])
