@@ -6,10 +6,11 @@
 // lanes_bwd_factory.
 //
 // The line search (C.base) runs generic_fwd.cuh's team kernel at FWD_TEAM
-// lanes a candidate: 0.0360 ms a launch against 0.0528 for the one-thread
-// kernel it replaced.  The fused backward (D.base) runs generic_bwd.cuh's
-// one-thread kernel with its stage buffer, its circles' gradient without
-// divisions (ground_slack): 0.0292 ms a launch against 0.0377 before both.
+// lanes a candidate: 0.0357-0.0360 ms a launch against 0.0529-0.0542 for
+// the one-thread kernel it replaced.  The fused backward (D.base) runs
+// generic_bwd.cuh's one-thread kernel with its stage buffer, its circles'
+// gradient without divisions (ground_slack): 0.0293-0.0296 ms a launch
+// against 0.0379 before both.
 // On the team Riccati step (BWD_TEAM) D.base ran slower at every team
 // size: 0.0694 / 0.0601 / 0.0573 / 0.0594 ms at 1 / 2 / 4 / 8 lanes a
 // scenario (N=20, B=8192; H100 80GB HBM3, 700.00 W; PERF.md).
@@ -130,10 +131,10 @@ struct Base {
   // sincos in every lane; the ground circles (values only, one a lane), the
   // rows of the Q and R forms and the PHR rows as items over the lanes.
   // Lanes a candidate: 2 was the fastest of 1, 2, 4 and 8 at batch 8192,
-  // 0.0410 / 0.0364 / 0.0617 / 0.0884 ms a launch against the one-thread
-  // kernel's 0.0495-0.0530 at 128, 64 and 32 threads a block (N=20; H100
-  // 80GB HBM3, 700.00 W; PERF.md).  The stage's loads hide behind it; its
-  // circles, forms and PHR rows take 0.002-0.003 ms each.
+  // 0.04070 / 0.03621 / 0.06141 / 0.08794 ms a launch against the
+  // one-thread kernel's 0.04838-0.05349 at 128, 64 and 32 threads a block
+  // (N=20; H100 80GB HBM3, 700.00 W; PERF.md).  The stage's loads hide
+  // behind it; its circles, forms and PHR rows take 0.002-0.003 ms each.
   static constexpr int FWD_TEAM = 2;
   // a candidate's vector: x, u, then the errors e, eu
   enum : int { FV_E = NX + NU, FV_EU = FV_E + NX, FWD_NV = (FV_EU + NU) | 1 };

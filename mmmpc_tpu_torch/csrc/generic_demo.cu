@@ -6,7 +6,7 @@
 // Both kernels run one thread a candidate or scenario, each thread's stage
 // inputs loaded ahead by cp.async into its own column of shared memory: the
 // line search (C.demo) on generic_fwd.cuh's one-thread kernel, its inputs
-// FWD_RING - 1 = 7 stages ahead, 0.0076 ms a launch against 0.0109 with its
+// FWD_RING - 1 = 7 stages ahead, 0.00741 ms a launch against 0.0109 with its
 // loads on the chain; the fused backward (D.demo) on generic_bwd.cuh's, one
 // stage ahead (N=20, B=8192; H100 80GB HBM3, 700.00 W; PERF.md).
 #include "generic_bwd.cuh"
@@ -33,12 +33,12 @@ struct Demo {
   }
 
   // ---- the line search, one thread a candidate (generic_fwd.cuh,
-  // generic_fwd_kernel).  On the team kernel (the hooks below) it ran
-  // 0.0173 / 0.0170 / 0.0241 / 0.0415 ms a launch at 1 / 2 / 4 / 8 lanes a
-  // candidate, slower than the one-thread kernel it was to replace (0.0109)
-  // at every size: its stage is a 2 x 2 and a 1 x 1 form and two box rows,
-  // too little work for a team's exchanges, barrier and stores
-  // (N=20, B=8192; H100 80GB HBM3, 700.00 W; PERF.md).
+  // generic_fwd_kernel).  On the team kernel, with hooks of its own, it ran
+  // 0.01721 / 0.01688 / 0.02395 / 0.04117 ms a launch at 1 / 2 / 4 / 8
+  // lanes a candidate, slower at every size than the one-thread kernel it
+  // was to replace (0.0109-0.0111): its stage is a 2 x 2 and a 1 x 1 form
+  // and two box rows, too little work for a team's exchanges, barrier and
+  // stores (N=20, B=8192; H100 80GB HBM3, 700.00 W; PERF.md).
   static constexpr int FWD_TEAM = 0;
   template <class C>
   __device__ static void dyn(const float* x, const float* u, const C& c, float* xn) {
@@ -96,57 +96,6 @@ struct Demo {
 #pragma unroll
       for (int j = 0; j < NX; ++j) q.xx[i][j] += two_s * c.p(c.L.P + i * NX + j);
     }
-  }
-
-  // ---- the team line search's hooks (generic_fwd.cuh,
-  // generic_fwd_team_kernel), built by team_sweep.py with FWD_TEAM = T:
-  // the step in every lane; the rows of the Q and R forms and the two PHR
-  // rows as items over the lanes.
-  // a candidate's vector: x, u, then the errors e, eu
-  enum : int { FV_E = NX + NU, FV_EU = FV_E + NX, FWD_NV = (FV_EU + NU) | 1 };
-  // the stage rows' table (no terminal rows)
-  static constexpr int FWD_ROWS = 4 * (NC + NCT);
-
-  // The PHR row table: {bound, sign, live, vector index} of the velocity
-  // box rows [v - hi, lo - v].
-  __device__ static void fwd_team_rows(const float* sv, float* rt) {
-    const float* ex = sv + Statics<Demo>::EXTRA;
-#pragma unroll
-    for (int r = 0; r < NC; ++r) {
-      rt[4 * r] = ex[r == 0 ? S_VHI : S_VLO];
-      rt[4 * r + 1] = r == 0 ? 1.f : -1.f;
-      rt[4 * r + 2] = 1.f;
-      rt[4 * r + 3] = __int_as_float(1);
-    }
-  }
-
-  template <int T, class C>
-  __device__ static float fwd_team_stage(const float* x, const float* u, int k, const C& c,
-                                         float* v, const float* rt, const float* lam, int SC,
-                                         float mu, int lane, float* xn) {
-    xn[0] = x[0] + c.dt * x[1];
-    xn[1] = x[1] + c.dt * u[0];
-    const float e[NX] = {x[0] - c.p(c.L.xref + k * NX), x[1] - c.p(c.L.xref + k * NX + 1)};
-    const float eu[NU] = {u[0] - c.p(c.L.uref + k)};
-    v[FV_E] = e[0];
-    v[FV_E + 1] = e[1];
-    v[FV_EU] = eu[0];
-    const float tr = qform_rows<T, NX>(c, c.L.Q, e, v + FV_E, lane) +
-                     qform_rows<T, NU>(c, c.L.R, eu, v + FV_EU, lane);
-    const float pen = phr_rows<T, NC>(rt, v, lam, SC, mu, lane);
-    return c.inv_scale * tr + pen * (0.5f / mu);
-  }
-
-  // (NCT = 0: phr_rows<T, 0> adds nothing)
-  template <int T, class C>
-  __device__ static float fwd_team_terminal(const float* x, const C& c, float* v, const float* rt,
-                                            const float* lamt, int SC, float mu, int lane) {
-    const float e[NX] = {x[0] - c.p(c.L.xref + c.N * NX), x[1] - c.p(c.L.xref + c.N * NX + 1)};
-    v[FV_E] = e[0];
-    v[FV_E + 1] = e[1];
-    const float tr = qform_rows<T, NX>(c, c.L.P, e, v + FV_E, lane);
-    const float pen = phr_rows<T, NCT>(rt + 4 * NC, v, lamt, SC, mu, lane);
-    return c.inv_scale * tr + pen * (0.5f / mu);
   }
 };
 

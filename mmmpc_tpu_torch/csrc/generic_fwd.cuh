@@ -22,8 +22,9 @@
 // Two kernels, chosen by the formulation's FWD_TEAM, both with their stage
 // inputs loaded ahead of the chain by cp.async.  The demo (FWD_TEAM = 0)
 // runs one thread a candidate: its stage is so short that a team's
-// exchanges and barriers cost more than its lanes save (0.0170 ms a launch
-// at 2 lanes, 0.0173 / 0.0241 / 0.0415 at 1 / 4 / 8, against 0.0076 here).
+// exchanges and barriers cost more than its lanes save (0.01688 ms a
+// launch at 2 lanes, 0.01721 / 0.02395 / 0.04117 at 1 / 4 / 8, against
+// 0.00741 here).
 // The base, the arm and the endpoint run the team kernel at 2 lanes a
 // candidate, each scenario's inputs loaded once for its candidates; the
 // sweeps that chose the sizes are in the hooks' comments.  N=20, B=8192;
@@ -56,9 +57,10 @@ struct FwdIn {
 // FWD_RING - 1 stages ahead (generic_bwd.cuh's one-thread kernel loads the
 // same way, one stage ahead): a thread reads only what it copied, so no
 // barrier is needed, and a thread past the batch returns at once.  A ring
-// of 8 was the fastest of 2, 3, 4, 6, 8 and 12 for C.demo, 0.0085 / 0.0104
-// / 0.0104 / 0.0080 / 0.0076 / 0.0081 ms a launch (N=20, B=8192; H100 80GB
-// HBM3, 700.00 W; PERF.md); 16 does not fit 48 KB.  F supplies
+// of 8 was the fastest of 2, 3, 4, 6, 8 and 12 for C.demo, 0.008298 /
+// 0.01026 / 0.01024 / 0.007890 / 0.007579 / 0.007991 ms a launch (N=20,
+// B=8192; H100 80GB HBM3, 700.00 W; PERF.md); 16 does not fit 48 KB.  F
+// supplies
 //   dyn(x, u, c, xn)            x_{k+1}
 //   stage(x, u, k, c, g) -> raw stage cost; writes the NC row values g
 //   terminal(x, c, gt)   -> raw terminal cost; writes the NCT row values gt
@@ -386,7 +388,7 @@ generic_fwd_team_kernel(const __grid_constant__ Statics<F> st,
   // ---- the params, the terminal multipliers and stage 0 in flight; the
   // statics and the row table meanwhile
   for (int i = tid; i < L.size; i += FWD_TEAM_THREADS) wb::cp_async4(ps + i, pp + i);
-  if constexpr (NCT > 0) copy_rows(tb + cs, lamt, 0, NCT);
+  copy_rows(tb + cs, lamt, 0, NCT);
   issue_stage(0);
   wb::cp_async_commit();
   for (int i = tid; i < Statics<F>::SIZE; i += FWD_TEAM_THREADS) sv[i] = st.v[i];

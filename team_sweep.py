@@ -3,8 +3,8 @@
 Kernel E, ``mmmpc_tpu_torch/csrc/riccati.cu``, takes its lanes a scenario
 from one rule, ``ric_team(nx, nu)``; kernels D.endpoint and D.arm
 (``csrc/generic_endpoint.cu``, ``csrc/generic_arm.cu``) from their
-formulation's ``BWD_TEAM``, and kernels C.endpoint, C.arm, C.base and
-C.demo from their formulation's ``FWD_TEAM`` (lanes a candidate).  From
+formulation's ``BWD_TEAM``, and kernels C.endpoint, C.arm and C.base
+from their formulation's ``FWD_TEAM`` (lanes a candidate).  From
 those sources this script builds, for each size T of ``TEAMS``, a library
 of each kernel of ``RULES`` (the rule replaced by T), one ``nvcc`` a
 library, all started together, into ``build/torch_kernels/teams/``,
@@ -28,9 +28,8 @@ block, not lanes: C.arm's, C.base's, C.demo's and D.base's (the latter
 also in its stage buffer's stride), a control for a redesign.  They run
 only when ``--only`` names them, on the sources of ``--csrc DIR`` (the
 parent's ``csrc``, from ``git archive``) where the kernel is no longer one
-thread a scenario.  ``demo_fwd`` builds C.demo on the team kernel (its
-shipped kernel is the one-thread one), and ``demo_fwd_ring``, run only when
-``--only`` names it, the one-thread C.demo with a ring of T stages (its
+thread a scenario.  ``demo_fwd_ring``, run only when ``--only`` names it,
+builds C.demo, one thread a candidate, with a ring of T stages (its
 ``FWD_RING``; at most 12 fit the 48 KB of static shared memory).
 
 Needs a CUDA card and ``nvcc``:
@@ -85,9 +84,6 @@ RULES = {
                   "  static constexpr int FWD_TEAM = {T};\n"),)),
     "base_fwd": ("generic_base.cu", "generic_base.cu",
                  (("  static constexpr int FWD_TEAM = 2;\n",
-                   "  static constexpr int FWD_TEAM = {T};\n"),)),
-    "demo_fwd": ("generic_demo.cu", "generic_demo.cu",
-                 (("  static constexpr int FWD_TEAM = 0;\n",
                    "  static constexpr int FWD_TEAM = {T};\n"),)),
     "demo_fwd_ring": ("generic_demo.cu", "generic_fwd.cuh",
                       (("constexpr int FWD_RING = 8;\n",

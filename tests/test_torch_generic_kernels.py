@@ -35,7 +35,6 @@ from mmmpc_tpu.models import robots as robots_j
 from mmmpc_tpu.solver.al_ilqr import build_core, rollout as rollout_j
 from mmmpc_tpu.utils.configs import SolverConfig as SolverConfigJ
 from mmmpc_tpu_torch.ops.generic_bwd import plain_bwd
-from mmmpc_tpu_torch.solver.al_ilqr import rollout
 from mmmpc_tpu_torch.utils.configs import SolverConfig
 from mmmpc_tpu_torch.utils.convert import params_from_numpy
 
@@ -73,8 +72,11 @@ def _bm(a, *perm, dtype=np.float32):
         np.transpose(np.asarray(a, dtype), perm)))
 
 
-@pytest.mark.parametrize("name", FORMULATIONS)
-def test_generic_fwd_plain_matches_jax(name):
+@functools.lru_cache(maxsize=None)
+def _fwd_case(name):
+    """Formulation ``name``'s line-search inputs at batch B, batch-major
+    (X[:, :-1] with x0 first, U, kff, K, lam, lam_t, lam_e), and the JAX
+    package's candidates on them (X, U, cost over (alpha, batch))."""
     mpc_j, mpc_t, x0_b, U0_b, p_j, p_t = make_problem(name)
     pj, X, Uc = _jax_rollout(mpc_j, x0_b, U0_b, p_j, F32)
     nx, nu = mpc_t.NX, mpc_t.NU
@@ -93,21 +95,47 @@ def test_generic_fwd_plain_matches_jax(name):
     Xr, Ur, cr = jax.jit(jax.vmap(lambda a: fwd_b(
         X[:, 0], X, Uc, kff, K, a, (lam, lam_t, lam_e),
         jnp.asarray(10.0, F32))))(alphas)
+    return (mpc_t, p_t, (np.array(X[:, :-1]), np.array(Uc), kff, K, lam,
+                         lam_t, lam_e),
+            (np.asarray(Xr), np.asarray(Ur), np.asarray(cr)))
 
+
+def _check_fwd(name, batch):
+    """The port's line search on the first ``batch`` scenarios of
+    ``_fwd_case(name)`` against the JAX package's candidates there."""
+    mpc_t, p_t, (X, Uc, kff, K, lam, lam_t, lam_e), (Xr, Ur, cr) = \
+        _fwd_case(name)
+    X, Uc, kff, K, lam, lam_t, lam_e = (
+        a[:batch] for a in (X, Uc, kff, K, lam, lam_t, lam_e))
+    Xr, Ur, cr = Xr[:, :batch], Ur[:, :batch], cr[:, :batch]
     fwd = mpc_t.ocp.lanes_fwd_factory(
         mpc_t.solver_config, params_from_numpy(p_t, "cpu", torch.float32))
-    Xc, Uc_t, xlast, cc = fwd(_bm(X[:, :-1], 1, 2, 0), _bm(Uc, 1, 2, 0),
+    Xc, Uc_t, xlast, cc = fwd(_bm(X, 1, 2, 0), _bm(Uc, 1, 2, 0),
                               _bm(kff, 1, 2, 0), _bm(K, 1, 2, 3, 0),
                               _bm(lam, 1, 2, 0), _bm(lam_t, 1, 0),
                               _bm(lam_e, 1, 0), 10.0)
     np.testing.assert_allclose(Xc.permute(1, 3, 0, 2).numpy(),
-                               np.asarray(Xr[:, :, :-1]), atol=2e-5)
+                               Xr[:, :, :-1], atol=2e-5)
     np.testing.assert_allclose(xlast.permute(0, 2, 1).numpy(),
-                               np.asarray(Xr[:, :, -1]), atol=2e-5)
-    np.testing.assert_allclose(Uc_t.permute(1, 3, 0, 2).numpy(),
-                               np.asarray(Ur), atol=2e-5)
-    np.testing.assert_allclose(cc.numpy(), np.asarray(cr), rtol=2e-3,
-                               atol=2e-3)
+                               Xr[:, :, -1], atol=2e-5)
+    np.testing.assert_allclose(Uc_t.permute(1, 3, 0, 2).numpy(), Ur,
+                               atol=2e-5)
+    np.testing.assert_allclose(cc.numpy(), cr, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("name", FORMULATIONS)
+def test_generic_fwd_plain_matches_jax(name):
+    _check_fwd(name, B)
+
+
+@pytest.mark.parametrize("batch", (37, 1))
+@pytest.mark.parametrize("name", FORMULATIONS)
+def test_generic_fwd_plain_matches_jax_at_ragged_batch(name, batch):
+    """The line search's wrapper on CPU tensors at ragged batches (37
+    scenarios, tests/test_torch_cuda.py's partial block, and one) against
+    the JAX package's candidates of the same scenarios, taken from the
+    batch-B case (no new JAX compile)."""
+    _check_fwd(name, batch)
 
 
 def _jax_gains(mpc_j, x0_b, U0_b, p_j, lams, dtype):
@@ -287,41 +315,3 @@ def test_fwd_launch_geometry_reports_the_library():
     for name, blocks in (("demo", [192, 24, 1]), ("base", [391, 48, 1])):
         assert [launch_geometry(Library(), name, N, *OBS[name], 3, batch)[
             "blocks"] for batch in (8191, 1000, 1)] == blocks
-
-
-def _t(a):
-    return torch.as_tensor(np.asarray(a, np.float32))
-
-
-@functools.lru_cache(maxsize=None)
-def _fwd_bench_batch(name, batch=8192):
-    """Formulation ``name``'s line search on CPU tensors, its inputs at the
-    bench batch (the problem of tests/torch_problems.py, the inputs as
-    tests/test_torch_cuda.py makes them) and its results there."""
-    mpc, x0_b, U0_b, params = tp.generic_problem(name, batch)
-    p = params_from_numpy(params, "cpu", torch.float32)
-    rng = np.random.default_rng(5)
-    nx, nu = mpc.NX, mpc.NU
-    X, U = rollout(mpc.ocp, _t(x0_b).T, _t(U0_b).permute(1, 2, 0), p)
-    f = mpc.ocp.lanes_fwd_factory(mpc.solver_config, p)
-    args = (X[:-1], U, _t(0.05 * rng.standard_normal((N, nu, batch))),
-            _t(0.05 * rng.standard_normal((N, nu, nx, batch))),
-            _t(np.abs(rng.standard_normal((N, f.form.nc, batch)))),
-            _t(np.abs(rng.standard_normal((f.form.nct, batch)))),
-            _t(np.zeros((0, batch))), 10.0)
-    return f, args, f(*args)
-
-
-@pytest.mark.parametrize("batch", (8191, 1000, 1))
-@pytest.mark.parametrize("name", ("demo", "base"))
-def test_generic_fwd_cpu_at_ragged_batch(name, batch):
-    """The line search's wrapper on CPU tensors at the ragged batches at
-    which chip_smoke.py holds C.demo and C.base on the card: its checks
-    take the first ``batch`` scenarios of the bench batch's inputs, and
-    each scenario's candidates equal its candidates in the whole batch."""
-    f, args, full = _fwd_bench_batch(name)
-    part = f(*(a[..., :batch].contiguous() if torch.is_tensor(a) else a
-               for a in args))
-    for got, ref in zip(part, full):
-        assert got.shape == ref.shape[:-1] + (batch,)
-        torch.testing.assert_close(got, ref[..., :batch])
