@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py             # every phase (the record of a run)
     python3 chip_smoke.py --kernels   # phases 1-3b only: build and check
+    python3 chip_smoke.py --closed-loop   # phases 1-2, then phase 9 alone
     python3 chip_smoke.py --kernel wholebody_bwd   # phases 1-2, then the
         # [kernel] check of one kind of KINDS alone (no peak sweep: bounds
         # at the published 67 TFLOP/s; fma_peak runs phase 2b)
@@ -80,12 +81,35 @@ Phases, each reported on its own lines; any failure exits nonzero:
    convergence, and the gate of phase 6 against the row's fused solve of
    phase 7;
 8. formulations-reference: each of those rows at batch 64 on the card and,
-   through the plain versions, on the CPU, with the gates of phase 6.
+   through the plain versions, on the CPU, with the gates of phase 6;
+9. closed-loop: the demo's closed loop (``mmmpc_tpu_torch/
+   demo_wholebody_qref.py``), each tick a warm-started solve of the qref
+   controller at batch 1 with ``SolverConfig()`` (6 AL rounds x 10 sweeps,
+   8 step sizes, cost_scale 1.0): first kernels A and B against their
+   plain versions in those settings at batch 1 (``[kernel-loop]``: the
+   terminal-equality mask off, on, and with the rotate weights; device and
+   plain ms); then scenarios 1, 0 and 2 model-only and scenario 0 through
+   the kinematic plant, each run to its end with the counters reset just
+   before it: A and B must launch 60 times a tick and their plain versions
+   never, and each run must meet the assertions of
+   ``tests/test_runtime.py``'s closed-loop tests (``[closed-loop]``: steps,
+   scenario 1's beside the JAX float32 demo's 208, phases, converged
+   ticks, max violation, p50 / p99 ms a tick); one tick timed and
+   profiled (``[closed-loop-tick]``), and one of no iteration, what a tick
+   costs besides its iterations (``[closed-loop-tick-fixed]``); then
+   ``mmmpc_tpu_torch/rt_latency.py``'s 100 warm ticks (``[rt-latency]``:
+   p50 / p99 ms a tick).
+
+Every solve phase prints the reference's bar (converged fraction 1.0, max
+violation below 1e-3) or a closed-loop run's assertions as a ``[bar]``
+line, and a line with ``met=False`` fails its phase.
 
 Each phase from 2b on prints its wall seconds (``[phase]``), and each
 profiled solve the seconds the profile took.  The last two lines are a
 JSON record of the kernels (E at (4, 2), on no solve path, with its
-launches in its own check) and ``{"ok": true, "device": {...}}``.
+launches in its own check; A and B with their launches in phase 4 and, as
+``launches_closed_loop``, in phase 9's runs) and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -142,6 +166,11 @@ KERNEL_SYMBOLS = {"wholebody_fwd": "wb::fwd_kernel",
                   **{f"riccati_bwd.{nx}x{nu}":
                      f"ric::riccati_team_kernel<{nx}, {nu}>"
                      for nx, nu in DIMS.values()}}
+# the closed loop's runs (scenario, through the kinematic plant), and the
+# MPC steps in which the JAX package's float32 demo completes scenario 1
+# (README.md)
+LOOP_SCENARIOS = ((1, False), (0, False), (2, False), (0, True))
+JAX_DEMO_STEPS_SCENARIO_1 = 208
 # each wrapper kind: (its CUDA source, the TPU kernel it replaces)
 KINDS = {"wholebody_fwd": ("wholebody_fwd.cu",
                            "mmmpc_tpu/ops/wholebody_fwd.py:237"),
@@ -458,22 +487,11 @@ def check_new_pair(device, peak, dims=(4, 2)):
     return dict(out, launches=launches)
 
 
-def check_wholebody(mpc, x0, params, cfg, device, peak, kinds):
-    """Phase 3, kernels A and B on the qref bench problem (B also by
-    ``check_batches``), E on the expansion blocks of B's inputs and on
-    the random SPD blocks of the Pallas test; the kernels whose kind is in
-    ``kinds``."""
-    from mmmpc_tpu_torch.ops._cuda import LIBRARY
-    from mmmpc_tpu_torch.ops.wholebody_bwd import (
-        launch_geometry as bwd_geometry,
-    )
-    from mmmpc_tpu_torch.ops.wholebody_fwd import (
-        launch_geometry as fwd_geometry,
-    )
-    from mmmpc_tpu_torch.solver.al_ilqr import (
-        rollout, stage_al_blocks, terminal_al_blocks,
-    )
-    rng = np.random.default_rng(SEED)
+def _wholebody_args(mpc, x0, params, rng, device):
+    """Seeded inputs of kernels A and B from x0 (B, nx): the rollout of
+    small random inputs, random gains, nonnegative inequality multipliers
+    -> (A's arguments, B's arguments)."""
+    from mmmpc_tpu_torch.solver.al_ilqr import rollout
     N, B = mpc.N, x0.shape[0]
 
     def t(a):
@@ -487,20 +505,42 @@ def check_wholebody(mpc, x0, params, cfg, device, peak, kinds):
     lamt = t(0.5 * np.abs(rng.standard_normal((18, B))))
     lame = t(0.1 * rng.standard_normal((2, B)))
     reg = torch.full((B,), 1e-6, device=device)
+    return ((X[:-1], U, kff, K, lam, lamt, lame, 10.0),
+            (X, U, lam, lamt, lame, 10.0, reg))
+
+
+def _wholebody_bwd_check(got, ref):
+    """B's gains against its plain version's, rtol = atol = 5e-3: op-order
+    differences amplified through the Cholesky on gains of magnitude
+    ~10-100 (tests/test_fused_bwd.py)."""
+    return max(_close("wholebody_bwd kff", got[0], ref[0], 5e-3, 5e-3),
+               _close("wholebody_bwd K", got[1], ref[1], 5e-3, 5e-3))
+
+
+def check_wholebody(mpc, x0, params, cfg, device, peak, kinds):
+    """Phase 3, kernels A and B on the qref bench problem (B also by
+    ``check_batches``), E on the expansion blocks of B's inputs and on
+    the random SPD blocks of the Pallas test; the kernels whose kind is in
+    ``kinds``."""
+    from mmmpc_tpu_torch.ops._cuda import LIBRARY
+    from mmmpc_tpu_torch.ops.wholebody_bwd import (
+        launch_geometry as bwd_geometry,
+    )
+    from mmmpc_tpu_torch.ops.wholebody_fwd import (
+        launch_geometry as fwd_geometry,
+    )
+    from mmmpc_tpu_torch.solver.al_ilqr import (
+        stage_al_blocks, terminal_al_blocks,
+    )
+    N, B = mpc.N, x0.shape[0]
+    fargs, bargs = _wholebody_args(mpc, x0, params,
+                                   np.random.default_rng(SEED), device)
+    X, U, lam, lamt, lame, _, reg = bargs
     fwd = mpc.ocp.lanes_fwd_factory(cfg, params)
     bwd = mpc.ocp.lanes_bwd_factory(cfg, params)
-
-    def bwd_check(got, ref):
-        # rtol = atol = 5e-3: op-order differences amplified through the
-        # Cholesky on gains of magnitude ~10-100 (tests/test_fused_bwd.py)
-        return max(_close("wholebody_bwd kff", got[0], ref[0], 5e-3, 5e-3),
-                   _close("wholebody_bwd K", got[1], ref[1], 5e-3, 5e-3))
-
-    fargs = (X[:-1], U, kff, K, lam, lamt, lame, 10.0)
-    bargs = (X, U, lam, lamt, lame, 10.0, reg)
     out = check_pair(("wholebody_fwd", "wholebody_bwd"), fwd, bwd, fargs,
-                     bargs, (N, B, cfg.n_alpha, 9, 5, 28, 18), bwd_check,
-                     peak, kinds)
+                     bargs, (N, B, cfg.n_alpha, 9, 5, 28, 18),
+                     _wholebody_bwd_check, peak, kinds)
     if "wholebody_fwd" in kinds:
         check_batches("wholebody_fwd", fwd.cuda, fwd.plain, fargs,
                       lambda g, r, a: max(_fwd_errors("wholebody_fwd", g, r)),
@@ -508,7 +548,7 @@ def check_wholebody(mpc, x0, params, cfg, device, peak, kinds):
                                              fwd.n_hp, len(fwd.alphas), n))
     if "wholebody_bwd" in kinds:
         check_batches("wholebody_bwd", bwd.cuda, bwd.plain, bargs,
-                      lambda g, r, a: bwd_check(g, r),
+                      lambda g, r, a: _wholebody_bwd_check(g, r),
                       lambda n: bwd_geometry(LIBRARY.get(), bwd.N, bwd.n_obs,
                                              bwd.n_hp, n))
     if "riccati_bwd" not in kinds:
@@ -732,6 +772,23 @@ def check_result(res, mpc, batch, device):
         raise AssertionError("inputs outside the clamped input box")
 
 
+def _bar(row, conv, maxv):
+    """Print the reference's bar of one solve -- converged fraction 1.0 and
+    max violation below the 1e-3 tolerance (``bench.py``) -- and return
+    whether it was met."""
+    met = conv == 1.0 and maxv < 1e-3
+    _line("bar", row=row, converged_frac_is_1=conv == 1.0,
+          max_violation_below_1e_3=maxv < 1e-3, met=met)
+    return met
+
+
+def _bars_met(phase, bars):
+    """Fail the phase unless every bar ({row: met}) was met."""
+    missed = [row for row, met in bars.items() if not met]
+    if missed:
+        raise AssertionError(f"{phase}: the bar was missed by {missed}")
+
+
 def count_launches(counters, per_solve, solves, absent=None):
     """{kernel: launches}; raises unless each kernel of ``counters``
     launched ``per_solve`` times in each of ``solves`` solves, each kernel
@@ -780,8 +837,8 @@ def run_slice(device):
           **{f"launches_{k}": v for k, v in launches.items()})
     if conv < 0.99:
         raise AssertionError(f"converged_frac {conv} < 0.99")
-    _line("bar", row="wholebody_qref_refined", converged_frac_is_1=conv == 1.0,
-          max_violation_below_1e_3=maxv < 1e-3, met=conv == 1.0 and maxv < 1e-3)
+    _bars_met("slice", {"wholebody_qref_refined":
+                        _bar("wholebody_qref_refined", conv, maxv)})
     return launches, (res, stats)
 
 
@@ -825,9 +882,8 @@ def run_unfused(device, fused):
         raise AssertionError(f"unfused: converged_frac {conv} < 0.99")
     _reference_gate("unfused-vs-fused", (res, stats), fused,
                     row="wholebody_qref_refined")
-    _line("bar", row="wholebody_qref_refined_unfused",
-          converged_frac_is_1=conv == 1.0,
-          max_violation_below_1e_3=maxv < 1e-3, met=conv == 1.0 and maxv < 1e-3)
+    _bars_met("unfused", {"wholebody_qref_refined_unfused":
+                          _bar("wholebody_qref_refined_unfused", conv, maxv)})
     return {"riccati_bwd.9x5": launches["riccati_bwd.9x5"]}
 
 
@@ -896,7 +952,7 @@ def run_formulations(device):
     from mmmpc_tpu_torch.parallel.data_parallel import controller_batched_fn
     from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
 
-    launches, bars, results = {}, [], {}
+    launches, bars, results = {}, {}, {}
     for row, mpc, x0, U0, params in problems(BATCH, device):
         if row not in ROWS:
             continue
@@ -927,10 +983,9 @@ def run_formulations(device):
               launches_per_solve=per_solve)
         if conv < 0.99:
             raise AssertionError(f"{row}: converged_frac {conv} < 0.99")
-        bars.append(conv == 1.0 and maxv < 1e-3)
-        _line("bar", row=row, converged_frac_is_1=conv == 1.0,
-              max_violation_below_1e_3=maxv < 1e-3, met=bars[-1])
-    _line("bar", row="all_formulations", met=all(bars))
+        bars[row] = _bar(row, conv, maxv)
+    _line("bar", row="all_formulations", met=all(bars.values()))
+    _bars_met("formulations", bars)
     return launches, results
 
 
@@ -942,7 +997,7 @@ def run_formulations_unfused(device, fused):
     from mmmpc_tpu_torch.parallel.data_parallel import controller_batched_fn
     from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
 
-    launches, bars = {}, []
+    launches, bars = {}, {}
     for row, mpc, x0, U0, params in problems(BATCH, device):
         if row not in ROWS:
             continue
@@ -979,10 +1034,9 @@ def run_formulations_unfused(device, fused):
             raise AssertionError(f"{row} unfused: converged_frac {conv} < 0.99")
         _reference_gate("formulations-unfused-vs-fused", (res, stats),
                         fused[row], row=row)
-        bars.append(conv == 1.0 and maxv < 1e-3)
-        _line("bar", row=f"{row}_unfused", converged_frac_is_1=conv == 1.0,
-              max_violation_below_1e_3=maxv < 1e-3, met=bars[-1])
-    _line("bar", row="all_formulations_unfused", met=all(bars))
+        bars[f"{row}_unfused"] = _bar(f"{row}_unfused", conv, maxv)
+    _line("bar", row="all_formulations_unfused", met=all(bars.values()))
+    _bars_met("formulations-unfused", bars)
     # the record's launches of each sweep instance: its row's
     return {"riccati_bwd.{}x{}".format(*DIMS[ROWS[row]]): n
             for row, n in launches.items() if ROWS[row] != "endpoint"}
@@ -1002,6 +1056,187 @@ def check_formulations_reference(device):
     for row, o in out.items():
         _reference_gate("formulations-reference", o["cuda"], o["cpu"],
                         row=row)
+
+
+def check_loop_kernels(device):
+    """Phase 9, kernels A and B against their plain versions in the closed
+    loop's own settings: scenario 1's controller of the demo with
+    ``SolverConfig()`` (8 step sizes, cost_scale 1.0) at batch 1, with the
+    terminal-equality mask off, on, and on with the rotate weights, on
+    seeded inputs at the tolerances of the bench shape; each kernel's
+    device ms a launch and its plain version's ms at that shape."""
+    from mmmpc_tpu_torch.demo_wholebody_qref import build_world
+    from mmmpc_tpu_torch.ops._cuda import LIBRARY
+    from mmmpc_tpu_torch.ops.wholebody_bwd import (
+        launch_geometry as bwd_geometry,
+    )
+    from mmmpc_tpu_torch.ops.wholebody_fwd import (
+        launch_geometry as fwd_geometry,
+    )
+    from mmmpc_tpu_torch.utils.convert import params_from_numpy
+
+    world = build_world(1, physical_sim=False, device=device)
+    mpc = world.controller
+    cfg, N = mpc.solver_config, mpc.N
+    rng = np.random.default_rng(SEED)
+    x0 = torch.as_tensor(world.x_start[None], dtype=torch.float32,
+                         device=device)
+    traj = np.linspace(world.x_start, world.x_target, N + 1)
+    rotate = np.diag([5, 5, 5, 0, 0, 1, 1, 1, 1.0])
+    for setting in ("eq_mask_0", "eq_mask_1", "rotate_weights"):
+        if setting == "eq_mask_1":
+            mpc.add_terminal_position_constraint()
+        if setting == "rotate_weights":
+            mpc.setWeight(P=rotate, Q=rotate)
+        params = params_from_numpy(
+            dict(mpc.make_params(traj, np.zeros((N, 5))),
+                 U_last=0.1 * rng.standard_normal((N, 5))), device,
+            torch.float32)
+        fargs, bargs = _wholebody_args(mpc, x0, params, rng, device)
+        fwd = mpc.ocp.lanes_fwd_factory(cfg, params)
+        bwd = mpc.ocp.lanes_bwd_factory(cfg, params)
+        got_f, ref_f = fwd.cuda(*fargs), fwd.plain(*fargs)
+        got_b, ref_b = bwd.cuda(*bargs), bwd.plain(*bargs)
+        torch.cuda.synchronize()
+        err_xu, err_cost = _fwd_errors("wholebody_fwd", got_f, ref_f)
+        err_b = _wholebody_bwd_check(got_b, ref_b)
+        lib = LIBRARY.get()
+        _line("kernel-loop", setting=setting, B=1, n_alpha=len(fwd.alphas),
+              cost_scale=cfg.cost_scale,
+              eq_mask=float(params["eq_mask"]),
+              fwd_max_abs_err_XU=f"{err_xu:.3e}",
+              fwd_max_abs_err_cost=f"{err_cost:.3e}",
+              bwd_max_abs_err=f"{err_b:.3e}",
+              fwd_ms=f"{_kernel_ms(lambda: fwd.cuda(*fargs), 20):.4g}",
+              fwd_plain_ms=f"{_time_ms(lambda: fwd.plain(*fargs), 3):.4g}",
+              bwd_ms=f"{_kernel_ms(lambda: bwd.cuda(*bargs), 20):.4g}",
+              bwd_plain_ms=f"{_time_ms(lambda: bwd.plain(*bargs), 3):.4g}",
+              **{f"fwd_{k}": v for k, v in fwd_geometry(
+                  lib, N, fwd.n_obs, fwd.n_hp, len(fwd.alphas), 1).items()},
+              **{f"bwd_{k}": v for k, v in bwd_geometry(
+                  lib, N, bwd.n_obs, bwd.n_hp, 1).items()})
+
+
+def run_loop_scenarios(device, counters):
+    """Phase 9, the closed loop of the demo: scenarios 1, 0 and 2 with the
+    model-only plant and scenario 0 through the kinematic plant, each run
+    to its end, each tick a warm-started solve of ``MPCWholeBody`` on the
+    card at batch 1, with the counters reset just before each run.  In
+    every run each kernel of ``counters`` must launch once an iteration of
+    every tick and its plain version never, and the run must meet the
+    assertions of ``tests/test_runtime.py``'s closed-loop tests (its bar
+    line).  Returns each kernel's launches over the runs."""
+    from mmmpc_tpu_torch.demo_wholebody_qref import build_world
+    from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
+
+    total, bars = dict.fromkeys(counters, 0), {}
+    for scenario, physical in LOOP_SCENARIOS:
+        world = build_world(scenario, physical_sim=physical, device=device)
+        per_tick = iteration_count(world.controller.solver_config)
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        world.run()
+        wall = time.perf_counter() - t0
+        records = world.metrics.records
+        for name, n in count_launches(counters, per_tick,
+                                      len(records)).items():
+            total[name] += n
+        summary = world.metrics.summary()
+        phases = list(dict.fromkeys(r.task_flag for r in records))
+        err = float(np.linalg.norm(world.manipulator_pose_log[-1][:3]
+                                   - world.global_pose_target[:3]))
+        lat_ms = 1e3 * np.array([r.solve_latency_s for r in records])
+        row = (f"closed_loop_scenario{scenario}_"
+               f"{'plant' if physical else 'model_only'}")
+        _line("closed-loop", scenario=scenario,
+              plant="kinematic" if physical else "model_only",
+              task_flag=repr(world.task_flag), steps=world.mpc_step_counter,
+              **({"jax_float32_demo_steps": JAX_DEMO_STEPS_SCENARIO_1}
+                 if (scenario, physical) == (1, False) else {}),
+              ticks=len(records), phases=repr(",".join(phases)),
+              ticks_converged=sum(r.converged for r in records),
+              max_violation=f"{summary['max_violation']:.3e}",
+              ee_err_m=f"{err:.3e}",
+              solve_ms_p50=f"{np.percentile(lat_ms, 50):.3f}",
+              solve_ms_p99=f"{np.percentile(lat_ms, 99):.3f}",
+              wall_s=f"{wall:.1f}", launches_per_tick=per_tick)
+        # tests/test_runtime.py: every run ends with the end effector on the
+        # button; scenario 0 model-only also converges on every tick below
+        # 1e-4 and visits rotate and manipulate, scenario 1 move and
+        # manipulate
+        met = world.task_flag == "manipulate finish" and err <= 0.01 + 1e-6
+        if (scenario, physical) == (0, False):
+            met = (met and summary["all_converged"]
+                   and summary["max_violation"] < 1e-4
+                   and {"rotate", "manipulate"} <= set(phases))
+        if scenario == 1:
+            met = met and {"move", "manipulate"} <= set(phases)
+        bars[row] = met
+        _line("bar", row=row, met=met)
+    _bars_met("closed-loop", bars)
+    return total
+
+
+def profile_tick(device, counters):
+    """Phase 9, one scenario-1 tick of the move phase, warm-started: the
+    time of 10 ticks and the profile of one more (device busy time, the
+    idle share of the median tick, the kernels' calls); then the same at
+    a schedule of no iteration (``[closed-loop-tick-fixed]``): what a tick
+    costs besides its iterations (params to the device, the kernels'
+    packed params, the first rollout, the constraints, the result)."""
+    from mmmpc_tpu_torch.demo_wholebody_qref import build_world
+    from mmmpc_tpu_torch.runtime.reference import local_ref_traj
+
+    world = build_world(1, physical_sim=False, device=device)
+    mpc = world.controller
+    world.globalPlan2D()
+    traj, u = local_ref_traj(world.traj_ref, world.u_ref, world.x_start,
+                             [0, 1], mpc.N)
+    args = (world.x_start, traj, u)
+    for tag, cfg in (("closed-loop-tick", mpc.solver_config),
+                     ("closed-loop-tick-fixed", dataclasses.replace(
+                         mpc.solver_config, al_iters=1, ilqr_iters=0))):
+        mpc.solver_config = cfg
+        mpc.reset()
+        mpc.solve(*args)
+        report_timing(tag, mpc.solve, args, 1, counters)
+
+
+def run_rt_latency(device, counters):
+    """Phase 9, ``mmmpc_tpu_torch/rt_latency.py``'s single-robot loop on the
+    card (the cold tick, then its warm ticks at ``RT_CFG``), with the
+    launch check of ``count_launches``."""
+    from mmmpc_tpu_torch import rt_latency
+    from mmmpc_tpu_torch.bench import SOLVER_CFG
+    from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
+
+    for c in counters.values():
+        c.reset()
+    r = rt_latency.single_scenario(device)
+    per_run = (iteration_count(SOLVER_CFG)
+               + r["ticks"] * iteration_count(rt_latency.RT_CFG))
+    launches = count_launches(counters, per_run, 1)
+    _line("rt-latency", ticks=r["ticks"], p50_ms=f"{r['p50_ms']:.3f}",
+          p99_ms=f"{r['p99_ms']:.3f}",
+          converged_share=f"{r['converged_share']:.3f}",
+          max_violation=f"{r['max_violation']:.3e}",
+          **{f"launches_{k}": v for k, v in launches.items()})
+
+
+def run_closed_loop(device):
+    """Phase 9: A and B in the loop's settings, the demo's scenarios, one
+    profiled tick, ``rt_latency``.  Returns the kernels' launches in the
+    scenario runs."""
+    from mmmpc_tpu_torch.ops import wholebody_bwd, wholebody_fwd
+
+    counters = {"wholebody_fwd": wholebody_fwd.LAUNCHES,
+                "wholebody_bwd": wholebody_bwd.LAUNCHES}
+    check_loop_kernels(device)
+    launches = run_loop_scenarios(device, counters)
+    profile_tick(device, counters)
+    run_rt_latency(device, counters)
+    return launches
 
 
 def _sass_ffma(lib_path):
@@ -1144,9 +1379,9 @@ def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
-    if not (argv in ([], ["--kernels"]) or (
+    if not (argv in ([], ["--kernels"], ["--closed-loop"]) or (
             argv[:1] == ["--kernel"] and len(argv) == 2 and argv[1] in KINDS)):
-        print(f"chip_smoke: usage: [--kernels | --kernel one of "
+        print(f"chip_smoke: usage: [--kernels | --closed-loop | --kernel one of "
               f"{', '.join(KINDS)}]", file=sys.stderr)
         return 2
     from mmmpc_tpu_torch.bench import SOLVER_CFG, build_problem
@@ -1168,6 +1403,9 @@ def main(argv):
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
             print("[ptxas] " + ln.strip(), flush=True)
 
+    if argv == ["--closed-loop"]:
+        _phase("closed-loop", run_closed_loop, device)
+        return 0
     timings, peak = {}, None
     kinds = set(argv[1:]) if argv[:1] == ["--kernel"] else set(KINDS)
     if "fma_peak" in kinds:
@@ -1199,6 +1437,7 @@ def main(argv):
     launches.update(_phase("formulations-unfused", run_formulations_unfused,
                            device, fused_rows))
     _phase("formulations-reference", check_formulations_reference, device)
+    loop_launches = _phase("closed-loop", run_closed_loop, device)
 
     record = {"kernels": []}
     for name, t in timings.items():
@@ -1211,7 +1450,9 @@ def main(argv):
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "bound_ms_measured_peak": t["bound_ms_measured_peak"],
-            "library_ms": None})
+            "library_ms": None,
+            **({"launches_closed_loop": loop_launches[name]}
+               if name in loop_launches else {})})
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

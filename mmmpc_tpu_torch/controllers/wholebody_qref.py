@@ -132,7 +132,7 @@ class MPCWholeBody(ControllerBase):
                  N=10, Q=_DEFAULT_Q, P=_DEFAULT_Q, R=_DEFAULT_R,
                  S=_DEFAULT_S, W=_DEFAULT_W,
                  ulim=_DEFAULT_ULIM, xlim=_DEFAULT_XLIM, dulim=_DEFAULT_DULIM,
-                 solver_config: SolverConfig | None = None):
+                 solver_config: SolverConfig | None = None, device=None):
         self.robot_model = robot
         self.dt = robot.dt
         self.base_radius = robot.base.base_radius()
@@ -164,7 +164,8 @@ class MPCWholeBody(ControllerBase):
 
         self.x_bounds = finite_bound_masks(self.xlim)
         self.du_bounds = finite_bound_masks(self.dulim)
-        super().__init__(self._build_ocp(N), solver_config or SolverConfig())
+        super().__init__(self._build_ocp(N), solver_config or SolverConfig(),
+                         device)
 
     # ------------------------------------------------------------------
     def _build_ocp(self, N):
@@ -404,6 +405,11 @@ class MPCWholeBody(ControllerBase):
             terminal_eq_jac=terminal_eq_jac)
 
     # ------------------------------------------------------------------
+    def reset(self):
+        """Clear the warm start (the problem is parameterised: nothing to
+        rebuild)."""
+        self.reset_warmstart()
+
     def setWeight(self, Q=None, R=None, P=None, S=None, W=None):
         """Runtime weight mutation (takes effect at the next make_params)."""
         if Q is not None:
@@ -421,6 +427,10 @@ class MPCWholeBody(ControllerBase):
         """Enable the FSM-injected terminal equality X[N, :2] == X_ref[N, :2]
         (a runtime mask)."""
         self.terminal_eq_mask = 1.0
+
+    def set_obstacles(self, obstacles):
+        """Update the ground-obstacle rows (x, y, radius), same count."""
+        self.obstacles_value = np.asarray(obstacles, dtype=float)
 
     def make_params(self, traj_ref, u_ref) -> dict[str, np.ndarray]:
         """The per-problem data as host arrays; move them onto a device with
@@ -441,3 +451,18 @@ class MPCWholeBody(ControllerBase):
             "hp_mask": self.hp_mask_value,
             "eq_mask": np.asarray(self.terminal_eq_mask),
         }
+
+    def solve(self, x_init, traj_ref, u_ref):
+        """One receding-horizon tick on the controller's device; returns u[0]
+        as a numpy (5,) array."""
+        x_init = np.asarray(x_init, dtype=float).copy()
+        # clamp infeasible sensor feedback into the state box
+        x_init = np.clip(x_init, self.xlim[0], self.xlim[1])
+        if not (x_init[7] <= 0 and x_init[8] >= 0):
+            raise ValueError(f"arm joints q2 = {x_init[7]} > 0 or "
+                             f"q3 = {x_init[8]} < 0 after the clamp")
+        return self._solve_impl(x_init, self.make_params(traj_ref, u_ref))
+
+    def angleDiff(self, a, b):
+        from mmmpc_tpu_torch.utils.math import angle_diff
+        return angle_diff(a, b)

@@ -1,10 +1,13 @@
-"""Panda-3DoF arm: closed-form FK and end-point Jacobian.
+"""Panda-3DoF arm: closed-form FK, end-point Jacobian and IK.
 
-Counterpart of ``mmmpc_tpu/models/arm.py`` (the batched IK ``arm_ik`` is not
-ported yet), plus ``arm_fk_partials``, the closed-form q-partials of the
-joint and end points that the controllers' structured expansions use.  Angle-sum form: theta = q1 - q2, beta = theta - q3; the arm moves
-in its local x-z plane (y == 0).  ``q`` has the joint axis last: (..., 3).
+Counterpart of ``mmmpc_tpu/models/arm.py``, plus ``arm_fk_partials``, the
+closed-form q-partials of the joint and end points that the controllers'
+structured expansions use (and the IK its Jacobian).  Angle-sum form:
+theta = q1 - q2, beta = theta - q3; the arm moves in its local x-z plane
+(y == 0).  ``q`` has the joint axis last: (..., 3).
 """
+
+import math
 
 import torch
 
@@ -14,6 +17,12 @@ A3 = 0.0825
 A5 = 0.384
 A6 = 0.088
 A7 = 0.107
+
+# IK joint bounds (they differ from the MPC's joint bounds on q).
+ARM_IK_LOWER = (-math.pi / 2, -3 * math.pi / 4, 0.0)
+ARM_IK_UPPER = (math.pi / 2, 0.0, 3 * math.pi / 2)
+# the step sizes of each IK iteration, the best one kept
+IK_ALPHAS = (1.0, 0.5, 0.25, 0.05)
 
 
 def arm_fk(q: torch.Tensor):
@@ -102,3 +111,33 @@ def ee_jacobian(q: torch.Tensor) -> torch.Tensor:
         torch.stack([zero, zero, zero], dim=-1),
         torch.stack([dz1 + zt + zb, -(zt + zb), -zb], dim=-1),
     ], dim=-2)
+
+
+def arm_ik(q_init: torch.Tensor, x_target: torch.Tensor, iters: int = 300,
+           lm_lambda: float = 1e-6) -> torch.Tensor:
+    """Joint angles (3,) with FK(q) == [x, 0, z] of ``x_target`` (3,) (its y
+    is ignored), inside the IK bounds, from ``q_init`` (3,): projected
+    Levenberg-Marquardt, dq = -(J^T J + lm_lambda I)^-1 J^T r, each
+    iteration trying the step sizes ``IK_ALPHAS`` clipped into the bounds
+    and keeping the one of least squared residual, for a fixed ``iters``
+    iterations.  The Jacobian is ``arm_fk_partials``' end-point row.  Runs
+    in the dtype and on the device of ``q_init``."""
+    kw = dict(dtype=q_init.dtype, device=q_init.device)
+    lo = torch.tensor(ARM_IK_LOWER, **kw)
+    hi = torch.tensor(ARM_IK_UPPER, **kw)
+    alphas = torch.tensor(IK_ALPHAS, **kw)[:, None]
+    target = x_target.to(**kw)[[0, 2]]
+    H_reg = lm_lambda * torch.eye(3, **kw)
+
+    def residual(q):
+        ee, _, _ = arm_fk(q)
+        return ee[..., [0, 2]] - target
+
+    q = torch.clamp(q_init, lo, hi)
+    for _ in range(iters):
+        _, _, ax_q, az_q = arm_fk_partials(q)
+        J = torch.stack([ax_q[2], az_q[2]])                  # (2, 3)
+        dq = -torch.linalg.solve(J.T @ J + H_reg, J.T @ residual(q))
+        cands = torch.clamp(q + alphas * dq, lo, hi)         # (4, 3)
+        q = cands[torch.argmin(torch.sum(residual(cands) ** 2, dim=-1))]
+    return q

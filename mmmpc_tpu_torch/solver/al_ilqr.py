@@ -1,5 +1,6 @@
 """Augmented-Lagrangian iLQR building blocks (counterpart of the parts of
-``mmmpc_tpu/solver/al_ilqr.py`` that the batched solve uses).
+``mmmpc_tpu/solver/al_ilqr.py`` that the batched solve uses, and of its
+``shift_multipliers``, the closed loop's dual warm start).
 
 Outer loop: Powell-Hestenes-Rockafellar augmented Lagrangian over the hard
 constraints, multipliers updated per round, penalty grown geometrically.
@@ -182,3 +183,20 @@ def iteration_count(cfg: SolverConfig) -> int:
     """iLQR iterations one solve runs under ``cfg`` (one launch of each
     fused kernel per iteration)."""
     return sum(n for _, n in _schedule(cfg))
+
+
+def shift_multipliers(lam_stage, lam_term, lam_eq, decay: float = 0.5):
+    """Receding-horizon warm start of the AL multipliers: the stage
+    multipliers shifted forward one control period (the last stage
+    repeated), the terminal groups kept, everything damped by ``decay``.
+
+    The stage axis is the second to last of ``lam_stage``: (N, nc) for one
+    scenario, (B, N, nc) batch-major.  The damping keeps the tick-over-tick
+    dual loop a leaky integrator: a solve's multipliers include one final
+    update at the largest penalty, which overshoots whenever the inner
+    solve is inexact, and carried in full that overshoot winds up."""
+    axis = lam_stage.dim() - 2 if lam_stage.dim() >= 2 else 0
+    n = lam_stage.shape[axis]
+    shifted = torch.cat([lam_stage.narrow(axis, 1, n - 1),
+                         lam_stage.narrow(axis, n - 1, 1)], dim=axis)
+    return decay * shifted, decay * lam_term, decay * lam_eq

@@ -1,6 +1,8 @@
 """Small numeric helpers (counterpart of ``mmmpc_tpu/utils/math.py``).
 
-All functions are elementwise on tensors and keep the input's dtype.
+All functions are elementwise on tensors and keep the input's dtype;
+``angle_diff`` also takes Python or numpy floats (as float64), as the task
+state machine passes them.
 """
 
 import math
@@ -13,8 +15,10 @@ def wrap_to_pi(a: torch.Tensor) -> torch.Tensor:
     return torch.remainder(a + math.pi, 2.0 * math.pi) - math.pi
 
 
-def angle_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def angle_diff(a, b) -> torch.Tensor:
     """Closest signed difference a - b, in [-pi, pi)."""
+    a, b = (v if torch.is_tensor(v) else torch.as_tensor(v, dtype=torch.float64)
+            for v in (a, b))
     return wrap_to_pi(a - b)
 
 
