@@ -4,6 +4,8 @@
     python3 chip_smoke.py             # every phase (the record of a run)
     python3 chip_smoke.py --kernels   # phases 1-3b only: build and check
     python3 chip_smoke.py --closed-loop   # phases 1-2, then phase 9 alone
+    python3 chip_smoke.py --moving-obs    # phases 1-2, then the moving
+        # kernels' checks of phase 3 and phase 10 alone
     python3 chip_smoke.py --kernel wholebody_bwd   # phases 1-2, then the
         # [kernel] check of one kind of KINDS alone (no peak sweep: bounds
         # at the published 67 TFLOP/s; fma_peak runs phase 2b)
@@ -40,6 +42,11 @@ Phases, each reported on its own lines; any failure exits nonzero:
    on the qref blocks, at (4, 2) on the SPD blocks) also at the ragged
    batches 8191, 1000 and 1 against their plain versions, with their
    launch geometry (``[kernel-batch]``; E's with the blocks an SM holds);
+   kernels A and B also with an obstacle row a stage (``wholebody_fwd.moving``,
+   ``wholebody_bwd.moving``) on the inputs of ``bench_controllers``'s
+   ``wholebody_moving_obs`` row, timed with their bounds, at the ragged
+   batches and at the dynamic-obstacle demo's shape (batch 1, 8 step
+   sizes, cost_scale 1.0, ``inputs=demo``);
    kernel E also at (nx, nu) = (4, 2), which the
    kernel library does not hold: the pair's own library built on its first
    call (``[build-pair]``: seconds, the pair's launches in that call; ptxas
@@ -98,7 +105,19 @@ Phases, each reported on its own lines; any failure exits nonzero:
    profiled (``[closed-loop-tick]``), and one of no iteration, what a tick
    costs besides its iterations (``[closed-loop-tick-fixed]``); then
    ``mmmpc_tpu_torch/rt_latency.py``'s 100 warm ticks (``[rt-latency]``:
-   p50 / p99 ms a tick).
+   p50 / p99 ms a tick);
+10. moving-obs: the ``wholebody_moving_obs`` row of ``bench_controllers``
+   (the qref row over its three obstacles predicted at constant
+   velocities) at batch 8192, fused and unfused, as phases 7 and 7b run a
+   row, the unfused solve gated against the fused one, and the row at
+   batch 64 on the card against the plain versions on the CPU
+   (``[moving-obs]``); then the dynamic-obstacle demo
+   (``mmmpc_tpu_torch/demo_wholebody_separate.py``) model-only on the card
+   to its end, A and B 60 launches a tick and their plain versions never:
+   the task must finish with the end effector within 1 cm of the button and
+   the base's clearance to the obstacle's inflated circle must stay >= 0 at
+   every tick (``[moving-obs-demo]``: steps and least clearance beside the
+   JAX float32 demo's, p50 / p99 ms a tick).
 
 Every solve phase prints the reference's bar (converged fraction 1.0, max
 violation below 1e-3) or a closed-loop run's assertions as a ``[bar]``
@@ -108,7 +127,9 @@ Each phase from 2b on prints its wall seconds (``[phase]``), and each
 profiled solve the seconds the profile took.  The last two lines are a
 JSON record of the kernels (E at (4, 2), on no solve path, with its
 launches in its own check; A and B with their launches in phase 4 and, as
-``launches_closed_loop``, in phase 9's runs) and ``{"ok": true,
+``launches_closed_loop``, in phase 9's runs; their moving instances with
+their launches in phase 10's fused row solve and, as ``launches_demo``, in
+its demo run) and ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -171,6 +192,12 @@ KERNEL_SYMBOLS = {"wholebody_fwd": "wb::fwd_kernel",
 # (README.md)
 LOOP_SCENARIOS = ((1, False), (0, False), (2, False), (0, True))
 JAX_DEMO_STEPS_SCENARIO_1 = 208
+# the JAX package's float32 dynamic-obstacle demo (demo_wholebody_separate.py,
+# model-only, on a CPU): its MPC steps to completion (move 37, approach 12,
+# rotate 107, manipulate 21 ticks) and the base's least clearance to the
+# obstacle's inflated circle over the run (m, at tick 27)
+JAX_MOVING_DEMO_STEPS = 178
+JAX_MOVING_DEMO_CLEARANCE = 0.0857
 # each wrapper kind: (its CUDA source, the TPU kernel it replaces)
 KINDS = {"wholebody_fwd": ("wholebody_fwd.cu",
                            "mmmpc_tpu/ops/wholebody_fwd.py:237"),
@@ -1239,6 +1266,229 @@ def run_closed_loop(device):
     return launches
 
 
+MOVING = ("wholebody_fwd.moving", "wholebody_bwd.moving")
+
+
+def _moving_row(batch, device):
+    """The ``wholebody_moving_obs`` row of ``bench_controllers`` at
+    ``batch`` on ``device``: (controller, x0_b, U0_b, params)."""
+    from mmmpc_tpu_torch.bench_controllers import problems
+    for row, mpc, x0, U0, params in problems(batch, device):
+        if row == "wholebody_moving_obs":
+            return mpc, x0, U0, params
+    raise AssertionError("bench_controllers has no wholebody_moving_obs row")
+
+
+def check_moving_kernels(device, peak, kinds):
+    """Phase 3 (and the first part of ``--moving-obs``), kernels A and B
+    with an obstacle row a stage: on the ``wholebody_moving_obs`` row's
+    seeded inputs at the bench shape against their plain versions, timed,
+    with their bounds (``[kernel]``, as ``check_pair``), at the ragged
+    batches 8191, 1000 and 1 (``[kernel-batch]``), and at the dynamic-
+    obstacle demo's shape: batch 1, one obstacle predicted over N=20, 8
+    step sizes, cost_scale 1.0 (``[kernel-batch]``, ``inputs=demo``); the
+    kernels whose kind is in ``kinds``."""
+    from mmmpc_tpu_torch.demo_wholebody_separate import build_world
+    from mmmpc_tpu_torch.ops._cuda import LIBRARY
+    from mmmpc_tpu_torch.ops.wholebody_bwd import (
+        launch_geometry as bwd_geometry,
+    )
+    from mmmpc_tpu_torch.ops.wholebody_fwd import (
+        launch_geometry as fwd_geometry,
+    )
+    from mmmpc_tpu_torch.utils.convert import params_from_numpy
+
+    mpc, x0, _, params = _moving_row(BATCH, device)
+    cfg = mpc.solver_config
+    fargs, bargs = _wholebody_args(mpc, x0, params,
+                                   np.random.default_rng(SEED), device)
+    fwd = mpc.ocp.lanes_fwd_factory(cfg, params)
+    bwd = mpc.ocp.lanes_bwd_factory(cfg, params)
+    if not (fwd.moving and bwd.moving):
+        raise AssertionError("the moving row's kernels have no moving table")
+    out = check_pair(MOVING, fwd, bwd, fargs, bargs,
+                     (mpc.N, BATCH, cfg.n_alpha, 9, 5, 28, 18),
+                     _wholebody_bwd_check, peak, kinds)
+
+    def geometry(w, n):
+        """The launch geometry of whole-body wrapper ``w`` at batch n."""
+        if hasattr(w, "alphas"):
+            return fwd_geometry(LIBRARY.get(), w.N, w.n_obs, w.n_hp,
+                                len(w.alphas), n, moving=w.moving)
+        return bwd_geometry(LIBRARY.get(), w.N, w.n_obs, w.n_hp, n,
+                            moving=w.moving)
+
+    # the demo's shape: its first tick's prediction and references
+    world = build_world(physical_sim=False, device=device)
+    demo = world.controller
+    demo.observe_obstacles(world.obstacle_positions + world.dt
+                           * world.obstacle_velocity, world.obstacle_velocity)
+    rng = np.random.default_rng(SEED)
+    traj = np.linspace(world.x_start, world.x_target, demo.N + 1)
+    dparams = params_from_numpy(
+        dict(demo.make_params(traj, np.zeros((demo.N, 5))),
+             U_last=0.1 * rng.standard_normal((demo.N, 5))), device,
+        torch.float32)
+    dfargs, dbargs = _wholebody_args(
+        demo, torch.as_tensor(world.x_start[None], dtype=torch.float32,
+                              device=device), dparams, rng, device)
+    dcfg = demo.solver_config
+    for name, w, args, dw, dargs, err in (
+            (MOVING[0], fwd, fargs, demo.ocp.lanes_fwd_factory(dcfg, dparams),
+             dfargs, lambda g, r, a: max(_fwd_errors(MOVING[0], g, r))),
+            (MOVING[1], bwd, bargs, demo.ocp.lanes_bwd_factory(dcfg, dparams),
+             dbargs, lambda g, r, a: _wholebody_bwd_check(g, r))):
+        if name.split(".")[0] not in kinds:
+            continue
+        check_batches(name, w.cuda, w.plain, args, err,
+                      lambda n, w=w: geometry(w, n))
+        got, ref = dw.cuda(*dargs), dw.plain(*dargs)
+        torch.cuda.synchronize()
+        _line("kernel-batch", name=name, inputs="demo", B=1,
+              n_obs=dw.n_obs, n_alpha=dcfg.n_alpha,
+              cost_scale=dcfg.cost_scale,
+              max_abs_err=f"{err(got, ref, dargs):.4g}",
+              ms=f"{_kernel_ms(lambda: dw.cuda(*dargs), 20):.4g}",
+              plain_ms=f"{_time_ms(lambda: dw.plain(*dargs), 3):.4g}",
+              **geometry(dw, 1))
+    return out
+
+
+def run_moving_row(device):
+    """Phase 10, the ``wholebody_moving_obs`` row at the bench batch through
+    ``controller_batched_fn``, fused and then with the unfused backward
+    (E in place of B), each as phase 7 and 7b run a row: the launches of
+    its warm-up solve (each kernel once an iteration, the absent ones and
+    every plain version never), timing and profile, convergence and the
+    bar; the unfused solve gated against the fused one (phase 6's gate);
+    then the row at batch 64 on the card against the plain versions on the
+    CPU.  Returns A's and B's launches in the fused warm-up solve."""
+    from mmmpc_tpu_torch.ops import riccati, wholebody_bwd, wholebody_fwd
+    from mmmpc_tpu_torch.parallel.data_parallel import controller_batched_fn
+    from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
+
+    row = "wholebody_moving_obs"
+    fused_counters = {"wholebody_fwd": wholebody_fwd.LAUNCHES,
+                      "wholebody_bwd": wholebody_bwd.LAUNCHES}
+    unfused_counters = {"riccati_bwd.9x5": riccati.LAUNCHES[(9, 5)],
+                        "wholebody_fwd": wholebody_fwd.LAUNCHES}
+    launches, bars, results = {}, {}, {}
+    for backward in ("fused", "unfused"):
+        mpc, x0, U0, params = _moving_row(BATCH, device)
+        if backward == "fused":
+            counters, absent = fused_counters, {}
+        else:
+            mpc.solver_config = dataclasses.replace(mpc.solver_config,
+                                                    use_fused_backward=False)
+            counters = unfused_counters
+            absent = {"wholebody_bwd": wholebody_bwd.LAUNCHES}
+        run = controller_batched_fn(mpc)
+        per_solve = iteration_count(mpc.solver_config)
+        for c in (*counters.values(), *absent.values()):
+            c.reset()
+        res, stats = run(x0, U0, params)
+        torch.cuda.synchronize()
+        n = count_launches(counters, per_solve, 1, absent)
+        if backward == "fused":
+            launches = {MOVING[0]: n["wholebody_fwd"],
+                        MOVING[1]: n["wholebody_bwd"]}
+        results[backward] = (res, stats)
+        med, solves = report_timing(
+            "moving-obs-timing", run, (x0, U0, params), BATCH, counters,
+            reps=REPS if backward == "fused" else UNFUSED_REPS, row=row,
+            backward=backward)
+        count_launches(counters, per_solve, 1 + solves, absent)
+        check_result(res, mpc, BATCH, device)
+        conv = float(stats.n_converged) / float(stats.n_solved)
+        maxv = float(stats.max_violation)
+        _line("moving-obs", row=row, backward=backward, batch=BATCH,
+              solves_per_s_median=f"{BATCH / med:.1f}",
+              batch_latency_s_median=f"{med:.4f}",
+              converged_frac=f"{conv:.6f}", max_violation=f"{maxv:.3e}",
+              mean_cost=f"{float(stats.mean_cost):.6g}",
+              launches_per_solve=per_solve,
+              **{f"launches_{k}": v for k, v in n.items()},
+              **{f"launches_{k}": 0 for k in absent})
+        bars[f"{row}_{backward}"] = _bar(f"{row}_{backward}", conv, maxv)
+    _reference_gate("moving-obs-unfused-vs-fused", results["unfused"],
+                    results["fused"], row=row)
+    card, cpu = (controller_batched_fn(mpc)(x0, U0, params)
+                 for mpc, x0, U0, params in (_moving_row(64, dev) for dev in (
+                     device, torch.device("cpu"))))
+    _reference_gate("moving-obs-reference", card, cpu, row=row)
+    _bars_met("moving-obs", bars)
+    return launches
+
+
+def run_moving_demo(device):
+    """Phase 10, the dynamic-obstacle demo model-only on the card, run to
+    its end with the counters reset just before it: A and B launch once an
+    iteration of every tick and their plain versions never; the run must
+    end with the task finished and the end effector within 1 cm of the
+    button (``tests/test_runtime.py``'s assertion), and the base must keep
+    out of the obstacle's circle inflated by its own radius at every tick,
+    the clearance taken from ``x_log[i]`` and ``obstacle_log[i]`` (the state
+    and the obstacle of tick i).  Prints the steps beside the JAX float32
+    demo's, the least clearance beside the JAX demo's and p50 / p99 ms a
+    tick.  Returns A's and B's launches in the run."""
+    from collections import Counter
+
+    from mmmpc_tpu_torch.demo_wholebody_separate import build_world
+    from mmmpc_tpu_torch.ops import wholebody_bwd, wholebody_fwd
+    from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
+
+    counters = {"wholebody_fwd": wholebody_fwd.LAUNCHES,
+                "wholebody_bwd": wholebody_bwd.LAUNCHES}
+    world = build_world(physical_sim=False, device=device)
+    mpc = world.controller
+    per_tick = iteration_count(mpc.solver_config)
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    world.run()
+    wall = time.perf_counter() - t0
+    records = world.metrics.records
+    launches = count_launches(counters, per_tick, len(records))
+    xs = np.array([x[:2] for x in world.x_log])
+    obs = np.array([o[0] for o in world.obstacle_log])
+    inflated = mpc.obstacle_list[0].radius + mpc.base_radius
+    clear = np.hypot(*(xs - obs).T) - inflated
+    summary = world.metrics.summary()
+    err = float(np.linalg.norm(world.manipulator_pose_log[-1][:3]
+                               - world.global_pose_target[:3]))
+    lat_ms = 1e3 * np.array([r.solve_latency_s for r in records])
+    _line("moving-obs-demo", task_flag=repr(world.task_flag),
+          steps=world.mpc_step_counter,
+          jax_float32_demo_steps=JAX_MOVING_DEMO_STEPS,
+          ticks=len(records), ticks_a_phase=repr(",".join(
+              f"{k}:{v}" for k, v in Counter(
+                  r.task_flag for r in records).items())),
+          ticks_converged=sum(r.converged for r in records),
+          max_violation=f"{summary['max_violation']:.3e}",
+          ee_err_m=f"{err:.3e}", min_clearance_m=f"{clear.min():.4f}",
+          min_clearance_tick=int(clear.argmin()) + 1,
+          jax_float32_demo_min_clearance_m=JAX_MOVING_DEMO_CLEARANCE,
+          inflated_radius_m=inflated,
+          solve_ms_p50=f"{np.percentile(lat_ms, 50):.3f}",
+          solve_ms_p99=f"{np.percentile(lat_ms, 99):.3f}",
+          wall_s=f"{wall:.1f}", launches_per_tick=per_tick,
+          **{f"launches_{k}": v for k, v in launches.items()})
+    met = (world.task_flag == "manipulate finish" and err <= 0.01 + 1e-6
+           and len(clear) == world.mpc_step_counter and clear.min() >= 0.0)
+    _line("bar", row="moving_obs_demo_model_only", met=met)
+    _bars_met("moving-obs-demo", {"moving_obs_demo_model_only": met})
+    return {f"{k}.moving": v for k, v in launches.items()}
+
+
+def run_moving_obs(device):
+    """Phase 10: the moving row's solves, then the demo.  Returns the
+    moving kernels' launches: in the row's fused solve and, as
+    ``launches_demo``, in the demo's run."""
+    launches = run_moving_row(device)
+    demo = run_moving_demo(device)
+    return launches, demo
+
+
 def _sass_ffma(lib_path):
     """The FFMA instructions in the SASS of each FMA microkernel instance
     (``cuobjdump -sass``); raises unless each instance has at least one per
@@ -1379,10 +1629,11 @@ def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
-    if not (argv in ([], ["--kernels"], ["--closed-loop"]) or (
-            argv[:1] == ["--kernel"] and len(argv) == 2 and argv[1] in KINDS)):
-        print(f"chip_smoke: usage: [--kernels | --closed-loop | --kernel one of "
-              f"{', '.join(KINDS)}]", file=sys.stderr)
+    if not (argv in ([], ["--kernels"], ["--closed-loop"], ["--moving-obs"])
+            or (argv[:1] == ["--kernel"] and len(argv) == 2
+                and argv[1] in KINDS)):
+        print(f"chip_smoke: usage: [--kernels | --closed-loop | --moving-obs "
+              f"| --kernel one of {', '.join(KINDS)}]", file=sys.stderr)
         return 2
     from mmmpc_tpu_torch.bench import SOLVER_CFG, build_problem
     from mmmpc_tpu_torch.ops._cuda import LIBRARY
@@ -1406,6 +1657,11 @@ def main(argv):
     if argv == ["--closed-loop"]:
         _phase("closed-loop", run_closed_loop, device)
         return 0
+    if argv == ["--moving-obs"]:
+        _phase("kernels-moving", check_moving_kernels, device, None,
+               {"wholebody_fwd", "wholebody_bwd"})
+        _phase("moving-obs", run_moving_obs, device)
+        return 0
     timings, peak = {}, None
     kinds = set(argv[1:]) if argv[:1] == ["--kernel"] else set(KINDS)
     if "fma_peak" in kinds:
@@ -1417,6 +1673,9 @@ def main(argv):
         mpc, x0, _, params = build_problem(BATCH, device)
         timings.update(_phase("kernels-wholebody", check_wholebody, mpc, x0,
                               params, SOLVER_CFG, device, peak, kinds))
+    if kinds & {"wholebody_fwd", "wholebody_bwd"}:
+        timings.update(_phase("kernels-moving", check_moving_kernels, device,
+                              peak, kinds))
     if kinds & {"generic_fwd", "generic_bwd", "riccati_bwd"}:
         timings.update(_phase("kernels-generic", check_generic, device, peak,
                               kinds))
@@ -1438,6 +1697,9 @@ def main(argv):
                            device, fused_rows))
     _phase("formulations-reference", check_formulations_reference, device)
     loop_launches = _phase("closed-loop", run_closed_loop, device)
+    moving_launches, demo_launches = _phase("moving-obs", run_moving_obs,
+                                            device)
+    launches.update(moving_launches)
 
     record = {"kernels": []}
     for name, t in timings.items():
@@ -1452,7 +1714,9 @@ def main(argv):
             "bound_ms_measured_peak": t["bound_ms_measured_peak"],
             "library_ms": None,
             **({"launches_closed_loop": loop_launches[name]}
-               if name in loop_launches else {})})
+               if name in loop_launches else {}),
+            **({"launches_demo": demo_launches[name]}
+               if name in demo_launches else {})})
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

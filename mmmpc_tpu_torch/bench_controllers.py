@@ -11,11 +11,12 @@ with ``use_fused_backward=False`` (the AL expansion in plain PyTorch, then
 the Riccati sweep kernel) and adds ``"backward": "unfused"`` to each row.
 
 ``problems`` builds the JAX script's problems from numpy in the same
-``default_rng(0)`` order (demo -> base -> arm -> endpoint -> qref), so every
-row sees the JAX script's starts.  demo, base, arm and endpoint run the
-generic fused kernels, qref the whole-body ones (at the JAX script's
-unrefined schedule).  The JAX script's ``wholebody_moving_obs`` row is left
-out: the whole-body kernels have no moving-obstacle tables yet.
+``default_rng(0)`` order (demo -> base -> arm -> endpoint -> qref ->
+moving_obs), so every row sees the JAX script's starts.  demo, base, arm and
+endpoint run the generic fused kernels, qref and moving_obs the whole-body
+ones (at the JAX script's unrefined schedule); moving_obs is the qref row
+with its three ground obstacles predicted at constant velocities
+(``MPCWholeBodyMovingObs``: an obstacle row a stage in kernels A and B).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 
 from mmmpc_tpu_torch.controllers import (
     MPC, MPCBase, MPCManipulator3DoF, MPCWholeBody, MPCWholeBodyEndpoint,
+    MPCWholeBodyMovingObs,
 )
 from mmmpc_tpu_torch.models.mobile_manipulator import wholebody_fk
 from mmmpc_tpu_torch.models.obstacles import Obstacles
@@ -51,7 +53,7 @@ CFG = SolverConfig(al_iters=8, ilqr_iters=20, ilqr_iters_later=12,
 CFG_SMALL = SolverConfig(al_iters=8, ilqr_iters=20, ilqr_iters_later=12,
                          constraint_tol=1e-3, n_alpha=3, alpha_decay=0.35)
 NAMES = ("demo_1d", "base_only", "arm_only", "wholebody_endpoint",
-         "wholebody_qref")
+         "wholebody_qref", "wholebody_moving_obs")
 
 
 def problems_numpy(batch):
@@ -110,9 +112,17 @@ def problems_numpy(batch):
                         solver_config=CFG)
     trajq = np.linspace(x0w, np.concatenate([x0w[:6], [0.3, -1.0, 1.0]]),
                         N + 1)
-    yield "wholebody_qref", qref, np.clip(x0w_b, qref.xlim[0], qref.xlim[1]), \
-        dict(qref.make_params(trajq, np.zeros((N, 5))),
-             U_last=np.zeros((N, 5)))
+    x0q = np.clip(x0w_b, qref.xlim[0], qref.xlim[1])
+    yield "wholebody_qref", qref, x0q, dict(
+        qref.make_params(trajq, np.zeros((N, 5))), U_last=np.zeros((N, 5)))
+
+    # the same row over predicted obstacle trajectories (no new draw)
+    mov = MPCWholeBodyMovingObs(MobileManipulator(DT), obstacles, hp, N=N,
+                                solver_config=CFG)
+    mov.observe_obstacles(sc.ground_obstacles[:, :2],
+                          np.tile([0.05, 0.02], (len(obstacles), 1)))
+    yield "wholebody_moving_obs", mov, x0q, dict(
+        mov.make_params(trajq, np.zeros((N, 5))), U_last=np.zeros((N, 5)))
 
 
 def problems(batch, device="cuda"):

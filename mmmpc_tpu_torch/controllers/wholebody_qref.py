@@ -21,7 +21,10 @@ tie split of the max as in the VJP of ``jnp.max``), the same algebra as the
 fused backward kernel.  ``tests/test_torch_qref.py`` holds it against JAX and
 against ``torch.func.jacfwd``.
 
-The moving-obstacle variant (``moving_obstacles=True``) is not ported yet.
+With ``moving_obstacles=True`` the ground obstacles are a per-stage table
+(N+1, n_obs, 3): stage k's slack group reads row k and the terminal group
+row N, as in the JAX controller, and the fused kernels take the table
+(``controllers/moving_obs.py`` fills it with a prediction).
 """
 
 from __future__ import annotations
@@ -105,15 +108,15 @@ def _combine(coefs, pts, jac):
             torch.einsum("rk,...kcj->...rcj", C, jac))
 
 
-def _slack_rows_with_grad(x, p, base_radius, ground=True, selfcol=True,
+def _slack_rows_with_grad(x, p, obs, base_radius, ground=True, selfcol=True,
                           hp=True):
     """Slack-group values (..., G) and their state gradients (..., G, 9),
-    rows ordered [ground circles, self-collision, half-plane unions]."""
+    rows ordered [ground circles (of the obstacle rows ``obs``),
+    self-collision, half-plane unions]."""
     pts, J = _world_points_jacobian(x)
     rows = []
     if ground:
-        v, g = ground_circle_g_grad(x[..., 0], x[..., 1], p["obstacles"],
-                                    base_radius)
+        v, g = ground_circle_g_grad(x[..., 0], x[..., 1], obs, base_radius)
         rows.append((v, torch.nn.functional.pad(g, (0, 7))))
     if selfcol:
         rows.append(sphere_g_grad(*_combine(_SELF_DIFF, pts, J)))
@@ -132,10 +135,12 @@ class MPCWholeBody(ControllerBase):
                  N=10, Q=_DEFAULT_Q, P=_DEFAULT_Q, R=_DEFAULT_R,
                  S=_DEFAULT_S, W=_DEFAULT_W,
                  ulim=_DEFAULT_ULIM, xlim=_DEFAULT_XLIM, dulim=_DEFAULT_DULIM,
-                 solver_config: SolverConfig | None = None, device=None):
+                 solver_config: SolverConfig | None = None, device=None,
+                 moving_obstacles: bool = False):
         self.robot_model = robot
         self.dt = robot.dt
         self.base_radius = robot.base.base_radius()
+        self.moving_obstacles = moving_obstacles
 
         # runtime weight state (reference setWeight mechanism)
         self.Q_value = as_weight_matrix(Q, self.NX)
@@ -148,6 +153,8 @@ class MPCWholeBody(ControllerBase):
         self.xlim = np.asarray(xlim, dtype=float)
         self.dulim = np.asarray(dulim, dtype=float)
 
+        self.obstacle_list = obstacle_list
+        self.obstacle_manipulation_list = obstacle_manipulation_list
         self.obstacles_value = ground_obstacle_array(obstacle_list)
         self.n_obs = self.obstacles_value.shape[0]
         self.n_hp = max(len(obstacle_manipulation_list), 1)
@@ -174,6 +181,7 @@ class MPCWholeBody(ControllerBase):
         nx, nu = self.NX, self.NU
         x_lo, x_hi, x_mlo, x_mhi = self.x_bounds
         du_lo, du_hi, du_mlo, du_mhi = self.du_bounds
+        moving = self.moving_obstacles
 
         def dynamics(x, u):
             return wholebody_step(x, u, dt)
@@ -183,11 +191,22 @@ class MPCWholeBody(ControllerBase):
             k = torch.as_tensor(k, dtype=torch.long, device=x.device)
             return (k == N - 1)[..., None]
 
-        def slack_group(x, p):
+        def stage_obs(p, k, x):
+            """Stage k's obstacle rows: row k of a moving table (k an int
+            or a tensor of stages, broadcasting against x's leading axes),
+            else the one table."""
+            if not moving:
+                return p["obstacles"]
+            return p["obstacles"][torch.as_tensor(k, dtype=torch.long,
+                                                  device=x.device)]
+
+        def terminal_obs(p):
+            return p["obstacles"][N] if moving else p["obstacles"]
+
+        def slack_group(x, p, obs):
             pose_ee, j2, j3 = wholebody_fk(x)
             ee = pose_ee[..., :3]
-            return (ground_circle_g(x[..., 0], x[..., 1], p["obstacles"],
-                                    base_radius),
+            return (ground_circle_g(x[..., 0], x[..., 1], obs, base_radius),
                     self_collision_g(ee, j2, j3),
                     halfplane_union_g(manipulator_sample_points(ee, j2, j3),
                                       p["hp_points"], p["hp_normals"],
@@ -202,19 +221,22 @@ class MPCWholeBody(ControllerBase):
             # reference's stale loop index)
             g_term = torch.where(last_stage(k, x),
                                  terminal_selfcol(dynamics(x, u)), NEG_BIG)
-            return torch.cat(slack_group(x, p) + (g_term,), dim=-1)
+            return torch.cat(slack_group(x, p, stage_obs(p, k, x))
+                             + (g_term,), dim=-1)
 
         def terminal_slack_g(x, p):
-            g_ground, _, g_hp = slack_group(x, p)
+            g_ground, _, g_hp = slack_group(x, p, terminal_obs(p))
             return torch.cat([g_ground, g_hp], dim=-1)
 
         def stage_slack_grad(x, u, k, p):
             """(smax, d smax / d[x; u]) of the stage slack group."""
-            vals, gx = _slack_rows_with_grad(x, p, base_radius)
+            vals, gx = _slack_rows_with_grad(x, p, stage_obs(p, k, x),
+                                             base_radius)
             gu = torch.zeros(gx.shape[:-1] + (nu,), dtype=x.dtype,
                              device=x.device)
-            tv, tg = _slack_rows_with_grad(dynamics(x, u), p, base_radius,
-                                           ground=False, hp=False)
+            tv, tg = _slack_rows_with_grad(dynamics(x, u), p, None,
+                                           base_radius, ground=False,
+                                           hp=False)
             A, Bm = wholebody_jacobians(x, u, dt)
             last = last_stage(k, x)
             vals = torch.cat([vals, torch.where(last, tv, NEG_BIG)], -1)
@@ -224,7 +246,8 @@ class MPCWholeBody(ControllerBase):
             return relu_max_grad(vals, torch.cat([gx, gu], dim=-1))
 
         def terminal_slack_grad(x, p):
-            vals, gx = _slack_rows_with_grad(x, p, base_radius, selfcol=False)
+            vals, gx = _slack_rows_with_grad(x, p, terminal_obs(p),
+                                             base_radius, selfcol=False)
             return relu_max_grad(vals, gx)
 
         def errors(x, u, k, p):
@@ -374,7 +397,7 @@ class MPCWholeBody(ControllerBase):
         # ---- fused kernels (ops/wholebody_fwd.py, ops/wholebody_bwd.py) ----
         kernel_cfg = dict(dt=dt, base_radius=base_radius, n_obs=self.n_obs,
                           n_hp=self.n_hp, x_bounds=self.x_bounds,
-                          du_bounds=self.du_bounds)
+                          du_bounds=self.du_bounds, moving=moving)
 
         def lanes_fwd_factory(cfg, params):
             alphas = [cfg.alpha_decay ** i for i in range(cfg.n_alpha)]
@@ -429,8 +452,16 @@ class MPCWholeBody(ControllerBase):
         self.terminal_eq_mask = 1.0
 
     def set_obstacles(self, obstacles):
-        """Update the ground-obstacle rows (x, y, radius), same count."""
-        self.obstacles_value = np.asarray(obstacles, dtype=float)
+        """Update the ground-obstacle table, same count: rows (x, y, radius)
+        as (n_obs, 3), or with moving obstacles a row a stage as
+        (N+1, n_obs, 3)."""
+        obstacles = np.asarray(obstacles, dtype=float)
+        shape = ((self.N + 1,) if self.moving_obstacles else ()) + (
+            self.n_obs, 3)
+        if obstacles.shape != shape:
+            raise ValueError(f"obstacles: expected shape {shape}, got "
+                             f"{obstacles.shape}")
+        self.obstacles_value = obstacles
 
     def make_params(self, traj_ref, u_ref) -> dict[str, np.ndarray]:
         """The per-problem data as host arrays; move them onto a device with

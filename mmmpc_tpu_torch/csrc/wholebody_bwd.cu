@@ -56,6 +56,11 @@
 // - A ragged batch: the lanes of a partial block run on the clamped
 //   scenario index min(b, B - 1) and only stores are masked, so every
 //   __syncthreads, __syncwarp and shuffle is reached by every thread.
+// - Moving obstacles (statics ST_MOVING): the packed params hold an
+//   obstacle row a stage (obs_rows), in shared memory with the rest; the
+//   terminal expansion's circles read row N, stage k's row k, as the TPU
+//   kernel's moving branch.  A static problem has one row that every stage
+//   reads (a row stride of 0).
 // - The sparse A = I + E and B are applied through their live entries
 //   (struct Jac), the counterpart of the TPU kernel's trace-time literal
 //   folding.  The stale-slack-index rows of the reference (terminal
@@ -107,11 +112,11 @@ struct TeamTile {
 };
 
 __host__ __device__ inline int bwd_smem_bytes(int team, int N, int n_obs,
-                                              int n_hp) {
+                                              int n_hp, bool moving) {
   const int scen = BWD_THREADS / team;
   const int floats = scen * static_cast<int>(sizeof(TeamTile) / sizeof(float)) +
                      2 * NIN * scen + HF * n_hp + ST_SIZE +
-                     param_layout(N, n_obs, n_hp).size;
+                     param_layout(N, n_obs, n_hp, moving).size;
   return floats * static_cast<int>(sizeof(float));
 }
 
@@ -199,13 +204,14 @@ __device__ __forceinline__ void fk_team(const float* x, int lane, FK& f) {
 // share: the ground circles, the four self-collision spheres, the six
 // half-plane samples (when a face is live), then at k = N-1 the four stale
 // terminal self-collision rows.  Item `it` of a lane adds to its own acc.
-// Ground circle o: (r_obs + r_base) - |(px, py) - obs|.
+// Ground circle o of the obstacle row ob: (r_obs + r_base) - |(px, py) -
+// obs|.
 template <int NV>
 __device__ __forceinline__ void ground_item(int o, const float* x,
-                                            const float* ps, const Layout& L,
-                                            float base_radius, MaxAcc<NV>& acc) {
-  const float dx = x[0] - ps[L.obs + 3 * o];
-  const float dy = x[1] - ps[L.obs + 3 * o + 1];
+                                            const float* ob, float base_radius,
+                                            MaxAcc<NV>& acc) {
+  const float dx = x[0] - ob[3 * o];
+  const float dy = x[1] - ob[3 * o + 1];
   const float q = dx * dx + dy * dy + EPS;
   const float id = rsqrt_nr(q);   // 1 / d
   const float d = q * id;
@@ -214,7 +220,7 @@ __device__ __forceinline__ void ground_item(int o, const float* x,
   for (int i = 0; i < NV; ++i) g[i] = 0.f;
   g[0] = -dx * id;
   g[1] = -dy * id;
-  acc.add((ps[L.obs + 3 * o + 2] + base_radius) - d, g);
+  acc.add((ob[3 * o + 2] + base_radius) - d, g);
 }
 
 // Self-collision sphere r (SELF_DIFF[r]): SELF_R - |check - ee|; its
@@ -314,21 +320,22 @@ struct AllIdx {
   __device__ static constexpr int at(int k) { return k; }
 };
 
-// The stage's slack group over the team: each lane runs its items of the
-// list into its own accumulator, the team merges them, and the lanes write
-// the scaled gradient (sx, su) to the tile.  NV = NX: no stale rows (every
-// su is 0); NV = NX + NU: stage N-1, with the stale rows.  Returns smax.
+// The stage's slack group over the team (its circles those of the
+// obstacle row ob): each lane runs its items of the list into its own
+// accumulator, the team merges them, and the lanes write the scaled
+// gradient (sx, su) to the tile.  NV = NX: no stale rows (every su is 0);
+// NV = NX + NU: stage N-1, with the stale rows.  Returns smax.
 template <int T, int NV>
 __device__ __forceinline__ float stage_slack(
     const float* x, const float* u, const FK& f, const Jac& J, float dt,
-    const float* ps, const float* hf, const Layout& L, int n_obs, int n_hp,
-    int n_hpi, float base_radius, int lane, TeamTile& tt) {
+    const float* ob, const float* hf, int n_obs, int n_hp, int n_hpi,
+    float base_radius, int lane, TeamTile& tt) {
   MaxAcc<NV> m;
   m.init();
   constexpr bool stale = NV == NX + NU;
   for (int it = lane; it < n_hpi + n_obs + 4; it += T) {
     if (it < n_hpi) halfplane_item<NV>(it, f, hf, n_hp, m);
-    else if (it < n_hpi + n_obs) ground_item<NV>(it - n_hpi, x, ps, L, base_radius, m);
+    else if (it < n_hpi + n_obs) ground_item<NV>(it - n_hpi, x, ob, base_radius, m);
     else self_item<NV>(it - n_hpi - n_obs, f, m);
   }
   if constexpr (stale) {
@@ -370,12 +377,16 @@ bwd_kernel(const Statics st, const float* __restrict__ pp,
   extern __shared__ __align__(16) float smem[];
   const int n_obs = static_cast<int>(st.v[ST_N_OBS]);
   const int n_hp = static_cast<int>(st.v[ST_N_HP]);
-  const Layout L = param_layout(N, n_obs, n_hp);
+  const bool moving = st.v[ST_MOVING] != 0.f;
+  const Layout L = param_layout(N, n_obs, n_hp, moving);
   TeamTile* tiles = reinterpret_cast<TeamTile*>(smem);
   float* inbuf = smem + SCEN * (sizeof(TeamTile) / sizeof(float));
   float* hf = inbuf + 2 * NIN * SCEN;     // half-plane faces
   float* sv = hf + HF * n_hp;             // statics
   float* ps = sv + ST_SIZE;               // packed params
+  // stage k's obstacle row: ob0 + k * ostride (the one row if static)
+  const float* ob0 = ps + L.obs;
+  const int ostride = obs_row_stride(n_obs, moving);
 
   const int tid = threadIdx.x;
   const int team = tid / T, lane = tid % T;
@@ -464,7 +475,7 @@ bwd_kernel(const Statics st, const float* __restrict__ pp,
     m.init();
     // no self-collision rows: they rode stage N-1's slack group
     for (int it = lane; it < n_obs + n_hpi; it += T) {
-      if (it < n_obs) ground_item<NX>(it, x, ps, L, base_radius, m);
+      if (it < n_obs) ground_item<NX>(it, x, ob0 + N * ostride, base_radius, m);
       else halfplane_item<NX>(it - n_obs, f, hf, n_hp, m);
     }
     merge_team<T, FkIdx>(m);
@@ -532,10 +543,10 @@ bwd_kernel(const Statics st, const float* __restrict__ pp,
       fk_team<T>(x, lane, f);
       J = jacobians(x, u, dt, f.cp, f.sp);
       smax = k == N - 1
-          ? stage_slack<T, NX + NU>(x, u, f, J, dt, ps, hf, L, n_obs, n_hp,
-                                    n_hpi, base_radius, lane, tt)
-          : stage_slack<T, NX>(x, u, f, J, dt, ps, hf, L, n_obs, n_hp, n_hpi,
-                               base_radius, lane, tt);
+          ? stage_slack<T, NX + NU>(x, u, f, J, dt, ob0 + k * ostride, hf,
+                                    n_obs, n_hp, n_hpi, base_radius, lane, tt)
+          : stage_slack<T, NX>(x, u, f, J, dt, ob0 + k * ostride, hf, n_obs,
+                               n_hp, n_hpi, base_radius, lane, tt);
     }
     __syncwarp();
     const float Ssm = S * smax;
@@ -741,18 +752,20 @@ bwd_kernel(const Statics st, const float* __restrict__ pp,
 struct Geometry {
   int threads, blocks, smem;
 };
-inline Geometry bwd_geometry(int N, int n_obs, int n_hp, int B) {
+inline Geometry bwd_geometry(int N, int n_obs, int n_hp, bool moving, int B) {
   constexpr int scen = BWD_THREADS / BWD_TEAM;
   return {BWD_THREADS, (B + scen - 1) / scen,
-          bwd_smem_bytes(BWD_TEAM, N, n_obs, n_hp)};
+          bwd_smem_bytes(BWD_TEAM, N, n_obs, n_hp, moving)};
 }
 
 }  // namespace wb
 
-// Launch geometry at batch B: out = {lanes a scenario, threads a block,
-// blocks, dynamic shared-memory bytes}, as wb_bwd_launch launches.
-extern "C" int wb_bwd_geometry(int N, int n_obs, int n_hp, int B, int* out) {
-  const wb::Geometry g = wb::bwd_geometry(N, n_obs, n_hp, B);
+// Launch geometry at batch B (moving != 0: an obstacle row a stage): out =
+// {lanes a scenario, threads a block, blocks, dynamic shared-memory bytes},
+// as wb_bwd_launch launches.
+extern "C" int wb_bwd_geometry(int N, int n_obs, int n_hp, int moving, int B,
+                               int* out) {
+  const wb::Geometry g = wb::bwd_geometry(N, n_obs, n_hp, moving != 0, B);
   out[0] = wb::BWD_TEAM;
   out[1] = g.threads;
   out[2] = g.blocks;
@@ -773,7 +786,7 @@ extern "C" int wb_bwd_launch(const float* statics, const float* params,
   if (B <= 0 || N <= 0) return 0;
   const wb::Geometry g = wb::bwd_geometry(
       N, static_cast<int>(st.v[wb::ST_N_OBS]),
-      static_cast<int>(st.v[wb::ST_N_HP]), B);
+      static_cast<int>(st.v[wb::ST_N_HP]), st.v[wb::ST_MOVING] != 0.f, B);
   if (g.smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         wb::bwd_kernel<wb::BWD_TEAM>,

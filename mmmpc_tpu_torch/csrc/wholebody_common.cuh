@@ -57,7 +57,8 @@ enum : int {
   ST_ULO = ST_DUMHI + NU,
   ST_UHI = ST_ULO + NU,
   ST_ALPHAS = ST_UHI + NU,
-  ST_SIZE = ST_ALPHAS + MAX_ALPHA,
+  ST_MOVING = ST_ALPHAS + MAX_ALPHA,  // 1: an obstacle row a stage (obs_rows)
+  ST_SIZE = ST_MOVING + 1,
 };
 
 struct Statics {
@@ -65,13 +66,25 @@ struct Statics {
 };
 
 // ---- the packed per-problem buffer in device memory.  Order =
-// ops/wholebody_fwd.py::_PACKED_KEYS (the wrappers check its size against
+// ops/wholebody_fwd.py::_packed_shapes (the wrappers check its size against
 // wb_params_size()); all row-major.
 struct Layout {
   int S, eqm, Q, R, W, P, xref, uref, ulast, obs, hpp, hpn, hpm, size;
 };
 
-__host__ __device__ inline Layout param_layout(int N, int n_obs, int n_hp) {
+// Rows of the obstacle table, n_obs entries {x, y, radius} each: one that
+// every stage reads, or with moving obstacles one a stage k = 0 .. N, row k
+// the obstacles predicted at stage k (the JAX kernels' (N+1, n_obs, 3)
+// table).  Stage k reads row k * obs_row_stride floats on.
+__host__ __device__ inline int obs_rows(int N, bool moving) {
+  return moving ? N + 1 : 1;
+}
+__host__ __device__ inline int obs_row_stride(int n_obs, bool moving) {
+  return moving ? 3 * n_obs : 0;
+}
+
+__host__ __device__ inline Layout param_layout(int N, int n_obs, int n_hp,
+                                               bool moving) {
   Layout L;
   int o = 0;
   L.S = o;     o += 1;
@@ -83,7 +96,7 @@ __host__ __device__ inline Layout param_layout(int N, int n_obs, int n_hp) {
   L.xref = o;  o += (N + 1) * NX;
   L.uref = o;  o += N * NU;
   L.ulast = o; o += N * NU;
-  L.obs = o;   o += 3 * n_obs;
+  L.obs = o;   o += 3 * n_obs * obs_rows(N, moving);
   L.hpp = o;   o += 3 * n_hp;
   L.hpn = o;   o += 3 * n_hp;
   L.hpm = o;   o += n_hp;

@@ -59,6 +59,11 @@
 // - A ragged batch: the teams of a partial block run on the clamped
 //   scenario index min(b, B - 1) and only stores are masked, so every
 //   __syncthreads, __syncwarp and shuffle is reached by every thread.
+// - Moving obstacles (statics ST_MOVING): the packed params hold an
+//   obstacle row a stage (obs_rows), copied into shared memory with the
+//   rest; stage k's circles read row k against x_k and the terminal ones
+//   row N against x_N, as the TPU kernel's moving branch.  A static problem
+//   has one row, which every stage reads (a row stride of 0).
 // - No tensor cores: the products are 9-wide per candidate.
 //
 // The slack rows, the controls and the states are computed as the
@@ -117,7 +122,7 @@ struct FwdSmem {
 };
 
 __host__ __device__ inline FwdSmem fwd_smem(int team, int N, int n_obs,
-                                            int n_hp) {
+                                            int n_hp, bool moving) {
   FwdSmem m;
   int o = 0;
   m.hf = o;    o += FWD_HF * n_hp;
@@ -126,7 +131,7 @@ __host__ __device__ inline FwdSmem fwd_smem(int team, int N, int n_obs,
   m.term = o;  o += FWD_NTERM * FWD_SCEN;
   m.vec = o;   o += 2 * NV * (FWD_THREADS / team);
   m.sv = o;    o += ST_SIZE;
-  m.ps = o;    o += param_layout(N, n_obs, n_hp).size;
+  m.ps = o;    o += param_layout(N, n_obs, n_hp, moving).size;
   m.size = o;
   return m;
 }
@@ -202,14 +207,15 @@ __device__ __forceinline__ void pts_combo(const Pts& f, float a0, float a1,
 
 // ---- the slack rows, one item each (the rows of wholebody_common.cuh's
 // ground_rows, self_rows and halfplane_rows, values only) ----
-// Ground circle o: (r_obs + r_base) - |(px, py) - obs|.
+// Ground circle o of the obstacle row ob: (r_obs + r_base) - |(px, py) -
+// obs|.
 __device__ __forceinline__ float ground_value(int o, const float* x,
-                                              const float* ps, const Layout& L,
+                                              const float* ob,
                                               float base_radius) {
-  const float dx = x[0] - ps[L.obs + 3 * o];
-  const float dy = x[1] - ps[L.obs + 3 * o + 1];
+  const float dx = x[0] - ob[3 * o];
+  const float dy = x[1] - ob[3 * o + 1];
   const float d = sqrtf(dx * dx + dy * dy + EPS);
-  return (ps[L.obs + 3 * o + 2] + base_radius) - d;
+  return (ob[3 * o + 2] + base_radius) - d;
 }
 
 // Self-collision sphere r (SELF_DIFF[r]): SELF_R - |check - ee|.
@@ -252,13 +258,12 @@ __device__ __forceinline__ float max_team(float m) {
   return m;
 }
 
-// The ground circles and half-plane samples of x's slack group over the
-// lanes, into the lane's running max.
+// The ground circles (of the obstacle row ob) and half-plane samples of
+// x's slack group over the lanes, into the lane's running max.
 template <int T>
 __device__ __forceinline__ float ground_hp_rows(const float* x, const Pts& f,
-                                                const float* ps,
-                                                const float* hf,
-                                                const Layout& L, int n_obs,
+                                                const float* ob,
+                                                const float* hf, int n_obs,
                                                 int n_hp, int n_hpi,
                                                 float base_radius, int lane) {
   float m = -INFINITY;
@@ -268,7 +273,7 @@ __device__ __forceinline__ float ground_hp_rows(const float* x, const Pts& f,
     if (r < n_hpi) m = max_nan(m, hp_value(r, f, hf, n_hp));
   }
   for (int o = lane; o < n_obs; o += T)
-    m = max_nan(m, ground_value(o, x, ps, L, base_radius));
+    m = max_nan(m, ground_value(o, x, ob, base_radius));
   return m;
 }
 
@@ -326,9 +331,10 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
   const int na = static_cast<int>(st.v[ST_N_ALPHA]);
   const int n_obs = static_cast<int>(st.v[ST_N_OBS]);
   const int n_hp = static_cast<int>(st.v[ST_N_HP]);
+  const bool moving = st.v[ST_MOVING] != 0.f;
   const int scen = fwd_scen(T, na);        // scenarios of this block
-  const Layout L = param_layout(N, n_obs, n_hp);
-  const FwdSmem M = fwd_smem(T, N, n_obs, n_hp);
+  const Layout L = param_layout(N, n_obs, n_hp, moving);
+  const FwdSmem M = fwd_smem(T, N, n_obs, n_hp, moving);
   float* hf = smem + M.hf;        // half-plane faces
   float* rt = smem + M.rows;      // PHR row table
   float* inbuf = smem + M.in;     // stage inputs, two parities
@@ -336,6 +342,9 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
   float* vec = smem + M.vec;      // the teams' vectors, two parities
   float* sv = smem + M.sv;        // statics
   float* ps = smem + M.ps;        // packed params
+  // stage k's obstacle row: ob0 + k * ostride (the one row if static)
+  const float* ob0 = ps + L.obs;
+  const int ostride = obs_row_stride(n_obs, moving);
 
   const int tid = threadIdx.x;
   const int team = tid / T, lane = tid % T;
@@ -497,8 +506,8 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
 
     // ---- the slack group of x_k over the lanes; at k = N-1 the terminal
     // self-collision rows ride it (the reference's stale slack index)
-    float gmax = ground_hp_rows<T>(x, f, ps, hf, L, n_obs, n_hp, n_hpi,
-                                   base_radius, lane);
+    float gmax = ground_hp_rows<T>(x, f, ob0 + k * ostride, hf, n_obs, n_hp,
+                                   n_hpi, base_radius, lane);
     for (int r = lane; r < 4; r += T) gmax = max_nan(gmax, self_value(r, f));
     if (k == N - 1) {
       Pts fn;
@@ -540,7 +549,7 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
     }
     __syncwarp();
     const float gmax = max_team<T>(ground_hp_rows<T>(
-        x, f, ps, hf, L, n_obs, n_hp, n_hpi, base_radius, lane));
+        x, f, ob0 + N * ostride, hf, n_obs, n_hp, n_hpi, base_radius, lane));
     const float smax = gmax < 0.f ? 0.f : gmax;
     float tr = lane == 0 ? ps[L.S] * smax * smax : 0.f;
     tr += qform_rows<T, NX>(ps + L.P, ex, v + V_EX, lane);
@@ -577,10 +586,11 @@ struct FwdGeometry {
 };
 
 inline FwdGeometry fwd_geometry(int team, int N, int n_obs, int n_hp,
-                                int n_alpha, int B) {
+                                bool moving, int n_alpha, int B) {
   const int scen = fwd_scen(team, n_alpha);
   return {team, FWD_THREADS, (B + scen - 1) / scen,
-          fwd_smem(team, N, n_obs, n_hp).size * static_cast<int>(sizeof(float))};
+          fwd_smem(team, N, n_obs, n_hp, moving).size *
+              static_cast<int>(sizeof(float))};
 }
 
 template <int T>
@@ -591,7 +601,7 @@ int fwd_launch(const Statics& st, const float* params, const float* X,
                int N, int B, cudaStream_t stream) {
   const FwdGeometry g = fwd_geometry(
       T, N, static_cast<int>(st.v[ST_N_OBS]), static_cast<int>(st.v[ST_N_HP]),
-      static_cast<int>(st.v[ST_N_ALPHA]), B);
+      st.v[ST_MOVING] != 0.f, static_cast<int>(st.v[ST_N_ALPHA]), B);
   if (g.smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
@@ -604,13 +614,13 @@ int fwd_launch(const Statics& st, const float* params, const float* X,
 
 }  // namespace wb
 
-// Launch geometry at batch B with n_alpha step sizes: out = {lanes a
-// candidate, threads a block, blocks, dynamic shared-memory bytes}, as
-// wb_fwd_launch launches.
-extern "C" int wb_fwd_geometry(int N, int n_obs, int n_hp, int n_alpha, int B,
-                               int* out) {
-  const wb::FwdGeometry g =
-      wb::fwd_geometry(wb::FWD_TEAM, N, n_obs, n_hp, n_alpha, B);
+// Launch geometry at batch B with n_alpha step sizes (moving != 0: an
+// obstacle row a stage): out = {lanes a candidate, threads a block, blocks,
+// dynamic shared-memory bytes}, as wb_fwd_launch launches.
+extern "C" int wb_fwd_geometry(int N, int n_obs, int n_hp, int moving,
+                               int n_alpha, int B, int* out) {
+  const wb::FwdGeometry g = wb::fwd_geometry(wb::FWD_TEAM, N, n_obs, n_hp,
+                                             moving != 0, n_alpha, B);
   out[0] = g.team;
   out[1] = g.threads;
   out[2] = g.blocks;
@@ -640,7 +650,7 @@ extern "C" int wb_fwd_launch(const float* statics, const float* params,
 // Sizes of the two host-built blocks, for the wrappers' layout check.
 extern "C" int wb_statics_size() { return wb::ST_SIZE; }
 
-extern "C" int wb_params_size(int N, int n_obs, int n_hp) {
-  return wb::param_layout(N, n_obs, n_hp).size;
+extern "C" int wb_params_size(int N, int n_obs, int n_hp, int moving) {
+  return wb::param_layout(N, n_obs, n_hp, moving != 0).size;
 }
 

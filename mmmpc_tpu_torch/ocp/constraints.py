@@ -24,9 +24,11 @@ OBSTACLE_EXPAND_DIST = 0.03
 
 def ground_circle_g(xy_x, xy_y, obstacles, body_radius):
     """(r_obs + r_body) - dist((x, y), obs) for each ground obstacle:
-    (...,) positions, obstacles (n_obs, 3) rows [x, y, r] -> (..., n_obs)."""
-    return (obstacles[:, 2] + body_radius) - safe_dist(
-        xy_x[..., None] - obstacles[:, 0], xy_y[..., None] - obstacles[:, 1])
+    (...,) positions, obstacles (..., n_obs, 3) rows [x, y, r] (leading axes
+    broadcast against the positions') -> (..., n_obs)."""
+    return (obstacles[..., 2] + body_radius) - safe_dist(
+        xy_x[..., None] - obstacles[..., 0],
+        xy_y[..., None] - obstacles[..., 1])
 
 
 def manipulator_sample_points(ee, j2, j3):
@@ -103,10 +105,10 @@ def relu_max_grad(vals, grads):
 def ground_circle_g_grad(xy_x, xy_y, obstacles, body_radius):
     """``ground_circle_g`` (..., n_obs) and its gradient in (x, y)
     (..., n_obs, 2)."""
-    dx = xy_x[..., None] - obstacles[:, 0]
-    dy = xy_y[..., None] - obstacles[:, 1]
+    dx = xy_x[..., None] - obstacles[..., 0]
+    dy = xy_y[..., None] - obstacles[..., 1]
     d = safe_dist(dx, dy)
-    return ((obstacles[:, 2] + body_radius) - d,
+    return ((obstacles[..., 2] + body_radius) - d,
             torch.stack([-dx / d, -dy / d], dim=-1))
 
 

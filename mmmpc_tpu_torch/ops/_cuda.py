@@ -77,7 +77,9 @@ _FLOAT = ctypes.c_float
 # pointers, the trip count, blocks, threads, the stream.  The backwards'
 # geometries (N, n_obs, n_hp, B) and the forwards' (N, n_obs, n_hp,
 # n_alpha, B), whole-body and generic, write four ints (team, threads,
-# blocks, shared-memory bytes).
+# blocks, shared-memory bytes); the whole-body ones, and the whole-body
+# params size, also take ``moving`` after n_hp (1: an obstacle row a
+# stage).
 _FWD = [_VOID] * 13 + [_FLOAT, _INT, _INT, _VOID]
 _BWD = [_VOID] * 10 + [_FLOAT, _INT, _INT, _VOID]
 _RIC = [_VOID] * 12 + [_INT, _INT, _VOID]
@@ -85,9 +87,9 @@ _RIC_GEOMETRY = [_INT, _VOID]
 SIGNATURES = {
     "wb_fwd_launch": _FWD,
     "wb_bwd_launch": _BWD,
-    "wb_bwd_geometry": [_INT] * 4 + [_VOID],
-    "wb_fwd_geometry": [_INT] * 5 + [_VOID],
-    "wb_statics_size": [], "wb_params_size": [_INT, _INT, _INT],
+    "wb_bwd_geometry": [_INT] * 5 + [_VOID],
+    "wb_fwd_geometry": [_INT] * 6 + [_VOID],
+    "wb_statics_size": [], "wb_params_size": [_INT] * 4,
     **{k: v for name in FORMULATIONS for k, v in (
         (f"gen_fwd_{name}", _FWD), (f"gen_bwd_{name}", _BWD),
         (f"gen_fwd_geometry_{name}", [_INT] * 5 + [_VOID]),
@@ -260,8 +262,8 @@ RICCATI = RiccatiEntries()
 def pack_buffer(shapes: dict, params) -> torch.Tensor:
     """The per-problem tensors ``params[k]`` of ``shapes`` (key -> shape, in
     the order of the kernel's layout) as one contiguous buffer, in the dtype
-    and on the device of ``params``.  Per-scenario entries are not
-    supported."""
+    and on the device of ``params``; raises on an entry of another shape
+    (per-scenario entries are not supported)."""
     for k, shape in shapes.items():
         if tuple(params[k].shape) != tuple(shape):
             raise ValueError(f"params[{k!r}]: expected shape {tuple(shape)}, "
@@ -277,12 +279,15 @@ def unpack_buffer(shapes: dict, flat: torch.Tensor) -> dict[str, torch.Tensor]:
 
 
 def check_layout(lib, statics, flat: torch.Tensor, N: int, n_obs: int,
-                 n_hp: int, formulation: str | None = None) -> None:
+                 n_hp: int, formulation: str | None = None,
+                 moving: bool = False) -> None:
     """Raise unless the host statics block and the packed params have the
-    sizes the library's C layouts expect: ``csrc/wholebody_common.cuh``'s, or
-    with ``formulation`` those of ``csrc/generic_<formulation>.cu``."""
+    sizes the library's C layouts expect: ``csrc/wholebody_common.cuh``'s
+    (``moving``: an obstacle row a stage), or with ``formulation`` those of
+    ``csrc/generic_<formulation>.cu``."""
     if formulation is None:
-        want = (lib.wb_statics_size(), lib.wb_params_size(N, n_obs, n_hp))
+        want = (lib.wb_statics_size(),
+                lib.wb_params_size(N, n_obs, n_hp, int(moving)))
     else:
         want = (getattr(lib, f"gen_statics_size_{formulation}")(),
                 getattr(lib, f"gen_params_size_{formulation}")(N, n_obs, n_hp))

@@ -6,7 +6,9 @@ Vx, Vxx) it runs backward over the stages: at each stage the Gauss-Newton
 gradient and Hessian of the tracking, input and rate costs, the slack-group
 gradient, the PHR rows of the boxes, the sparse dynamics Jacobians, then one
 Riccati step (Cholesky of Quu + reg I) giving kff = -Quu^-1 Qu and K = -Quu^-1
-Qux. Vxx is symmetrised after every step, as the TPU kernel does.
+Qux. Vxx is symmetrised after every step, as the TPU kernel does.  With
+``moving`` obstacles the params' obstacle table is (N+1, n_obs, 3): stage
+k's circles are row k's, the terminal expansion's row N's.
 
 On CUDA tensors the call launches the hand-written kernel
 ``csrc/wholebody_bwd.cu``: a team of 8 lanes per scenario (the
@@ -37,32 +39,35 @@ from mmmpc_tpu_torch.ops.wholebody_fwd import (
 LAUNCHES = LaunchCounter()
 
 
-def launch_geometry(lib, N, n_obs, n_hp, B):
+def launch_geometry(lib, N, n_obs, n_hp, B, moving=False):
     """{team, threads, blocks, smem_bytes}: the lanes a scenario, threads a
     block, blocks and dynamic shared-memory bytes with which the library's
-    ``wb_bwd_launch`` launches the kernel at batch ``B``, as its
-    ``wb_bwd_geometry`` reports them."""
+    ``wb_bwd_launch`` launches the kernel at batch ``B`` (``moving``: an
+    obstacle row a stage), as its ``wb_bwd_geometry`` reports them."""
     out = (ctypes.c_int * 4)()
-    lib.wb_bwd_geometry(N, n_obs, n_hp, B, out)
+    lib.wb_bwd_geometry(N, n_obs, n_hp, int(moving), B, out)
     return dict(team=out[0], threads=out[1], blocks=out[2], smem_bytes=out[3])
 
 
 class BwdFused:
     """The fused backward sweep of one problem (the JAX package's
     ``make_bwd_fused``): static data from the keyword arguments, runtime
-    data from ``params``, packed once."""
+    data from ``params``, packed once (``moving``: an obstacle row a
+    stage)."""
 
     def __init__(self, ocp, params, *, dt, base_radius, n_obs, n_hp,
-                 x_bounds, du_bounds, inv_scale):
+                 x_bounds, du_bounds, inv_scale, moving=False):
         if (ocp.nx, ocp.nu) != (NX, NU):
             raise ValueError("the whole-body kernels take nx=9, nu=5")
         self.ocp = ocp
         self.N, self.n_obs, self.n_hp = ocp.N, n_obs, n_hp
+        self.moving = bool(moving)
         self.inv_scale = float(inv_scale)
-        self.flat = pack_params(params, ocp.N, n_obs, n_hp)
+        self.flat = pack_params(params, ocp.N, n_obs, n_hp, self.moving)
         self.statics = statics_block(
             dt=dt, inv_scale=inv_scale, base_radius=base_radius,
-            n_obs=n_obs, n_hp=n_hp, x_bounds=x_bounds, du_bounds=du_bounds)
+            n_obs=n_obs, n_hp=n_hp, x_bounds=x_bounds, du_bounds=du_bounds,
+            moving=self.moving)
 
     def __call__(self, X, U, lam, lamt, lame, mu, reg):
         """X (N+1, nx, B), U (N, nu, B), lam (N, nc, B), lamt (2 nx, B),
@@ -78,7 +83,7 @@ class BwdFused:
         """``ops/generic_bwd.py::plain_bwd`` on the packed params (any
         device, any float dtype)."""
         return plain_bwd(self.ocp, unpack_params(self.flat, self.N, self.n_obs,
-                                                 self.n_hp),
+                                                 self.n_hp, self.moving),
                          self.inv_scale, X, U, lam, lamt, lame, mu, reg)
 
     def cuda(self, X, U, lam, lamt, lame, mu, reg):
@@ -95,7 +100,8 @@ class BwdFused:
         kw = dict(dtype=torch.float32, device=X.device)
         outs = (torch.empty(N, NU, B, **kw), torch.empty(N, NU, NX, B, **kw))
         lib = LIBRARY.get()
-        check_layout(lib, self.statics, self.flat, N, self.n_obs, self.n_hp)
+        check_layout(lib, self.statics, self.flat, N, self.n_obs, self.n_hp,
+                     moving=self.moving)
         with torch.cuda.device(X.device):
             err = lib.wb_bwd_launch(
                 self.statics.ctypes.data, *ptrs, *(o.data_ptr() for o in outs),

@@ -10,7 +10,10 @@ every step size alpha, one pass over the horizon computes
 
 and adds the terminal AL cost (P tracking, terminal slack groups, PHR on the
 terminal boxes, the maskable position equality) at the end, so the returned
-per-candidate costs are complete.
+per-candidate costs are complete.  With ``moving`` obstacles the params'
+obstacle table is (N+1, n_obs, 3): stage k's circles are row k's, the
+terminal group's row N's (the JAX kernel's ``moving`` branch); otherwise it
+is (n_obs, 3), one row for every stage.
 
 On CUDA tensors the call launches the hand-written kernel
 ``csrc/wholebody_fwd.cu``: a team of 2 lanes per candidate (scenario, step
@@ -50,54 +53,60 @@ NC = 2 * NX + 2 * NU
 LAUNCHES = LaunchCounter()
 
 
-def launch_geometry(lib, N, n_obs, n_hp, n_alpha, B):
+def launch_geometry(lib, N, n_obs, n_hp, n_alpha, B, moving=False):
     """{team, threads, blocks, smem_bytes}: the lanes a candidate, threads a
     block, blocks and dynamic shared-memory bytes with which the library's
     ``wb_fwd_launch`` launches the kernel at batch ``B`` with ``n_alpha``
-    step sizes, as its ``wb_fwd_geometry`` reports them."""
+    step sizes (``moving``: an obstacle row a stage), as its
+    ``wb_fwd_geometry`` reports them."""
     out = (ctypes.c_int * 4)()
-    lib.wb_fwd_geometry(N, n_obs, n_hp, n_alpha, B, out)
+    lib.wb_fwd_geometry(N, n_obs, n_hp, int(moving), n_alpha, B, out)
     return dict(team=out[0], threads=out[1], blocks=out[2], smem_bytes=out[3])
 
-# ---- the packed per-problem buffer (Par* offsets in the CUDA header) ----
-def _packed_shapes(N, n_obs, n_hp):
+# ---- the packed per-problem buffer (param_layout in the CUDA header) ----
+def _packed_shapes(N, n_obs, n_hp, moving):
     return {"S": (), "eq_mask": (), "Q": (NX, NX), "R": (NU, NU),
             "W": (NU, NU), "P": (NX, NX), "X_ref": (N + 1, NX),
-            "U_ref": (N, NU), "U_last": (N, NU), "obstacles": (n_obs, 3),
+            "U_ref": (N, NU), "U_last": (N, NU),
+            "obstacles": (N + 1, n_obs, 3) if moving else (n_obs, 3),
             "hp_points": (n_hp, 3), "hp_normals": (n_hp, 3),
             "hp_mask": (n_hp,)}
 
 
-def pack_params(params, N, n_obs, n_hp) -> torch.Tensor:
+def pack_params(params, N, n_obs, n_hp, moving=False) -> torch.Tensor:
     """The shared per-problem tensors as one contiguous buffer (dtype and
-    device of ``params``).  Per-scenario entries are not supported."""
-    return pack_buffer(_packed_shapes(N, n_obs, n_hp), params)
+    device of ``params``); ``moving``: the obstacle table has a row a stage.
+    Per-scenario entries are not supported."""
+    return pack_buffer(_packed_shapes(N, n_obs, n_hp, moving), params)
 
 
-def unpack_params(flat, N, n_obs, n_hp) -> dict[str, torch.Tensor]:
+def unpack_params(flat, N, n_obs, n_hp, moving=False) -> dict[str,
+                                                               torch.Tensor]:
     """Views of ``flat`` under the keys of the controller's params."""
-    return unpack_buffer(_packed_shapes(N, n_obs, n_hp), flat)
+    return unpack_buffer(_packed_shapes(N, n_obs, n_hp, moving), flat)
 
 
-# ---- the statics block (St* offsets in the CUDA header) ----
+# ---- the statics block (ST_* offsets in the CUDA header) ----
 _STATIC_FIELDS = (("dt", 1), ("inv_scale", 1), ("base_radius", 1),
-                  ("n_alpha", 1), ("n_obs", 1), ("n_hp", 1), ("x_lo", NX), ("x_hi", NX), ("x_mlo", NX),
-                  ("x_mhi", NX), ("du_lo", NU), ("du_hi", NU),
-                  ("du_mlo", NU), ("du_mhi", NU), ("u_lo", NU), ("u_hi", NU),
-                  ("alphas", MAX_ALPHA))
+                  ("n_alpha", 1), ("n_obs", 1), ("n_hp", 1), ("x_lo", NX),
+                  ("x_hi", NX), ("x_mlo", NX), ("x_mhi", NX), ("du_lo", NU),
+                  ("du_hi", NU), ("du_mlo", NU), ("du_mhi", NU), ("u_lo", NU),
+                  ("u_hi", NU), ("alphas", MAX_ALPHA), ("moving", 1))
 
 
 def statics_block(*, dt, inv_scale, base_radius, n_obs, n_hp, x_bounds,
-                  du_bounds, u_clamp=None, alphas=()) -> np.ndarray:
+                  du_bounds, u_clamp=None, alphas=(),
+                  moving=False) -> np.ndarray:
     """Host float32 block of everything static to a solve."""
     if len(alphas) > MAX_ALPHA:
         raise ValueError(f"at most {MAX_ALPHA} step sizes, got {len(alphas)}")
     u_lo, u_hi = u_clamp if u_clamp is not None else (
         np.full(NU, -np.inf), np.full(NU, np.inf))
     values = dict(dt=dt, inv_scale=inv_scale, base_radius=base_radius,
-                  n_alpha=len(alphas), n_obs=n_obs, n_hp=n_hp, u_lo=u_lo, u_hi=u_hi,
-                  alphas=np.pad(np.asarray(alphas, float),
-                                (0, MAX_ALPHA - len(alphas))))
+                  n_alpha=len(alphas), n_obs=n_obs, n_hp=n_hp, u_lo=u_lo,
+                  u_hi=u_hi, alphas=np.pad(np.asarray(alphas, float),
+                                           (0, MAX_ALPHA - len(alphas))),
+                  moving=float(moving))
     for name, b in zip(("x_lo", "x_hi", "x_mlo", "x_mhi"), x_bounds):
         values[name] = b
     for name, b in zip(("du_lo", "du_hi", "du_mlo", "du_mhi"), du_bounds):
@@ -110,23 +119,25 @@ def statics_block(*, dt, inv_scale, base_radius, n_obs, n_hp, x_bounds,
 class FwdLinesearch:
     """The fused rollout + line search of one problem (the JAX package's
     ``make_fwd_linesearch``): static data (bounds, masks, clamp limits,
-    alphas, dt) from the keyword arguments, runtime data (weights,
-    references, geometry) from ``params``, packed once; multipliers and mu
-    are call arguments."""
+    alphas, dt, ``moving``: an obstacle row a stage) from the keyword
+    arguments, runtime data (weights, references, geometry) from
+    ``params``, packed once; multipliers and mu are call arguments."""
 
     def __init__(self, ocp, params, *, dt, base_radius, n_obs, n_hp,
-                 x_bounds, du_bounds, u_clamp, alphas, inv_scale):
+                 x_bounds, du_bounds, u_clamp, alphas, inv_scale,
+                 moving=False):
         if (ocp.nx, ocp.nu) != (NX, NU):
             raise ValueError("the whole-body kernels take nx=9, nu=5")
         self.ocp = ocp
         self.N, self.n_obs, self.n_hp = ocp.N, n_obs, n_hp
+        self.moving = bool(moving)
         self.alphas = tuple(float(a) for a in alphas)
         self.inv_scale = float(inv_scale)
-        self.flat = pack_params(params, ocp.N, n_obs, n_hp)
+        self.flat = pack_params(params, ocp.N, n_obs, n_hp, self.moving)
         self.statics = statics_block(
             dt=dt, inv_scale=inv_scale, base_radius=base_radius,
             n_obs=n_obs, n_hp=n_hp, x_bounds=x_bounds, du_bounds=du_bounds,
-            u_clamp=u_clamp, alphas=self.alphas)
+            u_clamp=u_clamp, alphas=self.alphas, moving=self.moving)
 
     def __call__(self, X, U, kff, K, lam, lamt, lame, mu):
         """X (N, nx, B) stage states, U (N, nu, B), kff (N, nu, B),
@@ -144,7 +155,7 @@ class FwdLinesearch:
         """``ops/generic_fwd.py::plain_fwd`` on the packed params (any
         device, any float dtype)."""
         return plain_fwd(self.ocp, unpack_params(self.flat, self.N, self.n_obs,
-                                                 self.n_hp),
+                                                 self.n_hp, self.moving),
                          self.alphas, self.inv_scale, X, U, kff, K, lam, lamt,
                          lame, mu)
 
@@ -164,7 +175,8 @@ class FwdLinesearch:
         outs = (torch.empty(N, na, NX, B, **kw), torch.empty(N, na, NU, B, **kw),
                 torch.empty(na, NX, B, **kw), torch.empty(na, B, **kw))
         lib = LIBRARY.get()
-        check_layout(lib, self.statics, self.flat, N, self.n_obs, self.n_hp)
+        check_layout(lib, self.statics, self.flat, N, self.n_obs, self.n_hp,
+                     moving=self.moving)
         with torch.cuda.device(X.device):
             err = lib.wb_fwd_launch(
                 self.statics.ctypes.data, *ptrs, *(o.data_ptr() for o in outs),

@@ -21,6 +21,7 @@ copied modules exactly.
 import dataclasses
 import json
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -88,17 +89,30 @@ def ticks():
         return out
 
     ctrl._solve_impl = recording
-    _start(world)
-    # without autograd's bookkeeping: the same ops and bits, a fifth less
-    # host time a tick on the CPU
-    with torch.inference_mode():
-        for _ in range(TICKS):
-            world.timerCallback()
-
-    ocp_j = build_world_j(1, N=20, physical_sim=False).controller.ocp
-    solve_j = jax.jit(lambda x0, U0, p, lam0: al_ilqr_solve_j(
-        ocp_j, x0, U0, p, SolverConfigJ(), lam0=lam0))
+    # the JAX solve compiled for the ticks' shapes in a thread of its own
+    # while the port's ticks run
     f32 = jnp.float32
+    shapes = dict(ctrl.make_params(np.zeros((21, 9)), np.zeros((20, 5))),
+                  U_last=np.zeros((20, 5)))
+    like = (jax.ShapeDtypeStruct((9,), f32),
+            jax.ShapeDtypeStruct((20, 5), f32),
+            {k: jax.ShapeDtypeStruct(np.shape(v), f32)
+             for k, v in shapes.items()},
+            tuple(jax.ShapeDtypeStruct(s, f32)
+                  for s in ((20, 28), (18,), (2,))))
+    ocp_j = build_world_j(1, N=20, physical_sim=False).controller.ocp
+    with ThreadPoolExecutor(1) as pool:
+        compiled = pool.submit(lambda: jax.jit(
+            lambda x0, U0, p, lam0: al_ilqr_solve_j(
+                ocp_j, x0, U0, p, SolverConfigJ(), lam0=lam0)).lower(
+            *like).compile())
+        _start(world)
+        # without autograd's bookkeeping: the same ops and bits, a fifth
+        # less host time a tick on the CPU
+        with torch.inference_mode():
+            for _ in range(TICKS):
+                world.timerCallback()
+        solve_j = compiled.result()
     for r in record:
         p = {k: jnp.asarray(v, f32) for k, v in r["params"].items()}
         p["U_last"] = jnp.asarray(r["U"], f32)

@@ -14,8 +14,10 @@ and 1000; N=4, batch 64 for the Riccati sweep), at the tolerances of those
 tests:
 
 - the whole-body qref pair (A, B) on the problem of
-  tests/test_torch_kernels.py: X / U atol 2e-5, cost rtol = atol = 2e-3;
-  gains rtol = atol = 5e-3;
+  tests/test_torch_kernels.py, and with an obstacle row a stage on the
+  problem of tests/test_torch_moving_obs.py and at the dynamic-obstacle
+  demo's shape (N=20, batch 1, 8 step sizes): X / U atol 2e-5, cost rtol =
+  atol = 2e-3; gains rtol = atol = 5e-3;
 - the generic pair (C, D) of each formulation on the problems of
   tests/test_torch_generic_kernels.py: X / U atol 2e-5, cost rtol = atol =
   2e-3; gains atol 1e-5 (demo), 1e-3 (base), 2e-4 (endpoint) with rtol
@@ -32,6 +34,7 @@ import pytest
 import torch
 
 from mmmpc_tpu_torch import roofline
+from mmmpc_tpu_torch.demo_wholebody_separate import build_world
 from mmmpc_tpu_torch.ops import riccati
 from mmmpc_tpu_torch.ops._cuda import FMA_NACC, RICCATI_INSTANCES
 from mmmpc_tpu_torch.ops.generic_bwd import plain_bwd
@@ -66,6 +69,38 @@ def _first(args, batch):
                  for a in args)
 
 
+def _check_wholebody(device, mpc, x0_b, U0_b, params, kernel, batch):
+    """The whole-body CUDA kernel ``kernel`` against its plain version on
+    the card, on the first ``batch`` scenarios of seeded inputs (the rollout
+    of U0_b from x0_b, random gains and multipliers)."""
+    full = x0_b.shape[0]
+    N = mpc.N
+    p = params_from_numpy(params, device, torch.float32)
+    rng = np.random.default_rng(5)
+    X, U = rollout(mpc.ocp, _t(x0_b, device).T,
+                   _t(U0_b, device).permute(1, 2, 0), p)
+    lam = _t(np.abs(rng.standard_normal((N, 28, full))), device)
+    lamt = _t(np.abs(rng.standard_normal((18, full))), device)
+    lame = _t(0.1 * rng.standard_normal((2, full)), device)
+    if kernel == "wholebody_fwd":
+        f = mpc.ocp.lanes_fwd_factory(mpc.solver_config, p)
+        args = (X[:-1], U,
+                _t(0.05 * rng.standard_normal((N, 5, full)), device),
+                _t(0.05 * rng.standard_normal((N, 5, 9, full)), device), lam,
+                lamt, lame, 10.0)
+        tols = [(0.0, 2e-5)] * 3 + [(2e-3, 2e-3)]
+    else:
+        f = mpc.ocp.lanes_bwd_factory(mpc.solver_config, p)
+        args = (X, U, lam, lamt, lame, 10.0,
+                torch.full((full,), 1e-6, device=device))
+        tols = [(5e-3, 5e-3)] * 2
+    args = _first(args, batch)
+    got, ref = f.cuda(*args), f.plain(*args)
+    torch.cuda.synchronize()
+    for g, r, (rtol, atol) in zip(got, ref, tols):
+        torch.testing.assert_close(g, r, rtol=rtol, atol=atol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel, batch", [
     pytest.param("wholebody_fwd", B, id="wholebody_fwd"),
@@ -76,29 +111,35 @@ def test_cuda_kernel_matches_plain(device, kernel, batch):
     """The whole-body CUDA kernel against its plain version on the card,
     same inputs; the backward kernel also on the first 1 and 37 scenarios
     (a partial block of its teams)."""
-    mpc, x0_b, U0_b, params = qref_problem(eq_mask=1.0)
-    p = params_from_numpy(params, device, torch.float32)
-    rng = np.random.default_rng(5)
-    X, U = rollout(mpc.ocp, _t(x0_b, device).T,
-                   _t(U0_b, device).permute(1, 2, 0), p)
-    lam = _t(np.abs(rng.standard_normal((N, 28, B))), device)
-    lamt = _t(np.abs(rng.standard_normal((18, B))), device)
-    lame = _t(0.1 * rng.standard_normal((2, B)), device)
-    if kernel == "wholebody_fwd":
-        f = mpc.ocp.lanes_fwd_factory(mpc.solver_config, p)
-        args = (X[:-1], U, _t(0.05 * rng.standard_normal((N, 5, B)), device),
-                _t(0.05 * rng.standard_normal((N, 5, 9, B)), device), lam,
-                lamt, lame, 10.0)
-        tols = [(0.0, 2e-5)] * 3 + [(2e-3, 2e-3)]
-    else:
-        f = mpc.ocp.lanes_bwd_factory(mpc.solver_config, p)
-        args = _first((X, U, lam, lamt, lame, 10.0,
-                       torch.full((B,), 1e-6, device=device)), batch)
-        tols = [(5e-3, 5e-3)] * 2
-    got, ref = f.cuda(*args), f.plain(*args)
-    torch.cuda.synchronize()
-    for g, r, (rtol, atol) in zip(got, ref, tols):
-        torch.testing.assert_close(g, r, rtol=rtol, atol=atol)
+    _check_wholebody(device, *qref_problem(eq_mask=1.0), kernel, batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [B, 37])
+@pytest.mark.parametrize("kernel", ["wholebody_fwd", "wholebody_bwd"])
+def test_cuda_moving_kernel_matches_plain(device, kernel, batch):
+    """The whole-body CUDA kernels with an obstacle row a stage (the table
+    of ``moving_table``, every row its own) against their plain versions
+    on the card, on the whole batch and on a partial block of 37."""
+    _check_wholebody(device, *qref_problem(eq_mask=1.0, moving=True), kernel,
+                     batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["wholebody_fwd", "wholebody_bwd"])
+def test_cuda_moving_demo_shape_matches_plain(device, kernel):
+    """The dynamic-obstacle demo's shape: one robot, N=20, one obstacle
+    predicted over the horizon, 8 step sizes, cost_scale 1.0."""
+    world = build_world(device=device)
+    mpc = world.controller
+    mpc.observe_obstacles([[2.5, -0.44]], [[0.0, 0.6]])
+    rng = np.random.default_rng(2)
+    traj = np.linspace(world.x_start, world.x_target, mpc.N + 1)
+    params = dict(mpc.make_params(traj, np.zeros((mpc.N, 5))),
+                  U_last=0.1 * rng.standard_normal((mpc.N, 5)))
+    assert params["obstacles"].shape == (mpc.N + 1, 1, 3)
+    U0 = 0.3 * rng.standard_normal((1, mpc.N, 5))
+    _check_wholebody(device, mpc, world.x_start[None], U0, params, kernel, 1)
 
 
 @pytest.mark.cuda

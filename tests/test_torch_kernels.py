@@ -59,23 +59,63 @@ def _bm(a, *perm):
     return torch.as_tensor(np.ascontiguousarray(np.transpose(a, perm)))
 
 
-def test_fwd_plain_matches_jax():
-    mpc_j, mpc_t, x0_b, U0_b, params = make_problem()
-    pj, X, Uc, rng = _inputs(mpc_j, x0_b, U0_b, params, 11)
-    kff = (0.05 * rng.standard_normal((B, N, 5))).astype(np.float32)
-    K = (0.05 * rng.standard_normal((B, N, 5, 9))).astype(np.float32)
-    lam = np.abs(rng.standard_normal((B, N, 28))).astype(np.float32)
-    lam_t = np.abs(rng.standard_normal((B, 18))).astype(np.float32)
-    lam_e = np.zeros((B, 2), np.float32)
+@pytest.fixture(scope="module")
+def references():
+    """{eq_mask: (problem, the line search's inputs and JAX's results, the
+    backward pass's inputs and JAX's gains)} for eq_mask 0 and 1: the
+    vmapped ``core.fwd_pass`` over (alpha, batch), and ``core.stage_derivs``
+    / ``core.terminal_derivs`` followed by the scan Riccati sweep, in one
+    jitted program whose params are an argument, compiled once."""
+    mpc_j = make_problem()[0]
     cfg = mpc_j.solver_config
-
-    core = build_core(mpc_j.ocp, pj, cfg, F32)
     alphas = cfg.alpha_decay ** jnp.arange(cfg.n_alpha, dtype=F32)
-    fwd_b = jax.vmap(core.fwd_pass, in_axes=(0, 0, 0, 0, 0, None, 0, None))
-    Xr, Ur, cr = jax.jit(jax.vmap(lambda a: fwd_b(
-        X[:, 0], X, Uc, kff, K, a, (lam, lam_t, lam_e),
-        jnp.asarray(10.0, F32))))(alphas)
+    mu = jnp.asarray(10.0, F32)
 
+    @jax.jit
+    def reference(pj, fwd_args, bwd_args):
+        core = build_core(mpc_j.ocp, pj, cfg, F32)
+        X, Uc, kff, K, lam, lam_t, lam_e = fwd_args
+        fwd_b = jax.vmap(core.fwd_pass,
+                         in_axes=(0, 0, 0, 0, 0, None, 0, None))
+        fwd = jax.vmap(lambda a: fwd_b(X[:, 0], X, Uc, kff, K, a,
+                                       (lam, lam_t, lam_e), mu))(alphas)
+
+        def backward(x, u, l, lt, le, r):
+            derivs = jax.vmap(core.stage_derivs, in_axes=(0, 0, 0, 0, None))(
+                x[:-1], u, core.ks, l, mu)
+            tg, tH = core.terminal_derivs(x[-1], lt, le, mu)
+            return core.backward_scan(derivs, tg, tH, r)
+
+        return fwd, jax.vmap(backward)(*bwd_args)
+
+    out, fwd_in = {}, None
+    for eq_mask in (0.0, 1.0):
+        problem = make_problem(eq_mask)
+        mpc_j, mpc_t, x0_b, U0_b, params = problem
+        if fwd_in is None:
+            pj, X, Uc, rng = _inputs(mpc_j, x0_b, U0_b, params, 11)
+            kff = (0.05 * rng.standard_normal((B, N, 5))).astype(np.float32)
+            K = (0.05 * rng.standard_normal((B, N, 5, 9))).astype(np.float32)
+            lam = np.abs(rng.standard_normal((B, N, 28))).astype(np.float32)
+            lam_t = np.abs(rng.standard_normal((B, 18))).astype(np.float32)
+            lam_e = np.zeros((B, 2), np.float32)
+            fwd_in = (X, Uc, kff, K, lam, lam_t, lam_e)
+        pj, X, Uc, rng = _inputs(mpc_j, x0_b, U0_b, params, 3)
+        lam = (0.5 * np.abs(rng.standard_normal((B, N, 28)))).astype(
+            np.float32)
+        lam_t = (0.5 * np.abs(rng.standard_normal((B, 18)))).astype(
+            np.float32)
+        lam_e = (0.1 * rng.standard_normal((B, 2))).astype(np.float32)
+        reg = np.full((B,), 1e-6, np.float32)
+        bwd_in = (X, Uc, lam, lam_t, lam_e, reg)
+        fwd_r, bwd_r = reference(pj, fwd_in, bwd_in)
+        out[eq_mask] = (problem, fwd_in, fwd_r, bwd_in, bwd_r)
+    return out
+
+
+def test_fwd_plain_matches_jax(references):
+    (_, mpc_t, _, _, params), fwd_in, (Xr, Ur, cr), _, _ = references[0.0]
+    X, Uc, kff, K, lam, lam_t, lam_e = fwd_in
     fwd = mpc_t.ocp.lanes_fwd_factory(
         mpc_t.solver_config, params_from_numpy(params, "cpu", torch.float32))
     Xc, Uc_t, xlast, cc = fwd(_bm(X[:, :-1], 1, 2, 0), _bm(Uc, 1, 2, 0),
@@ -93,26 +133,9 @@ def test_fwd_plain_matches_jax():
 
 
 @pytest.mark.parametrize("eq_mask", [0.0, 1.0])
-def test_bwd_plain_matches_jax(eq_mask):
-    mpc_j, mpc_t, x0_b, U0_b, params = make_problem(eq_mask)
-    pj, X, Uc, rng = _inputs(mpc_j, x0_b, U0_b, params, 3)
-    lam = (0.5 * np.abs(rng.standard_normal((B, N, 28)))).astype(np.float32)
-    lam_t = (0.5 * np.abs(rng.standard_normal((B, 18)))).astype(np.float32)
-    lam_e = (0.1 * rng.standard_normal((B, 2))).astype(np.float32)
-    reg = np.full((B,), 1e-6, np.float32)
-    cfg = mpc_j.solver_config
-    mu = jnp.asarray(10.0, F32)
-
-    core = build_core(mpc_j.ocp, pj, cfg, F32)
-
-    def reference(x, u, l, lt, le, r):
-        derivs = jax.vmap(core.stage_derivs, in_axes=(0, 0, 0, 0, None))(
-            x[:-1], u, core.ks, l, mu)
-        tg, tH = core.terminal_derivs(x[-1], lt, le, mu)
-        return core.backward_scan(derivs, tg, tH, r)
-
-    kff_r, K_r = jax.jit(jax.vmap(reference))(X, Uc, lam, lam_t, lam_e, reg)
-
+def test_bwd_plain_matches_jax(references, eq_mask):
+    (_, mpc_t, _, _, params), _, _, bwd_in, (kff_r, K_r) = references[eq_mask]
+    X, Uc, lam, lam_t, lam_e, reg = bwd_in
     bwd = mpc_t.ocp.lanes_bwd_factory(
         mpc_t.solver_config, params_from_numpy(params, "cpu", torch.float32))
     kff, K = bwd(_bm(X, 1, 2, 0), _bm(Uc, 1, 2, 0), _bm(lam, 1, 2, 0),
@@ -139,8 +162,8 @@ def test_layout_check_rejects_a_size_mismatch():
         def wb_statics_size(self):
             return fwd.statics.size + self.extra
 
-        def wb_params_size(self, n, n_obs, n_hp):
-            assert (n, n_obs, n_hp) == (N, 1, 1)
+        def wb_params_size(self, n, n_obs, n_hp, moving):
+            assert (n, n_obs, n_hp, moving) == (N, 1, 1, 0)
             return fwd.flat.numel()
 
     check_layout(Library(0), fwd.statics, fwd.flat, N, fwd.n_obs, fwd.n_hp)
@@ -157,8 +180,8 @@ def test_bwd_launch_geometry_checks_the_team_size():
     from mmmpc_tpu_torch.ops.wholebody_bwd import launch_geometry
 
     class Library:
-        def wb_bwd_geometry(self, n, n_obs, n_hp, batch, out):
-            assert (n, n_obs, n_hp) == (N, 1, 1)
+        def wb_bwd_geometry(self, n, n_obs, n_hp, moving, batch, out):
+            assert (n, n_obs, n_hp, moving) == (N, 1, 1, 0)
             out[0], out[1], out[2], out[3] = 8, 128, -(-batch // 16), 4 * n
             return 0
 
@@ -175,8 +198,9 @@ def test_fwd_launch_geometry_reports_the_library():
     from mmmpc_tpu_torch.ops.wholebody_fwd import launch_geometry
 
     class Library:
-        def wb_fwd_geometry(self, n, n_obs, n_hp, n_alpha, batch, out):
-            assert (n, n_obs, n_hp) == (N, 1, 1)
+        def wb_fwd_geometry(self, n, n_obs, n_hp, moving, n_alpha, batch,
+                            out):
+            assert (n, n_obs, n_hp, moving) == (N, 1, 1, 0)
             scen = min((128 // 2) // n_alpha, 32)
             out[0], out[1], out[2], out[3] = 2, 128, -(-batch // scen), 4 * n
             return 0

@@ -137,15 +137,17 @@ def fresh_import():
 def test_port_never_imports_jax(fresh_import):
     flags, modules = fresh_import
     assert flags[0] == "False"
-    # the generic formulations' and the closed loop's modules were among
-    # those imported, and no module of the JAX package was
+    # the generic formulations', the closed loops' and the moving
+    # obstacles' modules were among those imported, and no module of the
+    # JAX package was
     for name in ("bench_controllers", "controllers.demo", "controllers.base",
                  "controllers.manipulator", "controllers.wholebody_endpoint",
                  "models.point_mass", "ops.generic_fwd", "ops.generic_bwd",
                  "ops.riccati", "roofline", "runtime.interface",
                  "runtime.checkpoint", "runtime.metrics", "runtime.reference",
                  "sim.kinematic_plant", "sim.run_simulation",
-                 "demo_wholebody_qref", "rt_latency"):
+                 "demo_wholebody_qref", "rt_latency", "controllers.moving_obs",
+                 "demo_wholebody_separate"):
         assert f"mmmpc_tpu_torch.{name}" in modules, name
     assert all(m.startswith("mmmpc_tpu_torch") for m in modules)
 

@@ -107,19 +107,31 @@ def generic_problem(name, batch=B, cfg=None):
     return mpc, x0_b, U0_b, generic_params(mpc, name)
 
 
-def qref_problem(eq_mask=0.0, cfg=None, modules=PORT):
+def moving_table(horizon=N):
+    """A (horizon+1, 1, 3) obstacle table for the moving qref problem: the
+    obstacle of ``qref_problem`` closing in on the robot's start, its
+    radius growing, so that every row differs and the circle is live at the
+    late stages only (a slipped row index changes the costs)."""
+    k = np.arange(horizon + 1, dtype=float)
+    return np.stack([1.0 - 0.12 * k, 0.2 - 0.03 * k, 0.3 + 0.01 * k],
+                    axis=-1)[:, None, :]
+
+
+def qref_problem(eq_mask=0.0, cfg=None, modules=PORT, moving=False):
     """The whole-body qref problem of tests/test_fwd_lanes.py (one ground
     obstacle and one half-plane, with ``eq_mask`` the terminal position
     equality), built from ``modules`` with solver config ``cfg`` (default:
     the port's of QREF_CFG): (controller, x0_b (B, 9), U0_b (B, N, 5),
-    params as float64 numpy)."""
+    params as float64 numpy).  With ``moving`` the controller is
+    ``MPCWholeBodyMovingObs`` over the obstacle table ``moving_table()``."""
     ctl, obs, robots = modules
     cfg = SolverConfig(**QREF_CFG) if cfg is None else cfg
-    mpc = ctl.MPCWholeBody(robots.MobileManipulator(0.1),
-                           [obs.Obstacles(1.0, 0.2, 0.3)],
-                           [(np.array([0.8, 0.1, 1.0]),
-                             np.array([[1.0, 0.0, 0.0]]))],
-                           N=N, solver_config=cfg)
+    cls = ctl.MPCWholeBodyMovingObs if moving else ctl.MPCWholeBody
+    mpc = cls(robots.MobileManipulator(0.1), [obs.Obstacles(1.0, 0.2, 0.3)],
+              [(np.array([0.8, 0.1, 1.0]), np.array([[1.0, 0.0, 0.0]]))],
+              N=N, solver_config=cfg)
+    if moving:
+        mpc.set_obstacle_prediction(moving_table())
     if eq_mask:
         mpc.add_terminal_position_constraint()
     rng = np.random.default_rng(7)
