@@ -25,6 +25,13 @@ With ``moving_obstacles=True`` the ground obstacles are a per-stage table
 (N+1, n_obs, 3): stage k's slack group reads row k and the terminal group
 row N, as in the JAX controller, and the fused kernels take the table
 (``controllers/moving_obs.py`` fills it with a prediction).
+
+The fleet (``sim/batch_task_engine.py``) solves with per-scenario U_last,
+X_ref, U_ref, Q, P and eq_mask (``OCP.per_scenario_keys``, the JAX
+controller's ``lanes_per_scenario_keys``): the callables take them
+batch-first (``ocp/spec.py``), and the fused kernels read them per scenario.
+The Gauss-Newton residual forms read the square-root weights Q_s, P_s as
+given, shared.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from mmmpc_tpu_torch.ops.wholebody_fwd import FwdLinesearch
 from mmmpc_tpu_torch.utils.configs import (
     BASELINK2JOINT1_X, BASELINK2JOINT1_Z, SolverConfig,
 )
+from mmmpc_tpu_torch.utils.convert import device_constant
 
 PI = math.pi
 
@@ -103,7 +111,7 @@ def _world_points_jacobian(x):
 
 def _combine(coefs, pts, jac):
     """Linear combinations of the world points and of their Jacobians."""
-    C = torch.tensor(coefs, dtype=pts.dtype, device=pts.device)
+    C = device_constant(coefs, pts.dtype, pts.device)
     return (torch.einsum("rk,...kc->...rc", C, pts),
             torch.einsum("rk,...kcj->...rcj", C, jac))
 
@@ -126,6 +134,41 @@ def _slack_rows_with_grad(x, p, obs, base_radius, ground=True, selfcol=True,
             p["hp_mask"]))
     return (torch.cat([v for v, _ in rows], dim=-1),
             torch.cat([g for _, g in rows], dim=-2))
+
+
+def _rows(p, key, k):
+    """Row(s) k of the reference table ``key`` (X_ref, U_ref, U_last): of
+    the shared (rows, n), or of a per-scenario (B, rows, n) -> (B, *k.shape,
+    n), whose batch axis falls on x's."""
+    t = p[key]
+    return t[:, k] if t.dim() == 3 else t[k]
+
+
+def _weight(p, key, k=None):
+    """Weight ``key`` (Q, P): the shared (n, n), or a per-scenario (B, n, n)
+    with a unit axis for each axis of the stage index ``k`` (none at the
+    terminal), so that it broadcasts against x's batch axis."""
+    t = p[key]
+    if t.dim() == 2:
+        return t
+    kd = k.dim() if torch.is_tensor(k) else 0
+    return t.reshape(t.shape[:1] + (1,) * kd + t.shape[1:])
+
+
+def _mv(M, v):
+    """M v for a shared or a per-scenario (``_weight``) matrix M."""
+    return mv(M, v) if M.dim() == 2 else (M @ v[..., None])[..., 0]
+
+
+def _quad(e, M):
+    return torch.sum(_mv(M, e) * e, dim=-1)
+
+
+def _eq_mask(p, trailing):
+    """The terminal equality's mask: the shared 0-d, or a per-scenario (B,)
+    with ``trailing`` unit axes."""
+    m = p["eq_mask"]
+    return m if m.dim() == 0 else m.reshape(m.shape + (1,) * trailing)
 
 
 class MPCWholeBody(ControllerBase):
@@ -251,18 +294,19 @@ class MPCWholeBody(ControllerBase):
             return relu_max_grad(vals, gx)
 
         def errors(x, u, k, p):
-            return x - p["X_ref"][k], u - p["U_ref"][k], u - p["U_last"][k]
+            return (x - _rows(p, "X_ref", k), u - _rows(p, "U_ref", k),
+                    u - _rows(p, "U_last", k))
 
         def stage_cost(x, u, k, p):
             ex, eu, edu = errors(x, u, k, p)
             smax = relu_max(stage_slack_g(x, u, k, p))
-            return (quad(ex, p["Q"]) + quad(eu, p["R"]) + quad(edu, p["W"])
-                    + p["S"] * smax * smax)
+            return (_quad(ex, _weight(p, "Q", k)) + quad(eu, p["R"])
+                    + quad(edu, p["W"]) + p["S"] * smax * smax)
 
         def terminal_cost(x, p):
-            ex = x - p["X_ref"][N]
+            ex = x - _rows(p, "X_ref", N)
             smax = relu_max(terminal_slack_g(x, p))
-            return quad(ex, p["P"]) + p["S"] * smax * smax
+            return _quad(ex, _weight(p, "P")) + p["S"] * smax * smax
 
         def stage_residuals(x, u, k, p):
             """cost == ||residuals||^2 exactly (Gauss-Newton factorisation)."""
@@ -273,21 +317,22 @@ class MPCWholeBody(ControllerBase):
                               (p["S_sqrt"] * smax)[..., None]], dim=-1)
 
         def terminal_residuals(x, p):
-            ex = x - p["X_ref"][N]
+            ex = x - _rows(p, "X_ref", N)
             smax = relu_max(terminal_slack_g(x, p))
             return torch.cat([mv(p["P_s"], ex),
                               (p["S_sqrt"] * smax)[..., None]], dim=-1)
 
         def stage_ineq(x, u, k, p):
             gx = box_g(x, x_lo, x_hi, x_mlo, x_mhi)
-            gdu = box_g(u - p["U_last"][k], du_lo, du_hi, du_mlo, du_mhi)
+            gdu = box_g(u - _rows(p, "U_last", k), du_lo, du_hi, du_mlo,
+                        du_mhi)
             return torch.cat([gx, gdu], dim=-1)
 
         def terminal_ineq(x, p):
             return box_g(x, x_lo, x_hi, x_mlo, x_mhi)
 
         def terminal_eq(x, p):
-            return p["eq_mask"] * (x[..., :2] - p["X_ref"][N, :2])
+            return _eq_mask(p, 1) * (x[..., :2] - _rows(p, "X_ref", N)[..., :2])
 
         # ---- hand Jacobians: box rows are constant +-selection rows ----
         Jc_np = np.zeros((2 * nx + 2 * nu, nx + nu))
@@ -320,7 +365,7 @@ class MPCWholeBody(ControllerBase):
             return r, J
 
         def terminal_gn(x, p):
-            ex = x - p["X_ref"][N]
+            ex = x - _rows(p, "X_ref", N)
             smax, sx = terminal_slack_grad(x, p)
             r = torch.cat([mv(p["P_s"], ex),
                            (p["S_sqrt"] * smax)[..., None]], dim=-1)
@@ -338,7 +383,7 @@ class MPCWholeBody(ControllerBase):
 
         def terminal_eq_jac(x, p):
             h = terminal_eq(x, p)
-            return h, p["eq_mask"] * const(Jeq_np, x, h.shape[:-1])
+            return h, _eq_mask(p, 2) * const(Jeq_np, x, h.shape[:-1])
 
         def dynamics_jacobians(x, u):
             return wholebody_jacobians(x, u, dt)
@@ -354,9 +399,10 @@ class MPCWholeBody(ControllerBase):
             S = p["S"]
             two_s = 2.0 * inv_scale
             Ssm = (S * smax)[..., None]
-            gx = two_s * (mv(p["Q"], ex) + Ssm * sx)
+            Q = _weight(p, "Q", k)
+            gx = two_s * (_mv(Q, ex) + Ssm * sx)
             gu = two_s * (mv(p["R"], eu) + mv(p["W"], edu) + Ssm * su)
-            Hxx = two_s * (p["Q"] + S * outer(sx, sx))
+            Hxx = two_s * (Q + S * outer(sx, sx))
             Huu = two_s * (p["R"] + p["W"] + S * outer(su, su))
             Hux = two_s * (S * outer(su, sx))
 
@@ -372,12 +418,13 @@ class MPCWholeBody(ControllerBase):
             return gx, gu, Hxx, Huu, Hux
 
         def terminal_al_expansion(x, p, lam_t, lam_e, mu, inv_scale):
-            ex = x - p["X_ref"][N]
+            ex = x - _rows(p, "X_ref", N)
             smax, sx = terminal_slack_grad(x, p)
             S = p["S"]
             two_s = 2.0 * inv_scale
-            gx = two_s * (mv(p["P"], ex) + (S * smax)[..., None] * sx)
-            Hxx = two_s * (p["P"] + S * outer(sx, sx))
+            P = _weight(p, "P")
+            gx = two_s * (_mv(P, ex) + (S * smax)[..., None] * sx)
+            Hxx = two_s * (P + S * outer(sx, sx))
 
             z = lam_t + mu * terminal_ineq(x, p)
             t = torch.clamp(z, min=0.0)
@@ -386,11 +433,12 @@ class MPCWholeBody(ControllerBase):
             Hxx = Hxx + torch.diag_embed(mu * (act[..., :nx] + act[..., nx:]))
 
             # maskable terminal position equality h = m * (x[:2] - ref)
-            m = p["eq_mask"]
+            m = _eq_mask(p, 1)
             geq = m * (lam_e + mu * terminal_eq(x, p))
             gx = gx + torch.nn.functional.pad(geq, (0, nx - 2))
             e2 = torch.zeros(nx, dtype=x.dtype, device=x.device)
             e2[:2] = 1.0
+            m = _eq_mask(p, 2)
             Hxx = Hxx + torch.diag(e2) * (mu * m * m)
             return gx, Hxx
 
@@ -425,7 +473,9 @@ class MPCWholeBody(ControllerBase):
             stage_gn=stage_gn, terminal_gn=terminal_gn,
             stage_ineq_jac=stage_ineq_jac,
             terminal_ineq_jac=terminal_ineq_jac,
-            terminal_eq_jac=terminal_eq_jac)
+            terminal_eq_jac=terminal_eq_jac,
+            per_scenario_keys=frozenset(
+                {"U_last", "X_ref", "U_ref", "Q", "P", "eq_mask"}))
 
     # ------------------------------------------------------------------
     def reset(self):

@@ -61,6 +61,21 @@
 //   terminal expansion's circles read row N, stage k's row k, as the TPU
 //   kernel's moving branch.  A static problem has one row that every stage
 //   reads (a row stride of 0).
+// - Per-scenario entries (statics ST_PS, the fleet's: the TPU kernel's
+//   ps_* operands), in the instance bwd_kernel<T, true>: any subset of
+//   U_last, X_ref, U_ref, Q, P and eq_mask.  Stage k's X_ref, U_ref and
+//   U_last rows ride the stage buffer (NPS = 19 floats a scenario more,
+//   loaded one stage ahead with x, u and lam), X_ref's row N, the P
+//   diagonal and eq_mask the terminal slot, the Q diagonal a column of its
+//   own a scenario, loaded once.  A shared reference or mask is copied
+//   into every scenario's column as well, so the reads select nothing at
+//   run time.  A per-scenario Q or P is its diagonal, as in the TPU
+//   kernel: each team writes it into a 9 x 9 matrix of its own (P's for
+//   the terminal expansion, then Q's for the stages), which the rows read
+//   in place of the shared matrix, the static kernel's code on another
+//   pointer (branches on the diagonal spilled registers).
+//   The instance bwd_kernel<T, false> of the shared params reads none of
+//   them.
 // - The sparse A = I + E and B are applied through their live entries
 //   (struct Jac), the counterpart of the TPU kernel's trace-time literal
 //   folding.  The stale-slack-index rows of the reference (terminal
@@ -89,6 +104,17 @@ constexpr int BWD_TEAM = 8;
 constexpr int NIN = NX + NU + NC;   // stage inputs per scenario: x, u, lam
 constexpr int NTERM = NX + NCT + 2; // terminal inputs: x_N, lamt, lame
 constexpr int NT = NX + NU;         // row tasks of a stage: x rows, u rows
+// With per-scenario entries: stage k's X_ref, U_ref and U_last rows after
+// a stage's inputs, and X_ref's row N, the P diagonal and eq_mask after the
+// terminal inputs (within the terminal slot's NIN + NPS rows).
+constexpr int NPS = NX + 2 * NU;
+constexpr int IN_XREF = NIN;
+constexpr int IN_UREF = IN_XREF + NX;
+constexpr int IN_ULAST = IN_UREF + NU;
+constexpr int TM_XREF = NTERM;
+constexpr int TM_PD = TM_XREF + NX;
+constexpr int TM_EQM = TM_PD + NX;
+static_assert(TM_EQM < NIN + NPS, "the terminal slot holds its PS rows");
 constexpr int LD = 12;              // padded row: three float4
 constexpr unsigned FULL = 0xffffffffu;
 // The half-plane faces of the problem, once per block: per face two float4,
@@ -112,10 +138,11 @@ struct TeamTile {
 };
 
 __host__ __device__ inline int bwd_smem_bytes(int team, int N, int n_obs,
-                                              int n_hp, bool moving) {
+                                              int n_hp, bool moving, bool ps) {
   const int scen = BWD_THREADS / team;
   const int floats = scen * static_cast<int>(sizeof(TeamTile) / sizeof(float)) +
-                     2 * NIN * scen + HF * n_hp + ST_SIZE +
+                     2 * (ps ? NIN + NPS : NIN) * scen + HF * n_hp +
+                     (ps ? NX * scen + NX * NX * scen : 0) + ST_SIZE +
                      param_layout(N, n_obs, n_hp, moving).size;
   return floats * static_cast<int>(sizeof(float));
 }
@@ -365,24 +392,28 @@ __device__ __forceinline__ float stage_slack(
   return m.smax();
 }
 
-template <int T>
+template <int T, bool PS>
 __global__ void __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS)
 bwd_kernel(const Statics st, const float* __restrict__ pp,
            const float* __restrict__ X, const float* __restrict__ U,
            const float* __restrict__ lam, const float* __restrict__ lamt,
-           const float* __restrict__ lame, const float* __restrict__ reg,
-           float* __restrict__ kff_out, float* __restrict__ K_out, float mu,
-           int N, int B) {
+           const float* __restrict__ lame, const PerScen psx,
+           const float* __restrict__ reg, float* __restrict__ kff_out,
+           float* __restrict__ K_out, float mu, int N, int B) {
   constexpr int SCEN = BWD_THREADS / T;   // scenarios (teams) a block
+  constexpr int NB = PS ? NIN + NPS : NIN;   // a stage's buffer rows
   extern __shared__ __align__(16) float smem[];
   const int n_obs = static_cast<int>(st.v[ST_N_OBS]);
   const int n_hp = static_cast<int>(st.v[ST_N_HP]);
   const bool moving = st.v[ST_MOVING] != 0.f;
+  const int pmask = PS ? static_cast<int>(st.v[ST_PS]) : 0;
   const Layout L = param_layout(N, n_obs, n_hp, moving);
   TeamTile* tiles = reinterpret_cast<TeamTile*>(smem);
   float* inbuf = smem + SCEN * (sizeof(TeamTile) / sizeof(float));
-  float* hf = inbuf + 2 * NIN * SCEN;     // half-plane faces
-  float* sv = hf + HF * n_hp;             // statics
+  float* hf = inbuf + 2 * NB * SCEN;      // half-plane faces
+  float* qdb = hf + HF * n_hp;            // PS: the Q diagonals, NX rows
+  float* dmb = qdb + (PS ? NX * SCEN : 0);  // PS: the teams' diagonal Q / P
+  float* sv = dmb + (PS ? NX * NX * SCEN : 0);  // statics
   float* ps = sv + ST_SIZE;               // packed params
   // stage k's obstacle row: ob0 + k * ostride (the one row if static)
   const float* ob0 = ps + L.obs;
@@ -400,13 +431,27 @@ bwd_kernel(const Statics st, const float* __restrict__ pp,
   const int cb = min(b0 + cs, B - 1);
   // stage k's inputs into buffer k & 1
   auto issue_stage = [&](int k) {
-    float* dst = inbuf + (k & 1) * NIN * SCEN + cs;
+    float* dst = inbuf + (k & 1) * NB * SCEN + cs;
     for (int i = ci; i < NIN; i += T) {
       const float* src =
           i < NX ? X + static_cast<long long>(k * NX + i) * B
           : i < NX + NU ? U + static_cast<long long>(k * NU + i - NX) * B
                         : lam + static_cast<long long>(k * NC + i - NX - NU) * B;
       cp_async4(dst + i * SCEN, src + cb);
+    }
+    if constexpr (PS) {
+      // each scenario's own row, or the shared one
+      for (int i = ci; i < NPS; i += T) {
+        const bool x_ = i < NX, u_ = !x_ && i < NX + NU;
+        const int r = x_ ? i : u_ ? i - NX : i - NX - NU;
+        const int row = (x_ ? k * NX : k * NU) + r;
+        const float* own = x_ ? psx.xref : u_ ? psx.uref : psx.ulast;
+        const int bit = x_ ? PS_XREF : u_ ? PS_UREF : PS_ULAST;
+        const int off = (x_ ? L.xref : u_ ? L.uref : L.ulast) + row;
+        cp_async4(dst + (NIN + i) * SCEN,
+                  (pmask & bit) ? own + static_cast<long long>(row) * B + cb
+                                : pp + off);
+      }
     }
   };
   // stage k's gains from the tiles of its parity
@@ -424,13 +469,32 @@ bwd_kernel(const Statics st, const float* __restrict__ pp,
   };
   // terminal inputs into buffer N & 1 (stage N-1 uses the other)
   {
-    float* dst = inbuf + (N & 1) * NIN * SCEN + cs;
+    float* dst = inbuf + (N & 1) * NB * SCEN + cs;
     for (int i = ci; i < NTERM; i += T) {
       const float* src =
           i < NX ? X + static_cast<long long>(N * NX + i) * B
           : i < NX + NCT ? lamt + static_cast<long long>(i - NX) * B
                          : lame + static_cast<long long>(i - NX - NCT) * B;
       cp_async4(dst + i * SCEN, src + cb);
+    }
+    if constexpr (PS) {
+      // X_ref's row N and eq_mask (each scenario's own, or the shared), the
+      // P diagonal; the Q diagonal
+      for (int i = ci; i < 2 * NX + 1; i += T) {
+        const int bit = i < NX ? PS_XREF : i < 2 * NX ? PS_P : PS_EQM;
+        const float* src =
+            i < NX ? psx.xref + static_cast<long long>(N * NX + i) * B + cb
+            : i < 2 * NX ? psx.pd + static_cast<long long>(i - NX) * B + cb
+                         : psx.eqm + cb;
+        if (pmask & bit)
+          cp_async4(dst + (TM_XREF + i) * SCEN, src);
+        else if (bit != PS_P)
+          cp_async4(dst + (TM_XREF + i) * SCEN,
+                    pp + (i < NX ? L.xref + N * NX + i : L.eqm));
+      }
+      if (pmask & PS_Q)
+        for (int i = ci; i < NX; i += T)
+          cp_async4(qdb + i * SCEN + cs, psx.qd + static_cast<long long>(i) * B + cb);
     }
     for (int i = tid; i < L.size; i += BWD_THREADS) cp_async4(ps + i, pp + i);
     cp_async_commit();
@@ -462,10 +526,24 @@ bwd_kernel(const Statics st, const float* __restrict__ pp,
   cp_async_wait<1>();
   __syncthreads();
   const float S = ps[L.S];
+  // (PS) the team's diagonal matrix: P's diagonal now, Q's after the
+  // terminal expansion; the rows read it where the entry is per scenario
+  float* dm = dmb + team * NX * NX;
+  if constexpr (PS) {
+    const float* tin = inbuf + (N & 1) * NB * SCEN + team;
+    for (int i = lane; i < NX * NX; i += T) {
+      const int r = i / NX;
+      dm[i] = i == r * (NX + 1) && (pmask & PS_P) ? tin[(TM_PD + r) * SCEN]
+                                                  : 0.f;
+    }
+    __syncwarp();
+  }
+  const float* Pm = PS && (pmask & PS_P) ? dm : ps + L.P;
+  const float* Qm = PS && (pmask & PS_Q) ? dm : ps + L.Q;
 
   // ---------------- terminal expansion -> Vx, Vxx ----------------
   {
-    const float* in = inbuf + (N & 1) * NIN * SCEN + team;
+    const float* in = inbuf + (N & 1) * NB * SCEN + team;
     float x[NX];
 #pragma unroll
     for (int i = 0; i < NX; ++i) x[i] = in[i * SCEN];
@@ -485,13 +563,15 @@ bwd_kernel(const Statics st, const float* __restrict__ pp,
     for (int i = 0; i < NX; ++i)
       if (lane == i % T) tt.s[i] = m.gsum[i] * gs;
     __syncwarp();
-    const float* xr = ps + L.xref + N * NX;
-    const float em = ps[L.eqm];
+    // the shared rows, or (PS) the scenario's column of the slot
+    const float* xr = PS ? in + TM_XREF * SCEN : ps + L.xref + N * NX;
+    constexpr int xs = PS ? SCEN : 1;
+    const float em = PS ? in[TM_EQM * SCEN] : ps[L.eqm];
     for (int r = lane; r < NX; r += T) {
-      const float* Pr = ps + L.P + r * NX;
+      const float* Pr = Pm + r * NX;
       float acc = 0.f;
 #pragma unroll
-      for (int j = 0; j < NX; ++j) acc += Pr[j] * (x[j] - xr[j]);
+      for (int j = 0; j < NX; ++j) acc += Pr[j] * (x[j] - xr[j * xs]);
       const float sr = tt.s[r];
       float v = two_s * (acc + S * smax * sr);
       float act = 0.f;
@@ -501,7 +581,8 @@ bwd_kernel(const Statics st, const float* __restrict__ pp,
       phr_row(in[(2 * NX + r) * SCEN], mu, sv[ST_XLO + r] - xv,
               sv[ST_XMLO + r] != 0.f, -1.f, v, act);
       // maskable terminal position equality h = m (x[:2] - ref)
-      if (r < 2) v += em * (in[(NX + NCT + r) * SCEN] + mu * (em * (xv - xr[r])));
+      if (r < 2)
+        v += em * (in[(NX + NCT + r) * SCEN] + mu * (em * (xv - xr[r * xs])));
       tt.vx[r] = v;
       float h[NX];
 #pragma unroll
@@ -513,6 +594,11 @@ bwd_kernel(const Statics st, const float* __restrict__ pp,
         }
       }
       st_row(tt.V[r], h);
+    }
+    if constexpr (PS) {
+      __syncwarp();
+      for (int r = lane; r < NX; r += T)
+        dm[r * (NX + 1)] = (pmask & PS_Q) ? qdb[r * SCEN + team] : 0.f;
     }
   }
 
@@ -528,7 +614,7 @@ bwd_kernel(const Statics st, const float* __restrict__ pp,
     cp_async_commit();
     if (k < N - 1) store_gains(k + 1);
     const int par = k & 1;
-    const float* in = inbuf + (k & 1) * NIN * SCEN + team;
+    const float* in = inbuf + (k & 1) * NB * SCEN + team;
     float x[NX], u[NU];
 #pragma unroll
     for (int i = 0; i < NX; ++i) x[i] = in[i * SCEN];
@@ -580,23 +666,27 @@ bwd_kernel(const Statics st, const float* __restrict__ pp,
       }
       const float vq = cd * tt.vx[pd] + ca * tt.vx[pa] + cb * tt.vx[pb] + cc * tt.vx[4];
       // the row's gradient entry: Q (x - xref), or R (u - uref) + W (u - ulast)
+      // (the shared rows, or (PS) the scenario's columns of the buffer)
+      constexpr int rs = PS ? SCEN : 1;
       float acc = 0.f, val;
       if (xrow) {
-        const float* Qr = ps + L.Q + t * NX;
-        const float* xr = ps + L.xref + k * NX;
+        const float* Qr = Qm + t * NX;
+        const float* xr = PS ? in + IN_XREF * SCEN : ps + L.xref + k * NX;
+        constexpr int xs = rs;
 #pragma unroll
-        for (int j = 0; j < NX; ++j) acc += Qr[j] * (in[j * SCEN] - xr[j]);
+        for (int j = 0; j < NX; ++j) acc += Qr[j] * (in[j * SCEN] - xr[j * xs]);
         val = in[t * SCEN];
       } else {
         const float* Ri = ps + L.R + i * NU;
         const float* Wi = ps + L.W + i * NU;
-        const float* ur = ps + L.uref + k * NU;
-        const float* ul = ps + L.ulast + k * NU;
+        const float* ur = PS ? in + IN_UREF * SCEN : ps + L.uref + k * NU;
+        const float* ul = PS ? in + IN_ULAST * SCEN : ps + L.ulast + k * NU;
+        constexpr int us = rs, ls = rs;
 #pragma unroll
         for (int j = 0; j < NU; ++j)
-          acc += Ri[j] * (in[(NX + j) * SCEN] - ur[j]) +
-                 Wi[j] * (in[(NX + j) * SCEN] - ul[j]);
-        val = in[t * SCEN] - ul[i];
+          acc += Ri[j] * (in[(NX + j) * SCEN] - ur[j * us]) +
+                 Wi[j] * (in[(NX + j) * SCEN] - ul[j * ls]);
+        val = in[t * SCEN] - ul[i * ls];
       }
       const float st_ = tt.s[t];
       float l = two_s * (acc + Ssm * st_);
@@ -628,7 +718,7 @@ bwd_kernel(const Statics st, const float* __restrict__ pp,
         w[4] = m4 + m1 * dt + m3 * J.a34;
         w[5] = w[5] + m2 * dt + m3 * J.a35 + m4 * J.a45;
       }
-      const float* Qr = ps + L.Q + (xrow ? t : 0) * NX;
+      const float* Qr = Qm + (xrow ? t : 0) * NX;
 #pragma unroll
       for (int j = 0; j < NX; ++j) {
         float lj = two_s * (cd * Qr[j] + S * st_ * tt.s[j]);
@@ -752,20 +842,42 @@ bwd_kernel(const Statics st, const float* __restrict__ pp,
 struct Geometry {
   int threads, blocks, smem;
 };
-inline Geometry bwd_geometry(int N, int n_obs, int n_hp, bool moving, int B) {
+inline Geometry bwd_geometry(int N, int n_obs, int n_hp, bool moving, bool ps,
+                             int B) {
   constexpr int scen = BWD_THREADS / BWD_TEAM;
   return {BWD_THREADS, (B + scen - 1) / scen,
-          bwd_smem_bytes(BWD_TEAM, N, n_obs, n_hp, moving)};
+          bwd_smem_bytes(BWD_TEAM, N, n_obs, n_hp, moving, ps)};
+}
+
+template <bool PS>
+int bwd_launch(const Statics& st, const float* params, const float* X,
+               const float* U, const float* lam, const float* lamt,
+               const float* lame, const PerScen& psx, const float* reg,
+               float* kff, float* K, float mu, int N, int B,
+               cudaStream_t stream) {
+  const Geometry g = bwd_geometry(
+      N, static_cast<int>(st.v[ST_N_OBS]), static_cast<int>(st.v[ST_N_HP]),
+      st.v[ST_MOVING] != 0.f, PS, B);
+  if (g.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        bwd_kernel<BWD_TEAM, PS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        g.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  bwd_kernel<BWD_TEAM, PS><<<g.blocks, g.threads, g.smem, stream>>>(
+      st, params, X, U, lam, lamt, lame, psx, reg, kff, K, mu, N, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace wb
 
-// Launch geometry at batch B (moving != 0: an obstacle row a stage): out =
-// {lanes a scenario, threads a block, blocks, dynamic shared-memory bytes},
-// as wb_bwd_launch launches.
-extern "C" int wb_bwd_geometry(int N, int n_obs, int n_hp, int moving, int B,
-                               int* out) {
-  const wb::Geometry g = wb::bwd_geometry(N, n_obs, n_hp, moving != 0, B);
+// Launch geometry at batch B (moving != 0: an obstacle row a stage;
+// per_scenario: the statics' ST_PS mask): out = {lanes a scenario, threads
+// a block, blocks, dynamic shared-memory bytes}, as wb_bwd_launch launches.
+extern "C" int wb_bwd_geometry(int N, int n_obs, int n_hp, int moving,
+                               int per_scenario, int B, int* out) {
+  const wb::Geometry g =
+      wb::bwd_geometry(N, n_obs, n_hp, moving != 0, per_scenario != 0, B);
   out[0] = wb::BWD_TEAM;
   out[1] = g.threads;
   out[2] = g.blocks;
@@ -774,27 +886,30 @@ extern "C" int wb_bwd_geometry(int N, int n_obs, int n_hp, int moving, int B,
 }
 
 // C entry: statics is a HOST pointer (copied into the kernel argument); all
-// other pointers are device memory.  Returns cudaGetLastError() after the
-// launch (or the error of raising the kernel's shared-memory limit).
+// other pointers are device memory, the six per-scenario operands (U_last,
+// X_ref, U_ref, Q and P diagonals, eq_mask) null where the statics' ST_PS
+// mask has no bit.  A nonzero mask launches bwd_kernel<BWD_TEAM, true>.
+// Returns cudaGetLastError() after the launch (or the error of raising the
+// kernel's shared-memory limit).
 extern "C" int wb_bwd_launch(const float* statics, const float* params,
                              const float* X, const float* U, const float* lam,
                              const float* lamt, const float* lame,
+                             const float* ulast, const float* xref,
+                             const float* uref, const float* qd,
+                             const float* pd, const float* eqm,
                              const float* reg, float* kff, float* K, float mu,
                              int N, int B, void* stream) {
   wb::Statics st;
   std::memcpy(st.v, statics, sizeof(st.v));
   if (B <= 0 || N <= 0) return 0;
-  const wb::Geometry g = wb::bwd_geometry(
-      N, static_cast<int>(st.v[wb::ST_N_OBS]),
-      static_cast<int>(st.v[wb::ST_N_HP]), st.v[wb::ST_MOVING] != 0.f, B);
-  if (g.smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        wb::bwd_kernel<wb::BWD_TEAM>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  wb::bwd_kernel<wb::BWD_TEAM>
-      <<<g.blocks, g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(
-          st, params, X, U, lam, lamt, lame, reg, kff, K, mu, N, B);
-  return static_cast<int>(cudaGetLastError());
+  const int mask = static_cast<int>(st.v[wb::ST_PS]);
+  const wb::PerScen psx{ulast, xref, uref, qd, pd, eqm};
+  if (!wb::per_scen_complete(mask, psx))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mask != 0)
+    return wb::bwd_launch<true>(st, params, X, U, lam, lamt, lame, psx, reg,
+                                kff, K, mu, N, B, s);
+  return wb::bwd_launch<false>(st, params, X, U, lam, lamt, lame, psx, reg,
+                               kff, K, mu, N, B, s);
 }

@@ -58,12 +58,44 @@ enum : int {
   ST_UHI = ST_ULO + NU,
   ST_ALPHAS = ST_UHI + NU,
   ST_MOVING = ST_ALPHAS + MAX_ALPHA,  // 1: an obstacle row a stage (obs_rows)
-  ST_SIZE = ST_MOVING + 1,
+  ST_PS = ST_MOVING + 1,              // mask of per-scenario entries (PS_*)
+  ST_SIZE = ST_PS + 1,
 };
 
 struct Statics {
   float v[ST_SIZE];
 };
+
+// ---- per-scenario entries (the fleet's; the TPU kernels' ps_* operands):
+// the bits of the statics' ST_PS mask, and the operands, device pointers,
+// batch-last: U_last, U_ref (N, NU, B), X_ref (N+1, NX, B), the diagonals
+// of Q and P (NX, B), eq_mask (B); null where the mask has no bit.  An
+// entry of the mask is read from its operand, the others from the packed
+// params, whose slots of the per-scenario entries go unread.
+enum : int {
+  PS_ULAST = 1,
+  PS_XREF = 2,
+  PS_UREF = 4,
+  PS_Q = 8,
+  PS_P = 16,
+  PS_EQM = 32,
+};
+
+struct PerScen {
+  const float* ulast;
+  const float* xref;
+  const float* uref;
+  const float* qd;
+  const float* pd;
+  const float* eqm;
+};
+
+// False unless every entry of the mask has its operand.
+inline bool per_scen_complete(int mask, const PerScen& p) {
+  return !((mask & PS_ULAST) && !p.ulast) && !((mask & PS_XREF) && !p.xref) &&
+         !((mask & PS_UREF) && !p.uref) && !((mask & PS_Q) && !p.qd) &&
+         !((mask & PS_P) && !p.pd) && !((mask & PS_EQM) && !p.eqm);
+}
 
 // ---- the packed per-problem buffer in device memory.  Order =
 // ops/wholebody_fwd.py::_packed_shapes (the wrappers check its size against

@@ -64,6 +64,17 @@
 //   rest; stage k's circles read row k against x_k and the terminal ones
 //   row N against x_N, as the TPU kernel's moving branch.  A static problem
 //   has one row, which every stage reads (a row stride of 0).
+// - Per-scenario entries (statics ST_PS, the fleet's: the TPU kernel's
+//   ps_* operands), in the instance fwd_kernel<T, true>: any subset of
+//   U_last, X_ref, U_ref (stage k's rows ride the stage buffer, 19 floats a
+//   scenario more, loaded one stage ahead with the other inputs), X_ref's
+//   row N, the diagonals of Q and P and eq_mask (the terminal slot, 28
+//   floats a scenario more, loaded with the terminal multipliers).  A
+//   shared reference or mask is copied into every scenario's column as
+//   well, so the reads select nothing at run time; a per-scenario Q or P
+//   enters the tracking cost as its diagonal, as in the TPU kernel.  The
+//   instance fwd_kernel<T, false> of the shared params reads none of
+//   them.
 // - No tensor cores: the products are 9-wide per candidate.
 //
 // The slack rows, the controls and the states are computed as the
@@ -93,6 +104,18 @@ constexpr int IN_K = IN_KFF + NU;
 constexpr int IN_LAM = IN_K + NU * NX;
 constexpr int FWD_NIN = IN_LAM + NC;   // 92
 constexpr int FWD_NTERM = NCT + 2;     // terminal multipliers: lamt, lame
+// With per-scenario entries: stage k's references and previous inputs
+// after the stage inputs, and X_ref's row N, the Q and P diagonals and
+// eq_mask after the terminal multipliers.
+constexpr int IN_XREF = FWD_NIN;
+constexpr int IN_UREF = IN_XREF + NX;
+constexpr int IN_ULAST = IN_UREF + NU;
+constexpr int FWD_NIN_PS = IN_ULAST + NU;   // 111
+constexpr int TM_XREF = FWD_NTERM;
+constexpr int TM_QD = TM_XREF + NX;
+constexpr int TM_PD = TM_QD + NX;
+constexpr int TM_EQM = TM_PD + NX;
+constexpr int FWD_NTERM_PS = TM_EQM + 1;    // 48
 // A candidate's vector of a stage: x_k and u_k (its outputs, in the order
 // of Xc and Uc), then the errors x - xref, u - uref, u - ulast.
 constexpr int V_X = 0;
@@ -122,13 +145,13 @@ struct FwdSmem {
 };
 
 __host__ __device__ inline FwdSmem fwd_smem(int team, int N, int n_obs,
-                                            int n_hp, bool moving) {
+                                            int n_hp, bool moving, bool ps) {
   FwdSmem m;
   int o = 0;
   m.hf = o;    o += FWD_HF * n_hp;
   m.rows = o;  o += 4 * NC;
-  m.in = o;    o += 2 * FWD_NIN * FWD_SCEN;
-  m.term = o;  o += FWD_NTERM * FWD_SCEN;
+  m.in = o;    o += 2 * (ps ? FWD_NIN_PS : FWD_NIN) * FWD_SCEN;
+  m.term = o;  o += (ps ? FWD_NTERM_PS : FWD_NTERM) * FWD_SCEN;
   m.vec = o;   o += 2 * NV * (FWD_THREADS / team);
   m.sv = o;    o += ST_SIZE;
   m.ps = o;    o += param_layout(N, n_obs, n_hp, moving).size;
@@ -296,6 +319,21 @@ __device__ __forceinline__ float qform_rows(const float* M, const float* e,
   return acc;
 }
 
+// The lane's share of e^T diag(d) e over the rows r = lane, lane + T, ...:
+// d[r] at d + r * stride, e[r] from the team's vector ev.
+template <int T, int n>
+__device__ __forceinline__ float diag_rows(const float* d, int stride,
+                                           const float* ev, int lane) {
+  float acc = 0.f;
+#pragma unroll
+  for (int q = 0; q < (n + T - 1) / T; ++q) {
+    const int r = min(lane + q * T, n - 1);   // past n: a copy, not added
+    const float t = d[r * stride] * ev[r] * ev[r];
+    acc += lane + q * T < n ? t : 0.f;
+  }
+  return acc;
+}
+
 // The lane's share of the PHR sum over rows r = lane, lane + T, ... < n of
 // the row table rt ({bound, sign, mask, vector index} a row): c = sign
 // (v - bound), which is v - hi for an upper row and lo - v for a lower one.
@@ -315,30 +353,33 @@ __device__ __forceinline__ float phr_rows(const float* rt, const float* v,
   return pen;
 }
 
-template <int T>
+template <int T, bool PS>
 __global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS)
 fwd_kernel(const Statics st, const float* __restrict__ pp,
            const float* __restrict__ X, const float* __restrict__ U,
            const float* __restrict__ kff, const float* __restrict__ K,
            const float* __restrict__ lam, const float* __restrict__ lamt,
-           const float* __restrict__ lame, float* __restrict__ Xc,
-           float* __restrict__ Uc, float* __restrict__ xlast,
-           float* __restrict__ cost, float mu, int N, int B) {
+           const float* __restrict__ lame, const PerScen psx,
+           float* __restrict__ Xc, float* __restrict__ Uc,
+           float* __restrict__ xlast, float* __restrict__ cost, float mu,
+           int N, int B) {
   constexpr int TEAMS = FWD_THREADS / T;
   constexpr int SC = FWD_SCEN;             // the stage buffer's stride
   constexpr int ROWS = (NU + T - 1) / T;   // control rows a lane
+  constexpr int NIN = PS ? FWD_NIN_PS : FWD_NIN;   // a stage's buffer rows
   extern __shared__ __align__(16) float smem[];
   const int na = static_cast<int>(st.v[ST_N_ALPHA]);
   const int n_obs = static_cast<int>(st.v[ST_N_OBS]);
   const int n_hp = static_cast<int>(st.v[ST_N_HP]);
   const bool moving = st.v[ST_MOVING] != 0.f;
+  const int pmask = PS ? static_cast<int>(st.v[ST_PS]) : 0;
   const int scen = fwd_scen(T, na);        // scenarios of this block
   const Layout L = param_layout(N, n_obs, n_hp, moving);
-  const FwdSmem M = fwd_smem(T, N, n_obs, n_hp, moving);
+  const FwdSmem M = fwd_smem(T, N, n_obs, n_hp, moving, PS);
   float* hf = smem + M.hf;        // half-plane faces
   float* rt = smem + M.rows;      // PHR row table
   float* inbuf = smem + M.in;     // stage inputs, two parities
-  float* tb = smem + M.term;      // terminal multipliers
+  float* tb = smem + M.term;      // terminal multipliers (and PS inputs)
   float* vec = smem + M.vec;      // the teams' vectors, two parities
   float* sv = smem + M.sv;        // statics
   float* ps = smem + M.ps;        // packed params
@@ -369,14 +410,32 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
 #pragma unroll 4
     for (int i = ci; i < n; i += per, p += step) cp_async4(dst + i * SC, p);
   };
+  // (PS) rows [first, first + n) of a reference: each scenario's own from
+  // its operand, or the shared row of the packed params in every column
+  auto ref_rows = [&](float* dst, bool own, const float* src, int off,
+                      int first, int n) {
+    if (own) {
+      copy_rows(dst, src, first, n);
+    } else if (copier) {
+      for (int i = ci; i < n; i += per) cp_async4(dst + i * SC, pp + off + first + i);
+    }
+  };
   // stage k's inputs into buffer k & 1
   auto issue_stage = [&](int k) {
-    float* dst = inbuf + (k & 1) * FWD_NIN * SC + cs;
+    float* dst = inbuf + (k & 1) * NIN * SC + cs;
     copy_rows(dst + IN_X * SC, X, k * NX, NX);
     copy_rows(dst + IN_U * SC, U, k * NU, NU);
     copy_rows(dst + IN_KFF * SC, kff, k * NU, NU);
     copy_rows(dst + IN_K * SC, K, k * NU * NX, NU * NX);
     copy_rows(dst + IN_LAM * SC, lam, k * NC, NC);
+    if constexpr (PS) {
+      ref_rows(dst + IN_XREF * SC, pmask & PS_XREF, psx.xref, L.xref, k * NX,
+               NX);
+      ref_rows(dst + IN_UREF * SC, pmask & PS_UREF, psx.uref, L.uref, k * NU,
+               NU);
+      ref_rows(dst + IN_ULAST * SC, pmask & PS_ULAST, psx.ulast, L.ulast,
+               k * NU, NU);
+    }
   };
   // stage k's outputs x_k, u_k from the vectors of its parity
   auto store_out = [&](int k) {
@@ -398,6 +457,13 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
   for (int i = tid; i < L.size; i += FWD_THREADS) cp_async4(ps + i, pp + i);
   copy_rows(tb + cs, lamt, 0, NCT);
   copy_rows(tb + NCT * SC + cs, lame, 0, 2);
+  if constexpr (PS) {
+    ref_rows(tb + TM_XREF * SC + cs, pmask & PS_XREF, psx.xref, L.xref,
+             N * NX, NX);
+    if (pmask & PS_Q) copy_rows(tb + TM_QD * SC + cs, psx.qd, 0, NX);
+    if (pmask & PS_P) copy_rows(tb + TM_PD * SC + cs, psx.pd, 0, NX);
+    ref_rows(tb + TM_EQM * SC + cs, pmask & PS_EQM, psx.eqm, L.eqm, 0, 1);
+  }
   issue_stage(0);
   cp_async_commit();
   if (tid == 0) {
@@ -445,7 +511,7 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
     if (k + 1 < N) issue_stage(k + 1);
     cp_async_commit();
     if (k > 0) store_out(k - 1);
-    const float* in = inbuf + (k & 1) * FWD_NIN * SC + s;
+    const float* in = inbuf + (k & 1) * NIN * SC + s;
     if (k == 0) {
 #pragma unroll
       for (int i = 0; i < NX; ++i) x[i] = in[(IN_X + i) * SC];
@@ -479,15 +545,17 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
     // values): x_k, u_k, then the errors the rows read
     float ex[NX], eu[NU], ed[NU];
     {
-      const float* xr = ps + L.xref + k * NX;
-      const float* ur_ = ps + L.uref + k * NU;
-      const float* ul = ps + L.ulast + k * NU;
+      // the shared rows, or (PS) the scenario's columns of the buffer
+      const float* xr = PS ? in + IN_XREF * SC : ps + L.xref + k * NX;
+      const float* ur_ = PS ? in + IN_UREF * SC : ps + L.uref + k * NU;
+      const float* ul = PS ? in + IN_ULAST * SC : ps + L.ulast + k * NU;
+      constexpr int xs = PS ? SC : 1, us = xs, ls = xs;
 #pragma unroll
-      for (int i = 0; i < NX; ++i) ex[i] = x[i] - xr[i];
+      for (int i = 0; i < NX; ++i) ex[i] = x[i] - xr[i * xs];
 #pragma unroll
       for (int i = 0; i < NU; ++i) {
-        eu[i] = u[i] - ur_[i];
-        ed[i] = u[i] - ul[i];
+        eu[i] = u[i] - ur_[i * us];
+        ed[i] = u[i] - ul[i * ls];
       }
     }
     float* v = vec + (k & 1) * NV * TEAMS + team * NV;
@@ -519,7 +587,10 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
 
     // ---- the lane's rows of the tracking forms and of the PHR sum
     float tr = lane == 0 ? ps[L.S] * smax * smax : 0.f;
-    tr += qform_rows<T, NX>(ps + L.Q, ex, v + V_EX, lane);
+    if (PS && (pmask & PS_Q))
+      tr += diag_rows<T, NX>(tb + TM_QD * SC + s, SC, v + V_EX, lane);
+    else
+      tr += qform_rows<T, NX>(ps + L.Q, ex, v + V_EX, lane);
     tr += qform_rows<T, NU>(ps + L.R, eu, v + V_EU, lane);
     tr += qform_rows<T, NU>(ps + L.W, ed, v + V_ED, lane);
     const float pen = phr_rows<T, NC>(rt, v, in + IN_LAM * SC, SC, mu, lane);
@@ -538,9 +609,10 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
     Pts f;
     fk_pts_team<T>(x, lane, f);
     float ex[NX];
-    const float* xr = ps + L.xref + N * NX;
+    const float* xr = PS ? tb + TM_XREF * SC + s : ps + L.xref + N * NX;
+    constexpr int xs = PS ? SC : 1;
 #pragma unroll
-    for (int i = 0; i < NX; ++i) ex[i] = x[i] - xr[i];
+    for (int i = 0; i < NX; ++i) ex[i] = x[i] - xr[i * xs];
     float* v = vec + (N & 1) * NV * TEAMS + team * NV;
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
@@ -552,10 +624,13 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
         x, f, ob0 + N * ostride, hf, n_obs, n_hp, n_hpi, base_radius, lane));
     const float smax = gmax < 0.f ? 0.f : gmax;
     float tr = lane == 0 ? ps[L.S] * smax * smax : 0.f;
-    tr += qform_rows<T, NX>(ps + L.P, ex, v + V_EX, lane);
+    if (PS && (pmask & PS_P))
+      tr += diag_rows<T, NX>(tb + TM_PD * SC + s, SC, v + V_EX, lane);
+    else
+      tr += qform_rows<T, NX>(ps + L.P, ex, v + V_EX, lane);
     const float* lt = tb + s;
     const float pen = phr_rows<T, NCT>(rt, v, lt, SC, mu, lane);
-    const float m = ps[L.eqm];
+    const float m = PS ? tb[TM_EQM * SC + s] : ps[L.eqm];
     float peneq = 0.f;
     for (int i = lane; i < 2; i += T) {
       const float h = m * v[V_EX + i];
@@ -586,41 +661,46 @@ struct FwdGeometry {
 };
 
 inline FwdGeometry fwd_geometry(int team, int N, int n_obs, int n_hp,
-                                bool moving, int n_alpha, int B) {
+                                bool moving, bool ps, int n_alpha, int B) {
   const int scen = fwd_scen(team, n_alpha);
   return {team, FWD_THREADS, (B + scen - 1) / scen,
-          fwd_smem(team, N, n_obs, n_hp, moving).size *
+          fwd_smem(team, N, n_obs, n_hp, moving, ps).size *
               static_cast<int>(sizeof(float))};
 }
 
-template <int T>
+template <int T, bool PS>
 int fwd_launch(const Statics& st, const float* params, const float* X,
                const float* U, const float* kff, const float* K,
                const float* lam, const float* lamt, const float* lame,
-               float* Xc, float* Uc, float* xlast, float* cost, float mu,
-               int N, int B, cudaStream_t stream) {
+               const PerScen& psx, float* Xc, float* Uc, float* xlast,
+               float* cost, float mu, int N, int B, cudaStream_t stream) {
   const FwdGeometry g = fwd_geometry(
       T, N, static_cast<int>(st.v[ST_N_OBS]), static_cast<int>(st.v[ST_N_HP]),
-      st.v[ST_MOVING] != 0.f, static_cast<int>(st.v[ST_N_ALPHA]), B);
+      st.v[ST_MOVING] != 0.f, PS, static_cast<int>(st.v[ST_N_ALPHA]), B);
   if (g.smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+        fwd_kernel<T, PS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        g.smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  fwd_kernel<T><<<g.blocks, g.threads, g.smem, stream>>>(
-      st, params, X, U, kff, K, lam, lamt, lame, Xc, Uc, xlast, cost, mu, N, B);
+  fwd_kernel<T, PS><<<g.blocks, g.threads, g.smem, stream>>>(
+      st, params, X, U, kff, K, lam, lamt, lame, psx, Xc, Uc, xlast, cost, mu,
+      N, B);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace wb
 
 // Launch geometry at batch B with n_alpha step sizes (moving != 0: an
-// obstacle row a stage): out = {lanes a candidate, threads a block, blocks,
-// dynamic shared-memory bytes}, as wb_fwd_launch launches.
+// obstacle row a stage; per_scenario: the statics' ST_PS mask): out =
+// {lanes a candidate, threads a block, blocks, dynamic shared-memory
+// bytes}, as wb_fwd_launch launches.
 extern "C" int wb_fwd_geometry(int N, int n_obs, int n_hp, int moving,
-                               int n_alpha, int B, int* out) {
-  const wb::FwdGeometry g = wb::fwd_geometry(wb::FWD_TEAM, N, n_obs, n_hp,
-                                             moving != 0, n_alpha, B);
+                               int per_scenario, int n_alpha, int B,
+                               int* out) {
+  const wb::FwdGeometry g =
+      wb::fwd_geometry(wb::FWD_TEAM, N, n_obs, n_hp, moving != 0,
+                       per_scenario != 0, n_alpha, B);
   out[0] = g.team;
   out[1] = g.threads;
   out[2] = g.blocks;
@@ -629,12 +709,18 @@ extern "C" int wb_fwd_geometry(int N, int n_obs, int n_hp, int moving,
 }
 
 // C entry: statics is a HOST pointer (copied into the kernel argument); all
-// other pointers are device memory.  Returns cudaGetLastError() after the
-// launch (or the error of raising the kernel's shared-memory limit).
+// other pointers are device memory, the six per-scenario operands (U_last,
+// X_ref, U_ref, Q and P diagonals, eq_mask) null where the statics' ST_PS
+// mask has no bit.  A nonzero mask launches fwd_kernel<FWD_TEAM, true>.
+// Returns cudaGetLastError() after the launch (or the error of raising the
+// kernel's shared-memory limit).
 extern "C" int wb_fwd_launch(const float* statics, const float* params,
                              const float* X, const float* U, const float* kff,
                              const float* K, const float* lam,
-                             const float* lamt, const float* lame, float* Xc,
+                             const float* lamt, const float* lame,
+                             const float* ulast, const float* xref,
+                             const float* uref, const float* qd,
+                             const float* pd, const float* eqm, float* Xc,
                              float* Uc, float* xlast, float* cost, float mu,
                              int N, int B, void* stream) {
   wb::Statics st;
@@ -642,9 +728,18 @@ extern "C" int wb_fwd_launch(const float* statics, const float* params,
   const int na = static_cast<int>(st.v[wb::ST_N_ALPHA]);
   if (na <= 0 || B <= 0 || N <= 0) return 0;
   if (na > wb::MAX_ALPHA) return static_cast<int>(cudaErrorInvalidValue);
-  return wb::fwd_launch<wb::FWD_TEAM>(st, params, X, U, kff, K, lam, lamt,
-                                      lame, Xc, Uc, xlast, cost, mu, N, B,
-                                      static_cast<cudaStream_t>(stream));
+  const int mask = static_cast<int>(st.v[wb::ST_PS]);
+  const wb::PerScen psx{ulast, xref, uref, qd, pd, eqm};
+  if (!wb::per_scen_complete(mask, psx))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mask != 0)
+    return wb::fwd_launch<wb::FWD_TEAM, true>(st, params, X, U, kff, K, lam,
+                                              lamt, lame, psx, Xc, Uc, xlast,
+                                              cost, mu, N, B, s);
+  return wb::fwd_launch<wb::FWD_TEAM, false>(st, params, X, U, kff, K, lam,
+                                             lamt, lame, psx, Xc, Uc, xlast,
+                                             cost, mu, N, B, s);
 }
 
 // Sizes of the two host-built blocks, for the wrappers' layout check.

@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from mmmpc_tpu_torch.utils.convert import device_constant
+
 # DH constants (Franka Panda DH table).
 A2 = 0.316
 A3 = 0.0825
@@ -115,29 +117,38 @@ def ee_jacobian(q: torch.Tensor) -> torch.Tensor:
 
 def arm_ik(q_init: torch.Tensor, x_target: torch.Tensor, iters: int = 300,
            lm_lambda: float = 1e-6) -> torch.Tensor:
-    """Joint angles (3,) with FK(q) == [x, 0, z] of ``x_target`` (3,) (its y
-    is ignored), inside the IK bounds, from ``q_init`` (3,): projected
+    """Joint angles (..., 3) with FK(q) == [x, 0, z] of ``x_target``
+    (..., 3) (its y is ignored), inside the IK bounds, from ``q_init``
+    (..., 3), for each robot of the leading batch axes: projected
     Levenberg-Marquardt, dq = -(J^T J + lm_lambda I)^-1 J^T r, each
     iteration trying the step sizes ``IK_ALPHAS`` clipped into the bounds
-    and keeping the one of least squared residual, for a fixed ``iters``
-    iterations.  The Jacobian is ``arm_fk_partials``' end-point row.  Runs
-    in the dtype and on the device of ``q_init``."""
+    and keeping, robot by robot, the one of least squared residual, for a
+    fixed ``iters`` iterations (the JAX package's ``arm_ik``, vmapped over
+    the batch).  The Jacobian is ``arm_fk_partials``' end-point row.  Runs
+    in the dtype and on the device of ``q_init`` and never waits for the
+    device (no host data copied, the solve's result unchecked: J^T J +
+    lm_lambda I is positive definite)."""
     kw = dict(dtype=q_init.dtype, device=q_init.device)
-    lo = torch.tensor(ARM_IK_LOWER, **kw)
-    hi = torch.tensor(ARM_IK_UPPER, **kw)
-    alphas = torch.tensor(IK_ALPHAS, **kw)[:, None]
-    target = x_target.to(**kw)[[0, 2]]
+    lo = device_constant(ARM_IK_LOWER, **kw)
+    hi = device_constant(ARM_IK_UPPER, **kw)
+    alphas = device_constant(IK_ALPHAS, **kw)[:, None]      # (4, 1)
+    target = x_target.to(**kw)[..., None, 0:3:2]            # (..., 1, 2)
     H_reg = lm_lambda * torch.eye(3, **kw)
 
-    def residual(q):
+    def residual(q):                                        # (..., c, 3)
         ee, _, _ = arm_fk(q)
-        return ee[..., [0, 2]] - target
+        return ee[..., 0:3:2] - target
 
     q = torch.clamp(q_init, lo, hi)
     for _ in range(iters):
         _, _, ax_q, az_q = arm_fk_partials(q)
-        J = torch.stack([ax_q[2], az_q[2]])                  # (2, 3)
-        dq = -torch.linalg.solve(J.T @ J + H_reg, J.T @ residual(q))
-        cands = torch.clamp(q + alphas * dq, lo, hi)         # (4, 3)
-        q = cands[torch.argmin(torch.sum(residual(cands) ** 2, dim=-1))]
+        J = torch.stack([ax_q[..., 2, :], az_q[..., 2, :]], dim=-2)  # (..., 2, 3)
+        r = residual(q[..., None, :])[..., 0, :]            # (..., 2)
+        dq = -torch.linalg.solve_ex(J.mT @ J + H_reg,
+                                    (J.mT @ r[..., None])[..., 0])[0]
+        cands = torch.clamp(q[..., None, :] + alphas * dq[..., None, :],
+                            lo, hi)                         # (..., 4, 3)
+        best = torch.argmin(torch.sum(residual(cands) ** 2, dim=-1), dim=-1)
+        q = torch.gather(cands, -2, best[..., None, None].expand(
+            best.shape + (1, 3)))[..., 0, :]
     return q

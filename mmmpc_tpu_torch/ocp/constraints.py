@@ -9,6 +9,7 @@ structured AL expansions.
 
 import torch
 
+from mmmpc_tpu_torch.utils.convert import device_constant
 from mmmpc_tpu_torch.utils.math import safe_dist, safe_norm
 
 # "Satisfied by a wide margin": disables masked rows without +-inf, which
@@ -62,11 +63,10 @@ def halfplane_union_g(points, hp_points, hp_normals, hp_mask,
 def box_g(v, lower, upper, finite_mask_lo, finite_mask_hi):
     """Two-sided box constraints [v - upper; lower - v] as g <= 0; rows with
     an infinite bound (mask False) are NEG_BIG."""
-    kw = dict(dtype=v.dtype, device=v.device)
-    upper = torch.as_tensor(upper, **kw)
-    lower = torch.as_tensor(lower, **kw)
-    mhi = torch.as_tensor(finite_mask_hi, dtype=torch.bool, device=v.device)
-    mlo = torch.as_tensor(finite_mask_lo, dtype=torch.bool, device=v.device)
+    upper = device_constant(upper, v.dtype, v.device)
+    lower = device_constant(lower, v.dtype, v.device)
+    mhi = device_constant(finite_mask_hi, torch.bool, v.device)
+    mlo = device_constant(finite_mask_lo, torch.bool, v.device)
     g_hi = torch.where(mhi, v - upper, NEG_BIG)
     g_lo = torch.where(mlo, lower - v, NEG_BIG)
     return torch.cat([g_hi, g_lo], dim=-1)

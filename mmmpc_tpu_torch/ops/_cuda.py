@@ -79,16 +79,21 @@ _FLOAT = ctypes.c_float
 # n_alpha, B), whole-body and generic, write four ints (team, threads,
 # blocks, shared-memory bytes); the whole-body ones, and the whole-body
 # params size, also take ``moving`` after n_hp (1: an obstacle row a
-# stage).
+# stage), and the whole-body geometries then the per-scenario mask (the
+# statics' ``per_scenario``).  The whole-body launches take the six
+# per-scenario operands (U_last, X_ref, U_ref, the Q and P diagonals,
+# eq_mask; null where the mask has no bit) after the multipliers.
 _FWD = [_VOID] * 13 + [_FLOAT, _INT, _INT, _VOID]
 _BWD = [_VOID] * 10 + [_FLOAT, _INT, _INT, _VOID]
+_WB_FWD = [_VOID] * 19 + [_FLOAT, _INT, _INT, _VOID]
+_WB_BWD = [_VOID] * 16 + [_FLOAT, _INT, _INT, _VOID]
 _RIC = [_VOID] * 12 + [_INT, _INT, _VOID]
 _RIC_GEOMETRY = [_INT, _VOID]
 SIGNATURES = {
-    "wb_fwd_launch": _FWD,
-    "wb_bwd_launch": _BWD,
-    "wb_bwd_geometry": [_INT] * 5 + [_VOID],
-    "wb_fwd_geometry": [_INT] * 6 + [_VOID],
+    "wb_fwd_launch": _WB_FWD,
+    "wb_bwd_launch": _WB_BWD,
+    "wb_bwd_geometry": [_INT] * 6 + [_VOID],
+    "wb_fwd_geometry": [_INT] * 7 + [_VOID],
     "wb_statics_size": [], "wb_params_size": [_INT] * 4,
     **{k: v for name in FORMULATIONS for k, v in (
         (f"gen_fwd_{name}", _FWD), (f"gen_bwd_{name}", _BWD),
@@ -259,16 +264,23 @@ class RiccatiEntries:
 RICCATI = RiccatiEntries()
 
 
-def pack_buffer(shapes: dict, params) -> torch.Tensor:
+def pack_buffer(shapes: dict, params, per_scenario=()) -> torch.Tensor:
     """The per-problem tensors ``params[k]`` of ``shapes`` (key -> shape, in
     the order of the kernel's layout) as one contiguous buffer, in the dtype
-    and on the device of ``params``; raises on an entry of another shape
-    (per-scenario entries are not supported)."""
+    and on the device of ``params``.  An entry named in ``per_scenario``
+    carries a trailing batch axis, ``shape + (B,)``; the kernel reads it
+    from an operand of its own, and its slot here is kept, filled with
+    zeros.  Raises on an entry of another shape."""
+    parts = []
     for k, shape in shapes.items():
-        if tuple(params[k].shape) != tuple(shape):
-            raise ValueError(f"params[{k!r}]: expected shape {tuple(shape)}, "
-                             f"got {tuple(params[k].shape)}")
-    return torch.cat([params[k].reshape(-1) for k in shapes])
+        t, shape, ps = params[k], tuple(shape), k in per_scenario
+        want = shape + (t.shape[-1],) if ps and t.dim() else shape
+        if tuple(t.shape) != want or (ps and not t.dim()):
+            raise ValueError(f"params[{k!r}]: expected shape {shape}"
+                             f"{' + (B,)' if ps else ''}, got "
+                             f"{tuple(t.shape)}")
+        parts.append(t.new_zeros(math.prod(shape)) if ps else t.reshape(-1))
+    return torch.cat(parts)
 
 
 def unpack_buffer(shapes: dict, flat: torch.Tensor) -> dict[str, torch.Tensor]:

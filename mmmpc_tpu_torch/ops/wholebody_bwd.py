@@ -8,7 +8,10 @@ gradient, the PHR rows of the boxes, the sparse dynamics Jacobians, then one
 Riccati step (Cholesky of Quu + reg I) giving kff = -Quu^-1 Qu and K = -Quu^-1
 Qux. Vxx is symmetrised after every step, as the TPU kernel does.  With
 ``moving`` obstacles the params' obstacle table is (N+1, n_obs, 3): stage
-k's circles are row k's, the terminal expansion's row N's.
+k's circles are row k's, the terminal expansion's row N's.  Per-scenario
+U_last, X_ref, U_ref, Q, P and eq_mask (a trailing batch axis; any subset)
+are read per scenario, Q and P as their diagonals, as in
+``ops/wholebody_fwd.py``.
 
 On CUDA tensors the call launches the hand-written kernel
 ``csrc/wholebody_bwd.cu``: a team of 8 lanes per scenario (the
@@ -33,27 +36,28 @@ from mmmpc_tpu_torch.ops._cuda import (
 )
 from mmmpc_tpu_torch.ops.generic_bwd import plain_bwd
 from mmmpc_tpu_torch.ops.wholebody_fwd import (
-    NC, NU, NX, pack_params, statics_block, unpack_params,
+    NC, NU, NX, Operands, pack_params, statics_block, unpack_params,
 )
 
 LAUNCHES = LaunchCounter()
 
 
-def launch_geometry(lib, N, n_obs, n_hp, B, moving=False):
+def launch_geometry(lib, N, n_obs, n_hp, B, moving=False, per_scenario=0):
     """{team, threads, blocks, smem_bytes}: the lanes a scenario, threads a
     block, blocks and dynamic shared-memory bytes with which the library's
     ``wb_bwd_launch`` launches the kernel at batch ``B`` (``moving``: an
-    obstacle row a stage), as its ``wb_bwd_geometry`` reports them."""
+    obstacle row a stage; ``per_scenario``: the mask of per-scenario
+    entries), as its ``wb_bwd_geometry`` reports them."""
     out = (ctypes.c_int * 4)()
-    lib.wb_bwd_geometry(N, n_obs, n_hp, int(moving), B, out)
+    lib.wb_bwd_geometry(N, n_obs, n_hp, int(moving), per_scenario, B, out)
     return dict(team=out[0], threads=out[1], blocks=out[2], smem_bytes=out[3])
 
 
 class BwdFused:
     """The fused backward sweep of one problem (the JAX package's
     ``make_bwd_fused``): static data from the keyword arguments, runtime
-    data from ``params``, packed once (``moving``: an obstacle row a
-    stage)."""
+    data from ``params``, the shared entries packed once, the per-scenario
+    ones kept as operands (``moving``: an obstacle row a stage)."""
 
     def __init__(self, ocp, params, *, dt, base_radius, n_obs, n_hp,
                  x_bounds, du_bounds, inv_scale, moving=False):
@@ -64,10 +68,11 @@ class BwdFused:
         self.moving = bool(moving)
         self.inv_scale = float(inv_scale)
         self.flat = pack_params(params, ocp.N, n_obs, n_hp, self.moving)
+        self.ps = Operands(params)
         self.statics = statics_block(
             dt=dt, inv_scale=inv_scale, base_radius=base_radius,
             n_obs=n_obs, n_hp=n_hp, x_bounds=x_bounds, du_bounds=du_bounds,
-            moving=self.moving)
+            moving=self.moving, per_scenario=self.ps.mask)
 
     def __call__(self, X, U, lam, lamt, lame, mu, reg):
         """X (N+1, nx, B), U (N, nu, B), lam (N, nc, B), lamt (2 nx, B),
@@ -82,8 +87,8 @@ class BwdFused:
     def plain(self, X, U, lam, lamt, lame, mu, reg):
         """``ops/generic_bwd.py::plain_bwd`` on the packed params (any
         device, any float dtype)."""
-        return plain_bwd(self.ocp, unpack_params(self.flat, self.N, self.n_obs,
-                                                 self.n_hp, self.moving),
+        return plain_bwd(self.ocp, self.ps.params(unpack_params(
+            self.flat, self.N, self.n_obs, self.n_hp, self.moving)),
                          self.inv_scale, X, U, lam, lamt, lame, mu, reg)
 
     def cuda(self, X, U, lam, lamt, lame, mu, reg):
@@ -96,6 +101,7 @@ class BwdFused:
                 check_tensor("lam", lam, (N, NC, B), X.device),
                 check_tensor("lam_term", lamt, (2 * NX, B), X.device),
                 check_tensor("lam_eq", lame, (2, B), X.device),
+                *self.ps.ptrs(N, B, X.device),
                 check_tensor("reg", reg, (B,), X.device)]
         kw = dict(dtype=torch.float32, device=X.device)
         outs = (torch.empty(N, NU, B, **kw), torch.empty(N, NU, NX, B, **kw))

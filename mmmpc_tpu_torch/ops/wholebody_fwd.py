@@ -13,7 +13,11 @@ terminal boxes, the maskable position equality) at the end, so the returned
 per-candidate costs are complete.  With ``moving`` obstacles the params'
 obstacle table is (N+1, n_obs, 3): stage k's circles are row k's, the
 terminal group's row N's (the JAX kernel's ``moving`` branch); otherwise it
-is (n_obs, 3), one row for every stage.
+is (n_obs, 3), one row for every stage.  Any subset of U_last, X_ref,
+U_ref, Q, P and eq_mask may carry a trailing batch axis, one value per
+scenario (the fleet's references, weights, mask and previous inputs; the
+JAX kernel's ``ps_*`` operands): the kernel then reads them per scenario,
+Q and P as their diagonals (nx, B), as the JAX kernel does.
 
 On CUDA tensors the call launches the hand-written kernel
 ``csrc/wholebody_fwd.cu``: a team of 2 lanes per candidate (scenario, step
@@ -26,12 +30,14 @@ gives the design.  On CPU tensors it runs the plain PyTorch version,
 ``ops/generic_fwd.py::plain_fwd``, built from the OCP's own callables.
 There is no fallback between them.
 
-This module also owns the two parameter blocks both fused kernels read:
-``pack_params`` (the per-problem tensors, one flat buffer on the device) and
-``statics_block`` (bounds, masks, step sizes and constants, passed by value
-as a kernel argument).  Their layouts are ``param_layout`` and the ``ST_*``
-offsets of ``csrc/wholebody_common.cuh``; before every launch the wrappers
-hold the sizes of both against the ones the compiled library reports.
+This module also owns the parameter blocks both fused kernels read:
+``pack_params`` (the shared per-problem tensors, one flat buffer on the
+device), ``statics_block`` (bounds, masks, step sizes and constants, passed
+by value as a kernel argument) and ``Operands`` (the per-scenario entries,
+one device operand each).  The layouts of the first two are
+``param_layout`` and the ``ST_*`` offsets of ``csrc/wholebody_common.cuh``;
+before every launch the wrappers hold the sizes of both against the ones
+the compiled library reports.
 """
 
 from __future__ import annotations
@@ -45,23 +51,65 @@ from mmmpc_tpu_torch.ops._cuda import (
     LIBRARY, MAX_ALPHA, LaunchCounter, check_launch, check_layout,
     check_tensor, pack_buffer, unpack_buffer,
 )
+from mmmpc_tpu_torch.ocp.spec import per_scenario_keys
 from mmmpc_tpu_torch.ops.generic_fwd import plain_fwd
 
 NX, NU = 9, 5
 NC = 2 * NX + 2 * NU
+# the per-scenario entries in the order of the kernels' operands, and their
+# bit in the statics' per_scenario mask (PS_* of csrc/wholebody_common.cuh)
+PS_BITS = {"U_last": 1, "X_ref": 2, "U_ref": 4, "Q": 8, "P": 16, "eq_mask": 32}
 
 LAUNCHES = LaunchCounter()
 
 
-def launch_geometry(lib, N, n_obs, n_hp, n_alpha, B, moving=False):
+def launch_geometry(lib, N, n_obs, n_hp, n_alpha, B, moving=False,
+                    per_scenario=0):
     """{team, threads, blocks, smem_bytes}: the lanes a candidate, threads a
     block, blocks and dynamic shared-memory bytes with which the library's
     ``wb_fwd_launch`` launches the kernel at batch ``B`` with ``n_alpha``
-    step sizes (``moving``: an obstacle row a stage), as its
-    ``wb_fwd_geometry`` reports them."""
+    step sizes (``moving``: an obstacle row a stage; ``per_scenario``: the
+    mask of per-scenario entries), as its ``wb_fwd_geometry`` reports
+    them."""
     out = (ctypes.c_int * 4)()
-    lib.wb_fwd_geometry(N, n_obs, n_hp, int(moving), n_alpha, B, out)
+    lib.wb_fwd_geometry(N, n_obs, n_hp, int(moving), per_scenario, n_alpha,
+                        B, out)
     return dict(team=out[0], threads=out[1], blocks=out[2], smem_bytes=out[3])
+
+
+class Operands:
+    """The per-scenario entries of one problem's params (the keys with a
+    trailing batch axis), as the kernels read them: U_last / U_ref
+    (N, nu, B), X_ref (N+1, nx, B), the diagonals of Q / P (nx, B), eq_mask
+    (B,), each contiguous in the params' dtype and on their device."""
+
+    def __init__(self, params):
+        self.keys = per_scenario_keys(params)
+        self.mask = sum(PS_BITS[k] for k in self.keys)
+        self.t = {k: (torch.diagonal(params[k], dim1=0, dim2=1).T
+                      if k in ("Q", "P") else params[k]).contiguous()
+                  for k in self.keys}
+
+    def params(self, shared: dict) -> dict:
+        """``shared`` (the unpacked shared entries) with the per-scenario
+        entries as the OCP callables take them, batch-first: the kernels'
+        function on any device, Q and P the diagonal matrices of their
+        diagonals."""
+        p = dict(shared)
+        for k, v in self.t.items():
+            p[k] = (torch.diag_embed(v.T) if k in ("Q", "P")
+                    else v.movedim(-1, 0))
+        return p
+
+    def ptrs(self, N, B, device) -> list[int]:
+        """The six operand pointers of a launch at batch ``B``, in the
+        order of ``PS_BITS``, 0 for a shared entry; raises unless each is a
+        contiguous float32 tensor of its shape on the CUDA ``device``."""
+        shapes = {"U_last": (N, NU, B), "X_ref": (N + 1, NX, B),
+                  "U_ref": (N, NU, B), "Q": (NX, B), "P": (NX, B),
+                  "eq_mask": (B,)}
+        return [check_tensor(k, self.t[k], shapes[k], device)
+                if k in self.t else 0 for k in PS_BITS]
 
 # ---- the packed per-problem buffer (param_layout in the CUDA header) ----
 def _packed_shapes(N, n_obs, n_hp, moving):
@@ -76,8 +124,10 @@ def _packed_shapes(N, n_obs, n_hp, moving):
 def pack_params(params, N, n_obs, n_hp, moving=False) -> torch.Tensor:
     """The shared per-problem tensors as one contiguous buffer (dtype and
     device of ``params``); ``moving``: the obstacle table has a row a stage.
-    Per-scenario entries are not supported."""
-    return pack_buffer(_packed_shapes(N, n_obs, n_hp, moving), params)
+    A per-scenario entry's slot is kept, zero-filled (``Operands`` carries
+    it)."""
+    return pack_buffer(_packed_shapes(N, n_obs, n_hp, moving), params,
+                       per_scenario_keys(params))
 
 
 def unpack_params(flat, N, n_obs, n_hp, moving=False) -> dict[str,
@@ -91,13 +141,15 @@ _STATIC_FIELDS = (("dt", 1), ("inv_scale", 1), ("base_radius", 1),
                   ("n_alpha", 1), ("n_obs", 1), ("n_hp", 1), ("x_lo", NX),
                   ("x_hi", NX), ("x_mlo", NX), ("x_mhi", NX), ("du_lo", NU),
                   ("du_hi", NU), ("du_mlo", NU), ("du_mhi", NU), ("u_lo", NU),
-                  ("u_hi", NU), ("alphas", MAX_ALPHA), ("moving", 1))
+                  ("u_hi", NU), ("alphas", MAX_ALPHA), ("moving", 1),
+                  ("per_scenario", 1))
 
 
 def statics_block(*, dt, inv_scale, base_radius, n_obs, n_hp, x_bounds,
-                  du_bounds, u_clamp=None, alphas=(),
-                  moving=False) -> np.ndarray:
-    """Host float32 block of everything static to a solve."""
+                  du_bounds, u_clamp=None, alphas=(), moving=False,
+                  per_scenario=0) -> np.ndarray:
+    """Host float32 block of everything static to a solve
+    (``per_scenario``: the mask of ``PS_BITS``)."""
     if len(alphas) > MAX_ALPHA:
         raise ValueError(f"at most {MAX_ALPHA} step sizes, got {len(alphas)}")
     u_lo, u_hi = u_clamp if u_clamp is not None else (
@@ -106,7 +158,7 @@ def statics_block(*, dt, inv_scale, base_radius, n_obs, n_hp, x_bounds,
                   n_alpha=len(alphas), n_obs=n_obs, n_hp=n_hp, u_lo=u_lo,
                   u_hi=u_hi, alphas=np.pad(np.asarray(alphas, float),
                                            (0, MAX_ALPHA - len(alphas))),
-                  moving=float(moving))
+                  moving=float(moving), per_scenario=float(per_scenario))
     for name, b in zip(("x_lo", "x_hi", "x_mlo", "x_mhi"), x_bounds):
         values[name] = b
     for name, b in zip(("du_lo", "du_hi", "du_mlo", "du_mhi"), du_bounds):
@@ -121,7 +173,9 @@ class FwdLinesearch:
     ``make_fwd_linesearch``): static data (bounds, masks, clamp limits,
     alphas, dt, ``moving``: an obstacle row a stage) from the keyword
     arguments, runtime data (weights, references, geometry) from
-    ``params``, packed once; multipliers and mu are call arguments."""
+    ``params``, the shared entries packed once, the per-scenario ones
+    (``Operands``) kept as operands; multipliers and mu are call
+    arguments."""
 
     def __init__(self, ocp, params, *, dt, base_radius, n_obs, n_hp,
                  x_bounds, du_bounds, u_clamp, alphas, inv_scale,
@@ -134,10 +188,12 @@ class FwdLinesearch:
         self.alphas = tuple(float(a) for a in alphas)
         self.inv_scale = float(inv_scale)
         self.flat = pack_params(params, ocp.N, n_obs, n_hp, self.moving)
+        self.ps = Operands(params)
         self.statics = statics_block(
             dt=dt, inv_scale=inv_scale, base_radius=base_radius,
             n_obs=n_obs, n_hp=n_hp, x_bounds=x_bounds, du_bounds=du_bounds,
-            u_clamp=u_clamp, alphas=self.alphas, moving=self.moving)
+            u_clamp=u_clamp, alphas=self.alphas, moving=self.moving,
+            per_scenario=self.ps.mask)
 
     def __call__(self, X, U, kff, K, lam, lamt, lame, mu):
         """X (N, nx, B) stage states, U (N, nu, B), kff (N, nu, B),
@@ -154,8 +210,8 @@ class FwdLinesearch:
     def plain(self, X, U, kff, K, lam, lamt, lame, mu):
         """``ops/generic_fwd.py::plain_fwd`` on the packed params (any
         device, any float dtype)."""
-        return plain_fwd(self.ocp, unpack_params(self.flat, self.N, self.n_obs,
-                                                 self.n_hp, self.moving),
+        return plain_fwd(self.ocp, self.ps.params(unpack_params(
+            self.flat, self.N, self.n_obs, self.n_hp, self.moving)),
                          self.alphas, self.inv_scale, X, U, kff, K, lam, lamt,
                          lame, mu)
 
@@ -170,7 +226,8 @@ class FwdLinesearch:
                 check_tensor("K", K, (N, NU, NX, B), X.device),
                 check_tensor("lam", lam, (N, NC, B), X.device),
                 check_tensor("lam_term", lamt, (2 * NX, B), X.device),
-                check_tensor("lam_eq", lame, (2, B), X.device)]
+                check_tensor("lam_eq", lame, (2, B), X.device),
+                *self.ps.ptrs(N, B, X.device)]
         kw = dict(dtype=torch.float32, device=X.device)
         outs = (torch.empty(N, na, NX, B, **kw), torch.empty(N, na, NU, B, **kw),
                 torch.empty(na, NX, B, **kw), torch.empty(na, B, **kw))

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from mmmpc_tpu_torch.ocp.spec import OCP
+from mmmpc_tpu_torch.ocp.spec import OCP, per_scenario_keys
 from mmmpc_tpu_torch.utils.configs import SolverConfig
 
 
@@ -108,9 +108,12 @@ def terminal_al_blocks(ocp: OCP, params, inv_scale, xN, lam_term, lam_eq,
 
 
 def build_core(ocp: OCP, params, cfg: SolverConfig):
-    """Batched AL building blocks of one problem (shared params)."""
+    """Batched AL building blocks of one problem (its params as the
+    callables take them: per-scenario entries batch-first)."""
     N = ocp.N
-    probe = torch.zeros(1, ocp.nx, dtype=params["X_ref"].dtype,
+    # probe the widths at one scenario, or at the per-scenario batch
+    probe_b = next((params[k].shape[0] for k in per_scenario_keys(params)), 1)
+    probe = torch.zeros(probe_b, ocp.nx, dtype=params["X_ref"].dtype,
                         device=params["X_ref"].device)
     probe_u = probe[..., :ocp.nu]
     nc = ocp.stage_ineq(probe, probe_u, 0, params).shape[-1]

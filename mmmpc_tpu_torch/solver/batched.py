@@ -19,6 +19,12 @@ solver:
   ``core.terminal_derivs``), then the Riccati sweep kernel on those blocks
   (``ops/riccati.py``).  It takes shared params only, as the JAX solver's.
 
+Per-scenario params (the fleet's: an entry of ``ocp.per_scenario_keys``
+with a trailing batch axis, ``ocp/spec.py``) need the fused backward: the
+kernels read them per scenario, and the AL objective, the constraints, the
+rollout and the final objective evaluate the OCP's callables on their
+batch-first view, as the JAX solver's ``al_total_p`` / ``eval_con_p`` do.
+
 On CUDA tensors the calls launch the hand-written kernels; on CPU tensors
 they run their plain PyTorch versions.  Any batch size is taken.
 """
@@ -27,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from mmmpc_tpu_torch.ocp.spec import OCP
+from mmmpc_tpu_torch.ocp.spec import OCP, batch_first, per_scenario_keys
 from mmmpc_tpu_torch.ops.riccati import riccati_backward_bm
 from mmmpc_tpu_torch.solver.al_ilqr import (
     SolveResult, _objective, build_core, rollout, run_al_rounds,
@@ -35,11 +41,6 @@ from mmmpc_tpu_torch.solver.al_ilqr import (
 )
 from mmmpc_tpu_torch.utils.configs import SolverConfig
 
-
-# params entries that carry a trailing per-scenario batch axis in the JAX
-# package's fleet convention (``_per_scenario_keys``), and their rank then
-_PER_SCENARIO_RANK = {"U_last": 3, "X_ref": 3, "U_ref": 3, "Q": 3, "P": 3,
-                      "eq_mask": 1}
 
 
 def _pick(cand, best):
@@ -52,7 +53,8 @@ def _pick(cand, best):
 def al_ilqr_solve_batched(ocp: OCP, x0_b, U0_b, params,
                           cfg: SolverConfig = SolverConfig(),
                           lam0_b=None) -> SolveResult:
-    """Solve a batch of scenarios sharing ``params``.
+    """Solve a batch of scenarios sharing ``params`` (but for its
+    per-scenario entries, batch-last).
 
     x0_b (B, nx), U0_b (B, N, nu); lam0_b: optional batch-major multiplier
     warm start (lam_stage (B, N, nc), lam_term (B, nct), lam_eq (B, ne)).
@@ -61,13 +63,19 @@ def al_ilqr_solve_batched(ocp: OCP, x0_b, U0_b, params,
     B = x0_b.shape[0]
     dtype, device = x0_b.dtype, x0_b.device
     fused = cfg.use_fused_backward and ocp.lanes_bwd_factory is not None
-    per_scenario = sorted(k for k, rank in _PER_SCENARIO_RANK.items()
-                          if k in params and params[k].dim() == rank)
+    per_scenario = per_scenario_keys(params)
     if per_scenario and not fused:
-        raise ValueError(f"per-scenario params {per_scenario} need the fused "
-                         f"backward: the unfused path's expansion takes "
+        raise ValueError(f"per-scenario params {list(per_scenario)} need the "
+                         f"fused backward: the unfused path's expansion takes "
                          f"shared params only")
-    core = build_core(ocp, params, cfg)
+    unknown = set(per_scenario) - ocp.per_scenario_keys
+    if unknown:
+        raise ValueError(f"params {sorted(unknown)} carry a batch axis, but "
+                         f"the OCP takes them shared only")
+    # the OCP callables' view (per-scenario entries batch-first); the
+    # kernels' factories take the params as given
+    cparams = batch_first(params)
+    core = build_core(ocp, cparams, cfg)
     N, nc, nct, ne = core.N, core.nc, core.nct, core.ne
     fwd_ls = ocp.lanes_fwd_factory(cfg, params)
     bwd_fused = ocp.lanes_bwd_factory(cfg, params) if fused else None
@@ -122,7 +130,7 @@ def al_ilqr_solve_batched(ocp: OCP, x0_b, U0_b, params,
     else:
         lam0_bm = (lam0_b[0].permute(1, 2, 0).contiguous(),
                    lam0_b[1].T.contiguous(), lam0_b[2].T.contiguous())
-    X0, Uc0 = rollout(ocp, x0_b.T, U0_b.permute(1, 2, 0), params)
+    X0, Uc0 = rollout(ocp, x0_b.T, U0_b.permute(1, 2, 0), cparams)
     carry0 = (X0, Uc0, *lam0_bm, torch.full((B,), float("inf"), **kw))
     X_fin, U_fin, lam_stage, lam_term, lam_eq, viol = run_al_rounds(
         al_round, carry0, cfg)
@@ -130,6 +138,6 @@ def al_ilqr_solve_batched(ocp: OCP, x0_b, U0_b, params,
     # back to the batch-major result contract
     return SolveResult(
         X=X_fin.permute(2, 0, 1), U=U_fin.permute(2, 0, 1),
-        cost=_objective(ocp, X_fin, U_fin, params), max_violation=viol,
+        cost=_objective(ocp, X_fin, U_fin, cparams), max_violation=viol,
         lam_stage=lam_stage.permute(2, 0, 1), lam_term=lam_term.T,
         lam_eq=lam_eq.T, converged=viol < cfg.constraint_tol)

@@ -16,8 +16,10 @@ tests:
 - the whole-body qref pair (A, B) on the problem of
   tests/test_torch_kernels.py, and with an obstacle row a stage on the
   problem of tests/test_torch_moving_obs.py and at the dynamic-obstacle
-  demo's shape (N=20, batch 1, 8 step sizes): X / U atol 2e-5, cost rtol =
-  atol = 2e-3; gains rtol = atol = 5e-3;
+  demo's shape (N=20, batch 1, 8 step sizes), and with per-scenario entries
+  (the fleet's: all six, and U_last alone) on the problem of
+  tests/test_torch_fleet.py at batches 64 and 1: X / U atol 2e-5, cost
+  rtol = atol = 2e-3; gains rtol = atol = 5e-3;
 - the generic pair (C, D) of each formulation on the problems of
   tests/test_torch_generic_kernels.py: X / U atol 2e-5, cost rtol = atol =
   2e-3; gains atol 1e-5 (demo), 1e-3 (base), 2e-4 (endpoint) with rtol
@@ -35,6 +37,7 @@ import torch
 
 from mmmpc_tpu_torch import roofline
 from mmmpc_tpu_torch.demo_wholebody_separate import build_world
+from mmmpc_tpu_torch.ocp.spec import per_scenario_keys
 from mmmpc_tpu_torch.ops import riccati
 from mmmpc_tpu_torch.ops._cuda import FMA_NACC, RICCATI_INSTANCES
 from mmmpc_tpu_torch.ops.generic_bwd import plain_bwd
@@ -42,8 +45,8 @@ from mmmpc_tpu_torch.solver.al_ilqr import rollout
 from mmmpc_tpu_torch.utils.convert import params_from_numpy
 
 from torch_problems import (
-    ARM_BATCH, B, BWD_ATOL, FORMULATIONS, N, batch_last, generic_problem,
-    qref_problem, spd_blocks,
+    ARM_BATCH, B, BWD_ATOL, FLEET_KEYS, FORMULATIONS, N, batch_last,
+    fleet_params, generic_problem, qref_problem, spd_blocks,
 )
 
 # at 64 scenarios the arm's ill-conditioned ones pass the 1% of entries of
@@ -72,10 +75,14 @@ def _first(args, batch):
 def _check_wholebody(device, mpc, x0_b, U0_b, params, kernel, batch):
     """The whole-body CUDA kernel ``kernel`` against its plain version on
     the card, on the first ``batch`` scenarios of seeded inputs (the rollout
-    of U0_b from x0_b, random gains and multipliers)."""
+    of U0_b from x0_b, random gains and multipliers) and of the per-scenario
+    entries of ``params``."""
     full = x0_b.shape[0]
     N = mpc.N
     p = params_from_numpy(params, device, torch.float32)
+    ps = per_scenario_keys(p)
+    p_first = {k: v[..., :batch].contiguous() if k in ps else v
+               for k, v in p.items()}
     rng = np.random.default_rng(5)
     X, U = rollout(mpc.ocp, _t(x0_b, device).T,
                    _t(U0_b, device).permute(1, 2, 0), p)
@@ -83,14 +90,14 @@ def _check_wholebody(device, mpc, x0_b, U0_b, params, kernel, batch):
     lamt = _t(np.abs(rng.standard_normal((18, full))), device)
     lame = _t(0.1 * rng.standard_normal((2, full)), device)
     if kernel == "wholebody_fwd":
-        f = mpc.ocp.lanes_fwd_factory(mpc.solver_config, p)
+        f = mpc.ocp.lanes_fwd_factory(mpc.solver_config, p_first)
         args = (X[:-1], U,
                 _t(0.05 * rng.standard_normal((N, 5, full)), device),
                 _t(0.05 * rng.standard_normal((N, 5, 9, full)), device), lam,
                 lamt, lame, 10.0)
         tols = [(0.0, 2e-5)] * 3 + [(2e-3, 2e-3)]
     else:
-        f = mpc.ocp.lanes_bwd_factory(mpc.solver_config, p)
+        f = mpc.ocp.lanes_bwd_factory(mpc.solver_config, p_first)
         args = (X, U, lam, lamt, lame, 10.0,
                 torch.full((full,), 1e-6, device=device))
         tols = [(5e-3, 5e-3)] * 2
@@ -123,6 +130,21 @@ def test_cuda_moving_kernel_matches_plain(device, kernel, batch):
     on the card, on the whole batch and on a partial block of 37."""
     _check_wholebody(device, *qref_problem(eq_mask=1.0, moving=True), kernel,
                      batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [B, 1])
+@pytest.mark.parametrize("keys", [FLEET_KEYS, ("U_last",)],
+                         ids=["all", "U_last"])
+@pytest.mark.parametrize("kernel", ["wholebody_fwd", "wholebody_bwd"])
+def test_cuda_fleet_kernel_matches_plain(device, kernel, keys, batch):
+    """The whole-body CUDA kernels with per-scenario entries (their
+    instances for the fleet) against their plain versions on the card: all
+    six entries (eq_mask 0 and 1 mixed, Q and P rows of the task weight
+    table) and U_last alone, on the whole batch and on one robot."""
+    mpc, x0_b, U0_b, params = qref_problem(eq_mask=1.0)
+    _check_wholebody(device, mpc, x0_b, U0_b,
+                     fleet_params(params, B, keys), kernel, batch)
 
 
 @pytest.mark.cuda

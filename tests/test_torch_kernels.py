@@ -180,13 +180,17 @@ def test_bwd_launch_geometry_checks_the_team_size():
     from mmmpc_tpu_torch.ops.wholebody_bwd import launch_geometry
 
     class Library:
-        def wb_bwd_geometry(self, n, n_obs, n_hp, moving, batch, out):
+        def wb_bwd_geometry(self, n, n_obs, n_hp, moving, per_scenario,
+                            batch, out):
             assert (n, n_obs, n_hp, moving) == (N, 1, 1, 0)
-            out[0], out[1], out[2], out[3] = 8, 128, -(-batch // 16), 4 * n
+            out[0], out[1], out[2], out[3] = (8, 128, -(-batch // 16),
+                                              4 * n + per_scenario)
             return 0
 
     assert launch_geometry(Library(), N, 1, 1, 37) == dict(
         team=8, threads=128, blocks=3, smem_bytes=4 * N)
+    assert launch_geometry(Library(), N, 1, 1, 37,
+                           per_scenario=63)["smem_bytes"] == 4 * N + 63
 
 
 def test_fwd_launch_geometry_reports_the_library():
@@ -198,13 +202,16 @@ def test_fwd_launch_geometry_reports_the_library():
     from mmmpc_tpu_torch.ops.wholebody_fwd import launch_geometry
 
     class Library:
-        def wb_fwd_geometry(self, n, n_obs, n_hp, moving, n_alpha, batch,
-                            out):
+        def wb_fwd_geometry(self, n, n_obs, n_hp, moving, per_scenario,
+                            n_alpha, batch, out):
             assert (n, n_obs, n_hp, moving) == (N, 1, 1, 0)
             scen = min((128 // 2) // n_alpha, 32)
-            out[0], out[1], out[2], out[3] = 2, 128, -(-batch // scen), 4 * n
+            out[0], out[1], out[2], out[3] = (2, 128, -(-batch // scen),
+                                              4 * n + per_scenario)
             return 0
 
     assert launch_geometry(Library(), N, 1, 1, 3, 37) == dict(
         team=2, threads=128, blocks=2, smem_bytes=4 * N)
     assert launch_geometry(Library(), N, 1, 1, 8, 37)["blocks"] == 5
+    assert launch_geometry(Library(), N, 1, 1, 3, 37,
+                           per_scenario=1)["smem_bytes"] == 4 * N + 1

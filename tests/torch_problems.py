@@ -148,6 +148,33 @@ def qref_problem(eq_mask=0.0, cfg=None, modules=PORT, moving=False):
     return mpc, x0_b, U0_b, params
 
 
+# the per-scenario entries of the fleet (ops/wholebody_fwd.py PS_BITS)
+FLEET_KEYS = ("U_last", "X_ref", "U_ref", "Q", "P", "eq_mask")
+
+
+def fleet_params(params, batch, keys=FLEET_KEYS, seed=9):
+    """``params`` (a qref problem's, float64 numpy) with each entry of
+    ``keys`` one value a scenario, batch-last, as the fleet solves:
+    X_ref the shared reference plus noise (N+1, 9, batch), U_ref and U_last
+    small random (N, 5, batch), Q and P rows of the task weight table
+    (sim/batch_task_engine.py W_TABLE, drawn apart; 9, 9, batch), eq_mask 0
+    and 1 mixed (batch,).  Every entry is drawn whichever ``keys`` are
+    kept, so a subset has the values of the full set."""
+    from mmmpc_tpu_torch.sim.batch_task_engine import W_TABLE
+    rng = np.random.default_rng(seed)
+    n = params["U_last"].shape[0]
+    drawn = {
+        "X_ref": params["X_ref"][..., None]
+        + 0.05 * rng.standard_normal(params["X_ref"].shape + (batch,)),
+        "U_ref": 0.05 * rng.standard_normal((n, 5, batch)),
+        "U_last": 0.1 * rng.standard_normal((n, 5, batch)),
+        "Q": np.moveaxis(W_TABLE[rng.integers(0, 3, batch)], 0, -1),
+        "P": np.moveaxis(W_TABLE[rng.integers(0, 3, batch)], 0, -1),
+        "eq_mask": (rng.random(batch) < 0.5).astype(np.float64),
+    }
+    return dict(params, **{k: drawn[k] for k in keys})
+
+
 def spd_blocks(nx, nu, batch=B, horizon=4):
     """The random blocks of tests/test_pallas_riccati.py (seed 3), batch-major
     float32 numpy: (lx, lu, lxx, luu, lux, A, Bm, term_g, term_H)."""
