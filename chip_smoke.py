@@ -7,6 +7,8 @@
     python3 chip_smoke.py --moving-obs    # phases 1-2, then the moving
         # kernels' checks of phase 3 and phase 10 alone
     python3 chip_smoke.py --fleet     # phases 1-2, then phase 11 alone
+    python3 chip_smoke.py --controllers   # phases 1-2, then phase 12 alone,
+        # with the dossier's closed-loop and self-consistency rows
     python3 chip_smoke.py --kernel wholebody_bwd   # phases 1-2, then the
         # [kernel] check of one kind of KINDS alone (no peak sweep: bounds
         # at the published 67 TFLOP/s; fma_peak runs phase 2b)
@@ -39,10 +41,10 @@ Phases, each reported on its own lines; any failure exits nonzero:
    call and the plain version's (CUDA events), and the least time the card
    could take (bytes moved over 3.35 TB/s against operations over the
    published 67 TFLOP/s float32, and over the measured peak); kernels A,
-   B, C (each formulation's), D.base, D.arm, D.endpoint and E (at (9, 5)
-   on the qref blocks, at (4, 2) on the SPD blocks) also at the ragged
-   batches 8191, 1000 and 1 against their plain versions, with their
-   launch geometry (``[kernel-batch]``; E's with the blocks an SM holds);
+   B, C and D (each formulation's) and E (at (9, 5) on the qref blocks, at
+   (4, 2) on the SPD blocks) also at the ragged batches 8191, 1000 and 1
+   against their plain versions, with their launch geometry
+   (``[kernel-batch]``; E's with the blocks an SM holds);
    kernels A and B also with an obstacle row a stage (``wholebody_fwd.moving``,
    ``wholebody_bwd.moving``) on the inputs of ``bench_controllers``'s
    ``wholebody_moving_obs`` row, timed with their bounds, at the ragged
@@ -140,7 +142,27 @@ Phases, each reported on its own lines; any failure exits nonzero:
    robots complete or a state turns non-finite; then ``rt_latency``'s
    fleet leg (``[fleet-rt]``: 1024 robots, each robot's U_last its own,
    p50 / p99 ms, the mean and least converged share of a tick), failing
-   when the mean converged share is under 0.95.
+   when the mean converged share is under 0.95;
+12. controllers (also alone with ``--controllers``): the arm with its
+   Cartesian reference (``CART_ROW``: the ``arm_only`` row's wedge, starts
+   and schedule, the end point tracked from (0.45, 0, 0.5) to
+   (0.35, 0, 0.6)): its kernels C.arm_cart and D.arm_cart as phase 3
+   checks a kernel (``[kernel]``, ``[kernel-batch]``, E(3, 3) on their
+   blocks), its solve at batch 8192 fused and unfused and at 64 card
+   against CPU as phases 7, 7b and 8 run a row; then each generic
+   controller's warm-started single-robot ``solve`` (demo, base, arm,
+   Cartesian arm, endpoint; ``SolverConfig()``): first its C and D against
+   their plain versions at the tick's shape (batch 1, 8 step sizes) on
+   seeded inputs at the tolerances of phase 3 (``[kernel-loop]``, with
+   device and plain ms), then 10 ticks after a warm-up, the model plant
+   stepped in float64, C and D 60 launches a tick and their plain versions
+   never, every tick converged with max violation below 1e-3
+   (``[single-robot]``: p50 / p99 ms a tick); then the fidelity dossier
+   (``mmmpc_tpu_torch/fidelity_dossier.py``, ``[dossier]``): each
+   configuration solved on the card against the best feasible float64
+   scipy oracle, run in worker processes on the CPU meanwhile, failing
+   unless violation <= 1e-3 and relative cost <= 5e-3 in every row; with
+   ``--controllers`` also its closed-loop and self-consistency rows.
 
 Every solve phase prints the reference's bar (converged fraction 1.0, max
 violation below 1e-3) or a closed-loop run's assertions as a ``[bar]``
@@ -153,8 +175,10 @@ launches in its own check; A and B with their launches in phase 4 and, as
 ``launches_closed_loop``, in phase 9's runs; their moving instances with
 their launches in phase 10's fused row solve and, as ``launches_demo``, in
 its demo run; the fleet instances with their launches in phase 11's ticks,
-which A and B also list as ``launches_fleet``) and ``{"ok": true,
-"device": {...}}``.
+which A and B also list as ``launches_fleet``; C.arm_cart and D.arm_cart
+with their launches in phase 12's fused row solve; every C and D, as
+``launches_single_robot``, in phase 12's single-robot ticks) and ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -186,14 +210,25 @@ FP32_FLOP_PER_S = 67e12
 # the generic formulations: bench_controllers row -> formulation
 ROWS = {"demo_1d": "demo", "base_only": "base", "arm_only": "arm",
         "wholebody_endpoint": "endpoint"}
-GENERIC = tuple(ROWS.values())
+# the arm with its Cartesian reference (phase 12): the arm_only row's
+# controller, starts and schedule, tracking the end point
+CART_ROW = "arm_cartesian"
+CART_REF = ((0.45, 0.0, 0.5), (0.35, 0.0, 0.6))
+GENERIC = (*ROWS.values(), "arm_cart")
+# each formulation's instance of the kernel templates
+INSTANCE = {"demo": "gen::Demo", "base": "gen::Base",
+            "arm": "gen::Arm<false>", "arm_cart": "gen::Arm<true>",
+            "endpoint": "gen::Endpoint"}
 # the formulations whose line search (C) and fused backward (D) run on the
 # team kernels of generic_fwd.cuh / generic_bwd.cuh; the others (C.demo,
 # D.demo, D.base) run one thread a candidate or a scenario
-FWD_TEAMS = ("base", "arm", "endpoint")
-BWD_TEAMS = ("arm", "endpoint")
+FWD_TEAMS = ("base", "arm", "arm_cart", "endpoint")
+BWD_TEAMS = ("arm", "arm_cart", "endpoint")
+# the arm's two instances, whose gains are held in the p99 / float64 form
+ARMS = ("arm", "arm_cart")
 # (nx, nu) of each generic formulation: its Riccati sweep instance
-DIMS = {"demo": (2, 1), "base": (6, 2), "arm": (3, 3), "endpoint": (9, 5)}
+DIMS = {"demo": (2, 1), "base": (6, 2), "arm": (3, 3), "arm_cart": (3, 3),
+        "endpoint": (9, 5)}
 # device-kernel names (as the profiler reports them) of each wrapper; a
 # profiled solve whose count of a kernel differs from its wrapper's
 # launches fails (report_timing), so a renamed kernel cannot read 0 calls
@@ -202,14 +237,16 @@ KERNEL_SYMBOLS = {"wholebody_fwd": "wb::fwd_kernel",
                   # their instances with per-scenario entries (the fleet)
                   "wholebody_fwd.fleet": "wb::fwd_kernel<2, true>",
                   "wholebody_bwd.fleet": "wb::bwd_kernel<8, true>",
+                  # (the arm's instances by prefix: the demangler may
+                  # close a nested template with "> >" or ">>")
                   **{f"generic_{d}.{f}":
-                     f"gen::generic_{d}_kernel<gen::{f.capitalize()}>"
+                     f"gen::generic_{d}_kernel<{INSTANCE[f]}>"
                      for f in GENERIC for d in ("fwd", "bwd")},
                   **{f"generic_fwd.{f}":
-                     f"gen::generic_fwd_team_kernel<gen::{f.capitalize()}>"
+                     f"gen::generic_fwd_team_kernel<{INSTANCE[f]}"
                      for f in FWD_TEAMS},
                   **{f"generic_bwd.{f}":
-                     f"gen::generic_bwd_team_kernel<gen::{f.capitalize()}>"
+                     f"gen::generic_bwd_team_kernel<{INSTANCE[f]}"
                      for f in BWD_TEAMS},
                   **{f"riccati_bwd.{nx}x{nu}":
                      f"ric::riccati_team_kernel<{nx}, {nu}>"
@@ -630,61 +667,101 @@ def check_wholebody(mpc, x0, params, cfg, device, peak, kinds):
     return out
 
 
-def check_generic(device, peak, kinds):
-    """Phase 3, kernels C and D of each formulation on its bench row, and E
-    on the expansion blocks of D's inputs; the kernels whose kind is in
-    ``kinds``."""
-    from mmmpc_tpu_torch.bench_controllers import problems
+def generic_problems(batch, device, rows=tuple(ROWS)):
+    """(row, formulation, mpc, x0, U0, params) of each generic row of
+    ``bench_controllers`` named in ``rows`` and, with CART_ROW among them,
+    of the arm with its Cartesian reference: the arm_only row's wedge,
+    starts and schedule, the end point from CART_REF[0] to CART_REF[1] (the
+    reference of ``tests/test_generic_bwd.py::_arm_problem``) over N=20."""
+    from mmmpc_tpu_torch.bench_controllers import CFG_SMALL, DT, problems
+    from mmmpc_tpu_torch.controllers import MPCManipulator3DoF
+    from mmmpc_tpu_torch.models.robots import ManipulatorPanda3DoF
+    from mmmpc_tpu_torch.utils.convert import params_from_numpy
+    for row, mpc, x0, U0, params in problems(batch, device):
+        if row in rows:
+            yield row, ROWS[row], mpc, x0, U0, params
+        if row == "arm_only" and CART_ROW in rows:
+            cart = MPCManipulator3DoF(
+                ManipulatorPanda3DoF(DT),
+                [n[None] for n in mpc.hp_normals_value], mpc.hp_points_value[0],
+                N=mpc.N, is_cartesian_ref=True, solver_config=CFG_SMALL,
+                device=device)
+            traj = np.linspace(*CART_REF, mpc.N + 1)
+            p = dict(cart.make_params(traj, np.zeros((mpc.N, 3))),
+                     U_last=np.zeros((mpc.N, 3)))
+            yield (CART_ROW, "arm_cart", cart, x0, U0,
+                   params_from_numpy(p, device, torch.float32))
+
+
+def _generic_args(mpc, form, x0, params, rng, device):
+    """Seeded (fargs, bargs) of kernels C and D of ``mpc`` (its
+    formulation ``form``) at the batch of ``x0``: a rollout of random
+    inputs from ``x0``, random gains and multipliers, penalty 10,
+    regularisation 1e-6."""
+    from mmmpc_tpu_torch.solver.al_ilqr import rollout
+    N, B, nx, nu = mpc.N, x0.shape[0], mpc.NX, mpc.NU
+    nc, nct = form.nc, form.nct
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    X, U = rollout(mpc.ocp, x0.T,
+                   t(0.3 * rng.standard_normal((N, nu, B))), params)
+    lame = t(np.zeros((0, B)))
+    fargs = (X[:-1], U, t(0.05 * rng.standard_normal((N, nu, B))),
+             t(0.05 * rng.standard_normal((N, nu, nx, B))),
+             t(np.abs(rng.standard_normal((N, nc, B)))),
+             t(np.abs(rng.standard_normal((nct, B)))), lame, 10.0)
+    bargs = (X, U, t(0.3 * np.abs(rng.standard_normal((N, nc, B)))),
+             t(0.3 * np.abs(rng.standard_normal((nct, B)))), lame, 10.0,
+             torch.full((B,), 1e-6, device=device))
+    return fargs, bargs
+
+
+def _generic_bwd_check(f, mpc, bwd, params):
+    """check(got, ref, args) of D of formulation ``f``: the gains at rtol
+    1e-4 and ``BWD_ATOL[f]``, the arms' in the p99 / float64 form."""
+    from mmmpc_tpu_torch.ops.generic_bwd import plain_bwd
+    _test_problems_path()
+    from torch_problems import BWD_ATOL
+    if f not in ARMS:
+        return _gains_check(f"generic_bwd.{f}", 1e-4, BWD_ATOL[f])
+
+    def check(got, ref, args):
+        truth = plain_bwd(mpc.ocp, {k: v.double() for k, v in params.items()},
+                          bwd.inv_scale,
+                          *(a.double() if torch.is_tensor(a) else a
+                            for a in args))
+        return _check_f64(f"generic_bwd.{f}", got, ref, truth)
+    return check
+
+
+def check_generic(device, peak, kinds, rows=tuple(ROWS)):
+    """Phase 3, kernels C and D of each formulation on its bench row (those
+    of ``rows``), and E on the expansion blocks of D's inputs; the kernels
+    whose kind is in ``kinds``."""
     from mmmpc_tpu_torch.ops._cuda import LIBRARY
     from mmmpc_tpu_torch.ops.generic_bwd import (
-        launch_geometry as gen_bwd_geometry, plain_bwd,
+        launch_geometry as gen_bwd_geometry,
     )
     from mmmpc_tpu_torch.ops.generic_fwd import (
         launch_geometry as gen_fwd_geometry,
     )
     from mmmpc_tpu_torch.ops.riccati import plain_riccati_bm
     from mmmpc_tpu_torch.solver.al_ilqr import (
-        rollout, stage_al_blocks, terminal_al_blocks,
+        stage_al_blocks, terminal_al_blocks,
     )
-    # gains tolerance (atol) of each generic backward kernel, rtol 1e-4; the
-    # arm is held in the p99 / float64 form
     _test_problems_path()
     from torch_problems import BWD_ATOL
     out = {}
-    for row, mpc, x0, _, params in problems(BATCH, device):
-        if row not in ROWS:
-            continue
-        f = ROWS[row]
+    for row, f, mpc, x0, _, params in generic_problems(BATCH, device, rows):
         rng = np.random.default_rng(SEED)
         N, B, nx, nu, cfg = mpc.N, BATCH, mpc.NX, mpc.NU, mpc.solver_config
         fwd = mpc.ocp.lanes_fwd_factory(cfg, params)
         bwd = mpc.ocp.lanes_bwd_factory(cfg, params)
         nc, nct = fwd.form.nc, fwd.form.nct
-
-        def t(a):
-            return torch.as_tensor(np.asarray(a, np.float32), device=device)
-
-        X, U = rollout(mpc.ocp, x0.T,
-                       t(0.3 * rng.standard_normal((N, nu, B))), params)
-        lame = t(np.zeros((0, B)))
-        fargs = (X[:-1], U, t(0.05 * rng.standard_normal((N, nu, B))),
-                 t(0.05 * rng.standard_normal((N, nu, nx, B))),
-                 t(np.abs(rng.standard_normal((N, nc, B)))),
-                 t(np.abs(rng.standard_normal((nct, B)))), lame, 10.0)
-        bargs = (X, U, t(0.3 * np.abs(rng.standard_normal((N, nc, B)))),
-                 t(0.3 * np.abs(rng.standard_normal((nct, B)))), lame, 10.0,
-                 torch.full((B,), 1e-6, device=device))
-
-        def bwd_check(got, ref, args, f=f, bwd=bwd, mpc=mpc, params=params):
-            if f != "arm":
-                return _gains_check(f"generic_bwd.{f}", 1e-4,
-                                    BWD_ATOL[f])(got, ref, args)
-            truth = plain_bwd(mpc.ocp, {k: v.double()
-                                        for k, v in params.items()},
-                              bwd.inv_scale,
-                              *(a.double() if torch.is_tensor(a) else a
-                                for a in args))
-            return _check_f64("generic_bwd.arm", got, ref, truth)
+        fargs, bargs = _generic_args(mpc, fwd.form, x0, params, rng, device)
+        bwd_check = _generic_bwd_check(f, mpc, bwd, params)
 
         out.update(check_pair((f"generic_fwd.{f}", f"generic_bwd.{f}"), fwd,
                               bwd, fargs, bargs,
@@ -692,9 +769,9 @@ def check_generic(device, peak, kinds):
                               lambda g, r, bargs=bargs, check=bwd_check:
                               check(g, r, bargs), peak, kinds))
         form = bwd.form
-        # the redesigned kernels at ragged batches (D.base: its stage
-        # buffer; every C)
-        if f in (*BWD_TEAMS, "base") and "generic_bwd" in kinds:
+        # every C and D at ragged batches (D.base and D.demo: their stage
+        # buffer; one robot: the single-robot solve's batch)
+        if "generic_bwd" in kinds:
             check_batches(
                 f"generic_bwd.{f}", bwd.cuda, bwd.plain, bargs, bwd_check,
                 lambda n, f=f, form=form: gen_bwd_geometry(
@@ -713,7 +790,7 @@ def check_generic(device, peak, kinds):
         # E on the expansion blocks of D's inputs, at D's tolerances; the
         # arm's truth is the plain sweep in float64 on the same blocks
         name = f"riccati_bwd.{nx}x{nu}"
-        if f == "arm":
+        if f in ARMS:
             def ric_check(got, ref, args):
                 return _check_f64(name, got, ref, plain_riccati_bm(
                     *(a.double() for a in args)))
@@ -726,7 +803,8 @@ def check_generic(device, peak, kinds):
                   *terminal_al_blocks(mpc.ocp, params, bwd.inv_scale, X[-1],
                                       lamt, lame, mu)),
             reg, ric_check, peak)
-        if f != "endpoint":          # (9, 5): the record keeps qref's blocks
+        # the record keeps (9, 5) on qref's blocks, (3, 3) on the joint arm's
+        if f not in ("endpoint", "arm_cart"):
             out[name] = ric
     return out
 
@@ -1006,18 +1084,16 @@ def check_reference(device):
         raise AssertionError("reference: converged fraction below 0.95")
 
 
-def run_formulations(device):
-    """Phase 7: each generic row at the bench batch through its kernels."""
-    from mmmpc_tpu_torch.bench_controllers import problems
+def run_formulations(device, rows=tuple(ROWS)):
+    """Phase 7: each generic row of ``rows`` at the bench batch through its
+    kernels, held to a converged fraction of at least 0.99 and to the
+    reference's bar (``_bar``)."""
     from mmmpc_tpu_torch.ops import generic_bwd, generic_fwd
     from mmmpc_tpu_torch.parallel.data_parallel import controller_batched_fn
     from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
 
     launches, bars, results = {}, {}, {}
-    for row, mpc, x0, U0, params in problems(BATCH, device):
-        if row not in ROWS:
-            continue
-        f = ROWS[row]
+    for row, f, mpc, x0, U0, params in generic_problems(BATCH, device, rows):
         run = controller_batched_fn(mpc)
         per_solve = iteration_count(mpc.solver_config)
         counters = {f"generic_fwd.{f}": generic_fwd.LAUNCHES[f],
@@ -1050,19 +1126,16 @@ def run_formulations(device):
     return launches, results
 
 
-def run_formulations_unfused(device, fused):
-    """Phase 7b: each generic row at the bench batch with the unfused
-    backward, gated against ``fused`` {row: (result, stats)} of phase 7."""
-    from mmmpc_tpu_torch.bench_controllers import problems
+def run_formulations_unfused(device, fused, rows=tuple(ROWS)):
+    """Phase 7b: each generic row of ``rows`` at the bench batch with the
+    unfused backward, gated against ``fused`` {row: (result, stats)} of
+    phase 7 and held as ``run_formulations`` holds it."""
     from mmmpc_tpu_torch.ops import generic_bwd, generic_fwd, riccati
     from mmmpc_tpu_torch.parallel.data_parallel import controller_batched_fn
     from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
 
     launches, bars = {}, {}
-    for row, mpc, x0, U0, params in problems(BATCH, device):
-        if row not in ROWS:
-            continue
-        f = ROWS[row]
+    for row, f, mpc, x0, U0, params in generic_problems(BATCH, device, rows):
         mpc.solver_config = dataclasses.replace(mpc.solver_config,
                                                 use_fused_backward=False)
         run = controller_batched_fn(mpc)
@@ -1075,7 +1148,7 @@ def run_formulations_unfused(device, fused):
             c.reset()
         res, stats = run(x0, U0, params)
         torch.cuda.synchronize()
-        launches[row] = count_launches(counters, per_solve, 1, absent)[ric]
+        launches[f] = count_launches(counters, per_solve, 1, absent)[ric]
 
         med, solves = report_timing("formulations-unfused-timing", run,
                                     (x0, U0, params), BATCH, counters,
@@ -1091,29 +1164,29 @@ def run_formulations_unfused(device, fused):
               mean_cost=f"{float(stats.mean_cost):.6g}",
               launches_per_solve=per_solve, **{f"launches_{ric}": per_solve},
               **{f"launches_generic_bwd.{f}": 0})
-        if conv < 0.99:
-            raise AssertionError(f"{row} unfused: converged_frac {conv} < 0.99")
         _reference_gate("formulations-unfused-vs-fused", (res, stats),
                         fused[row], row=row)
+        if conv < 0.99:
+            raise AssertionError(f"{row} unfused: converged_frac {conv} < 0.99")
         bars[f"{row}_unfused"] = _bar(f"{row}_unfused", conv, maxv)
     _line("bar", row="all_formulations_unfused", met=all(bars.values()))
     _bars_met("formulations-unfused", bars)
-    # the record's launches of each sweep instance: its row's
-    return {"riccati_bwd.{}x{}".format(*DIMS[ROWS[row]]): n
-            for row, n in launches.items() if ROWS[row] != "endpoint"}
+    # the record's launches of each sweep instance: its row's (qref's for
+    # (9, 5), the joint arm's for (3, 3))
+    return {"riccati_bwd.{}x{}".format(*DIMS[f]): n
+            for f, n in launches.items() if f not in ("endpoint", "arm_cart")}
 
 
-def check_formulations_reference(device):
-    """Phase 8: each generic row at batch 64, card against CPU."""
-    from mmmpc_tpu_torch.bench_controllers import problems
+def check_formulations_reference(device, rows=tuple(ROWS)):
+    """Phase 8: each generic row of ``rows`` at batch 64, card against
+    CPU."""
     from mmmpc_tpu_torch.parallel.data_parallel import controller_batched_fn
 
     out = {}
     for dev in (device, torch.device("cpu")):
-        for row, mpc, x0, U0, params in problems(64, dev):
-            if row in ROWS:
-                out.setdefault(row, {})[dev.type] = controller_batched_fn(
-                    mpc)(x0, U0, params)
+        for row, _, mpc, x0, U0, params in generic_problems(64, dev, rows):
+            out.setdefault(row, {})[dev.type] = controller_batched_fn(
+                mpc)(x0, U0, params)
     for row, o in out.items():
         _reference_gate("formulations-reference", o["cuda"], o["cpu"],
                         row=row)
@@ -1872,6 +1945,142 @@ def run_fleet(device):
     return launches
 
 
+SINGLE_TICKS = 10
+
+
+def check_tick_kernels(row, f, mpc, x0, params, device):
+    """Kernels C and D of formulation ``f`` against their plain versions at
+    the single-robot tick's shape (``mpc.solver_config``, batch 1) on
+    seeded inputs, at phase 3's tolerances (``[kernel-loop]``: errors,
+    device and plain ms, launch geometries).  Its launches are not the
+    tick's: the caller resets the counters after it."""
+    from mmmpc_tpu_torch.ops._cuda import LIBRARY
+    from mmmpc_tpu_torch.ops.generic_bwd import (
+        launch_geometry as bwd_geometry,
+    )
+    from mmmpc_tpu_torch.ops.generic_fwd import (
+        launch_geometry as fwd_geometry,
+    )
+    cfg, N = mpc.solver_config, mpc.N
+    fwd = mpc.ocp.lanes_fwd_factory(cfg, params)
+    bwd = mpc.ocp.lanes_bwd_factory(cfg, params)
+    fargs, bargs = _generic_args(mpc, fwd.form, x0, params,
+                                 np.random.default_rng(SEED), device)
+    got_f, ref_f = fwd.cuda(*fargs), fwd.plain(*fargs)
+    got_b, ref_b = bwd.cuda(*bargs), bwd.plain(*bargs)
+    torch.cuda.synchronize()
+    err_xu, err_cost = _fwd_errors(f"generic_fwd.{f}", got_f, ref_f)
+    err_b = _generic_bwd_check(f, mpc, bwd, params)(got_b, ref_b, bargs)
+    lib, form = LIBRARY.get(), fwd.form
+    _line("kernel-loop", row=row, formulation=f, B=1,
+          n_alpha=len(fwd.alphas), cost_scale=cfg.cost_scale,
+          fwd_max_abs_err_XU=f"{err_xu:.3e}",
+          fwd_max_abs_err_cost=f"{err_cost:.3e}",
+          bwd_max_abs_err=f"{err_b:.3e}",
+          fwd_ms=f"{_kernel_ms(lambda: fwd.cuda(*fargs), 20):.4g}",
+          fwd_plain_ms=f"{_time_ms(lambda: fwd.plain(*fargs), 3):.4g}",
+          bwd_ms=f"{_kernel_ms(lambda: bwd.cuda(*bargs), 20):.4g}",
+          bwd_plain_ms=f"{_time_ms(lambda: bwd.plain(*bargs), 3):.4g}",
+          **{f"fwd_{k}": v for k, v in fwd_geometry(
+              lib, f, N, form.n_obs, form.n_hp, len(fwd.alphas), 1).items()},
+          **{f"bwd_{k}": v for k, v in bwd_geometry(
+              lib, f, N, form.n_obs, form.n_hp, 1).items()})
+
+
+def run_single_robot(device):
+    """Phase 12: each generic controller's warm-started ``solve`` at batch
+    1 on the card (``SolverConfig()``: 6 AL rounds x 10 sweeps, 8 step
+    sizes), from robot 0 of its row (the Cartesian arm's too): its C and D
+    against their plain versions at that shape (``check_tick_kernels``),
+    then, the float64 model plant stepped by each tick's u[0], a warm-up
+    tick and ``SINGLE_TICKS`` ticks with the counters reset just before
+    them, in which C and D must launch 60 times a tick and their plain
+    versions never, and every tick must converge with max violation below
+    1e-3 (``[single-robot]``: p50 / p99 ms a tick, converged ticks, max
+    violation).  Returns {kernel: launches in those ticks}."""
+    from mmmpc_tpu_torch.ops import generic_bwd, generic_fwd
+    from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
+    from mmmpc_tpu_torch.utils.configs import SolverConfig
+
+    cfg = SolverConfig()
+    per_tick = iteration_count(cfg)
+    launches = {}
+    for row, f, mpc, x0, _, params in generic_problems(
+            1, device, (*ROWS, CART_ROW)):
+        mpc.solver_config = cfg
+        check_tick_kernels(row, f, mpc, x0, params, device)
+        traj = params["X_ref"].double().cpu().numpy()
+        u_ref = params["U_ref"].double().cpu().numpy()
+        x = x0[0].double().cpu()
+        mpc.reset()
+
+        def tick(x):
+            u0 = mpc.solve(x.numpy(), traj, u_ref)
+            return mpc.ocp.dynamics(x, torch.as_tensor(u0, dtype=x.dtype))
+
+        x = tick(x)
+        counters = {f"generic_fwd.{f}": generic_fwd.LAUNCHES[f],
+                    f"generic_bwd.{f}": generic_bwd.LAUNCHES[f]}
+        for c in counters.values():
+            c.reset()
+        ms, conv, viol = [], 0, 0.0
+        for _ in range(SINGLE_TICKS):
+            t0 = time.perf_counter()
+            x = tick(x)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            conv += bool(mpc.last_result.converged)
+            viol = max(viol, float(mpc.last_result.max_violation))
+        n = count_launches(counters, per_tick, SINGLE_TICKS)
+        launches.update(n)
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"{row}: the plant's state is not finite")
+        p50, p99 = np.percentile(ms, [50, 99])
+        _line("single-robot", row=row, formulation=f, ticks=SINGLE_TICKS,
+              tick_ms_p50=f"{p50:.3f}", tick_ms_p99=f"{p99:.3f}",
+              launches_per_tick=per_tick, converged_ticks=conv,
+              max_violation=f"{viol:.3e}",
+              **{f"launches_{k}": v for k, v in n.items()})
+        if conv < SINGLE_TICKS or viol >= 1e-3:
+            raise AssertionError(f"{row}: {conv} of {SINGLE_TICKS} ticks "
+                                 f"converged, max violation {viol:.3e}")
+    return launches
+
+
+def run_fidelity(device, full):
+    """Phase 12: the dossier of ``mmmpc_tpu_torch/fidelity_dossier.py``,
+    its oracles in worker processes on the CPU (float64) while the
+    controllers solve on the card: the per-solve rows, with ``full`` the
+    closed-loop and self-consistency rows too (``[dossier]``, one JSON row
+    each).  Fails on a missed gate (violation <= 1e-3 and relative cost
+    <= 5e-3 against the best feasible oracle)."""
+    from mmmpc_tpu_torch.fidelity_dossier import run_dossier
+
+    _, _, failures = run_dossier(
+        device, closed_loop=full, self_consistency=full,
+        report=lambda ln: print("[dossier] " + ln, flush=True))
+    if failures:
+        raise AssertionError("fidelity gates missed: " + "; ".join(failures))
+
+
+def run_controllers(device, peak, full):
+    """Phase 12: the Cartesian arm's kernels (C.arm_cart and D.arm_cart
+    against their plain versions at the bench shape and at 8191, 1000 and
+    1, E(3, 3) on their expansion blocks), its row at the bench batch fused
+    and unfused and card against CPU at 64 (phases 7, 7b and 8 for that
+    row), every generic controller's kernels and single-robot ``solve``
+    at the tick's shape and the fidelity dossier.  Returns (the kernels'
+    timings, the row's launches, the single-robot launches)."""
+    timings = check_generic(device, peak,
+                            {"generic_fwd", "generic_bwd", "riccati_bwd"},
+                            rows=(CART_ROW,))
+    launches, fused = run_formulations(device, (CART_ROW,))
+    run_formulations_unfused(device, fused, (CART_ROW,))
+    check_formulations_reference(device, (CART_ROW,))
+    single = run_single_robot(device)
+    run_fidelity(device, full)
+    return timings, launches, single
+
+
 def run_cuda_tests():
     """Phase 3b: the ``cuda``-marked tests of ``tests/test_torch_cuda.py``
     (no JAX there), in a pytest process of their own from the checkout's
@@ -1903,12 +2112,12 @@ def main(argv):
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     if not (argv in ([], ["--kernels"], ["--closed-loop"], ["--moving-obs"],
-                     ["--fleet"])
+                     ["--fleet"], ["--controllers"])
             or (argv[:1] == ["--kernel"] and len(argv) == 2
                 and argv[1] in KINDS)):
         print(f"chip_smoke: usage: [--kernels | --closed-loop | --moving-obs "
-              f"| --fleet | --kernel one of {', '.join(KINDS)}]",
-              file=sys.stderr)
+              f"| --fleet | --controllers | --kernel one of "
+              f"{', '.join(KINDS)}]", file=sys.stderr)
         return 2
     from mmmpc_tpu_torch.bench import SOLVER_CFG, build_problem
     from mmmpc_tpu_torch.ops._cuda import LIBRARY
@@ -1939,6 +2148,9 @@ def main(argv):
         return 0
     if argv == ["--fleet"]:
         _phase("fleet", run_fleet, device)
+        return 0
+    if argv == ["--controllers"]:
+        _phase("controllers", run_controllers, device, None, True)
         return 0
     timings, peak = {}, None
     kinds = set(argv[1:]) if argv[:1] == ["--kernel"] else set(KINDS)
@@ -1982,6 +2194,10 @@ def main(argv):
     launches.update(moving_launches)
     fleet_launches = _phase("fleet", run_fleet, device)
     launches.update(fleet_launches)
+    cart_timings, cart_launches, single_launches = _phase(
+        "controllers", run_controllers, device, peak, False)
+    timings.update(cart_timings)
+    launches.update(cart_launches)
     # A and B launch their fleet instances in the fleet's ticks
     fleet_launches.update({name.split(".")[0]: n
                            for name, n in fleet_launches.items()})
@@ -2003,7 +2219,9 @@ def main(argv):
             **({"launches_demo": demo_launches[name]}
                if name in demo_launches else {}),
             **({"launches_fleet": fleet_launches[name]}
-               if name in fleet_launches else {})})
+               if name in fleet_launches else {}),
+            **({"launches_single_robot": single_launches[name]}
+               if name in single_launches else {})})
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -51,7 +51,7 @@ class MPCBase(ControllerBase):
                  ulim=np.array([[-2, -PI], [2, PI]]),
                  xlim=np.array([[-100, -100, -2, -2, -PI],
                                 [100, 100, 2, 2, PI]]),
-                 solver_config: SolverConfig | None = None):
+                 solver_config: SolverConfig | None = None, device=None):
         self.dt = robot.dt
         self.base_radius = robot.base_radius()
         self.Q_value = as_weight_matrix(Q, self.NX)
@@ -61,7 +61,8 @@ class MPCBase(ControllerBase):
         self.ulim = np.asarray(ulim, dtype=float)
         self.xlim = np.asarray(xlim, dtype=float)
         self.obstacles_value = ground_obstacle_array(obstacle_list)
-        super().__init__(self._build_ocp(N), solver_config or SolverConfig())
+        super().__init__(self._build_ocp(N), solver_config or SolverConfig(),
+                         device)
 
     def _build_ocp(self, N):
         dt, radius = self.dt, self.base_radius
@@ -160,6 +161,25 @@ class MPCBase(ControllerBase):
                 "X_ref": (N + 1, 6), "U_ref": (N, 2),
                 "obstacles": (len(self.obstacles_value), 3)}
 
+    def reset(self):
+        """Clear the warm start."""
+        self.reset_warmstart()
+
+    def setWeight(self, Q=None, R=None, P=None, M=None):
+        """Runtime weight mutation (takes effect at the next make_params)."""
+        if Q is not None:
+            self.Q_value = as_weight_matrix(Q, self.NX)
+        if R is not None:
+            self.R_value = as_weight_matrix(R, self.NU)
+        if P is not None:
+            self.P_value = as_weight_matrix(P, self.NX)
+        if M is not None:
+            self.M_value = scalar_weight(M)
+
+    def angleDiff(self, a, b):
+        from mmmpc_tpu_torch.utils.math import angle_diff
+        return angle_diff(a, b)
+
     def make_params(self, traj_ref, u_ref) -> dict[str, np.ndarray]:
         """The per-problem data as host arrays."""
         return {"X_ref": np.asarray(traj_ref, dtype=float),
@@ -167,3 +187,9 @@ class MPCBase(ControllerBase):
                 "Q": self.Q_value, "R": self.R_value, "P": self.P_value,
                 "M": np.asarray(self.M_value),
                 "obstacles": self.obstacles_value}
+
+    def solve(self, x_init, traj_ref, u_ref):
+        """One receding-horizon tick on the controller's device; returns u[0]
+        as a numpy (2,) array."""
+        return self._solve_impl(np.asarray(x_init, dtype=float),
+                                self.make_params(traj_ref, u_ref))

@@ -29,14 +29,15 @@ class MPC(ControllerBase):
     def __init__(self, robot, N=10, Q=np.diag([1.0, 0.0]),
                  P=np.diag([1.0, 0.0]), R=np.diag([0.1]),
                  vlim=(-1, 1), alim=(-5, 5),
-                 solver_config: SolverConfig | None = None):
+                 solver_config: SolverConfig | None = None, device=None):
         self.dt = robot.dt
         self.vlim = (float(vlim[0]), float(vlim[1]))
         self.alim = (float(alim[0]), float(alim[1]))
         self.Q_value = as_weight_matrix(Q, self.NX)
         self.P_value = as_weight_matrix(P, self.NX)
         self.R_value = as_weight_matrix(R, self.NU)
-        super().__init__(self._build_ocp(N), solver_config or SolverConfig())
+        super().__init__(self._build_ocp(N), solver_config or SolverConfig(),
+                         device)
 
     def _build_ocp(self, N):
         dt = self.dt
@@ -111,8 +112,19 @@ class MPC(ControllerBase):
         return {"Q": (2, 2), "R": (1, 1), "P": (2, 2), "X_ref": (N + 1, 2),
                 "U_ref": (N, 1)}
 
+    def reset(self):
+        """Clear the warm start."""
+        self.reset_warmstart()
+
     def make_params(self, traj_ref, u_ref) -> dict[str, np.ndarray]:
         """The per-problem data as host arrays."""
         return {"X_ref": np.asarray(traj_ref, dtype=float),
                 "U_ref": np.asarray(u_ref, dtype=float),
                 "Q": self.Q_value, "R": self.R_value, "P": self.P_value}
+
+    def solve(self, x_init, traj_ref, u_ref):
+        """One receding-horizon tick on the controller's device (``u_ref``
+        reshaped to (N, 1)); returns u[0] as a numpy (1,) array."""
+        u_ref = np.asarray(u_ref, dtype=float).reshape(self.N, self.NU)
+        return self._solve_impl(np.asarray(x_init, dtype=float),
+                                self.make_params(traj_ref, u_ref))

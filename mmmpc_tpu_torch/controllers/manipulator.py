@@ -1,15 +1,17 @@
-"""3-DoF arm joint-space MPC with self-collision and a convex obstacle
-(counterpart of ``mmmpc_tpu/controllers/manipulator.py``).
+"""3-DoF arm MPC with self-collision and a convex obstacle (counterpart of
+``mmmpc_tpu/controllers/manipulator.py``).
 
 As in the reference: the self-collision spheres are HARD constraints (AL
 rows, no slack); the convex obstacle (a union of half-planes through one
 point) has its own per-stage slack with weight 1e6, folded as
 1e6 * relu(max_i -maxc_i)^2 over the six sampled link points; there is no
 obstacle expansion margin; positions are in the ARM frame; M is the
-input-rate weight.  Only the joint-space reference is ported
-(``is_cartesian_ref=False``, the setting of ``scripts/bench_controllers.py``).
-Its fused iLQR kernels are the generic ones with the formulation of
-``csrc/generic_arm.cu``.
+input-rate weight.  The reference tracks the joints, or with
+``is_cartesian_ref`` the end point: X_ref then holds arm-frame end-point
+positions (N+1, 3), and the tracking error is FK(q)_ee - ref.  Its fused
+iLQR kernels are the generic ones with the formulation of
+``csrc/generic_arm.cu``: ``gen::Arm<false>`` (entries ``*_arm``) for the
+joints, ``gen::Arm<true>`` (``*_arm_cart``) for the end point.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ import torch
 from mmmpc_tpu_torch.controllers.common import (
     ControllerBase, as_weight_matrix, mv, no_rows, outer, quad,
 )
-from mmmpc_tpu_torch.models.arm import arm_fk, arm_fk_partials, arm_step
+from mmmpc_tpu_torch.models.arm import (
+    arm_fk, arm_fk_partials, arm_step, ee_jacobian,
+)
 from mmmpc_tpu_torch.ocp.constraints import (
     halfplane_union_g, halfplane_union_g_grad, manipulator_sample_points,
     relu_max_grad, relu_max_penalty, self_collision_g, sphere_g_grad,
@@ -67,10 +71,9 @@ class MPCManipulator3DoF(ControllerBase):
                  dqlim=(np.array([-1, -1, -1.0]), np.array([1, 1, 1.0])),
                  ddqlim=(np.array([-0.5] * 3), np.array([0.5] * 3)),
                  is_cartesian_ref: bool = False,
-                 solver_config: SolverConfig | None = None):
-        if is_cartesian_ref:
-            raise NotImplementedError("the Cartesian reference is not ported")
+                 solver_config: SolverConfig | None = None, device=None):
         self.dt = robot.dt
+        self.is_cartesian_ref = is_cartesian_ref
         self.qlim = tuple(np.asarray(v, dtype=float).reshape(-1) for v in qlim)
         self.dqlim = tuple(np.asarray(v, dtype=float).reshape(-1)
                            for v in dqlim)
@@ -94,11 +97,13 @@ class MPCManipulator3DoF(ControllerBase):
             self.hp_points_value[j] = point.reshape(3)
             self.hp_normals_value[j] = nvec
             self.hp_mask_value[j] = 1.0
-        super().__init__(self._build_ocp(N), solver_config or SolverConfig())
+        super().__init__(self._build_ocp(N), solver_config or SolverConfig(),
+                         device)
 
     def _build_ocp(self, N):
         dt = self.dt
         (qlo, qhi), (ddlo, ddhi) = self.qlim, self.ddqlim
+        cartesian = self.is_cartesian_ref
 
         def wedge(q, p):
             ee, j2, j3 = arm_fk(q)
@@ -109,14 +114,17 @@ class MPCManipulator3DoF(ControllerBase):
         def selfcol(q):
             return self_collision_g(*arm_fk(q))
 
+        def state_error(q, ref):
+            return arm_fk(q)[0] - ref if cartesian else q - ref
+
         def stage_cost(q, dq, k, p):
-            c = (quad(q - p["X_ref"][k], p["Q"])
+            c = (quad(state_error(q, p["X_ref"][k]), p["Q"])
                  + quad(dq - p["U_ref"][k], p["R"])
                  + quad(dq - p["U_last"][k], p["M"]))
             return c + relu_max_penalty(wedge(q, p), SLACK_WEIGHT)
 
         def terminal_cost(q, p):
-            return (quad(q - p["X_ref"][N], p["P"])
+            return (quad(state_error(q, p["X_ref"][N]), p["P"])
                     + relu_max_penalty(wedge(q, p), SLACK_WEIGHT))
 
         def box(v, lo, hi):
@@ -133,15 +141,25 @@ class MPCManipulator3DoF(ControllerBase):
             return torch.cat([box(q, qlo, qhi), selfcol(q)], dim=-1)
 
         # structured AL expansion: joint-space tracking has the weight as its
-        # Hessian, the wedge slack is one rank-1 term, the boxes are
+        # Hessian (Cartesian: Je^T W Je through the closed-form end-point
+        # Jacobian), the wedge slack is one rank-1 term, the boxes are
         # diagonal, the four hard self-collision rows a Gauss-Newton product
         # through their closed-form q-Jacobian
+        def track(q, ref, W):
+            """(Je^T W e, Je^T W Je) of the tracking error e."""
+            if not cartesian:
+                return mv(W, q - ref), W
+            Je = ee_jacobian(q)
+            return ((Je.mT @ mv(W, state_error(q, ref))[..., None])[..., 0],
+                    Je.mT @ W @ Je)
+
         def tracking(q, p, ref, W):
             smax, sq = relu_max_grad(*halfplane_union_g_grad(
                 *_arm_points(q, _HP_POINTS), p["hp_points"], p["hp_normals"],
                 p["hp_mask"], expand=0.0))
-            return (mv(W, q - ref) + (SLACK_WEIGHT * smax)[..., None] * sq,
-                    W + SLACK_WEIGHT * outer(sq, sq))
+            g, H = track(q, ref, W)
+            return (g + (SLACK_WEIGHT * smax)[..., None] * sq,
+                    H + SLACK_WEIGHT * outer(sq, sq))
 
         def q_rows(q, t, act, mu):
             """q-box rows t[0:6] and self-collision rows t[6:10]."""
@@ -179,7 +197,7 @@ class MPCManipulator3DoF(ControllerBase):
             return eye, dt * eye
 
         form = Formulation(
-            "arm", self._packed_shapes(N),
+            "arm_cart" if cartesian else "arm", self._packed_shapes(N),
             np.concatenate([[SLACK_WEIGHT], qlo, qhi, ddlo, ddhi]), dt,
             u_clamp=self.dqlim, nc=16, nct=10, n_hp=self.n_hp)
 
@@ -212,6 +230,10 @@ class MPCManipulator3DoF(ControllerBase):
                 "hp_points": (self.n_hp, 3), "hp_normals": (self.n_hp, 3),
                 "hp_mask": (self.n_hp,)}
 
+    def reset(self):
+        """Clear the warm start."""
+        self.reset_warmstart()
+
     def make_params(self, traj_ref, u_ref) -> dict[str, np.ndarray]:
         """The per-problem data as host arrays (``U_last`` is added by the
         caller, as in the JAX package)."""
@@ -221,3 +243,13 @@ class MPCManipulator3DoF(ControllerBase):
                 "M": self.M_value, "hp_points": self.hp_points_value,
                 "hp_normals": self.hp_normals_value,
                 "hp_mask": self.hp_mask_value}
+
+    def solve(self, x_init, traj_ref, u_ref):
+        """One receding-horizon tick on the controller's device: ``x_init``
+        clamped into the joint box (infeasible sensor feedback), then
+        q2 <= 0 and q3 >= 0 required; returns u[0] as a numpy (3,) array."""
+        x_init = np.clip(np.asarray(x_init, dtype=float), *self.qlim)
+        if not (x_init[1] <= 0 and x_init[2] >= 0):
+            raise ValueError(f"arm joints q2 = {x_init[1]} > 0 or "
+                             f"q3 = {x_init[2]} < 0 after the clamp")
+        return self._solve_impl(x_init, self.make_params(traj_ref, u_ref))

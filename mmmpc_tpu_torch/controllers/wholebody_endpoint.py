@@ -56,7 +56,7 @@ class MPCWholeBodyEndpoint(ControllerBase):
                  xlim=_DEFAULT_XLIM,
                  dulim=np.array([[-np.inf, -np.inf, -0.5, -0.5, -0.5],
                                  [np.inf, np.inf, 0.5, 0.5, 0.5]]),
-                 solver_config: SolverConfig | None = None):
+                 solver_config: SolverConfig | None = None, device=None):
         self.dt = robot.dt
         self.base_radius = robot.base.base_radius()
         self.Q_value = as_weight_matrix(Q, 4)
@@ -70,7 +70,8 @@ class MPCWholeBodyEndpoint(ControllerBase):
         self.obstacles_value = ground_obstacle_array(obstacle_list)
         self.x_bounds = finite_bound_masks(self.xlim)
         self.du_bounds = finite_bound_masks(self.dulim)
-        super().__init__(self._build_ocp(N), solver_config or SolverConfig())
+        super().__init__(self._build_ocp(N), solver_config or SolverConfig(),
+                         device)
 
     def _build_ocp(self, N):
         dt, radius = self.dt, self.base_radius
@@ -174,6 +175,10 @@ class MPCWholeBodyEndpoint(ControllerBase):
                 "X_ref": (N + 1, 4), "U_ref": (N, 5), "U_last": (N, 5),
                 "obstacles": (len(self.obstacles_value), 3)}
 
+    def reset(self):
+        """Clear the warm start."""
+        self.reset_warmstart()
+
     def make_params(self, traj_ref, u_ref) -> dict[str, np.ndarray]:
         """The per-problem data as host arrays (``U_last`` is added by the
         caller, as in the JAX package)."""
@@ -182,3 +187,14 @@ class MPCWholeBodyEndpoint(ControllerBase):
                 "Q": self.Q_value, "R": self.R_value, "P": self.P_value,
                 "S": np.asarray(self.S_value), "W": self.W_value,
                 "obstacles": self.obstacles_value}
+
+    def solve(self, x_init, traj_ref, u_ref):
+        """One receding-horizon tick on the controller's device: ``x_init``
+        clamped into the state box, then the arm's q2 <= 0 and q3 >= 0
+        required; returns u[0] as a numpy (5,) array."""
+        x_init = np.clip(np.asarray(x_init, dtype=float), self.xlim[0],
+                         self.xlim[1])
+        if not (x_init[7] <= 0 and x_init[8] >= 0):
+            raise ValueError(f"arm joints q2 = {x_init[7]} > 0 or "
+                             f"q3 = {x_init[8]} < 0 after the clamp")
+        return self._solve_impl(x_init, self.make_params(traj_ref, u_ref))

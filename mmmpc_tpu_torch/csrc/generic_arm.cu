@@ -1,12 +1,18 @@
-// The 3-DoF arm (controllers/manipulator.py, joint-space reference) on the
-// generic fused kernels: x = q, u = dq, q_{k+1} = q_k + dt dq_k, tracking of
-// q, input and input-rate costs, the wedge of half-planes (arm frame, no
-// expansion margin) as the slack penalty W relu(max g)^2 over the six
-// sampled link points, and hard rows [q box (6), input-rate box (6),
+// The 3-DoF arm (controllers/manipulator.py) on the generic fused kernels:
+// x = q, u = dq, q_{k+1} = q_k + dt dq_k, tracking of q (the joint-space
+// reference, Arm<false>) or of the end point (the Cartesian reference,
+// Arm<true>), input and input-rate costs, the wedge of half-planes (arm
+// frame, no expansion margin) as the slack penalty W relu(max g)^2 over the
+// six sampled link points, and hard rows [q box (6), input-rate box (6),
 // self-collision (4)] at every stage, [q box, self-collision] at the
 // terminal.  Hooks of mmmpc_tpu/controllers/manipulator.py::lanes_fwd_factory
-// / lanes_bwd_factory with is_cartesian_ref=False.  Both kernels run on
-// teams of lanes: the line search (C.arm) on generic_fwd.cuh's team
+// / lanes_bwd_factory, is_cartesian_ref = CART.  The Cartesian error is
+// e = [x_ee - r0, -r1, z_ee - r2] (arm frame, y == 0) with Je = rows
+// [dx_ee/dq; 0; dz_ee/dq], from the FK that every lane holds for the
+// wedge and the self rows; Q and P are full 3 x 3 matrices.  The rows of
+// each reference sit under `if constexpr`, so the joint-space instance
+// computes nothing of the Cartesian one.  Both kernels run on teams of
+// lanes: the line search (C.arm) on generic_fwd.cuh's team
 // kernel, the fused backward (D.arm) on generic_bwd.cuh's, over the team
 // Riccati step.
 #include "generic_bwd.cuh"
@@ -14,6 +20,7 @@
 
 namespace gen {
 
+template <bool CART>
 struct Arm {
   static constexpr int NX = 3, NU = 3, NC = 16, NCT = 10, NE = 0;
   // extra statics (the Formulation's `extra` in controllers/manipulator.py)
@@ -42,6 +49,16 @@ struct Arm {
     L.hpm = o;   o += n_hp;
     L.size = o;
     return L;
+  }
+
+  // CART's tracking error: the end point minus reference row `row`
+  template <class C>
+  __device__ __forceinline__ static void ee_error(const wb::ArmFK& a, const C& c, int row,
+                                                  float* e) {
+    const int r = c.L.xref + row * 3;
+    e[0] = a.ax[2] - c.p(r);
+    e[1] = 0.f - c.p(r + 1);
+    e[2] = a.az[2] - c.p(r + 2);
   }
 
   // ---- backward hooks: A = I, B = dt I
@@ -271,20 +288,32 @@ struct Arm {
   template <int T>
   struct Expand {
     float e[3], sq[3], sm, sv[4], sg[4][3];
+    float jx[3], jz[3];   // CART: rows 0 and 2 of Je (its row 1 is 0)
 
     template <class C>
     __device__ __forceinline__ Expand(const float* x, const C& c, int row, int lane) {
       wb::ArmFK a;
       fk_team<T>(x, lane, a);
+      if constexpr (CART) {
+        ee_error(a, c, row, e);
 #pragma unroll
-      for (int i = 0; i < 3; ++i) e[i] = x[i] - c.p(c.L.xref + row * 3 + i);
+        for (int i = 0; i < 3; ++i) {
+          jx[i] = a.axq[2][i];
+          jz[i] = a.azq[2][i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) e[i] = x[i] - c.p(c.L.xref + row * 3 + i);
+      }
       sm = wedge_team<T>(a, c, lane, sq);
       self_team<T>(a, lane, sv, sg);
     }
 
     // x row t = rho T + lane (a task past the x rows adds nothing): the
-    // tracking with weights W, the q-box rows (multipliers lam[0..5]) and
-    // the self-collision rows (lam[r_self..]); x[t] = xt
+    // tracking with weights W (CART: (Je^T W e)_t and row t of Je^T W Je,
+    // as lanes_bwd_factory's `tracking` sums them), the q-box rows
+    // (multipliers lam[0..5]) and the self-collision rows (lam[r_self..]);
+    // x[t] = xt
     template <class C>
     __device__ __forceinline__ void add_row(int rho, int lane, float xt, const C& c, int W,
                                             const float* lam, int S, int r_self, float mu,
@@ -296,14 +325,34 @@ struct Arm {
       const float w = c.ex(S_W);
       const float wsm = w * sm;
       const float st = ric::pick<T, NX>(rho, lane, [&](int i) { return sq[i]; });
-      float we = 0.f;
+      if constexpr (CART) {
+        const float jxt = ric::pick<T, NX>(rho, lane, [&](int i) { return jx[i]; });
+        const float jzt = ric::pick<T, NX>(rho, lane, [&](int i) { return jz[i]; });
+        float we0 = 0.f, we2 = 0.f;   // (W e)_0, (W e)_2
 #pragma unroll
-      for (int j = 0; j < 3; ++j) we += c.p(W + tc * 3 + j) * e[j];
-      q = live ? q + two_s * (we + wsm * st) : q;
+        for (int l = 0; l < 3; ++l) {
+          we0 += c.p(W + l) * e[l];
+          we2 += c.p(W + 6 + l) * e[l];
+        }
+        q = live ? q + two_s * ((jxt * we0 + jzt * we2) + wsm * st) : q;
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const float h = two_s * (c.p(W + tc * 3 + j) + w * (st * sq[j]));
-        acc[j] = live ? acc[j] + h : acc[j];
+        for (int j = 0; j < 3; ++j) {
+          // (W Je)_{0j}, (W Je)_{2j}
+          const float wj0 = c.p(W) * jx[j] + c.p(W + 2) * jz[j];
+          const float wj2 = c.p(W + 6) * jx[j] + c.p(W + 8) * jz[j];
+          const float h = two_s * ((jxt * wj0 + jzt * wj2) + w * (st * sq[j]));
+          acc[j] = live ? acc[j] + h : acc[j];
+        }
+      } else {
+        float we = 0.f;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) we += c.p(W + tc * 3 + j) * e[j];
+        q = live ? q + two_s * (we + wsm * st) : q;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const float h = two_s * (c.p(W + tc * 3 + j) + w * (st * sq[j]));
+          acc[j] = live ? acc[j] + h : acc[j];
+        }
       }
       // the q-box rows t (q - hi) and 3 + t (lo - q)
 #pragma unroll
@@ -527,12 +576,19 @@ struct Arm {
 
   // The FK of x, the self rows into the team's vector (then __syncwarp:
   // the vector is complete) and the lane's share of W relu(max)^2 (lane 0)
-  // and of the form e^T W e, e at v[FV_E].
+  // and of the form e^T W e, e at v[FV_E].  CART: e is the end point minus
+  // reference row `row`, written here into e and v[FV_E]; else the caller
+  // wrote q minus it.
   template <int T, class C>
-  __device__ static float track_team(const float* x, const float* e, int W, const C& c,
+  __device__ static float track_team(const float* x, float* e, int row, int W, const C& c,
                                      float* v, int lane) {
     wb::ArmFK a;
     fk_team<T>(x, lane, a);
+    if constexpr (CART) {
+      ee_error(a, c, row, e);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) v[FV_E + i] = e[i];
+    }
     self_value_team<T>(a, lane, v);
     __syncwarp();
     const float sm = wedge_value_team<T>(a, c, lane);
@@ -547,15 +603,15 @@ struct Arm {
     float e[3], eu[3], ed[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      e[i] = x[i] - c.p(c.L.xref + k * 3 + i);
+      if constexpr (!CART) e[i] = x[i] - c.p(c.L.xref + k * 3 + i);
       eu[i] = u[i] - c.p(c.L.uref + k * 3 + i);
       ed[i] = u[i] - c.p(c.L.ulast + k * 3 + i);
-      v[FV_E + i] = e[i];
+      if constexpr (!CART) v[FV_E + i] = e[i];
       v[FV_EU + i] = eu[i];
       v[FV_ED + i] = ed[i];
       xn[i] = x[i] + c.dt * u[i];
     }
-    float tr = track_team<T>(x, e, c.L.Q, c, v, lane);
+    float tr = track_team<T>(x, e, k, c.L.Q, c, v, lane);
     tr += qform_rows<T, 3>(c, c.L.R, eu, v + FV_EU, lane);
     tr += qform_rows<T, 3>(c, c.L.M, ed, v + FV_ED, lane);
     const float pen = phr_rows<T, NC>(rt, v, lam, SC, mu, lane);
@@ -566,12 +622,14 @@ struct Arm {
   __device__ static float fwd_team_terminal(const float* x, const C& c, float* v, const float* rt,
                                             const float* lamt, int SC, float mu, int lane) {
     float e[3];
+    if constexpr (!CART) {
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      e[i] = x[i] - c.p(c.L.xref + c.N * 3 + i);
-      v[FV_E + i] = e[i];
+      for (int i = 0; i < 3; ++i) {
+        e[i] = x[i] - c.p(c.L.xref + c.N * 3 + i);
+        v[FV_E + i] = e[i];
+      }
     }
-    const float tr = track_team<T>(x, e, c.L.P, c, v, lane);
+    const float tr = track_team<T>(x, e, c.N, c.L.P, c, v, lane);
     const float pen = phr_rows<T, NCT>(rt + 4 * NC, v, lamt, SC, mu, lane);
     return c.inv_scale * tr + pen * (0.5f / mu);
   }
@@ -579,4 +637,5 @@ struct Arm {
 
 }  // namespace gen
 
-GEN_ENTRIES(arm, gen::Arm)
+GEN_ENTRIES(arm, gen::Arm<false>)
+GEN_ENTRIES(arm_cart, gen::Arm<true>)

@@ -27,15 +27,20 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-# The formulations of the generic kernels (csrc/generic_<name>.cu)
-FORMULATIONS = ("demo", "base", "arm", "endpoint")
+# The formulations of the generic kernels: each one's C entries
+# gen_*_<name> and the source that instantiates them (the arm's joint-space
+# and Cartesian references are two instances of generic_arm.cu)
+FORMULATION_SOURCES = {"demo": "generic_demo.cu", "base": "generic_base.cu",
+                       "arm": "generic_arm.cu", "arm_cart": "generic_arm.cu",
+                       "endpoint": "generic_endpoint.cu"}
+FORMULATIONS = tuple(FORMULATION_SOURCES)
 # The (nx, nu) instances of the Riccati sweep (csrc/riccati.cu) that the
 # kernel library holds (any other pair: build_riccati_pair on first use),
 # and the accumulator counts of the FMA microkernel (csrc/fma_peak.cu)
 RICCATI_INSTANCES = ((2, 1), (3, 3), (6, 2), (9, 5))
 FMA_NACC = (4, 8, 16, 32)
 SOURCES = ("wholebody_fwd.cu", "wholebody_bwd.cu",
-           *(f"generic_{name}.cu" for name in FORMULATIONS), "riccati.cu",
+           *dict.fromkeys(FORMULATION_SOURCES.values()), "riccati.cu",
            "fma_peak.cu")
 HEADERS = ("wholebody_common.cuh", "cp_async.cuh", "generic_common.cuh",
            "generic_fwd.cuh", "generic_bwd.cuh", "riccati_step.cuh",

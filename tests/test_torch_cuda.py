@@ -9,8 +9,8 @@ does), so it runs where the card is, without the repo's ``conftest.py``:
 (``chip_smoke.py`` runs that command in a phase of its own.)  The inputs are
 made from seeded numpy by tests/torch_problems.py, whose builders the parity
 tests against the JAX package use too, at small sizes (N=5, batch 64 and a
-partial block of 37, the line searches also at 1, the arm's backward at 1024
-and 1000; N=4, batch 64 for the Riccati sweep), at the tolerances of those
+partial block of 37, the generic pairs also at 1, the arms' backward at
+1024 and 1000; N=4, batch 64 for the Riccati sweep), at the tolerances of those
 tests:
 
 - the whole-body qref pair (A, B) on the problem of
@@ -20,11 +20,12 @@ tests:
   (the fleet's: all six, and U_last alone) on the problem of
   tests/test_torch_fleet.py at batches 64 and 1: X / U atol 2e-5, cost
   rtol = atol = 2e-3; gains rtol = atol = 5e-3;
-- the generic pair (C, D) of each formulation on the problems of
+- the generic pair (C, D) of each formulation (the arm's joint-space and
+  Cartesian instances each) on the problems of
   tests/test_torch_generic_kernels.py: X / U atol 2e-5, cost rtol = atol =
   2e-3; gains atol 1e-5 (demo), 1e-3 (base), 2e-4 (endpoint) with rtol
-  1e-4, and the arm's in the p99 / float64 form (its 1e6 wedge slack makes
-  the solve ill-conditioned in float32);
+  1e-4, and the arms' in the p99 / float64 form (their 1e6 wedge slack
+  makes the solve ill-conditioned in float32);
 - the Riccati sweep E at each (nx, nu) of the kernel library and at (4, 2),
   which builds its own library on first use, on random SPD blocks at 2e-4;
 - the FMA microkernel F: every trip counted, and rtol 1e-5 / atol 1e-6
@@ -45,7 +46,7 @@ from mmmpc_tpu_torch.solver.al_ilqr import rollout
 from mmmpc_tpu_torch.utils.convert import params_from_numpy
 
 from torch_problems import (
-    ARM_BATCH, B, BWD_ATOL, FLEET_KEYS, FORMULATIONS, N, batch_last,
+    ARM_BATCH, ARMS, B, BWD_ATOL, FLEET_KEYS, FORMULATIONS, N, batch_last,
     fleet_params, generic_problem, qref_problem, spd_blocks,
 )
 
@@ -167,17 +168,18 @@ def test_cuda_moving_demo_shape_matches_plain(device, kernel):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel, part", [
     ("fwd", "all"), ("fwd", "part"), ("fwd", "one"), ("bwd", "all"),
-    ("bwd", "part")])
+    ("bwd", "part"), ("bwd", "one")])
 @pytest.mark.parametrize("name", FORMULATIONS)
 def test_cuda_generic_kernel_matches_plain(device, name, kernel, part):
     """Each generic CUDA kernel instance against its plain version on the
     card, on the whole batch and on its first scenarios, a partial block of
     the team kernels (C.base, C.arm, C.endpoint, D.arm, D.endpoint) and of
     the one-thread kernels with their stage buffers (C.demo, D.base,
-    D.demo): 64 and 37, the arm's backward 1024 and 1000; the line searches
+    D.demo): 64 and 37, the arms' backward 1024 and 1000; both kernels
     also on one scenario (a team block of one scenario and its idle teams;
-    a one-thread block where all but one thread return)."""
-    arm_bwd = name == "arm" and kernel == "bwd"
+    a one-thread block where all but one thread return), the single-robot
+    solve's batch."""
+    arm_bwd = name in ARMS and kernel == "bwd"
     full = ARM_BATCH if arm_bwd else B
     batch = {"all": full, "part": ARM_PART if arm_bwd else 37, "one": 1}[part]
     mpc, x0_b, U0_b, params = generic_problem(name, full)
@@ -207,7 +209,7 @@ def test_cuda_generic_kernel_matches_plain(device, name, kernel, part):
         torch.full((full,), 1e-6, device=device)), batch)
     got, ref = f.cuda(*args), f.plain(*args)
     torch.cuda.synchronize()
-    if name != "arm":
+    if name not in ARMS:
         for g, r in zip(got, ref):
             torch.testing.assert_close(g, r, rtol=1e-4, atol=BWD_ATOL[name])
         return

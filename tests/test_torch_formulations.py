@@ -2,13 +2,21 @@
 (both generic fused kernels, as their plain versions on the CPU), and the
 port's benchmark problems.
 
-- demo and whole-body endpoint: the port's solve against the JAX package's
-  ``al_ilqr_solve_batched`` on the CPU, float64, B=64, N=5, on the problems
-  of tests/test_torch_generic_kernels.py, ``SolverConfig(al_iters=2,
-  ilqr_iters=4, n_alpha=3, alpha_decay=0.4)``; held by the quantile gate of
-  tests/test_generic_fwd.py (cost and violation within 5e-3 absolute or
-  relative on 99.5% of the robots, at most 0.5% converged-flag flips, max|dU|
-  below 5e-3 on 98% of the robots);
+- demo, whole-body endpoint and the arm with its Cartesian reference: the
+  port's solve against the JAX package's ``al_ilqr_solve_batched`` on the
+  CPU, float64, B=64, N=5, on the problems of
+  tests/test_torch_generic_kernels.py, ``SolverConfig(al_iters=2,
+  ilqr_iters=4, n_alpha=3, alpha_decay=0.4)``, the JAX side compiled at
+  XLA's lowest optimisation level; demo and endpoint held by the quantile
+  gate of tests/test_generic_fwd.py (cost and violation within 5e-3
+  absolute or relative on 99.5% of the robots, at most 0.5% converged-flag
+  flips, max|dU| below 5e-3 on 98% of the robots); the Cartesian arm, whose
+  1e6 wedge slack makes its Riccati solves ill-conditioned, by cost and
+  feasibility alone (a full solve is never held to |dU|): each robot's cost
+  within 5e-3 relative of JAX's, its max violation within 5e-3 absolute or
+  relative of JAX's, and the same converged flags (at this schedule 28 of
+  the 64 robots converge on both sides, so the flags are asserted to be
+  neither all set nor all clear);
 - base and arm: the port's solve alone, at the bench schedule's rounds
   (8 rounds of 20, then 12 sweeps): every robot converged, finite costs;
 - ``mmmpc_tpu_torch.bench_controllers.problems`` builds the same starts and
@@ -33,6 +41,8 @@ from mmmpc_tpu_torch.utils.convert import params_from_numpy
 from tests.test_torch_generic_kernels import B, make_problem
 
 ROOT = Path(__file__).resolve().parents[1]
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
 # the bench schedule's rounds without its cost scale (CFG_SMALL)
 ROUNDS = (("al_iters", 8), ("ilqr_iters", 20), ("ilqr_iters_later", 12),
           ("constraint_tol", 1e-3), ("n_alpha", 3), ("alpha_decay", 0.35))
@@ -53,16 +63,31 @@ def _port_solve(name, mpc_t, x0_b, U0_b, p_t):
     return res, stats, counts
 
 
-@pytest.mark.parametrize("name", ["demo", "endpoint"])
+@pytest.mark.parametrize("name", ["demo", "endpoint", "arm_cart"])
 def test_solve_matches_jax(name):
     mpc_j, mpc_t, x0_b, U0_b, p_j, p_t = make_problem(name)
+    args = (jnp.asarray(x0_b), jnp.asarray(U0_b),
+            {k: jnp.asarray(v) for k, v in p_j.items()})
     res_j = jax.jit(lambda x0, U0, p: al_ilqr_solve_batched(
-        mpc_j.ocp, x0, U0, p, mpc_j.solver_config))(
-        jnp.asarray(x0_b), jnp.asarray(U0_b),
-        {k: jnp.asarray(v) for k, v in p_j.items()})
+        mpc_j.ocp, x0, U0, p, mpc_j.solver_config)).lower(*args).compile(
+        FAST_COMPILE)(*args)
     res_t, stats_t, counts = _port_solve(name, mpc_t, x0_b, U0_b, p_t)
     n_iter = iteration_count(mpc_t.solver_config)
     assert counts == [(0, n_iter), (0, n_iter)]
+    assert int(stats_t.n_solved) == B
+    if name == "arm_cart":
+        cost_t, cost_j = res_t.cost.numpy(), np.asarray(res_j.cost)
+        rel = np.abs(cost_t - cost_j) / np.maximum(np.abs(cost_j), 1e-12)
+        assert rel.max() <= 5e-3, rel.max()
+        viol_t = res_t.max_violation.numpy()
+        viol_j = np.asarray(res_j.max_violation)
+        gap = np.abs(viol_t - viol_j)
+        assert ((gap <= 5e-3) | (gap <= 5e-3 * np.abs(viol_j))).all(), \
+            gap.max()
+        conv = res_t.converged.numpy()
+        np.testing.assert_array_equal(conv, np.asarray(res_j.converged))
+        assert 0 < conv.sum() < B, conv.sum()
+        return
 
     for field in ("cost", "max_violation"):
         a = getattr(res_t, field).numpy()
@@ -74,7 +99,6 @@ def test_solve_matches_jax(name):
     assert flips.mean() <= 0.005, f"{flips.sum()} convergence flips"
     dU = np.abs(res_t.U.numpy() - np.asarray(res_j.U)).max(axis=(1, 2))
     assert (dU < 5e-3).mean() > 0.98, (np.median(dU), dU.max())
-    assert int(stats_t.n_solved) == B
 
 
 @pytest.mark.parametrize("name", ["base", "arm"])

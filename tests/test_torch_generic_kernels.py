@@ -1,6 +1,7 @@
 """Parity of the plain versions of the two generic fused kernels with the JAX
-package, for each of the four formulations that run them (demo, base, arm,
-whole-body endpoint), and the launch geometries the kernel library reports
+package, for each of the formulations that run them (demo, base, the arm
+with its joint-space and its Cartesian reference, whole-body endpoint), and
+the launch geometries the kernel library reports
 (each CUDA kernel instance against its plain version on a card:
 tests/test_torch_cuda.py).
 
@@ -13,7 +14,7 @@ The JAX side is the vmapped per-scenario reference, not the Pallas kernels:
 sweep for the backward pass.  Tolerances are the JAX kernel tests': X / U
 atol 2e-5 and cost rtol = atol = 2e-3 (test_generic_fwd.py); gains atol 1e-5
 (demo), 1e-3 (base), 2e-4 (endpoint) with rtol 1e-4 (test_generic_bwd.py).
-The arm's gains are held as test_generic_bwd.py holds them: its 1e6 wedge
+The arms' gains are held as test_generic_bwd.py holds them: its 1e6 wedge
 slack makes the Riccati solve ill-conditioned in float32, so (at the JAX
 test's batch of 1024) the p99 of the difference between the two float32
 paths must be below 5e-4, and the port's error against the JAX package's
@@ -39,7 +40,7 @@ from mmmpc_tpu_torch.utils.configs import SolverConfig
 from mmmpc_tpu_torch.utils.convert import params_from_numpy
 
 import torch_problems as tp
-from torch_problems import ARM_BATCH, B, BWD_ATOL, FORMULATIONS, N
+from torch_problems import ARM_BATCH, ARMS, B, BWD_ATOL, FORMULATIONS, N
 
 F32 = jnp.float32
 CFG = tp.GENERIC_CFG
@@ -158,9 +159,9 @@ def _jax_gains(mpc_j, x0_b, U0_b, p_j, lams, dtype):
 
 @pytest.mark.parametrize("name", FORMULATIONS)
 def test_generic_bwd_plain_matches_jax(name):
-    # the arm at the JAX test's batch: its p99 is taken over a batch where
+    # the arms at the JAX test's batch: its p99 is taken over a batch where
     # the ill-conditioned scenarios (2% here) are the tail it was set for
-    batch = ARM_BATCH if name == "arm" else B
+    batch = ARM_BATCH if name in ARMS else B
     mpc_j, mpc_t, x0_b, U0_b, p_j, p_t = make_problem(name, batch)
     form = mpc_t.ocp.lanes_bwd_factory(
         mpc_t.solver_config, params_from_numpy(p_t, "cpu", torch.float32))
@@ -178,7 +179,7 @@ def test_generic_bwd_plain_matches_jax(name):
                   _bm(lams[1], 1, 0), _bm(lams[2], 1, 0), 10.0,
                   torch.as_tensor(lams[3]))
     kff, K = kff.permute(2, 0, 1).numpy(), K.permute(3, 0, 1, 2).numpy()
-    if name != "arm":
+    if name not in ARMS:
         np.testing.assert_allclose(kff, kff_r, rtol=1e-4,
                                    atol=BWD_ATOL[name])
         np.testing.assert_allclose(K, K_r, rtol=1e-4, atol=BWD_ATOL[name])

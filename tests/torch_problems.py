@@ -25,9 +25,14 @@ B, N = 64, 5
 # its p99 form is set for a batch where the ill-conditioned scenarios are
 # the tail
 ARM_BATCH = 1024
-FORMULATIONS = ("demo", "base", "arm", "endpoint")
-# gains tolerance (atol) of each generic backward pass; rtol 1e-4 (the arm
-# is held in the p99 / float64 form instead)
+# the generic kernels' formulations: arm_cart is the arm with the Cartesian
+# reference (is_cartesian_ref=True)
+FORMULATIONS = ("demo", "base", "arm", "arm_cart", "endpoint")
+# the formulations with the arm's 1e6 wedge slack, whose gains are held in
+# the p99 / float64 form
+ARMS = ("arm", "arm_cart")
+# gains tolerance (atol) of each generic backward pass; rtol 1e-4 (the arms
+# are held in the p99 / float64 form instead)
 BWD_ATOL = {"demo": 1e-5, "base": 1e-3, "endpoint": 2e-4}
 # the wedge of half-planes of the bench, so the arm's 1e6 slack is active on
 # part of the batch
@@ -43,9 +48,10 @@ PORT = (_ctl, _obstacles, _robots)
 
 def generic_controller(name, cfg=None, modules=PORT):
     """The controller of formulation ``name`` (demo, base with two ground
-    obstacles, arm with WEDGE, whole-body endpoint with one ground
-    obstacle), built from ``modules`` with solver config ``cfg`` (default:
-    the port's of GENERIC_CFG)."""
+    obstacles, arm with WEDGE, joint-space or Cartesian (the problem of
+    tests/test_generic_bwd.py::_arm_problem), whole-body endpoint with one
+    ground obstacle), built from ``modules`` with solver config ``cfg``
+    (default: the port's of GENERIC_CFG)."""
     ctl, obs, robots = modules
     cfg = SolverConfig(**GENERIC_CFG) if cfg is None else cfg
     if name == "demo":
@@ -55,9 +61,10 @@ def generic_controller(name, cfg=None, modules=PORT):
                            [obs.Obstacles(1.2, 0.15, 0.3),
                             obs.Obstacles(0.4, -0.4, 0.25)],
                            N=N, solver_config=cfg)
-    if name == "arm":
+    if name in ARMS:
         return ctl.MPCManipulator3DoF(robots.ManipulatorPanda3DoF(0.1),
-                                      *WEDGE, N=N, solver_config=cfg)
+                                      *WEDGE, N=N, solver_config=cfg,
+                                      is_cartesian_ref=name == "arm_cart")
     return ctl.MPCWholeBodyEndpoint(robots.MobileManipulator(0.1),
                                     [obs.Obstacles(1.0, 0.2, 0.3)], N=N,
                                     solver_config=cfg)
@@ -74,10 +81,14 @@ def generic_params(mpc, name):
         nu = 2
     elif name == "arm":
         traj, nu = np.linspace([0.3, -1.2, 1.2], [0.0, -0.6, 0.9], N + 1), 3
+    elif name == "arm_cart":
+        # end-point positions in the arm frame
+        traj, nu = np.linspace([0.45, 0.0, 0.5], [0.35, 0.0, 0.6], N + 1), 3
     else:
         traj = np.linspace([0.6, 0.1, 1.1, 0.0], [0.8, 0.2, 1.0, 0.3], N + 1)
         nu = 5
-    extra = {"U_last": np.zeros((N, nu))} if name in ("arm", "endpoint") else {}
+    extra = ({"U_last": np.zeros((N, nu))}
+             if name in (*ARMS, "endpoint") else {})
     return {k: np.asarray(v, np.float64) for k, v in dict(
         mpc.make_params(traj, np.zeros((N, nu))), **extra).items()}
 
@@ -94,7 +105,7 @@ def generic_problem(name, batch=B, cfg=None):
     elif name == "base":
         x0_b = rng.standard_normal((batch, 6)) * np.array(
             [0.4, 0.4, 0.6, 0.2, 0.2, 0.2])
-    elif name == "arm":
+    elif name in ARMS:
         q0 = np.array([0.3, -1.2, 1.2])
         x0_b = np.clip(q0[None] + rng.standard_normal((batch, 3)) * 0.2,
                        mpc.qlim[0] + 1e-3, mpc.qlim[1] - 1e-3)
