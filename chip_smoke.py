@@ -9,6 +9,8 @@
     python3 chip_smoke.py --fleet     # phases 1-2, then phase 11 alone
     python3 chip_smoke.py --controllers   # phases 1-2, then phase 12 alone,
         # with the dossier's closed-loop and self-consistency rows
+    python3 chip_smoke.py --fixed     # phases 1-2, then phase 13 alone
+    python3 chip_smoke.py --long-horizon  # phases 1-2, then phase 14 alone
     python3 chip_smoke.py --kernel wholebody_bwd   # phases 1-2, then the
         # [kernel] check of one kind of KINDS alone (no peak sweep: bounds
         # at the published 67 TFLOP/s; fma_peak runs phase 2b)
@@ -57,6 +59,13 @@ Phases, each reported on its own lines; any failure exits nonzero:
    1023, 1000 and 1, and with U_last alone (``keys=U_last``); B's gains
    there also against its plain version in float64 (``[kernel-f64]``,
    ``_fleet_bwd_check``);
+   kernels A and B also in the fixed terminal formulation
+   (``wholebody_fwd.fixed``, ``wholebody_bwd.fixed``: statics
+   ``bug_compat`` 0) on the bench problem built with
+   ``replicate_terminal_selfcol_bug=False``, timed with their bounds, at
+   8191, 1000 and 1, and on ``tests/torch_problems.py::selfcol_problem``
+   (``inputs=selfcol``), where they must part from the bug-compatible
+   kernels by at least ten tolerances (``differs_by_tolerances``);
    kernel E also at (nx, nu) = (4, 2), which the
    kernel library does not hold: the pair's own library built on its first
    call (``[build-pair]``: seconds, the pair's launches in that call; ptxas
@@ -162,7 +171,36 @@ Phases, each reported on its own lines; any failure exits nonzero:
    configuration solved on the card against the best feasible float64
    scipy oracle, run in worker processes on the CPU meanwhile, failing
    unless violation <= 1e-3 and relative cost <= 5e-3 in every row; with
-   ``--controllers`` also its closed-loop and self-consistency rows.
+   ``--controllers`` also its closed-loop and self-consistency rows;
+13. fixed (also alone with ``--fixed``): the refined solve of phase 4's
+   problem in the fixed terminal formulation
+   (``replicate_terminal_selfcol_bug=False``) at batch 8192 (A and B each
+   94 launches a solve; 10 solves timed; ``[fixed]``), held
+   to the reference's bar; then, on ``tests/torch_problems.py``'s
+   self-collision problem (batch 64), where the two settings part, the
+   fused solve against the unfused one (A and E;
+   ``[fixed-unfused-vs-fused]``) and against the plain versions on the CPU
+   (``[fixed-reference]``), phase 6's gate, and against the
+   bug-compatible solve, which must miss that gate
+   (``[fixed-vs-bug-compat]``);
+14. long-horizon (also alone with ``--long-horizon``): kernels A, B and E
+   at N = 100, 500 and 2000 on ``bench_longhorizon``'s problem at batch 64, one
+   call each against one call of the plain version (within the bench tolerances
+   of the float32 plain version, or stage by stage no farther from the float64
+   one than twice the float32 plain version is within 32 stages or than those
+   tolerances; ``[kernel-gate]`` says which held), with the device ms a launch,
+   the bound at that N, the shared-memory bytes and the blocks an SM holds
+   (``[long-kernel]``); A and B at the least N the card's shared memory does
+   not hold must raise a ValueError before launching (``[long-limit]``); then
+   ``bench_longhorizon``'s rows (N = 20, 100, 500) at batch 1, 8 and 64, the
+   sequential route (B) against the assoc route (``ops/assoc_riccati.py``, no
+   backward kernel), each a warm-up and the median of 3 solves, every kernel's
+   and the assoc sweep's calls checked (``[long-horizon]``: ms a solve with its
+   spread, converged and moved shares, the routes' relative mean cost and
+   shared converged flags, printed; on the row's first expansion the two sweeps
+   in float64 at reg 1e-14 within 1e-6, and the float32 assoc sweep on the
+   card at reg 1e-2 held stage by stage to its float64 version against the
+   CPU's float32 one, gated).
 
 Every solve phase prints the reference's bar (converged fraction 1.0, max
 violation below 1e-3) or a closed-loop run's assertions as a ``[bar]``
@@ -177,7 +215,9 @@ their launches in phase 10's fused row solve and, as ``launches_demo``, in
 its demo run; the fleet instances with their launches in phase 11's ticks,
 which A and B also list as ``launches_fleet``; C.arm_cart and D.arm_cart
 with their launches in phase 12's fused row solve; every C and D, as
-``launches_single_robot``, in phase 12's single-robot ticks) and ``{"ok":
+``launches_single_robot``, in phase 12's single-robot ticks; the fixed
+instances of A and B with their launches in phase 13's fused warm-up
+solve; A, B and E, as ``launches_long_horizon``, in phase 14) and ``{"ok":
 true, "device": {...}}``.
 """
 
@@ -190,6 +230,8 @@ import shutil
 import subprocess
 import sys
 import time
+import types
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -235,8 +277,8 @@ DIMS = {"demo": (2, 1), "base": (6, 2), "arm": (3, 3), "arm_cart": (3, 3),
 KERNEL_SYMBOLS = {"wholebody_fwd": "wb::fwd_kernel",
                   "wholebody_bwd": "wb::bwd_kernel",
                   # their instances with per-scenario entries (the fleet)
-                  "wholebody_fwd.fleet": "wb::fwd_kernel<2, true>",
-                  "wholebody_bwd.fleet": "wb::bwd_kernel<8, true>",
+                  "wholebody_fwd.fleet": "wb::fwd_kernel<2, true, true>",
+                  "wholebody_bwd.fleet": "wb::bwd_kernel<8, true, true>",
                   # (the arm's instances by prefix: the demangler may
                   # close a nested template with "> >" or ">>")
                   **{f"generic_{d}.{f}":
@@ -846,8 +888,10 @@ def profile_solve(run, args, names):
     return len(spans), busy / 1e3, ours
 
 
-def report_timing(tag, run, args, batch, counters, reps=REPS, **kv):
-    """Time ``reps`` solves and profile one more; print both.  The profile
+def report_timing(tag, run, args, batch, counters, reps=REPS, profile=True,
+                  **kv):
+    """Time ``reps`` solves and, with ``profile``, profile one more; print
+    both.  The profile
     must count, for each kernel of ``counters`` ({name: launch counter}),
     the calls its wrapper launched in the profiled solve: a kernel renamed
     away from ``KERNEL_SYMBOLS`` would read 0.  The profiler drops records
@@ -862,6 +906,8 @@ def report_timing(tag, run, args, batch, counters, reps=REPS, **kv):
           solve_s_q1=f"{q1:.4f}", solve_s_q3=f"{q3:.4f}",
           solves_per_s_median=f"{batch / med:.1f}",
           solve_s=",".join(f"{t:.4f}" for t in ts))
+    if not profile:
+        return med, reps
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         t0 = time.perf_counter()
         before = {name: c.cuda for name, c in counters.items()}
@@ -1376,6 +1422,20 @@ def run_closed_loop(device):
 MOVING = ("wholebody_fwd.moving", "wholebody_bwd.moving")
 
 
+def _wb_geometry(w, n):
+    """The launch geometry of whole-body wrapper ``w`` (A if it has step
+    sizes, else B) at batch n, as the library reports it."""
+    from mmmpc_tpu_torch.ops import wholebody_bwd, wholebody_fwd
+    from mmmpc_tpu_torch.ops._cuda import LIBRARY
+    if hasattr(w, "alphas"):
+        return wholebody_fwd.launch_geometry(
+            LIBRARY.get(), w.N, w.n_obs, w.n_hp, len(w.alphas), n,
+            moving=w.moving, per_scenario=w.ps.mask)
+    return wholebody_bwd.launch_geometry(LIBRARY.get(), w.N, w.n_obs,
+                                         w.n_hp, n, moving=w.moving,
+                                         per_scenario=w.ps.mask)
+
+
 def _moving_row(batch, device):
     """The ``wholebody_moving_obs`` row of ``bench_controllers`` at
     ``batch`` on ``device``: (controller, x0_b, U0_b, params)."""
@@ -1396,13 +1456,6 @@ def check_moving_kernels(device, peak, kinds):
     step sizes, cost_scale 1.0 (``[kernel-batch]``, ``inputs=demo``); the
     kernels whose kind is in ``kinds``."""
     from mmmpc_tpu_torch.demo_wholebody_separate import build_world
-    from mmmpc_tpu_torch.ops._cuda import LIBRARY
-    from mmmpc_tpu_torch.ops.wholebody_bwd import (
-        launch_geometry as bwd_geometry,
-    )
-    from mmmpc_tpu_torch.ops.wholebody_fwd import (
-        launch_geometry as fwd_geometry,
-    )
     from mmmpc_tpu_torch.utils.convert import params_from_numpy
 
     mpc, x0, _, params = _moving_row(BATCH, device)
@@ -1416,14 +1469,6 @@ def check_moving_kernels(device, peak, kinds):
     out = check_pair(MOVING, fwd, bwd, fargs, bargs,
                      (mpc.N, BATCH, cfg.n_alpha, 9, 5, 28, 18),
                      _wholebody_bwd_check, peak, kinds)
-
-    def geometry(w, n):
-        """The launch geometry of whole-body wrapper ``w`` at batch n."""
-        if hasattr(w, "alphas"):
-            return fwd_geometry(LIBRARY.get(), w.N, w.n_obs, w.n_hp,
-                                len(w.alphas), n, moving=w.moving)
-        return bwd_geometry(LIBRARY.get(), w.N, w.n_obs, w.n_hp, n,
-                            moving=w.moving)
 
     # the demo's shape: its first tick's prediction and references
     world = build_world(physical_sim=False, device=device)
@@ -1448,7 +1493,7 @@ def check_moving_kernels(device, peak, kinds):
         if name.split(".")[0] not in kinds:
             continue
         check_batches(name, w.cuda, w.plain, args, err,
-                      lambda n, w=w: geometry(w, n))
+                      lambda n, w=w: _wb_geometry(w, n))
         got, ref = dw.cuda(*dargs), dw.plain(*dargs)
         torch.cuda.synchronize()
         _line("kernel-batch", name=name, inputs="demo", B=1,
@@ -1457,7 +1502,7 @@ def check_moving_kernels(device, peak, kinds):
               max_abs_err=f"{err(got, ref, dargs):.4g}",
               ms=f"{_kernel_ms(lambda: dw.cuda(*dargs), 20):.4g}",
               plain_ms=f"{_time_ms(lambda: dw.plain(*dargs), 3):.4g}",
-              **geometry(dw, 1))
+              **_wb_geometry(dw, 1))
     return out
 
 
@@ -1707,15 +1752,18 @@ def run_peak(device):
 
 
 def _plain_f64(w, args):
-    """Whole-body backward wrapper ``w``'s plain version in float64 (its
-    params and ``args`` cast up) on the same device: the truth of its float32
-    plain version."""
+    """Whole-body wrapper ``w``'s plain version (A's if it has step sizes,
+    else B's) in float64, its params and ``args`` cast up, on the same
+    device: the truth of its float32 plain version."""
     from mmmpc_tpu_torch.ops.generic_bwd import plain_bwd
+    from mmmpc_tpu_torch.ops.generic_fwd import plain_fwd
     from mmmpc_tpu_torch.ops.wholebody_fwd import unpack_params
     p = w.ps.params(unpack_params(w.flat, w.N, w.n_obs, w.n_hp, w.moving))
-    return plain_bwd(w.ocp, {k: v.double() for k, v in p.items()},
-                     w.inv_scale, *(a.double() if torch.is_tensor(a) else a
-                                    for a in args))
+    p = {k: v.double() for k, v in p.items()}
+    a = tuple(t.double() if torch.is_tensor(t) else t for t in args)
+    if hasattr(w, "alphas"):
+        return plain_fwd(w.ocp, p, w.alphas, w.inv_scale, *a)
+    return plain_bwd(w.ocp, p, w.inv_scale, *a)
 
 
 def _fleet_bwd_check(w, args, tag):
@@ -1763,7 +1811,7 @@ FLEET_BATCH = 1024
 
 def check_fleet_kernels(device, peak, kinds):
     """Phase 3, kernels A and B with per-scenario entries (their
-    instances ``<T, true>``) at the fleet's shape: the bench problem's
+    instances ``<T, true, true>``) at the fleet's shape: the bench problem's
     controller and starts (N=20, 3 step sizes, cost_scale 1e5) at batch
     1024 with all six entries per robot (``torch_problems.fleet_params``:
     references, previous inputs, Q and P rows of the task weight table,
@@ -2081,6 +2129,528 @@ def run_controllers(device, peak, full):
     return timings, launches, single
 
 
+# ---- the fixed terminal formulation (K4) and the long horizon ----
+FIXED = ("wholebody_fwd.fixed", "wholebody_bwd.fixed")
+
+
+def check_fixed_kernels(device, peak, kinds):
+    """Phase 3, kernels A and B of the fixed terminal formulation (statics
+    ``bug_compat`` 0: the self-collision rows of x_N in the terminal
+    group): on the qref bench problem built with
+    ``replicate_terminal_selfcol_bug=False`` against their plain versions,
+    timed, with their bounds (``[kernel]``), at the ragged batches 8191,
+    1000 and 1 (``[kernel-batch]``), and on the problem of
+    ``tests/torch_problems.py::selfcol_problem`` (batch 64, N=5, the arm
+    folded so the terminal self-collision rows are live; ``inputs=selfcol``)
+    with the excess over the tolerance of the bug-compatible kernel's
+    outputs there (``differs_by_tolerances``: on these inputs the two
+    settings must part); the kernels whose kind is in ``kinds``."""
+    from mmmpc_tpu_torch.bench import build_problem
+    from mmmpc_tpu_torch.utils.convert import params_from_numpy
+    _test_problems_path()
+    from torch_problems import selfcol_problem
+
+    mpc, x0, _, params = build_problem(BATCH, device,
+                                       replicate_terminal_selfcol_bug=False)
+    cfg = mpc.solver_config
+    fargs, bargs = _wholebody_args(mpc, x0, params,
+                                   np.random.default_rng(SEED), device)
+    fwd = mpc.ocp.lanes_fwd_factory(cfg, params)
+    bwd = mpc.ocp.lanes_bwd_factory(cfg, params)
+    if fwd.bug_compat or bwd.bug_compat:
+        raise AssertionError("the fixed controller's kernels are "
+                             "bug-compatible")
+    out = check_pair(FIXED, fwd, bwd, fargs, bargs,
+                     (mpc.N, BATCH, cfg.n_alpha, 9, 5, 28, 18),
+                     _wholebody_bwd_check, peak, kinds)
+
+    # the self-collision problem, both settings
+    sel = {}
+    for bug in (False, True):
+        smpc, sx0, _, sp = selfcol_problem(bug)
+        p = params_from_numpy(sp, device, torch.float32)
+        sf, sb = _wholebody_args(
+            smpc, torch.as_tensor(sx0, dtype=torch.float32, device=device), p,
+            np.random.default_rng(SEED), device)
+        sel[bug] = (smpc.ocp.lanes_fwd_factory(smpc.solver_config, p), sf,
+                    smpc.ocp.lanes_bwd_factory(smpc.solver_config, p), sb)
+    fwd_err = lambda g, r, a: max(_fwd_errors(FIXED[0], g, r))  # noqa: E731
+    bwd_err = lambda g, r, a: _wholebody_bwd_check(g, r)  # noqa: E731
+    for name, w, args, err, i, tol in (
+            (FIXED[0], fwd, fargs, fwd_err, 0, (2e-3, 2e-3)),
+            (FIXED[1], bwd, bargs, bwd_err, 2, (5e-3, 5e-3))):
+        if name.split(".")[0] not in kinds:
+            continue
+        check_batches(name, w.cuda, w.plain, args, err,
+                      lambda n, w=w: _wb_geometry(w, n))
+        sw, sa = sel[False][i], sel[False][i + 1]
+        got, ref = sw.cuda(*sa), sw.plain(*sa)
+        other = sel[True][i].cuda(*sel[True][i + 1])
+        torch.cuda.synchronize()
+        # A's rollout does not depend on the flag: its cost does
+        pairs = list(zip(got, other))[-1:] if i == 0 else zip(got, other)
+        excess = min(((g - o).abs() / (tol[1] + tol[0] * o.abs())).max()
+                     .item() for g, o in pairs)
+        _line("kernel-batch", name=name, inputs="selfcol", B=sa[0].shape[-1],
+              max_abs_err=f"{err(got, ref, sa):.4g}",
+              differs_by_tolerances=f"{excess:.4g}", **_wb_geometry(sw, 64))
+        if excess < 10:
+            raise AssertionError(f"{name}: the fixed and the bug-compatible "
+                                 f"kernels part by only {excess:.3g} "
+                                 f"tolerances on the self-collision problem")
+    return out
+
+
+# the fixed formulation's solve on the self-collision problem: the
+# schedule of tests/test_torch_fixed_terminal.py's whole solve
+SELFCOL_SOLVE = dict(al_iters=6, ilqr_iters=12)
+
+
+def run_fixed(device):
+    """Phase 13: the refined solve of ``bench.py``'s problem in the fixed
+    terminal formulation (``replicate_terminal_selfcol_bug=False``) at the
+    bench batch through A and B, each 94 launches a solve, 10 solves timed (not
+    profiled: a profile took 14.6 s of the phase), the bar.  On that problem
+    the terminal self-collision rows never win, so the rest runs on the problem
+    of ``tests/torch_problems.py::selfcol_problem`` (batch 64, N=5, the arm
+    folded; ``SELFCOL_SOLVE``), where the two settings part: the fused solve on
+    the card against the unfused one (A and E, launches counted) and against
+    the plain versions on the CPU (phase 6's gate), and against the
+    bug-compatible solve, which must part from it (the converged flags of fewer
+    than 95% of the robots, or the mean costs more than 5e-3, alike).  Returns
+    {kernel: launches} of the fused warm-up solve."""
+    from mmmpc_tpu_torch.bench import REFINE_CFG, SOLVER_CFG, build_problem
+    from mmmpc_tpu_torch.ops import riccati, wholebody_bwd, wholebody_fwd
+    from mmmpc_tpu_torch.parallel.data_parallel import (
+        controller_batched_fn, with_stats,
+    )
+    from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
+    from mmmpc_tpu_torch.utils.configs import SolverConfig
+    from mmmpc_tpu_torch.utils.convert import params_from_numpy
+    _test_problems_path()
+    from torch_problems import SELFCOL_CFG, selfcol_problem
+
+    mpc, x0, U0, params = build_problem(
+        BATCH, device, SOLVER_CFG, replicate_terminal_selfcol_bug=False)
+    run = with_stats(mpc.batch_solve_refined_fn(REFINE_CFG))
+    per_solve = iteration_count(SOLVER_CFG) + iteration_count(REFINE_CFG)
+    counters = {FIXED[0]: wholebody_fwd.LAUNCHES,
+                FIXED[1]: wholebody_bwd.LAUNCHES}
+    for c in counters.values():
+        c.reset()
+    res, stats = run(x0, U0, params)
+    torch.cuda.synchronize()
+    launches = count_launches(counters, per_solve, 1)
+    med, solves = report_timing("fixed-timing", run, (x0, U0, params), BATCH,
+                                counters, reps=REPS, profile=False)
+    count_launches(counters, per_solve, 1 + solves)
+    check_result(res, mpc, BATCH, device)
+    conv = float(stats.n_converged) / float(stats.n_solved)
+    maxv = float(stats.max_violation)
+    _line("fixed", batch=BATCH, solves_per_s_median=f"{BATCH / med:.1f}",
+          batch_latency_s_median=f"{med:.4f}",
+          converged_frac=f"{conv:.6f}", max_violation=f"{maxv:.3e}",
+          mean_cost=f"{float(stats.mean_cost):.4f}",
+          launches_per_solve=per_solve,
+          **{f"launches_{k}": v for k, v in launches.items()})
+    bar = _bar("wholebody_qref_fixed", conv, maxv)
+
+    # the self-collision problem: fused, unfused, the CPU, the other setting
+    out = {}
+    for tag, dev, fused, bug in (("fused", device, True, False),
+                                 ("unfused", device, False, False),
+                                 ("cpu", torch.device("cpu"), True, False),
+                                 ("bug_compat", device, True, True)):
+        cfg = SolverConfig(**dict(SELFCOL_CFG, **SELFCOL_SOLVE),
+                           use_fused_backward=fused)
+        smpc, sx0, sU0, sp = selfcol_problem(bug, cfg=cfg)
+        f32 = dict(dtype=torch.float32, device=dev)
+        args = (torch.as_tensor(sx0, **f32), torch.as_tensor(sU0, **f32),
+                params_from_numpy(sp, dev, torch.float32))
+        scount = ({FIXED[0]: wholebody_fwd.LAUNCHES} if dev.type == "cuda"
+                  else {})
+        scount.update({FIXED[1]: wholebody_bwd.LAUNCHES} if fused
+                      else {"riccati_bwd.9x5": riccati.LAUNCHES[(9, 5)]})
+        for c in (*scount.values(), wholebody_bwd.LAUNCHES):
+            c.reset()
+        out[tag] = controller_batched_fn(smpc)(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            count_launches(scount, iteration_count(cfg), 1,
+                           {} if fused else
+                           {"wholebody_bwd": wholebody_bwd.LAUNCHES})
+    _reference_gate("fixed-unfused-vs-fused", out["unfused"], out["fused"],
+                    problem="selfcol")
+    _reference_gate("fixed-reference", out["fused"], out["cpu"],
+                    problem="selfcol")
+    try:
+        _reference_gate("fixed-vs-bug-compat", out["bug_compat"],
+                        out["fused"], problem="selfcol")
+    except AssertionError:
+        pass            # they part, as they must
+    else:
+        raise AssertionError("fixed-vs-bug-compat: the two settings of "
+                             "replicate_terminal_selfcol_bug agree on the "
+                             "self-collision problem")
+    _bars_met("fixed", {"wholebody_qref_fixed": bar})
+    return launches
+
+
+# the long horizon: the kernels' horizons and batch, B's and E's reg there
+# (a value the solve's reg schedule reaches, at which their float32 sweeps
+# stay near float64 over 2000 stages; at the least reg, 1e-6, both float32
+# sweeps, the kernel's and the plain version's, land far from float64:
+# long_horizon_drift.py, PERF.md), and the benchmark's batches and horizons
+LONG_HORIZONS = (100, 500, 2000)
+LONG_BATCH = 64
+LONG_REG = 1e-2
+LONG_BENCH_BATCHES = (1, 8, 64)
+LONG_ROW_HORIZONS = (20, 100, 500)
+LONG_BENCH_REPS = 3
+
+
+def _long_check(tag, tols, plain64):
+    """check(got, ref, args) of a kernel's outputs at a long horizon: each
+    output within its (rtol, atol) of ``tols`` of the float32 plain version
+    (the bench tolerances); where entries miss it, held stage by stage to the
+    float64 plain version ``plain64(args)`` by
+    ``tests/torch_problems.py::drift_gate`` (on every stage the kernel's
+    largest error at most twice the float32 plain version's largest within 32
+    stages, or within the bench tolerance of the truth): over hundreds of
+    stages two float32 orders of the same rollout drift apart by a random walk
+    of roundings, the kernel's and the plain version's alike, so neither is the
+    truth entry by entry.  Prints which gate held (``[kernel-gate]``: ``plain``
+    or ``f64``); returns the max abs error against the float32 plain version."""
+    _test_problems_path()
+    from torch_problems import drift_gate
+
+    def check(got, ref, a):
+        worst, gate, truth = 0.0, "plain", None
+        for i, (g, r, (rtol, atol)) in enumerate(zip(got, ref, tols)):
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{tag} output {i}: not finite")
+            g, r = g.double(), r.double()
+            e = (g - r).abs()
+            off = e > atol + rtol * r.abs()
+            if off.any():
+                gate = "f64"
+                truth = plain64(a) if truth is None else truth
+                ratio, at = drift_gate(g, r, truth[i], rtol, atol)
+                _line("kernel-f64", name=tag, output=i,
+                      outside_plain_tol=int(off.sum()),
+                      kernel_err_f64=f"{(g - truth[i]).abs().max():.3e}",
+                      plain_f32_err_f64=f"{(r - truth[i]).abs().max():.3e}",
+                      worst_slice=at, worst_ratio_to_bound=f"{ratio:.3f}")
+                if ratio > 1.0:
+                    raise AssertionError(
+                        f"{tag} output {i}: at slice {at} the kernel is "
+                        f"{ratio:.3g} times its bound from the float64 "
+                        f"plain version")
+            worst = max(worst, e.max().item())
+        _line("kernel-gate", name=tag, gate=gate)
+        return worst
+    return check
+
+
+FWD_TOLS = ((0.0, 2e-5),) * 3 + ((2e-3, 2e-3),)
+BWD_TOLS = ((5e-3, 5e-3),) * 2
+
+
+def check_long_horizon_kernels(device, peak):
+    """Phase 14, first part: kernels A, B and E at N = 100, 500 and 2000 on
+    ``bench_longhorizon``'s problem at batch 64 (seeded inputs as phase 3's,
+    B's and E's reg ``LONG_REG``, A's feedback gains zero): one call against
+    one call of the plain version (``_long_check``: A at X / U atol 2e-5 and
+    cost rtol = atol 2e-3, B and E at 5e-3, or stage by stage no farther from
+    the float64 plain version than twice the float32 one within 32 stages), the
+    device ms a launch (a CUDA-graph replay of 5), the bound at that N, the
+    shared-memory bytes and the blocks an SM holds (``[long-kernel]``); then
+    the past-the-limit launch: A and B at the least N whose shared memory the
+    card does not allow must raise a ValueError naming N and the bytes
+    (``[long-limit]``).  Returns {kernel: launches}."""
+    from mmmpc_tpu_torch import bench_longhorizon
+    from mmmpc_tpu_torch.ops import riccati, wholebody_bwd, wholebody_fwd
+    from mmmpc_tpu_torch.ops._cuda import LIBRARY, shared_memory_optin
+    from mmmpc_tpu_torch.ops.riccati import (
+        launch_geometry as ric_geometry, plain_riccati_bm,
+        riccati_backward_bm,
+    )
+    from mmmpc_tpu_torch.solver.al_ilqr import (
+        stage_al_blocks, terminal_al_blocks,
+    )
+
+    lib = LIBRARY.get()
+    counters = {"wholebody_fwd": wholebody_fwd.LAUNCHES,
+                "wholebody_bwd": wholebody_bwd.LAUNCHES,
+                "riccati_bwd.9x5": riccati.LAUNCHES[(9, 5)]}
+    for c in counters.values():
+        c.reset()
+    for N in LONG_HORIZONS:
+        t0 = time.perf_counter()
+        mpc, x0, _, params = bench_longhorizon.build(N, LONG_BATCH, device)
+        cfg = mpc.solver_config
+        fargs, bargs = _wholebody_args(mpc, x0, params,
+                                       np.random.default_rng(SEED), device)
+        fwd = mpc.ocp.lanes_fwd_factory(cfg, params)
+        bwd = mpc.ocp.lanes_bwd_factory(cfg, params)
+        na = cfg.n_alpha
+        # B at LONG_REG, held to its float64 plain version where the
+        # float32 one drifts
+        X, U, lam, lamt, lame, mu, reg = bargs
+        reg = torch.full_like(reg, LONG_REG)
+        bargs = (*bargs[:-1], reg)
+        got, ref = bwd.cuda(*bargs), bwd.plain(*bargs)
+        torch.cuda.synchronize()
+        err = _long_check(f"wholebody_bwd N={N}", BWD_TOLS,
+                          lambda a: _plain_f64(bwd, a))(
+            got, ref, bargs)
+        geo = _wb_geometry(bwd, LONG_BATCH)
+        _line("long-kernel", name="wholebody_bwd", N=N, B=LONG_BATCH,
+              max_abs_err=f"{err:.3e}",
+              ms=f"{_kernel_ms(lambda: bwd.cuda(*bargs), 5):.4g}",
+              **_fmt(_bound([bwd.flat, X, U, lam, lamt, lame, reg], got,
+                            bwd_flops(N, LONG_BATCH, 9, 5), peak)),
+              smem_bytes=geo["smem_bytes"], blocks=geo["blocks"],
+              blocks_per_sm=wholebody_bwd.blocks_per_sm(
+                  lib, N, bwd.n_obs, bwd.n_hp))
+        # A, the same way, with the feedback K off: phase 3's random gains
+        # overflow the explicit Euler rollout over 2000 stages, and with
+        # B's gains the state's float32 rounding, times the gains, sets
+        # the inputs' error (long_horizon_drift.py); the feedforward stays
+        # random
+        fargs = (*fargs[:3], torch.zeros_like(fargs[3]), *fargs[4:])
+        got, ref = fwd.cuda(*fargs), fwd.plain(*fargs)
+        torch.cuda.synchronize()
+        err = _long_check(f"wholebody_fwd N={N}", FWD_TOLS,
+                          lambda a: _plain_f64(fwd, a))(
+            got, ref, fargs)
+        geo = _wb_geometry(fwd, LONG_BATCH)
+        _line("long-kernel", name="wholebody_fwd", N=N, B=LONG_BATCH,
+              max_abs_err=f"{err:.3e}",
+              ms=f"{_kernel_ms(lambda: fwd.cuda(*fargs), 5):.4g}",
+              **_fmt(_bound([fwd.flat, *fargs[:-1]], got,
+                            fwd_flops(N, LONG_BATCH, na, 9, 5, 28, 18),
+                            peak)),
+              smem_bytes=geo["smem_bytes"], blocks=geo["blocks"],
+              blocks_per_sm=wholebody_fwd.blocks_per_sm(
+                  lib, N, fwd.n_obs, fwd.n_hp, na))
+        # E on the expansion blocks of B's inputs
+        inv = 1.0 / cfg.cost_scale
+        blocks = (*stage_al_blocks(mpc.ocp, params, inv, X[:-1], U, lam, mu),
+                  *terminal_al_blocks(mpc.ocp, params, inv, X[-1], lamt, lame,
+                                      mu))
+        eargs = (*blocks, reg)
+        got, ref = riccati_backward_bm(*eargs), plain_riccati_bm(*eargs)
+        torch.cuda.synchronize()
+        err = _long_check(
+            f"riccati_bwd.9x5 N={N}", BWD_TOLS,
+            lambda a: plain_riccati_bm(*(t.double() for t in a)))(
+                got, ref, eargs)
+        _line("long-kernel", name="riccati_bwd.9x5", N=N, B=LONG_BATCH,
+              max_abs_err=f"{err:.3e}",
+              ms=f"{_kernel_ms(lambda: riccati_backward_bm(*eargs), 5):.4g}",
+              **_fmt(_bound(eargs, got, ric_flops(N, LONG_BATCH, 9, 5),
+                            peak)),
+              **ric_geometry(9, 5, LONG_BATCH))
+        _line("long-kernel-seconds", N=N,
+              seconds=f"{time.perf_counter() - t0:.1f}")
+    launches = {k: c.cuda for k, c in counters.items()}
+
+    # past the limit: the least N whose blocks the card does not allow
+    limit = shared_memory_optin(device.index)
+    for name, mod in (("wholebody_fwd", wholebody_fwd),
+                      ("wholebody_bwd", wholebody_bwd)):
+        def smem(n, mod=mod):
+            w = types.SimpleNamespace(N=n, n_obs=3, n_hp=3, moving=False,
+                                      ps=types.SimpleNamespace(mask=0),
+                                      **({"alphas": (1.0,) * 4}
+                                         if mod is wholebody_fwd else {}))
+            return _wb_geometry(w, 1)["smem_bytes"]
+        lo, hi = 20, 20
+        while smem(hi) <= limit:
+            lo, hi = hi, 2 * hi
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if smem(mid) <= limit else (lo, mid)
+        mpc, x0, _, params = bench_longhorizon.build(hi, 1, device)
+        fargs, bargs = _wholebody_args(mpc, x0, params,
+                                       np.random.default_rng(SEED), device)
+        w = (mpc.ocp.lanes_fwd_factory if mod is wholebody_fwd
+             else mpc.ocp.lanes_bwd_factory)(mpc.solver_config, params)
+        before = mod.LAUNCHES.cuda
+        try:
+            w.cuda(*(fargs if mod is wholebody_fwd else bargs))
+        except ValueError as e:
+            msg = str(e)
+        else:
+            raise AssertionError(f"{name} at N={hi} ({smem(hi)} B) launched")
+        if f"N={hi}" not in msg or str(smem(hi)) not in msg or \
+                mod.LAUNCHES.cuda != before:
+            raise AssertionError(f"{name}: {msg!r}")
+        _line("long-limit", name=name, optin_bytes=limit, last_N_that_fits=lo,
+              its_bytes=smem(lo), refused_N=hi, refused_bytes=smem(hi),
+              raised=repr(msg))
+    return launches
+
+
+def _sweep_checks(mpc, x0, U0, params, cfg):
+    """The two routes' sweeps on one row's first expansion (the rollout of
+    U0 from x0, zero multipliers, the first penalty), with the float32
+    blocks the route hands its sweep: (1) both sweeps in float64 at reg
+    1e-14, where the assoc sweep's regularised input elimination and the
+    sequential sweep's coincide: their largest gap over the largest entry
+    (``sweep_gap``, gated under 1e-6); (2) the assoc sweep in float32 on
+    the card at ``LONG_REG``, held stage by stage to its float64 version by
+    ``drift_gate`` against the same float32 sweep on the CPU, at 5e-3
+    (``f32_ratio``, gated at most 1; at the least reg both float32 sweeps
+    land far from float64 and part from each other by chance, as B's and
+    E's do); (3) at reg_init, the route's first sweep, how far the float32
+    assoc sweep on the card lands from the float64 sequential one, over its
+    largest entry (``f32_vs_seq``, printed), and the float64 assoc sweep's
+    (``f64_vs_seq``: the reg in the input elimination alone)."""
+    from mmmpc_tpu_torch.ops.assoc_riccati import assoc_riccati_backward_bm
+    from mmmpc_tpu_torch.ops.riccati import plain_riccati_bm
+    from mmmpc_tpu_torch.solver.al_ilqr import (
+        rollout, stage_al_blocks, terminal_al_blocks,
+    )
+    _test_problems_path()
+    from torch_problems import drift_gate
+
+    B, N = x0.shape[0], mpc.N
+    z = dict(dtype=torch.float32, device=x0.device)
+    X, U = rollout(mpc.ocp, x0.T, U0.permute(1, 2, 0), params)
+    inv = 1.0 / cfg.cost_scale
+    blocks = (*stage_al_blocks(mpc.ocp, params, inv, X[:-1], U,
+                               torch.zeros(N, 28, B, **z), cfg.mu_init),
+              *terminal_al_blocks(mpc.ocp, params, inv, X[-1],
+                                  torch.zeros(18, B, **z),
+                                  torch.zeros(2, B, **z), cfg.mu_init))
+    b64 = [t.double() for t in blocks]
+
+    def reg(r, dtype=torch.float64):
+        return torch.full((B,), r, dtype=dtype, device=x0.device)
+
+    gap = max(((a - q).abs().max() / q.abs().max()).item() for a, q in zip(
+        assoc_riccati_backward_bm(*b64, reg(1e-14)),
+        plain_riccati_bm(*b64, reg(1e-14))))
+    r32 = reg(LONG_REG, torch.float32)
+    got = assoc_riccati_backward_bm(*blocks, r32)
+    ref = assoc_riccati_backward_bm(*(t.cpu() for t in blocks), r32.cpu())
+    truth = assoc_riccati_backward_bm(*b64, reg(LONG_REG))
+    ratio = max(drift_gate(g, r.to(g.device), t, 5e-3, 5e-3)[0]
+                for g, r, t in zip(got, ref, truth))
+    seq = plain_riccati_bm(*b64, reg(cfg.reg_init))
+
+    def apart(xs):
+        return max(((x.double() - q).abs().max() / q.abs().max()).item()
+                   for x, q in zip(xs, seq))
+    return {"sweep_gap": gap, "f32_ratio": ratio,
+            "f32_vs_seq": apart(assoc_riccati_backward_bm(
+                *blocks, reg(cfg.reg_init, torch.float32))),
+            "f64_vs_seq": apart(assoc_riccati_backward_bm(
+                *b64, reg(cfg.reg_init)))}
+
+
+def run_long_horizon_rows(device):
+    """Phase 14, second part: ``bench_longhorizon``'s rows at batch 1, 8
+    and 64 and N = 20, 100, 500 (at N = 2000 neither route's solve leaves
+    the initial guess, in the port as in the JAX package, so that row
+    would time refused line searches), the sequential route (kernels B and
+    A) against the assoc route (the expansion, ``ops/assoc_riccati.py`` and
+    A): a warm-up and ``LONG_BENCH_REPS`` solves each timed alone (the
+    median, the least and the most), with the counters reset before each
+    route: the sequential route launches B once an iteration and calls no
+    assoc sweep, the assoc route launches no backward kernel (B, E) and
+    calls the assoc sweep once an iteration; A launches once an iteration
+    in both; every result finite.  Each row prints the routes' converged
+    shares, the share of robots whose inputs left the initial guess, their
+    relative mean cost and shared converged flags (not gated: on this
+    problem the two routes' iterates part in the JAX package too, by up to
+    a third of the mean cost; ``tests/test_torch_assoc_solve.py``) and
+    ``_sweep_checks`` on the row's first expansion, two of them gated
+    (``[long-horizon]``).  Returns the rows and {kernel: launches}."""
+    from mmmpc_tpu_torch import bench_longhorizon
+    from mmmpc_tpu_torch.ops import (
+        assoc_riccati, riccati, wholebody_bwd, wholebody_fwd,
+    )
+    from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
+
+    cfg0 = bench_longhorizon.CFG
+    per_solve = iteration_count(cfg0)
+    solves = 1 + LONG_BENCH_REPS
+    counters = {"wholebody_fwd": wholebody_fwd.LAUNCHES,
+                "wholebody_bwd": wholebody_bwd.LAUNCHES,
+                "riccati_bwd.9x5": riccati.LAUNCHES[(9, 5)],
+                "assoc": assoc_riccati.CALLS}
+    total = {"wholebody_fwd": 0, "wholebody_bwd": 0}
+    rows = []
+    for batch in LONG_BENCH_BATCHES:
+        for N in LONG_ROW_HORIZONS:
+            mpc, x0, U0, params = bench_longhorizon.build(N, batch, device)
+            row, res = {"N": N, "batch": batch}, {}
+            for name, assoc in (("scan", False), ("assoc", True)):
+                for c in counters.values():
+                    c.reset()
+                cfg = dataclasses.replace(cfg0, use_assoc_scan=assoc)
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", UserWarning)
+                    times, res[name] = bench_longhorizon.time_solve(
+                        mpc, x0, U0, params, cfg, LONG_BENCH_REPS)
+                n = {k: (c.cuda, c.plain) for k, c in counters.items()}
+                want = {"wholebody_fwd": (per_solve * solves, 0),
+                        "wholebody_bwd": (0 if assoc else
+                                          per_solve * solves, 0),
+                        "riccati_bwd.9x5": (0, 0),
+                        "assoc": (per_solve * solves if assoc else 0, 0)}
+                if n != want:
+                    raise AssertionError(f"long-horizon N={N} batch={batch} "
+                                         f"{name}: calls {n}, expected {want}")
+                if not all(torch.isfinite(t).all() for t in (
+                        res[name].X, res[name].U, res[name].cost)):
+                    raise AssertionError(f"long-horizon N={N} batch={batch} "
+                                         f"{name}: non-finite result")
+                total["wholebody_fwd"] += n["wholebody_fwd"][0]
+                total["wholebody_bwd"] += n["wholebody_bwd"][0]
+                row[f"{name}_ms"] = float(np.median(times))
+                row[f"{name}_ms_min"] = min(times)
+                row[f"{name}_ms_max"] = max(times)
+                row[f"{name}_converged"] = float(
+                    res[name].converged.float().mean())
+                row[f"{name}_moved"] = float(
+                    (res[name].U != U0).flatten(1).any(1).float().mean())
+                row[f"{name}_assoc_calls"] = n["assoc"][0]
+                row[f"{name}_bwd_launches"] = n["wholebody_bwd"][0]
+            row["rel_mean_cost"] = (
+                abs(float(res["assoc"].cost.mean())
+                    - float(res["scan"].cost.mean()))
+                / abs(float(res["scan"].cost.mean())))
+            row["same_converged"] = float(
+                (res["scan"].converged == res["assoc"].converged)
+                .float().mean())
+            row.update(_sweep_checks(mpc, x0, U0, params, cfg0))
+            _line("long-horizon", **_fmt(row),
+                  speedup_assoc=f"{row['scan_ms'] / row['assoc_ms']:.3f}")
+            rows.append(row)
+    apart = [(r["N"], r["batch"]) for r in rows
+             if not (r["sweep_gap"] < 1e-6 and r["f32_ratio"] <= 1.0)]
+    if apart:
+        raise AssertionError(f"long-horizon: the sweeps disagree at "
+                             f"(N, batch) {apart}")
+    return rows, total
+
+
+def run_long_horizon(device, peak):
+    """Phase 14 (also alone with ``--long-horizon``): the kernels at long
+    horizons and the benchmark's rows, each part's seconds a
+    ``[phase]`` line.  Returns {kernel: launches} in the phase."""
+    launches = _phase("long-horizon-kernels", check_long_horizon_kernels,
+                      device, peak)
+    _, total = _phase("long-horizon-rows", run_long_horizon_rows, device)
+    for k, v in total.items():
+        launches[k] += v
+    return launches
+
+
 def run_cuda_tests():
     """Phase 3b: the ``cuda``-marked tests of ``tests/test_torch_cuda.py``
     (no JAX there), in a pytest process of their own from the checkout's
@@ -2112,12 +2682,13 @@ def main(argv):
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     if not (argv in ([], ["--kernels"], ["--closed-loop"], ["--moving-obs"],
-                     ["--fleet"], ["--controllers"])
+                     ["--fleet"], ["--controllers"], ["--fixed"],
+                     ["--long-horizon"])
             or (argv[:1] == ["--kernel"] and len(argv) == 2
                 and argv[1] in KINDS)):
         print(f"chip_smoke: usage: [--kernels | --closed-loop | --moving-obs "
-              f"| --fleet | --controllers | --kernel one of "
-              f"{', '.join(KINDS)}]", file=sys.stderr)
+              f"| --fleet | --controllers | --fixed | --long-horizon | "
+              f"--kernel one of {', '.join(KINDS)}]", file=sys.stderr)
         return 2
     from mmmpc_tpu_torch.bench import SOLVER_CFG, build_problem
     from mmmpc_tpu_torch.ops._cuda import LIBRARY
@@ -2152,6 +2723,12 @@ def main(argv):
     if argv == ["--controllers"]:
         _phase("controllers", run_controllers, device, None, True)
         return 0
+    if argv == ["--fixed"]:
+        _phase("fixed", run_fixed, device)
+        return 0
+    if argv == ["--long-horizon"]:
+        _phase("long-horizon", run_long_horizon, device, None)
+        return 0
     timings, peak = {}, None
     kinds = set(argv[1:]) if argv[:1] == ["--kernel"] else set(KINDS)
     if "fma_peak" in kinds:
@@ -2167,6 +2744,8 @@ def main(argv):
         timings.update(_phase("kernels-moving", check_moving_kernels, device,
                               peak, kinds))
         timings.update(_phase("kernels-fleet", check_fleet_kernels, device,
+                              peak, kinds))
+        timings.update(_phase("kernels-fixed", check_fixed_kernels, device,
                               peak, kinds))
     if kinds & {"generic_fwd", "generic_bwd", "riccati_bwd"}:
         timings.update(_phase("kernels-generic", check_generic, device, peak,
@@ -2198,6 +2777,8 @@ def main(argv):
         "controllers", run_controllers, device, peak, False)
     timings.update(cart_timings)
     launches.update(cart_launches)
+    launches.update(_phase("fixed", run_fixed, device))
+    long_launches = _phase("long-horizon", run_long_horizon, device, peak)
     # A and B launch their fleet instances in the fleet's ticks
     fleet_launches.update({name.split(".")[0]: n
                            for name, n in fleet_launches.items()})
@@ -2221,7 +2802,9 @@ def main(argv):
             **({"launches_fleet": fleet_launches[name]}
                if name in fleet_launches else {}),
             **({"launches_single_robot": single_launches[name]}
-               if name in single_launches else {})})
+               if name in single_launches else {}),
+            **({"launches_long_horizon": long_launches[name]}
+               if name in long_launches else {})})
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -35,16 +35,21 @@ REFINE_CFG = continue_mu(SOLVER_CFG, SOLVER_CFG.al_iters,
 
 
 def build_problem_numpy(batch: int, N: int = N,
-                        solver_config: SolverConfig = SOLVER_CFG):
+                        solver_config: SolverConfig = SOLVER_CFG,
+                        replicate_terminal_selfcol_bug: bool = True):
     """(mpc, x0_b (batch, 9), params) as host data: the perturbed
     manipulate-phase starts (the hard regime: every constraint family
-    active) and the joint-space reference towards q_target."""
+    active) and the joint-space reference towards q_target;
+    ``replicate_terminal_selfcol_bug=False`` builds the controller of the
+    fixed terminal formulation."""
     sc = make_scenario(1, N=N)
     hp = [(sc.hp_points[j], sc.hp_normals[j][None, :])
           for j in range(int(sc.hp_mask.sum()))]
     obstacles = [Obstacles(*row) for row in sc.ground_obstacles]
     mpc = MPCWholeBody(MobileManipulator(sc.dt), obstacles, hp, N=N,
-                       solver_config=solver_config)
+                       solver_config=solver_config,
+                       replicate_terminal_selfcol_bug=(
+                           replicate_terminal_selfcol_bug))
 
     rng = np.random.default_rng(0)
     x0 = np.array([4.45, 5.06, -np.pi, 0, 0, 0, -np.pi / 4, -np.pi, np.pi])
@@ -59,13 +64,15 @@ def build_problem_numpy(batch: int, N: int = N,
 
 
 def build_problem(batch: int, device,
-                  solver_config: SolverConfig = SOLVER_CFG):
+                  solver_config: SolverConfig = SOLVER_CFG,
+                  replicate_terminal_selfcol_bug: bool = True):
     """(mpc, x0_b (batch, 9), U0_b (batch, N, 5), params) in float32 on
     ``device``, the kernels' dtype; ``solver_config`` is the stage-1
     schedule (``dataclasses.replace(SOLVER_CFG, use_fused_backward=False)``
     for the unfused backward path)."""
-    mpc, x0_b, params = build_problem_numpy(batch,
-                                            solver_config=solver_config)
+    mpc, x0_b, params = build_problem_numpy(
+        batch, solver_config=solver_config,
+        replicate_terminal_selfcol_bug=replicate_terminal_selfcol_bug)
     kw = dict(dtype=torch.float32, device=device)
     return (mpc, torch.as_tensor(x0_b, **kw), torch.zeros(batch, N, 5, **kw),
             params_from_numpy(params, device, torch.float32))

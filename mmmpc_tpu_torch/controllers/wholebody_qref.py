@@ -12,8 +12,11 @@ MPC with
   against the stale stage slack s[N-1]), as the JAX controller's default
   ``replicate_terminal_selfcol_bug=True`` has it: the self-collision values
   of x_N = f(x_{N-1}, u_{N-1}) ride stage N-1's slack group, and the
-  terminal slack group has no self-collision rows.  The other setting is
-  not ported.
+  terminal slack group has no self-collision rows.  With
+  ``replicate_terminal_selfcol_bug=False`` (the fixed formulation) stage
+  N-1's group is a stage group like the others and the terminal group
+  holds the self-collision rows of x_N, after its ground circles and
+  half-planes, in the JAX controller's order.
 
 The JAX controller differentiates the slack group with ``jax.value_and_grad``;
 here its gradient is closed form (world-point Jacobians of the FK, the even
@@ -116,22 +119,25 @@ def _combine(coefs, pts, jac):
             torch.einsum("rk,...kcj->...rcj", C, jac))
 
 
-def _slack_rows_with_grad(x, p, obs, base_radius, ground=True, selfcol=True,
-                          hp=True):
-    """Slack-group values (..., G) and their state gradients (..., G, 9),
-    rows ordered [ground circles (of the obstacle rows ``obs``),
-    self-collision, half-plane unions]."""
+def _slack_rows_with_grad(x, p, obs, base_radius,
+                          families=("ground", "self", "hp")):
+    """Slack-group values (..., G) and their state gradients (..., G, 9):
+    the rows of each of ``families`` in its order, of the ground circles
+    (of the obstacle rows ``obs``), the self-collision spheres and the
+    half-plane unions."""
     pts, J = _world_points_jacobian(x)
     rows = []
-    if ground:
-        v, g = ground_circle_g_grad(x[..., 0], x[..., 1], obs, base_radius)
-        rows.append((v, torch.nn.functional.pad(g, (0, 7))))
-    if selfcol:
-        rows.append(sphere_g_grad(*_combine(_SELF_DIFF, pts, J)))
-    if hp:
-        rows.append(halfplane_union_g_grad(
-            *_combine(_HP_POINTS, pts, J), p["hp_points"], p["hp_normals"],
-            p["hp_mask"]))
+    for family in families:
+        if family == "ground":
+            v, g = ground_circle_g_grad(x[..., 0], x[..., 1], obs,
+                                        base_radius)
+            rows.append((v, torch.nn.functional.pad(g, (0, 7))))
+        elif family == "self":
+            rows.append(sphere_g_grad(*_combine(_SELF_DIFF, pts, J)))
+        else:
+            rows.append(halfplane_union_g_grad(
+                *_combine(_HP_POINTS, pts, J), p["hp_points"],
+                p["hp_normals"], p["hp_mask"]))
     return (torch.cat([v for v, _ in rows], dim=-1),
             torch.cat([g for _, g in rows], dim=-2))
 
@@ -179,11 +185,13 @@ class MPCWholeBody(ControllerBase):
                  S=_DEFAULT_S, W=_DEFAULT_W,
                  ulim=_DEFAULT_ULIM, xlim=_DEFAULT_XLIM, dulim=_DEFAULT_DULIM,
                  solver_config: SolverConfig | None = None, device=None,
+                 replicate_terminal_selfcol_bug: bool = True,
                  moving_obstacles: bool = False):
         self.robot_model = robot
         self.dt = robot.dt
         self.base_radius = robot.base.base_radius()
         self.moving_obstacles = moving_obstacles
+        self.replicate_terminal_selfcol_bug = replicate_terminal_selfcol_bug
 
         # runtime weight state (reference setWeight mechanism)
         self.Q_value = as_weight_matrix(Q, self.NX)
@@ -225,6 +233,7 @@ class MPCWholeBody(ControllerBase):
         x_lo, x_hi, x_mlo, x_mhi = self.x_bounds
         du_lo, du_hi, du_mlo, du_mhi = self.du_bounds
         moving = self.moving_obstacles
+        bug_compat = self.replicate_terminal_selfcol_bug
 
         def dynamics(x, u):
             return wholebody_step(x, u, dt)
@@ -260,16 +269,18 @@ class MPCWholeBody(ControllerBase):
             return self_collision_g(pose_ee[..., :3], j2, j3)
 
         def stage_slack_g(x, u, k, p):
-            # terminal self-collision rides stage N-1's slack (the
-            # reference's stale loop index)
-            g_term = torch.where(last_stage(k, x),
-                                 terminal_selfcol(dynamics(x, u)), NEG_BIG)
-            return torch.cat(slack_group(x, p, stage_obs(p, k, x))
-                             + (g_term,), dim=-1)
+            g = slack_group(x, p, stage_obs(p, k, x))
+            if bug_compat:
+                # terminal self-collision rides stage N-1's slack (the
+                # reference's stale loop index)
+                g += (torch.where(last_stage(k, x),
+                                  terminal_selfcol(dynamics(x, u)), NEG_BIG),)
+            return torch.cat(g, dim=-1)
 
         def terminal_slack_g(x, p):
-            g_ground, _, g_hp = slack_group(x, p, terminal_obs(p))
-            return torch.cat([g_ground, g_hp], dim=-1)
+            g_ground, g_self, g_hp = slack_group(x, p, terminal_obs(p))
+            return torch.cat([g_ground, g_hp]
+                             + ([] if bug_compat else [g_self]), dim=-1)
 
         def stage_slack_grad(x, u, k, p):
             """(smax, d smax / d[x; u]) of the stage slack group."""
@@ -277,20 +288,23 @@ class MPCWholeBody(ControllerBase):
                                              base_radius)
             gu = torch.zeros(gx.shape[:-1] + (nu,), dtype=x.dtype,
                              device=x.device)
-            tv, tg = _slack_rows_with_grad(dynamics(x, u), p, None,
-                                           base_radius, ground=False,
-                                           hp=False)
-            A, Bm = wholebody_jacobians(x, u, dt)
-            last = last_stage(k, x)
-            vals = torch.cat([vals, torch.where(last, tv, NEG_BIG)], -1)
-            # chain rule through the dynamics step
-            gx = torch.cat([gx, torch.where(last[..., None], tg @ A, 0.0)], -2)
-            gu = torch.cat([gu, torch.where(last[..., None], tg @ Bm, 0.0)], -2)
+            if bug_compat:
+                tv, tg = _slack_rows_with_grad(dynamics(x, u), p, None,
+                                               base_radius, ("self",))
+                A, Bm = wholebody_jacobians(x, u, dt)
+                last = last_stage(k, x)
+                vals = torch.cat([vals, torch.where(last, tv, NEG_BIG)], -1)
+                # chain rule through the dynamics step
+                gx = torch.cat([gx, torch.where(last[..., None], tg @ A,
+                                                0.0)], -2)
+                gu = torch.cat([gu, torch.where(last[..., None], tg @ Bm,
+                                                0.0)], -2)
             return relu_max_grad(vals, torch.cat([gx, gu], dim=-1))
 
         def terminal_slack_grad(x, p):
-            vals, gx = _slack_rows_with_grad(x, p, terminal_obs(p),
-                                             base_radius, selfcol=False)
+            vals, gx = _slack_rows_with_grad(
+                x, p, terminal_obs(p), base_radius,
+                ("ground", "hp") if bug_compat else ("ground", "hp", "self"))
             return relu_max_grad(vals, gx)
 
         def errors(x, u, k, p):
@@ -445,7 +459,8 @@ class MPCWholeBody(ControllerBase):
         # ---- fused kernels (ops/wholebody_fwd.py, ops/wholebody_bwd.py) ----
         kernel_cfg = dict(dt=dt, base_radius=base_radius, n_obs=self.n_obs,
                           n_hp=self.n_hp, x_bounds=self.x_bounds,
-                          du_bounds=self.du_bounds, moving=moving)
+                          du_bounds=self.du_bounds, moving=moving,
+                          bug_compat=bug_compat)
 
         def lanes_fwd_factory(cfg, params):
             alphas = [cfg.alpha_decay ** i for i in range(cfg.n_alpha)]

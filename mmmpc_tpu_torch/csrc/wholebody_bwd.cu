@@ -28,7 +28,8 @@
 // - The stage's AL expansion, split: the four sincos of the forward
 //   kinematics on four lanes, exchanged by shuffles; the rows of the slack
 //   group (half-plane samples, ground circles, self-collision spheres, and
-//   at k = N-1 the stale terminal self-collision rows) as a list of items
+//   at k = N-1 the stale terminal self-collision rows when bug-compatible)
+//   as a list of items
 //   over the lanes, each into its own relu(max) accumulator, merged across
 //   the team by a butterfly of shuffles under MaxAcc's rules (a larger max
 //   replaces, equal maxima add counts and gradient sums, NaN stays NaN), so
@@ -62,7 +63,7 @@
 //   kernel's moving branch.  A static problem has one row that every stage
 //   reads (a row stride of 0).
 // - Per-scenario entries (statics ST_PS, the fleet's: the TPU kernel's
-//   ps_* operands), in the instance bwd_kernel<T, true>: any subset of
+//   ps_* operands), in the instances bwd_kernel<T, true, .>: any subset of
 //   U_last, X_ref, U_ref, Q, P and eq_mask.  Stage k's X_ref, U_ref and
 //   U_last rows ride the stage buffer (NPS = 19 floats a scenario more,
 //   loaded one stage ahead with x, u and lam), X_ref's row N, the P
@@ -74,12 +75,21 @@
 //   the terminal expansion, then Q's for the stages), which the rows read
 //   in place of the shared matrix, the static kernel's code on another
 //   pointer (branches on the diagonal spilled registers).
-//   The instance bwd_kernel<T, false> of the shared params reads none of
+//   The instances bwd_kernel<T, false, .> of the shared params read none of
 //   them.
 // - The sparse A = I + E and B are applied through their live entries
 //   (struct Jac), the counterpart of the TPU kernel's trace-time literal
 //   folding.  The stale-slack-index rows of the reference (terminal
 //   self-collision on stage N-1) are chained through A and B at k = N-1.
+// - The fixed terminal formulation (statics ST_BUG_COMPAT = 0, the TPU
+//   kernel's bug_compat=False branch), in the instances
+//   bwd_kernel<T, PS, false>: stage N-1 runs the stage group of the other
+//   stages, and the terminal expansion takes the self-collision rows of
+//   x_N as items after its circles and half-planes, their gradients into
+//   its accumulator, split over the team as a stage's rows are.  The
+//   bug-compatible instances <T, PS, true> are the code they were before
+//   the flag: read at run time, it moved this kernel's registers (128 to
+//   125).
 // - No tensor cores: the products are 9 x 9 and 5 x 9 per scenario and
 //   sparse through A and B, a wgmma tile has 64 rows (mostly padding here),
 //   and TF32 keeps about three decimal digits, which a 20-stage Riccati
@@ -90,6 +100,7 @@
 // the team's FK, the merge) is written below.  The cp.async wrappers are
 // in cp_async.cuh, shared with kernel A.
 #include <cstring>
+#include <type_traits>
 
 #include "cp_async.cuh"
 #include "wholebody_common.cuh"
@@ -350,22 +361,22 @@ struct AllIdx {
 // The stage's slack group over the team (its circles those of the
 // obstacle row ob): each lane runs its items of the list into its own
 // accumulator, the team merges them, and the lanes write the scaled
-// gradient (sx, su) to the tile.  NV = NX: no stale rows (every su is 0);
-// NV = NX + NU: stage N-1, with the stale rows.  Returns smax.
-template <int T, int NV>
+// gradient (sx, su) to the tile.  NV = NX: the gradient in x alone (every
+// su is 0); NV = NX + NU: in x and u, stage N-1's, with the stale rows when
+// STALE (bug-compatible).  Returns smax.
+template <int T, int NV, bool STALE>
 __device__ __forceinline__ float stage_slack(
     const float* x, const float* u, const FK& f, const Jac& J, float dt,
     const float* ob, const float* hf, int n_obs, int n_hp, int n_hpi,
     float base_radius, int lane, TeamTile& tt) {
   MaxAcc<NV> m;
   m.init();
-  constexpr bool stale = NV == NX + NU;
   for (int it = lane; it < n_hpi + n_obs + 4; it += T) {
     if (it < n_hpi) halfplane_item<NV>(it, f, hf, n_hp, m);
     else if (it < n_hpi + n_obs) ground_item<NV>(it - n_hpi, x, ob, base_radius, m);
     else self_item<NV>(it - n_hpi - n_obs, f, m);
   }
-  if constexpr (stale) {
+  if constexpr (STALE) {
     // terminal self-collision at x_N = f(x, u), chained through A and B
     // (a loop of its own, after f is dead but for its yaw)
     const float cp = f.cp, sp = f.sp;
@@ -383,7 +394,7 @@ __device__ __forceinline__ float stage_slack(
       m.add(t.gmax, g);
     }
   }
-  if constexpr (stale) merge_team<T, AllIdx>(m);
+  if constexpr (NV == NX + NU) merge_team<T, AllIdx>(m);
   else merge_team<T, FkIdx>(m);
   const float gs = m.grad_scale();
 #pragma unroll
@@ -392,7 +403,7 @@ __device__ __forceinline__ float stage_slack(
   return m.smax();
 }
 
-template <int T, bool PS>
+template <int T, bool PS, bool BUG>
 __global__ void __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS)
 bwd_kernel(const Statics st, const float* __restrict__ pp,
            const float* __restrict__ X, const float* __restrict__ U,
@@ -551,10 +562,19 @@ bwd_kernel(const Statics st, const float* __restrict__ pp,
     fk_team<T>(x, lane, f);
     MaxAcc<NX> m;
     m.init();
-    // no self-collision rows: they rode stage N-1's slack group
-    for (int it = lane; it < n_obs + n_hpi; it += T) {
-      if (it < n_obs) ground_item<NX>(it, x, ob0 + N * ostride, base_radius, m);
-      else halfplane_item<NX>(it - n_obs, f, hf, n_hp, m);
+    if constexpr (BUG) {
+      // no self-collision rows: they rode stage N-1's slack group
+      for (int it = lane; it < n_obs + n_hpi; it += T) {
+        if (it < n_obs) ground_item<NX>(it, x, ob0 + N * ostride, base_radius, m);
+        else halfplane_item<NX>(it - n_obs, f, hf, n_hp, m);
+      }
+    } else {
+      // the circles, the half-planes, then the self-collision rows
+      for (int it = lane; it < n_obs + n_hpi + 4; it += T) {
+        if (it < n_obs) ground_item<NX>(it, x, ob0 + N * ostride, base_radius, m);
+        else if (it < n_obs + n_hpi) halfplane_item<NX>(it - n_obs, f, hf, n_hp, m);
+        else self_item<NX>(it - n_obs - n_hpi, f, m);
+      }
     }
     merge_team<T, FkIdx>(m);
     const float smax = m.smax();
@@ -628,11 +648,16 @@ bwd_kernel(const Statics st, const float* __restrict__ pp,
       FK f;
       fk_team<T>(x, lane, f);
       J = jacobians(x, u, dt, f.cp, f.sp);
+      // stage N-1 in the 14-wide accumulator in the fixed instances too:
+      // with stage_slack<T, NX> at every stage the fleet's fixed instance
+      // spilled 4 bytes
       smax = k == N - 1
-          ? stage_slack<T, NX + NU>(x, u, f, J, dt, ob0 + k * ostride, hf,
-                                    n_obs, n_hp, n_hpi, base_radius, lane, tt)
-          : stage_slack<T, NX>(x, u, f, J, dt, ob0 + k * ostride, hf, n_obs,
-                               n_hp, n_hpi, base_radius, lane, tt);
+          ? stage_slack<T, NX + NU, BUG>(x, u, f, J, dt, ob0 + k * ostride,
+                                         hf, n_obs, n_hp, n_hpi, base_radius,
+                                         lane, tt)
+          : stage_slack<T, NX, false>(x, u, f, J, dt, ob0 + k * ostride, hf,
+                                      n_obs, n_hp, n_hpi, base_radius, lane,
+                                      tt);
     }
     __syncwarp();
     const float Ssm = S * smax;
@@ -849,7 +874,7 @@ inline Geometry bwd_geometry(int N, int n_obs, int n_hp, bool moving, bool ps,
           bwd_smem_bytes(BWD_TEAM, N, n_obs, n_hp, moving, ps)};
 }
 
-template <bool PS>
+template <bool PS, bool BUG>
 int bwd_launch(const Statics& st, const float* params, const float* X,
                const float* U, const float* lam, const float* lamt,
                const float* lame, const PerScen& psx, const float* reg,
@@ -860,11 +885,12 @@ int bwd_launch(const Statics& st, const float* params, const float* X,
       st.v[ST_MOVING] != 0.f, PS, B);
   if (g.smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        bwd_kernel<BWD_TEAM, PS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bwd_kernel<BWD_TEAM, PS, BUG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         g.smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  bwd_kernel<BWD_TEAM, PS><<<g.blocks, g.threads, g.smem, stream>>>(
+  bwd_kernel<BWD_TEAM, PS, BUG><<<g.blocks, g.threads, g.smem, stream>>>(
       st, params, X, U, lam, lamt, lame, psx, reg, kff, K, mu, N, B);
   return static_cast<int>(cudaGetLastError());
 }
@@ -885,10 +911,38 @@ extern "C" int wb_bwd_geometry(int N, int n_obs, int n_hp, int moving,
   return 0;
 }
 
+// The kernel instance wb_bwd_launch picks for the statics' per-scenario
+// mask and bug_compat flag.
+const void* bwd_instance(bool ps, bool bug) {
+  using wb::bwd_kernel;
+  constexpr int T = wb::BWD_TEAM;
+  return ps ? (bug ? reinterpret_cast<const void*>(bwd_kernel<T, true, true>)
+                   : reinterpret_cast<const void*>(bwd_kernel<T, true, false>))
+            : (bug ? reinterpret_cast<const void*>(bwd_kernel<T, false, true>)
+                   : reinterpret_cast<const void*>(bwd_kernel<T, false, false>));
+}
+
+// The blocks of the launch of wb_bwd_geometry that one SM holds, as the CUDA
+// runtime reports them (out[0]), for the instance wb_bwd_launch picks; the
+// error of raising the kernel's shared-memory limit past the device's.
+extern "C" int wb_bwd_occupancy(int N, int n_obs, int n_hp, int moving,
+                                int per_scenario, int bug_compat, int* out) {
+  const wb::Geometry g =
+      wb::bwd_geometry(N, n_obs, n_hp, moving != 0, per_scenario != 0, 1);
+  const void* k = bwd_instance(per_scenario != 0, bug_compat != 0);
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, g.threads,
+                                                      g.smem);
+  return static_cast<int>(e);
+}
+
 // C entry: statics is a HOST pointer (copied into the kernel argument); all
 // other pointers are device memory, the six per-scenario operands (U_last,
 // X_ref, U_ref, Q and P diagonals, eq_mask) null where the statics' ST_PS
-// mask has no bit.  A nonzero mask launches bwd_kernel<BWD_TEAM, true>.
+// mask has no bit.  A nonzero mask launches bwd_kernel<BWD_TEAM, true, .>,
+// the statics' bug_compat picks the last template argument.
 // Returns cudaGetLastError() after the launch (or the error of raising the
 // kernel's shared-memory limit).
 extern "C" int wb_bwd_launch(const float* statics, const float* params,
@@ -907,9 +961,13 @@ extern "C" int wb_bwd_launch(const float* statics, const float* params,
   if (!wb::per_scen_complete(mask, psx))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mask != 0)
-    return wb::bwd_launch<true>(st, params, X, U, lam, lamt, lame, psx, reg,
-                                kff, K, mu, N, B, s);
-  return wb::bwd_launch<false>(st, params, X, U, lam, lamt, lame, psx, reg,
-                               kff, K, mu, N, B, s);
+  const bool bug = st.v[wb::ST_BUG_COMPAT] != 0.f;
+  auto launch = [&](auto ps, auto bg) {
+    return wb::bwd_launch<decltype(ps)::value, decltype(bg)::value>(
+        st, params, X, U, lam, lamt, lame, psx, reg, kff, K, mu, N, B, s);
+  };
+  using Y = std::true_type;
+  using F = std::false_type;
+  if (mask != 0) return bug ? launch(Y{}, Y{}) : launch(Y{}, F{});
+  return bug ? launch(F{}, Y{}) : launch(F{}, F{});
 }

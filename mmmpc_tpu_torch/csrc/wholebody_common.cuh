@@ -58,7 +58,10 @@ enum : int {
   ST_UHI = ST_ULO + NU,
   ST_ALPHAS = ST_UHI + NU,
   ST_MOVING = ST_ALPHAS + MAX_ALPHA,  // 1: an obstacle row a stage (obs_rows)
-  ST_PS = ST_MOVING + 1,              // mask of per-scenario entries (PS_*)
+  // 1: the terminal self-collision rows of x_N ride stage N-1's slack group
+  // (the reference's stale slack index); 0: they are the terminal group's
+  ST_BUG_COMPAT = ST_MOVING + 1,
+  ST_PS = ST_BUG_COMPAT + 1,          // mask of per-scenario entries (PS_*)
   ST_SIZE = ST_PS + 1,
 };
 

@@ -35,7 +35,8 @@
 //   q1 - q2 - q3, psi) two on each lane, exchanged by shuffles.
 // - Off the chain, as items over the lanes: the half-plane samples, the
 //   ground circles, the self-collision spheres, and at k = N-1 the stale
-//   terminal self-collision rows of x_N (each family a loop of its own, so
+//   terminal self-collision rows of x_N when bug-compatible (each family a
+//   loop of its own, so
 //   the lanes of a warp run one family at a time); the rows of the Q, R
 //   and W forms and the 28 PHR rows.  The slack max is merged by a
 //   butterfly of shuffles (exact; NaN stays NaN), the rows' terms go into
@@ -65,7 +66,7 @@
 //   row N against x_N, as the TPU kernel's moving branch.  A static problem
 //   has one row, which every stage reads (a row stride of 0).
 // - Per-scenario entries (statics ST_PS, the fleet's: the TPU kernel's
-//   ps_* operands), in the instance fwd_kernel<T, true>: any subset of
+//   ps_* operands), in the instances fwd_kernel<T, true, .>: any subset of
 //   U_last, X_ref, U_ref (stage k's rows ride the stage buffer, 19 floats a
 //   scenario more, loaded one stage ahead with the other inputs), X_ref's
 //   row N, the diagonals of Q and P and eq_mask (the terminal slot, 28
@@ -73,8 +74,15 @@
 //   shared reference or mask is copied into every scenario's column as
 //   well, so the reads select nothing at run time; a per-scenario Q or P
 //   enters the tracking cost as its diagonal, as in the TPU kernel.  The
-//   instance fwd_kernel<T, false> of the shared params reads none of
+//   instances fwd_kernel<T, false, .> of the shared params read none of
 //   them.
+// - The fixed terminal formulation (statics ST_BUG_COMPAT = 0, the TPU
+//   kernel's bug_compat=False branch), in the instances
+//   fwd_kernel<T, PS, false>: stage N-1 has no stale rows, and the
+//   terminal group takes the self-collision rows of x_N after its circles
+//   and half-planes.  The bug-compatible instances <T, PS, true> are the
+//   code they were before the flag (a flag read at run time moved kernel
+//   B's registers).
 // - No tensor cores: the products are 9-wide per candidate.
 //
 // The slack rows, the controls and the states are computed as the
@@ -82,6 +90,7 @@
 // wholebody_common.cuh's helpers are used as they are (kernel B shares
 // them); this kernel's own team variants are written below.
 #include <cstring>
+#include <type_traits>
 
 #include "cp_async.cuh"
 #include "wholebody_common.cuh"
@@ -353,7 +362,7 @@ __device__ __forceinline__ float phr_rows(const float* rt, const float* v,
   return pen;
 }
 
-template <int T, bool PS>
+template <int T, bool PS, bool BUG>
 __global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS)
 fwd_kernel(const Statics st, const float* __restrict__ pp,
            const float* __restrict__ X, const float* __restrict__ U,
@@ -573,11 +582,12 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
     __syncwarp();
 
     // ---- the slack group of x_k over the lanes; at k = N-1 the terminal
-    // self-collision rows ride it (the reference's stale slack index)
+    // self-collision rows ride it when bug-compatible (the reference's
+    // stale slack index)
     float gmax = ground_hp_rows<T>(x, f, ob0 + k * ostride, hf, n_obs, n_hp,
                                    n_hpi, base_radius, lane);
     for (int r = lane; r < 4; r += T) gmax = max_nan(gmax, self_value(r, f));
-    if (k == N - 1) {
+    if (k == N - 1 && BUG) {
       Pts fn;
       fk_pts_team<T>(xn, lane, fn);
       for (int r = lane; r < 4; r += T) gmax = max_nan(gmax, self_value(r, fn));
@@ -601,7 +611,8 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
 
   // ---- terminal AL cost of x_N: P tracking + S relu(max terminal slack)^2
   // + PHR on the terminal boxes + the maskable position equality.  The
-  // terminal slack group has no self-collision rows: they rode stage N-1's.
+  // terminal slack group has the self-collision rows of x_N unless they
+  // rode stage N-1's (bug-compatible).
   cp_async_wait<0>();
   __syncthreads();
   store_out(N - 1);
@@ -620,8 +631,11 @@ fwd_kernel(const Statics st, const float* __restrict__ pp,
       v[V_EX + i] = ex[i];
     }
     __syncwarp();
-    const float gmax = max_team<T>(ground_hp_rows<T>(
-        x, f, ob0 + N * ostride, hf, n_obs, n_hp, n_hpi, base_radius, lane));
+    float gl = ground_hp_rows<T>(x, f, ob0 + N * ostride, hf, n_obs, n_hp,
+                                 n_hpi, base_radius, lane);
+    if constexpr (!BUG)
+      for (int r = lane; r < 4; r += T) gl = max_nan(gl, self_value(r, f));
+    const float gmax = max_team<T>(gl);
     const float smax = gmax < 0.f ? 0.f : gmax;
     float tr = lane == 0 ? ps[L.S] * smax * smax : 0.f;
     if (PS && (pmask & PS_P))
@@ -668,7 +682,7 @@ inline FwdGeometry fwd_geometry(int team, int N, int n_obs, int n_hp,
               static_cast<int>(sizeof(float))};
 }
 
-template <int T, bool PS>
+template <int T, bool PS, bool BUG>
 int fwd_launch(const Statics& st, const float* params, const float* X,
                const float* U, const float* kff, const float* K,
                const float* lam, const float* lamt, const float* lame,
@@ -679,11 +693,11 @@ int fwd_launch(const Statics& st, const float* params, const float* X,
       st.v[ST_MOVING] != 0.f, PS, static_cast<int>(st.v[ST_N_ALPHA]), B);
   if (g.smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fwd_kernel<T, PS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fwd_kernel<T, PS, BUG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         g.smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  fwd_kernel<T, PS><<<g.blocks, g.threads, g.smem, stream>>>(
+  fwd_kernel<T, PS, BUG><<<g.blocks, g.threads, g.smem, stream>>>(
       st, params, X, U, kff, K, lam, lamt, lame, psx, Xc, Uc, xlast, cost, mu,
       N, B);
   return static_cast<int>(cudaGetLastError());
@@ -708,10 +722,41 @@ extern "C" int wb_fwd_geometry(int N, int n_obs, int n_hp, int moving,
   return 0;
 }
 
+// The kernel instance wb_fwd_launch picks for the statics' per-scenario
+// mask and bug_compat flag.
+template <int T>
+const void* fwd_instance(bool ps, bool bug) {
+  using wb::fwd_kernel;
+  return ps ? (bug ? reinterpret_cast<const void*>(fwd_kernel<T, true, true>)
+                   : reinterpret_cast<const void*>(fwd_kernel<T, true, false>))
+            : (bug ? reinterpret_cast<const void*>(fwd_kernel<T, false, true>)
+                   : reinterpret_cast<const void*>(fwd_kernel<T, false, false>));
+}
+
+// The blocks of the launch of wb_fwd_geometry that one SM holds, as the CUDA
+// runtime reports them (out[0]), for the instance wb_fwd_launch picks; the
+// error of raising the kernel's shared-memory limit past the device's.
+extern "C" int wb_fwd_occupancy(int N, int n_obs, int n_hp, int moving,
+                                int per_scenario, int bug_compat, int n_alpha,
+                                int* out) {
+  const wb::FwdGeometry g =
+      wb::fwd_geometry(wb::FWD_TEAM, N, n_obs, n_hp, moving != 0,
+                       per_scenario != 0, n_alpha, 1);
+  const void* k = fwd_instance<wb::FWD_TEAM>(per_scenario != 0,
+                                             bug_compat != 0);
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, g.threads,
+                                                      g.smem);
+  return static_cast<int>(e);
+}
+
 // C entry: statics is a HOST pointer (copied into the kernel argument); all
 // other pointers are device memory, the six per-scenario operands (U_last,
 // X_ref, U_ref, Q and P diagonals, eq_mask) null where the statics' ST_PS
-// mask has no bit.  A nonzero mask launches fwd_kernel<FWD_TEAM, true>.
+// mask has no bit.  A nonzero mask launches fwd_kernel<FWD_TEAM, true, .>,
+// the statics' bug_compat picks the last template argument.
 // Returns cudaGetLastError() after the launch (or the error of raising the
 // kernel's shared-memory limit).
 extern "C" int wb_fwd_launch(const float* statics, const float* params,
@@ -733,13 +778,17 @@ extern "C" int wb_fwd_launch(const float* statics, const float* params,
   if (!wb::per_scen_complete(mask, psx))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mask != 0)
-    return wb::fwd_launch<wb::FWD_TEAM, true>(st, params, X, U, kff, K, lam,
-                                              lamt, lame, psx, Xc, Uc, xlast,
-                                              cost, mu, N, B, s);
-  return wb::fwd_launch<wb::FWD_TEAM, false>(st, params, X, U, kff, K, lam,
-                                             lamt, lame, psx, Xc, Uc, xlast,
-                                             cost, mu, N, B, s);
+  const bool bug = st.v[wb::ST_BUG_COMPAT] != 0.f;
+  constexpr int T = wb::FWD_TEAM;
+  auto launch = [&](auto ps, auto bg) {
+    return wb::fwd_launch<T, decltype(ps)::value, decltype(bg)::value>(
+        st, params, X, U, kff, K, lam, lamt, lame, psx, Xc, Uc, xlast, cost,
+        mu, N, B, s);
+  };
+  using Y = std::true_type;
+  using F = std::false_type;
+  if (mask != 0) return bug ? launch(Y{}, Y{}) : launch(Y{}, F{});
+  return bug ? launch(F{}, Y{}) : launch(F{}, F{});
 }
 
 // Sizes of the two host-built blocks, for the wrappers' layout check.

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import math
 import os
@@ -85,9 +86,11 @@ _FLOAT = ctypes.c_float
 # blocks, shared-memory bytes); the whole-body ones, and the whole-body
 # params size, also take ``moving`` after n_hp (1: an obstacle row a
 # stage), and the whole-body geometries then the per-scenario mask (the
-# statics' ``per_scenario``).  The whole-body launches take the six
-# per-scenario operands (U_last, X_ref, U_ref, the Q and P diagonals,
-# eq_mask; null where the mask has no bit) after the multipliers.
+# statics' ``per_scenario``); their occupancies (the same sizes, then the
+# statics' ``bug_compat``, no batch) write the blocks an SM holds.  The
+# whole-body launches take the six per-scenario operands (U_last, X_ref,
+# U_ref, the Q and P diagonals, eq_mask; null where the mask has no bit)
+# after the multipliers.
 _FWD = [_VOID] * 13 + [_FLOAT, _INT, _INT, _VOID]
 _BWD = [_VOID] * 10 + [_FLOAT, _INT, _INT, _VOID]
 _WB_FWD = [_VOID] * 19 + [_FLOAT, _INT, _INT, _VOID]
@@ -99,6 +102,8 @@ SIGNATURES = {
     "wb_bwd_launch": _WB_BWD,
     "wb_bwd_geometry": [_INT] * 6 + [_VOID],
     "wb_fwd_geometry": [_INT] * 7 + [_VOID],
+    "wb_bwd_occupancy": [_INT] * 6 + [_VOID],
+    "wb_fwd_occupancy": [_INT] * 7 + [_VOID],
     "wb_statics_size": [], "wb_params_size": [_INT] * 4,
     **{k: v for name in FORMULATIONS for k, v in (
         (f"gen_fwd_{name}", _FWD), (f"gen_bwd_{name}", _BWD),
@@ -318,6 +323,28 @@ def check_launch(name: str, err: int) -> None:
     """Raise on the ``cudaGetLastError()`` a C entry returned."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+@functools.lru_cache(maxsize=None)
+def shared_memory_optin(index: int) -> int:
+    """The most dynamic shared memory a block may take on CUDA device
+    ``index`` once a kernel opts in (bytes)."""
+    props = torch.cuda.get_device_properties(index)
+    return props.shared_memory_per_block_optin
+
+
+def check_shared_memory(name: str, N: int, smem_bytes: int,
+                        device: torch.device) -> None:
+    """Raise a ValueError naming the horizon and the bytes unless a block of
+    kernel ``name`` at horizon ``N``, taking ``smem_bytes`` of shared
+    memory, fits ``device``: the packed params the whole-body kernels copy
+    into shared memory grow with N."""
+    limit = shared_memory_optin(device.index if device.index is not None
+                                else torch.cuda.current_device())
+    if smem_bytes > limit:
+        raise ValueError(f"{name}: N={N} needs {smem_bytes} B of shared "
+                         f"memory a block, more than the {limit} B the "
+                         f"device allows")
 
 
 def check_tensor(name: str, t: torch.Tensor, shape: tuple,

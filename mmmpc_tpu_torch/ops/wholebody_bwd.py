@@ -32,7 +32,8 @@ import ctypes
 import torch
 
 from mmmpc_tpu_torch.ops._cuda import (
-    LIBRARY, LaunchCounter, check_launch, check_layout, check_tensor,
+    LIBRARY, LaunchCounter, check_launch, check_layout, check_shared_memory,
+    check_tensor,
 )
 from mmmpc_tpu_torch.ops.generic_bwd import plain_bwd
 from mmmpc_tpu_torch.ops.wholebody_fwd import (
@@ -53,26 +54,43 @@ def launch_geometry(lib, N, n_obs, n_hp, B, moving=False, per_scenario=0):
     return dict(team=out[0], threads=out[1], blocks=out[2], smem_bytes=out[3])
 
 
+def blocks_per_sm(lib, N, n_obs, n_hp, moving=False, per_scenario=0,
+                  bug_compat=True):
+    """The blocks of the launch of ``launch_geometry`` that one SM of the
+    current card holds, for the instance of ``per_scenario`` and
+    ``bug_compat``, as the library's ``wb_bwd_occupancy`` asks the CUDA
+    runtime."""
+    out = (ctypes.c_int * 1)()
+    check_launch("wholebody_bwd occupancy", lib.wb_bwd_occupancy(
+        N, n_obs, n_hp, int(moving), per_scenario, int(bug_compat), out))
+    return out[0]
+
+
 class BwdFused:
     """The fused backward sweep of one problem (the JAX package's
     ``make_bwd_fused``): static data from the keyword arguments, runtime
     data from ``params``, the shared entries packed once, the per-scenario
-    ones kept as operands (``moving``: an obstacle row a stage)."""
+    ones kept as operands (``moving``: an obstacle row a stage;
+    ``bug_compat``: the terminal self-collision rows on stage N-1)."""
 
     def __init__(self, ocp, params, *, dt, base_radius, n_obs, n_hp,
-                 x_bounds, du_bounds, inv_scale, moving=False):
+                 x_bounds, du_bounds, inv_scale, moving=False,
+                 bug_compat=True):
         if (ocp.nx, ocp.nu) != (NX, NU):
             raise ValueError("the whole-body kernels take nx=9, nu=5")
         self.ocp = ocp
         self.N, self.n_obs, self.n_hp = ocp.N, n_obs, n_hp
         self.moving = bool(moving)
+        self.bug_compat = bool(bug_compat)
         self.inv_scale = float(inv_scale)
         self.flat = pack_params(params, ocp.N, n_obs, n_hp, self.moving)
         self.ps = Operands(params)
+        self.fits = set()    # the devices whose shared memory a block fits
         self.statics = statics_block(
             dt=dt, inv_scale=inv_scale, base_radius=base_radius,
             n_obs=n_obs, n_hp=n_hp, x_bounds=x_bounds, du_bounds=du_bounds,
-            moving=self.moving, per_scenario=self.ps.mask)
+            moving=self.moving, bug_compat=self.bug_compat,
+            per_scenario=self.ps.mask)
 
     def __call__(self, X, U, lam, lamt, lame, mu, reg):
         """X (N+1, nx, B), U (N, nu, B), lam (N, nc, B), lamt (2 nx, B),
@@ -108,6 +126,13 @@ class BwdFused:
         lib = LIBRARY.get()
         check_layout(lib, self.statics, self.flat, N, self.n_obs, self.n_hp,
                      moving=self.moving)
+        if X.device not in self.fits:
+            # a block's bytes do not depend on the batch
+            geo = launch_geometry(lib, N, self.n_obs, self.n_hp, B,
+                                  self.moving, self.ps.mask)
+            check_shared_memory("wholebody_bwd", N, geo["smem_bytes"],
+                                X.device)
+            self.fits.add(X.device)
         with torch.cuda.device(X.device):
             err = lib.wb_bwd_launch(
                 self.statics.ctypes.data, *ptrs, *(o.data_ptr() for o in outs),

@@ -49,7 +49,7 @@ import torch
 
 from mmmpc_tpu_torch.ops._cuda import (
     LIBRARY, MAX_ALPHA, LaunchCounter, check_launch, check_layout,
-    check_tensor, pack_buffer, unpack_buffer,
+    check_shared_memory, check_tensor, pack_buffer, unpack_buffer,
 )
 from mmmpc_tpu_torch.ocp.spec import per_scenario_keys
 from mmmpc_tpu_torch.ops.generic_fwd import plain_fwd
@@ -75,6 +75,19 @@ def launch_geometry(lib, N, n_obs, n_hp, n_alpha, B, moving=False,
     lib.wb_fwd_geometry(N, n_obs, n_hp, int(moving), per_scenario, n_alpha,
                         B, out)
     return dict(team=out[0], threads=out[1], blocks=out[2], smem_bytes=out[3])
+
+
+def blocks_per_sm(lib, N, n_obs, n_hp, n_alpha, moving=False,
+                  per_scenario=0, bug_compat=True):
+    """The blocks of the launch of ``launch_geometry`` that one SM of the
+    current card holds, for the instance of ``per_scenario`` and
+    ``bug_compat``, as the library's ``wb_fwd_occupancy`` asks the CUDA
+    runtime."""
+    out = (ctypes.c_int * 1)()
+    check_launch("wholebody_fwd occupancy", lib.wb_fwd_occupancy(
+        N, n_obs, n_hp, int(moving), per_scenario, int(bug_compat), n_alpha,
+        out))
+    return out[0]
 
 
 class Operands:
@@ -142,14 +155,16 @@ _STATIC_FIELDS = (("dt", 1), ("inv_scale", 1), ("base_radius", 1),
                   ("x_hi", NX), ("x_mlo", NX), ("x_mhi", NX), ("du_lo", NU),
                   ("du_hi", NU), ("du_mlo", NU), ("du_mhi", NU), ("u_lo", NU),
                   ("u_hi", NU), ("alphas", MAX_ALPHA), ("moving", 1),
-                  ("per_scenario", 1))
+                  ("bug_compat", 1), ("per_scenario", 1))
 
 
 def statics_block(*, dt, inv_scale, base_radius, n_obs, n_hp, x_bounds,
                   du_bounds, u_clamp=None, alphas=(), moving=False,
-                  per_scenario=0) -> np.ndarray:
+                  bug_compat=True, per_scenario=0) -> np.ndarray:
     """Host float32 block of everything static to a solve
-    (``per_scenario``: the mask of ``PS_BITS``)."""
+    (``bug_compat``: the terminal self-collision rows ride stage N-1's
+    slack group, else the terminal group's; ``per_scenario``: the mask of
+    ``PS_BITS``)."""
     if len(alphas) > MAX_ALPHA:
         raise ValueError(f"at most {MAX_ALPHA} step sizes, got {len(alphas)}")
     u_lo, u_hi = u_clamp if u_clamp is not None else (
@@ -158,7 +173,8 @@ def statics_block(*, dt, inv_scale, base_radius, n_obs, n_hp, x_bounds,
                   n_alpha=len(alphas), n_obs=n_obs, n_hp=n_hp, u_lo=u_lo,
                   u_hi=u_hi, alphas=np.pad(np.asarray(alphas, float),
                                            (0, MAX_ALPHA - len(alphas))),
-                  moving=float(moving), per_scenario=float(per_scenario))
+                  moving=float(moving), bug_compat=float(bug_compat),
+                  per_scenario=float(per_scenario))
     for name, b in zip(("x_lo", "x_hi", "x_mlo", "x_mhi"), x_bounds):
         values[name] = b
     for name, b in zip(("du_lo", "du_hi", "du_mlo", "du_mhi"), du_bounds):
@@ -171,29 +187,31 @@ def statics_block(*, dt, inv_scale, base_radius, n_obs, n_hp, x_bounds,
 class FwdLinesearch:
     """The fused rollout + line search of one problem (the JAX package's
     ``make_fwd_linesearch``): static data (bounds, masks, clamp limits,
-    alphas, dt, ``moving``: an obstacle row a stage) from the keyword
-    arguments, runtime data (weights, references, geometry) from
-    ``params``, the shared entries packed once, the per-scenario ones
-    (``Operands``) kept as operands; multipliers and mu are call
-    arguments."""
+    alphas, dt, ``moving``: an obstacle row a stage, ``bug_compat``: the
+    terminal self-collision rows on stage N-1) from the keyword arguments,
+    runtime data (weights, references, geometry) from ``params``, the
+    shared entries packed once, the per-scenario ones (``Operands``) kept
+    as operands; multipliers and mu are call arguments."""
 
     def __init__(self, ocp, params, *, dt, base_radius, n_obs, n_hp,
                  x_bounds, du_bounds, u_clamp, alphas, inv_scale,
-                 moving=False):
+                 moving=False, bug_compat=True):
         if (ocp.nx, ocp.nu) != (NX, NU):
             raise ValueError("the whole-body kernels take nx=9, nu=5")
         self.ocp = ocp
         self.N, self.n_obs, self.n_hp = ocp.N, n_obs, n_hp
         self.moving = bool(moving)
+        self.bug_compat = bool(bug_compat)
         self.alphas = tuple(float(a) for a in alphas)
         self.inv_scale = float(inv_scale)
         self.flat = pack_params(params, ocp.N, n_obs, n_hp, self.moving)
         self.ps = Operands(params)
+        self.fits = set()    # the devices whose shared memory a block fits
         self.statics = statics_block(
             dt=dt, inv_scale=inv_scale, base_radius=base_radius,
             n_obs=n_obs, n_hp=n_hp, x_bounds=x_bounds, du_bounds=du_bounds,
             u_clamp=u_clamp, alphas=self.alphas, moving=self.moving,
-            per_scenario=self.ps.mask)
+            bug_compat=self.bug_compat, per_scenario=self.ps.mask)
 
     def __call__(self, X, U, kff, K, lam, lamt, lame, mu):
         """X (N, nx, B) stage states, U (N, nu, B), kff (N, nu, B),
@@ -234,6 +252,13 @@ class FwdLinesearch:
         lib = LIBRARY.get()
         check_layout(lib, self.statics, self.flat, N, self.n_obs, self.n_hp,
                      moving=self.moving)
+        if X.device not in self.fits:
+            # a block's bytes do not depend on the batch
+            geo = launch_geometry(lib, N, self.n_obs, self.n_hp, na, B,
+                                  self.moving, self.ps.mask)
+            check_shared_memory("wholebody_fwd", N, geo["smem_bytes"],
+                                X.device)
+            self.fits.add(X.device)
         with torch.cuda.device(X.device):
             err = lib.wb_fwd_launch(
                 self.statics.ctypes.data, *ptrs, *(o.data_ptr() for o in outs),

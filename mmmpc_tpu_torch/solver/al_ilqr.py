@@ -23,6 +23,49 @@ from mmmpc_tpu_torch.ocp.spec import OCP, per_scenario_keys
 from mmmpc_tpu_torch.utils.configs import SolverConfig
 
 
+# The crossover of the parallel-prefix Riccati sweep against the sequential
+# one, as the JAX package measured it on a TPU v5e (its BASELINE.md
+# long-horizon table): the associative scan won only where the sweep is
+# latency-bound, batch <= 8 and N >= 100.  Kept as the JAX package's for the
+# plain versions; on the card "auto" keeps the sequential sweep (kernel B),
+# which won at every shape bench_longhorizon measured on the H100 (PERF.md),
+# until a measured crossover of the card's own replaces it.
+ASSOC_SCAN_MAX_BATCH = 8
+ASSOC_SCAN_MIN_HORIZON = 100
+
+
+def resolve_assoc_scan(cfg: SolverConfig, batch: int, N: int,
+                       warn: bool = True, device=None) -> bool:
+    """Whether a solve of ``batch`` scenarios at horizon ``N`` on
+    ``device`` (None: the JAX package's rule) runs the parallel-prefix
+    Riccati sweep.
+
+    ``cfg.use_assoc_scan``: "auto" picks from the crossover (assoc iff
+    batch <= ASSOC_SCAN_MAX_BATCH and N >= ASSOC_SCAN_MIN_HORIZON, and the
+    device is not a CUDA one); True forces assoc, with a UserWarning
+    (``warn``) outside that quadrant; False forces the sequential sweep.
+    Any other string is an error (a typo such as "Auto" must not force
+    assoc)."""
+    mode = cfg.use_assoc_scan
+    if isinstance(mode, str) and mode != "auto":
+        raise ValueError(
+            f"use_assoc_scan={mode!r}: expected True, False, or 'auto'")
+    in_sweet_spot = (batch <= ASSOC_SCAN_MAX_BATCH
+                     and N >= ASSOC_SCAN_MIN_HORIZON)
+    if mode == "auto":
+        return in_sweet_spot and (device is None
+                                  or torch.device(device).type != "cuda")
+    if warn and mode and not in_sweet_spot:
+        import warnings
+        warnings.warn(
+            f"use_assoc_scan=True at batch={batch}, N={N}: the associative-"
+            f"scan Riccati is only faster when batch <= "
+            f"{ASSOC_SCAN_MAX_BATCH} and N >= {ASSOC_SCAN_MIN_HORIZON} "
+            f"(the JAX package's crossover); use "
+            f'"auto" to select per shape.', UserWarning, stacklevel=2)
+    return bool(mode)
+
+
 class SolveResult(NamedTuple):
     X: torch.Tensor              # state trajectories
     U: torch.Tensor              # inputs

@@ -17,7 +17,15 @@ solver:
   Jacobians in plain PyTorch (``solver/al_ilqr.py::stage_al_blocks``,
   ``terminal_al_blocks``: the JAX ``core.stage_derivs`` /
   ``core.terminal_derivs``), then the Riccati sweep kernel on those blocks
-  (``ops/riccati.py``).  It takes shared params only, as the JAX solver's.
+  (``ops/riccati.py``).  It takes shared params only, as the JAX solver's;
+- and where ``resolve_assoc_scan`` picks it for the batch, the horizon
+  and the device (``cfg.use_assoc_scan``), the same expansion followed by the
+  parallel-prefix sweep of ``ops/assoc_riccati.py`` in place of either, as
+  the JAX solver's assoc sweep serves the routes that run no Riccati
+  kernel.  Per-scenario params take the fused backward: "auto" resolves to
+  the sequential sweep for them and True raises (the JAX solver would
+  vmap a per-scenario solve instead; the port's expansion takes shared
+  params only).
 
 Per-scenario params (the fleet's: an entry of ``ocp.per_scenario_keys``
 with a trailing batch axis, ``ocp/spec.py``) need the fused backward: the
@@ -34,10 +42,11 @@ from __future__ import annotations
 import torch
 
 from mmmpc_tpu_torch.ocp.spec import OCP, batch_first, per_scenario_keys
+from mmmpc_tpu_torch.ops.assoc_riccati import assoc_riccati_backward_bm
 from mmmpc_tpu_torch.ops.riccati import riccati_backward_bm
 from mmmpc_tpu_torch.solver.al_ilqr import (
-    SolveResult, _objective, build_core, rollout, run_al_rounds,
-    stage_al_blocks, terminal_al_blocks,
+    SolveResult, _objective, build_core, resolve_assoc_scan, rollout,
+    run_al_rounds, stage_al_blocks, terminal_al_blocks,
 )
 from mmmpc_tpu_torch.utils.configs import SolverConfig
 
@@ -62,8 +71,18 @@ def al_ilqr_solve_batched(ocp: OCP, x0_b, U0_b, params,
     """
     B = x0_b.shape[0]
     dtype, device = x0_b.dtype, x0_b.device
-    fused = cfg.use_fused_backward and ocp.lanes_bwd_factory is not None
     per_scenario = per_scenario_keys(params)
+    assoc = resolve_assoc_scan(cfg, B, ocp.N, warn=not per_scenario,
+                               device=device)
+    if per_scenario and assoc:
+        if cfg.use_assoc_scan != "auto":
+            raise ValueError(f"per-scenario params {list(per_scenario)} "
+                             f"need the fused backward: use_assoc_scan="
+                             f"{cfg.use_assoc_scan!r} runs the expansion, "
+                             f"which takes shared params only")
+        assoc = False
+    fused = (cfg.use_fused_backward and ocp.lanes_bwd_factory is not None
+             and not assoc)
     if per_scenario and not fused:
         raise ValueError(f"per-scenario params {list(per_scenario)} need the "
                          f"fused backward: the unfused path's expansion takes "
@@ -81,10 +100,12 @@ def al_ilqr_solve_batched(ocp: OCP, x0_b, U0_b, params,
     bwd_fused = ocp.lanes_bwd_factory(cfg, params) if fused else None
     inv_scale = 1.0 / cfg.cost_scale
 
+    sweep = assoc_riccati_backward_bm if assoc else riccati_backward_bm
+
     def backward(X, U, lams, mu, reg):
         if bwd_fused is not None:
             return bwd_fused(X, U, *lams, mu, reg)
-        return riccati_backward_bm(
+        return sweep(
             *stage_al_blocks(ocp, params, inv_scale, X[:-1], U, lams[0], mu),
             *terminal_al_blocks(ocp, params, inv_scale, X[-1], lams[1],
                                 lams[2], mu), reg)

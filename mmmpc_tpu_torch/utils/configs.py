@@ -13,12 +13,14 @@ unfused path by itself for an OCP without a ``lanes_bwd_factory``; the
 field is the JAX config's, and for an OCP that has a fused kernel it is
 the only way to run, measure and hold that general path against the fused
 one on the same problem (the fused path is faster on every measured
-problem, so it stays the default).  The JAX config's other path
+problem, so it stays the default).  ``use_assoc_scan`` is kept too: it
+selects the parallel-prefix Riccati sweep of the long horizon
+(``ops/assoc_riccati.py``), resolved per (batch, N) by
+``solver/al_ilqr.py::resolve_assoc_scan``.  The JAX config's other path
 switches (``scan_unroll``, ``force_kernel``, ``use_pallas_*``,
-``use_assoc_scan``, ``matmul_precision``) have no counterpart: the port's
-kernels are chosen by the device of the tensors they are given, and float32
-matmul precision is pinned when the package is imported
-(``mmmpc_tpu_torch/__init__.py``).
+``matmul_precision``) have no counterpart: the port's kernels are chosen by
+the device of the tensors they are given, and float32 matmul precision is
+pinned when the package is imported (``mmmpc_tpu_torch/__init__.py``).
 """
 
 from __future__ import annotations
@@ -71,6 +73,15 @@ class SolverConfig:
     # expansion in plain PyTorch and then the Riccati sweep kernel, which
     # reads ~291 floats of precomputed blocks per (9, 5) stage.
     use_fused_backward: bool = True
+    # Run the Riccati backward sweep as a parallel-prefix (associative)
+    # scan over the stages, O(log N) sequential depth instead of O(N), on
+    # the AL expansion in plain PyTorch (ops/assoc_riccati.py).  It only
+    # pays where the sweep is latency-bound: small batch, long horizon.
+    #   "auto" (default): pick per (batch, N) from the crossover constants
+    #   of solver/al_ilqr.py (on a CUDA device: the sequential sweep);
+    #   True: force it (warns outside the crossover's quadrant);
+    #   False: the sequential sweep.
+    use_assoc_scan: bool | str = "auto"
 
 
 @dataclasses.dataclass(frozen=True)

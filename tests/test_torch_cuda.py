@@ -26,8 +26,20 @@ tests:
   2e-3; gains atol 1e-5 (demo), 1e-3 (base), 2e-4 (endpoint) with rtol
   1e-4, and the arms' in the p99 / float64 form (their 1e6 wedge slack
   makes the solve ill-conditioned in float32);
+- the whole-body pair of the fixed terminal formulation
+  (``replicate_terminal_selfcol_bug=False``) on the problem of
+  tests/test_torch_fixed_terminal.py, whose terminal self-collision rows
+  are live, at the same tolerances;
+- the whole-body pair at N = 500 on ``bench_longhorizon``'s problem (batch
+  8): X / U atol 2e-5, cost rtol = atol = 2e-3, gains rtol = atol = 5e-3
+  or, where the float32 plain version drifts, no farther from its float64
+  twin than twice it; and a horizon past the card's shared memory refused
+  with a ValueError before any launch;
 - the Riccati sweep E at each (nx, nu) of the kernel library and at (4, 2),
   which builds its own library on first use, on random SPD blocks at 2e-4;
+- the parallel-prefix sweep (``ops/assoc_riccati.py``, plain torch) on the
+  card against the plain sequential sweep in float64 on SPD blocks at
+  N = 64, at tests/test_assoc_riccati.py's 1e-6 / 1e-7;
 - the FMA microkernel F: every trip counted, and rtol 1e-5 / atol 1e-6
   against ``plain_fma``.
 """
@@ -39,15 +51,18 @@ import torch
 from mmmpc_tpu_torch import roofline
 from mmmpc_tpu_torch.demo_wholebody_separate import build_world
 from mmmpc_tpu_torch.ocp.spec import per_scenario_keys
-from mmmpc_tpu_torch.ops import riccati
+from mmmpc_tpu_torch.ops import assoc_riccati, riccati, wholebody_bwd
+from mmmpc_tpu_torch.ops import wholebody_fwd
 from mmmpc_tpu_torch.ops._cuda import FMA_NACC, RICCATI_INSTANCES
 from mmmpc_tpu_torch.ops.generic_bwd import plain_bwd
+from mmmpc_tpu_torch.ops.generic_fwd import plain_fwd
 from mmmpc_tpu_torch.solver.al_ilqr import rollout
 from mmmpc_tpu_torch.utils.convert import params_from_numpy
 
 from torch_problems import (
     ARM_BATCH, ARMS, B, BWD_ATOL, FLEET_KEYS, FORMULATIONS, N, batch_last,
-    fleet_params, generic_problem, qref_problem, spd_blocks,
+    drift_gate, fleet_params, generic_problem, long_problem, qref_problem,
+    selfcol_problem, spd_blocks,
 )
 
 # at 64 scenarios the arm's ill-conditioned ones pass the 1% of entries of
@@ -73,11 +88,11 @@ def _first(args, batch):
                  for a in args)
 
 
-def _check_wholebody(device, mpc, x0_b, U0_b, params, kernel, batch):
-    """The whole-body CUDA kernel ``kernel`` against its plain version on
-    the card, on the first ``batch`` scenarios of seeded inputs (the rollout
-    of U0_b from x0_b, random gains and multipliers) and of the per-scenario
-    entries of ``params``."""
+def _wholebody_call(device, mpc, x0_b, U0_b, params, kernel, batch):
+    """The whole-body wrapper ``kernel`` of ``mpc`` and its arguments on the
+    card: the first ``batch`` scenarios of seeded inputs (the rollout of
+    U0_b from x0_b, random gains and multipliers) and of the per-scenario
+    entries of ``params`` -> (wrapper, arguments)."""
     full = x0_b.shape[0]
     N = mpc.N
     p = params_from_numpy(params, device, torch.float32)
@@ -96,13 +111,20 @@ def _check_wholebody(device, mpc, x0_b, U0_b, params, kernel, batch):
                 _t(0.05 * rng.standard_normal((N, 5, full)), device),
                 _t(0.05 * rng.standard_normal((N, 5, 9, full)), device), lam,
                 lamt, lame, 10.0)
-        tols = [(0.0, 2e-5)] * 3 + [(2e-3, 2e-3)]
     else:
         f = mpc.ocp.lanes_bwd_factory(mpc.solver_config, p_first)
         args = (X, U, lam, lamt, lame, 10.0,
                 torch.full((full,), 1e-6, device=device))
-        tols = [(5e-3, 5e-3)] * 2
-    args = _first(args, batch)
+    return f, _first(args, batch)
+
+
+def _check_wholebody(device, mpc, x0_b, U0_b, params, kernel, batch):
+    """The whole-body CUDA kernel ``kernel`` against its plain version on
+    the card (``_wholebody_call``'s inputs): X / U atol 2e-5, cost rtol =
+    atol = 2e-3; gains rtol = atol = 5e-3."""
+    f, args = _wholebody_call(device, mpc, x0_b, U0_b, params, kernel, batch)
+    tols = ([(0.0, 2e-5)] * 3 + [(2e-3, 2e-3)] if kernel == "wholebody_fwd"
+            else [(5e-3, 5e-3)] * 2)
     got, ref = f.cuda(*args), f.plain(*args)
     torch.cuda.synchronize()
     for g, r, (rtol, atol) in zip(got, ref, tols):
@@ -163,6 +185,83 @@ def test_cuda_moving_demo_shape_matches_plain(device, kernel):
     assert params["obstacles"].shape == (mpc.N + 1, 1, 3)
     U0 = 0.3 * rng.standard_normal((1, mpc.N, 5))
     _check_wholebody(device, mpc, world.x_start[None], U0, params, kernel, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [B, 37])
+@pytest.mark.parametrize("kernel", ["wholebody_fwd", "wholebody_bwd"])
+def test_cuda_fixed_kernel_matches_plain(device, kernel, batch):
+    """The whole-body CUDA kernels of the fixed terminal formulation (the
+    self-collision rows of x_N in the terminal group) against their plain
+    versions on the card, on the problem whose terminal self-collision rows
+    are live, the whole batch and a partial block of 37."""
+    mpc, x0_b, U0_b, params = selfcol_problem(False)
+    _check_wholebody(device, mpc, x0_b, U0_b, params, kernel, batch)
+
+
+LONG_N, LONG_BATCH = 500, 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["wholebody_fwd", "wholebody_bwd"])
+def test_cuda_long_horizon_kernel_matches_plain(device, kernel):
+    """The whole-body CUDA kernels at N = 500 (their packed params in
+    shared memory 500 stages long) against their plain versions: each
+    output within the tolerances of the float32 plain version (X / U atol
+    2e-5, cost rtol = atol = 2e-3; gains rtol = atol = 5e-3) or, where it
+    is not, stage by stage no farther from the float64 plain version than
+    twice the float32 plain version within 32 stages or than those
+    tolerances (``drift_gate``: over 500 stages two float32 orders of one
+    rollout drift apart by a random walk of roundings)."""
+    mpc, x0_b, U0_b, params = long_problem(LONG_N, LONG_BATCH)
+    f, args = _wholebody_call(device, mpc, x0_b, U0_b, params, kernel,
+                              LONG_BATCH)
+    got, ref = f.cuda(*args), f.plain(*args)
+    torch.cuda.synchronize()
+    p = params_from_numpy(params, device, torch.float64)
+    a64 = tuple(a.double() if torch.is_tensor(a) else a for a in args)
+    if kernel == "wholebody_fwd":
+        tols = [(0.0, 2e-5)] * 3 + [(2e-3, 2e-3)]
+        truth = plain_fwd(mpc.ocp, p, f.alphas, f.inv_scale, *a64)
+    else:
+        tols = [(5e-3, 5e-3)] * 2
+        truth = plain_bwd(mpc.ocp, p, f.inv_scale, *a64)
+    for g, r, t, (rtol, atol) in zip(got, ref, truth, tols):
+        assert torch.isfinite(g).all()
+        g, r = g.double(), r.double()
+        if ((g - r).abs() > atol + rtol * r.abs()).any():
+            ratio, at = drift_gate(g, r, t, rtol, atol)
+            assert ratio <= 1.0, (ratio, at)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["wholebody_fwd", "wholebody_bwd"])
+def test_cuda_horizon_past_shared_memory_raises(device, kernel):
+    """A horizon whose packed params overflow the card's shared memory a
+    block is refused with a ValueError naming N, before any launch."""
+    mpc, x0_b, U0_b, params = long_problem(4000, 1)
+    f, args = _wholebody_call(device, mpc, x0_b, U0_b, params, kernel, 1)
+    counter = (wholebody_fwd if kernel == "wholebody_fwd"
+               else wholebody_bwd).LAUNCHES
+    before = counter.cuda
+    with pytest.raises(ValueError, match="N=4000 needs"):
+        f.cuda(*args)
+    assert counter.cuda == before
+
+
+@pytest.mark.cuda
+def test_cuda_assoc_sweep_matches_sequential(device):
+    """The parallel-prefix sweep on the card against the plain sequential
+    sweep, float64, SPD blocks (9, 5) at N = 64, reg 1e-8."""
+    args = [batch_last(a.astype(np.float64), device)
+            for a in spd_blocks(9, 5, batch=8, horizon=64)]
+    reg = torch.full((8,), 1e-8, dtype=torch.float64, device=device)
+    before = assoc_riccati.CALLS.cuda
+    got = assoc_riccati.assoc_riccati_backward_bm(*args, reg)
+    ref = riccati.plain_riccati_bm(*args, reg)
+    assert assoc_riccati.CALLS.cuda == before + 1
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.cuda

@@ -138,7 +138,8 @@ def test_port_never_imports_jax(fresh_import):
     flags, modules = fresh_import
     assert flags[0] == "False"
     # the generic formulations', the closed loops', the moving obstacles',
-    # the fleet's and the oracle's modules were among those imported, and no
+    # the fleet's, the oracle's and the long horizon's modules were among
+    # those imported, and no
     # module of the JAX package was
     for name in ("bench_controllers", "controllers.demo", "controllers.base",
                  "controllers.manipulator", "controllers.wholebody_endpoint",
@@ -149,7 +150,8 @@ def test_port_never_imports_jax(fresh_import):
                  "demo_wholebody_qref", "rt_latency", "controllers.moving_obs",
                  "demo_wholebody_separate", "sim.batch_engine",
                  "sim.batch_task_engine", "utils.debugging",
-                 "bench_fleet_tasks", "verify.oracle", "fidelity_dossier"):
+                 "bench_fleet_tasks", "verify.oracle", "fidelity_dossier",
+                 "ops.assoc_riccati", "bench_longhorizon"):
         assert f"mmmpc_tpu_torch.{name}" in modules, name
     assert all(m.startswith("mmmpc_tpu_torch") for m in modules)
 

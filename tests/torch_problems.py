@@ -159,6 +159,59 @@ def qref_problem(eq_mask=0.0, cfg=None, modules=PORT, moving=False):
     return mpc, x0_b, U0_b, params
 
 
+# The arm folded back with its end point at the self-collision check point
+# j2 / 2 (the base at the world origin): the sphere's row reads +0.049
+# there, so the terminal self-collision rows are live at x_N and at the
+# stage states before it.  The fixed terminal formulation's problem holds
+# the fold, at cost_scale 1.0 (the closed loop's): what moves between the
+# two settings of replicate_terminal_selfcol_bug is S relu(max)^2 of one
+# group, S = 1e5 times at most 0.05^2.
+FOLDED_Q = np.array([1.3614, -2.0944, 1.7279])
+SELFCOL_CFG = dict(GENERIC_CFG, cost_scale=1.0)
+
+
+def selfcol_problem(bug_compat=False, cfg=None, modules=PORT, horizon=N,
+                    batch=B):
+    """The whole-body problem of the fixed terminal formulation
+    (``replicate_terminal_selfcol_bug=bug_compat``): ``qref_problem``'s
+    ground obstacle and half-plane, the robot at the world origin with the
+    arm held at ``FOLDED_Q``, so that the self-collision rows of the
+    terminal state are positive on much of the batch; built from
+    ``modules`` with solver config ``cfg`` (default: the port's of
+    SELFCOL_CFG): (controller, x0_b (batch, 9), U0_b (batch, horizon, 5),
+    params as float64 numpy)."""
+    ctl, obs, robots = modules
+    cfg = SolverConfig(**SELFCOL_CFG) if cfg is None else cfg
+    mpc = ctl.MPCWholeBody(
+        robots.MobileManipulator(0.1), [obs.Obstacles(1.0, 0.2, 0.3)],
+        [(np.array([0.8, 0.1, 1.0]), np.array([[1.0, 0.0, 0.0]]))],
+        N=horizon, solver_config=cfg,
+        replicate_terminal_selfcol_bug=bug_compat)
+    rng = np.random.default_rng(13)
+    x0 = np.zeros(9)
+    x0[6:] = FOLDED_Q
+    x0_b = x0[None] + 0.02 * rng.standard_normal((batch, 9)) * np.array(
+        [1, 1, 0.5, 0, 0, 0, 1, 1, 1])
+    U0_b = 0.1 * rng.standard_normal((batch, horizon, 5))
+    traj = np.tile(x0, (horizon + 1, 1))
+    params = {k: np.asarray(v, np.float64) for k, v in dict(
+        mpc.make_params(traj, np.zeros((horizon, 5))),
+        U_last=np.zeros((horizon, 5))).items()}
+    return mpc, x0_b, U0_b, params
+
+
+def long_problem(horizon, batch=B):
+    """``bench_longhorizon``'s problem (scenario 1, the JAX script's
+    schedule) at ``horizon`` and ``batch``: (controller, x0_b (batch, 9),
+    U0_b (batch, horizon, 5) small random, params as float64 numpy)."""
+    from mmmpc_tpu_torch.bench_longhorizon import build_numpy
+    mpc, x0_b, params = build_numpy(horizon, batch)
+    U0_b = 0.1 * np.random.default_rng(11).standard_normal(
+        (batch, horizon, 5))
+    return mpc, x0_b, U0_b, {k: np.asarray(v, np.float64)
+                             for k, v in params.items()}
+
+
 # the per-scenario entries of the fleet (ops/wholebody_fwd.py PS_BITS)
 FLEET_KEYS = ("U_last", "X_ref", "U_ref", "Q", "P", "eq_mask")
 
@@ -212,3 +265,30 @@ def batch_last(a, device=None):
     """Batch-major numpy -> batch-last contiguous tensor on ``device``."""
     return torch.as_tensor(np.ascontiguousarray(np.moveaxis(a, 0, -1)),
                            device=device)
+
+
+def drift_gate(got, ref, truth, rtol, atol, window=32):
+    """The float64 gate of a float32 kernel over a long horizon, slice by
+    slice of the leading axis (the stage; the step size for A's xlast and
+    cost): on every slice the kernel's largest error against the float64
+    plain version ``truth`` at most twice the largest error of the float32
+    plain version (``ref``) on the slices within ``window`` of it, or at
+    most the bench tolerance there (atol + rtol max |truth|).  Over
+    hundreds of stages two float32 orders of one rollout or sweep drift
+    apart by a random walk of roundings, so neither is the truth entry by
+    entry, and the two walks peak at different stages
+    (``long_horizon_drift.py`` measures both forms on the card; PERF.md);
+    a kernel wrong on a few stages or on their small entries still leaves
+    its slices' bounds.  Returns (the largest ratio of a
+    slice's error to its bound, that slice's index); the gate holds when
+    the ratio is at most 1."""
+    n = got.shape[0]
+    t = truth.double().reshape(n, -1)
+    e_k = (got.double().reshape(n, -1) - t).abs().amax(1)
+    e_p = (ref.double().reshape(n, -1) - t).abs().amax(1)
+    near = torch.nn.functional.max_pool1d(e_p[None, None], 2 * window + 1,
+                                          1, window)[0, 0]
+    bound = torch.maximum(2.0 * near, atol + rtol * t.abs().amax(1))
+    ratio = e_k / bound
+    worst = int(ratio.argmax())
+    return ratio[worst].item(), worst
