@@ -11,6 +11,8 @@
         # with the dossier's closed-loop and self-consistency rows
     python3 chip_smoke.py --fixed     # phases 1-2, then phase 13 alone
     python3 chip_smoke.py --long-horizon  # phases 1-2, then phase 14 alone
+    python3 chip_smoke.py --multi-gpu     # phases 1-2, then phase 15 alone
+    python3 chip_smoke.py --profile       # phases 1-2, then phase 16 alone
     python3 chip_smoke.py --kernel wholebody_bwd   # phases 1-2, then the
         # [kernel] check of one kind of KINDS alone (no peak sweep: bounds
         # at the published 67 TFLOP/s; fma_peak runs phase 2b)
@@ -200,7 +202,31 @@ Phases, each reported on its own lines; any failure exits nonzero:
    shared converged flags, printed; on the row's first expansion the two sweeps
    in float64 at reg 1e-14 within 1e-6, and the float32 assoc sweep on the
    card at reg 1e-2 held stage by stage to its float64 version against the
-   CPU's float32 one, gated).
+   CPU's float32 one, gated);
+15. multi-gpu (also alone with ``--multi-gpu``): ``python -m
+   mmmpc_tpu_torch.bench_multihost --refined`` in a subprocess as one NCCL
+   rank under a torchrun-style environment (``MASTER_ADDR`` /
+   ``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK`` / ``LOCAL_RANK``): its
+   converged fraction, max violation and mean cost must be this process's
+   refined solve's (phase 4's digits) and A and B must launch 94 times a
+   solve (``[multi-gpu] part=nccl-1-rank``); then ``python -m
+   mmmpc_tpu_torch.dryrun_multiprocess`` with two gloo ranks sharing the
+   card (their collectives on host copies, ``host_staged=True``): the
+   bench problem at a global batch of 8192 refined per shard, each shard
+   held against this process's refined solve of its 4096 rows (to the bit,
+   else at a relative cost of 1e-6 with the same flags; ``shard_held``
+   says which), the reference's bar on the reduced global statistics, and
+   the sharded fleet (1024 robots, 2 segments of 10 ticks), each rank's
+   logs and carry held against this process's loop on its 512 robots
+   (``fleet_held``; ``[multi-gpu] part=gloo-2-ranks``).  The card cannot
+   show scaling across cards;
+16. profile (also alone with ``--profile``): ``profile_solver`` and
+   ``profile_generic`` at batch 8192: a ``[component]`` line for each
+   component of an iteration and of an AL round of each row (device ms
+   between CUDA events over 20 calls, the host's ms to issue them, busy ms
+   and device operations of one call in the profiler, PyTorch operators),
+   then ``[predicted]`` (the JAX script's predicted solve beside the
+   measured median of 5 stage-1 solves).
 
 Every solve phase prints the reference's bar (converged fraction 1.0, max
 violation below 1e-3) or a closed-loop run's assertions as a ``[bar]``
@@ -217,8 +243,10 @@ which A and B also list as ``launches_fleet``; C.arm_cart and D.arm_cart
 with their launches in phase 12's fused row solve; every C and D, as
 ``launches_single_robot``, in phase 12's single-robot ticks; the fixed
 instances of A and B with their launches in phase 13's fused warm-up
-solve; A, B and E, as ``launches_long_horizon``, in phase 14) and ``{"ok":
-true, "device": {...}}``.
+solve; A, B and E, as ``launches_long_horizon``, in phase 14; A and B and
+their fleet instances, as ``launches_multi_gpu``, in phase 15's ranks: the
+NCCL rank's warm-up solve and the gloo ranks' sharded solves, and the gloo
+ranks' fleet ticks) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2651,6 +2679,197 @@ def run_long_horizon(device, peak):
     return launches
 
 
+MULTI_GPU_TICKS = 10         # ticks a fleet segment; two segments
+MULTI_GPU_TIMEOUT_S = 240
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_module(tag, args, env=None):
+    """``python -m <args>`` from the checkout's root with a time limit;
+    prints its output and raises unless it exits 0."""
+    import os
+    cmd = [sys.executable, "-m", *args]
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                          env={**os.environ, **(env or {})},
+                          capture_output=True, text=True,
+                          timeout=MULTI_GPU_TIMEOUT_S)
+    for ln in proc.stdout.strip().splitlines():
+        print(f"[{tag}-out] {ln}", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:], flush=True)
+        raise AssertionError(f"{' '.join(args)}: exit {proc.returncode}")
+    return proc.stdout
+
+
+def run_multi_gpu(device):
+    """Phase 15, the multi-GPU path on the one card: ``bench_multihost
+    --refined`` as one NCCL rank under a torchrun-style environment, which
+    must print the refined solve's statistics of this process (``[slice]``'s
+    digits) with 94 launches each of A and B a solve; then
+    ``dryrun_multiprocess`` with two gloo ranks sharing the card (the
+    collectives on host copies: ``host_staged``), the bench problem at a
+    global batch of 8192 refined per shard -- each shard held against this
+    process's refined solve of the same 4096 rows (to the bit, else at a
+    relative cost of 1e-6 with the same flags), the reference's bar on the
+    global statistics -- and the sharded fleet (1024 robots, two segments
+    of MULTI_GPU_TICKS ticks), each rank's logs and carry against this
+    process's loop on its robots.  Returns the ranks' launches of A and B
+    ({kernel: launches}: the static instances in the NCCL rank's warm-up
+    solve and the gloo ranks' sharded solves, the fleet instances in the
+    ranks' fleet ticks)."""
+    import tempfile
+
+    from mmmpc_tpu_torch import dryrun_multiprocess as dry
+    from mmmpc_tpu_torch.bench import (
+        BATCH as B, REFINE_CFG, SOLVER_CFG, build_problem,
+    )
+    from mmmpc_tpu_torch.bench_fleet_tasks import CFG as FLEET_CFG
+    from mmmpc_tpu_torch.parallel.data_parallel import tree_map, with_stats
+    from mmmpc_tpu_torch.sim.batch_task_engine import PHASE_DONE, TaskRolloutLog
+    from mmmpc_tpu_torch.solver.al_ilqr import SolveResult, iteration_count
+
+    per_solve = iteration_count(SOLVER_CFG) + iteration_count(REFINE_CFG)
+    mpc, x0, U0, params = build_problem(B, device)
+    run = with_stats(mpc.batch_solve_refined_fn(REFINE_CFG))
+    res, stats = run(x0, U0, params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()        # timed as bench_multihost times
+    for _ in range(REPS):
+        run(x0, U0, params)
+    torch.cuda.synchronize()
+    this_sps = B * REPS / (time.perf_counter() - t0)
+    want = dict(converged_frac=f"{float(stats.n_converged) / B:.6f}",
+                max_violation=f"{float(stats.max_violation):.3e}",
+                mean_cost=f"{float(stats.mean_cost):.4f}")
+
+    # 1. one NCCL rank, as torchrun starts it
+    out = _run_module("multi-gpu-nccl", [
+        "mmmpc_tpu_torch.bench_multihost", "--refined"], env=dict(
+            MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+            WORLD_SIZE="1", RANK="0", LOCAL_RANK="0"))
+    rec = json.loads(out.strip().splitlines()[-1])
+    got = dict(converged_frac=f"{rec['converged_frac']:.6f}",
+               max_violation=f"{rec['max_violation']:.3e}",
+               mean_cost=f"{rec['mean_cost']:.4f}")
+    nccl_launches = {k: v[0] for k, v in rec["launches_per_solve"].items()}
+    _line("multi-gpu", part="nccl-1-rank", backend=rec["backend"],
+          distributed=rec["distributed"], global_batch=rec["global_batch"],
+          solves_per_s=rec["value"], **got,
+          this_process=",".join(want.values()),
+          this_process_solves_per_s=f"{this_sps:.1f}",
+          **{f"launches_{k}": v for k, v in nccl_launches.items()})
+    if (rec["backend"] != "nccl" or not rec["distributed"] or got != want
+            or set(nccl_launches.values()) != {per_solve}):
+        raise AssertionError(f"multi-gpu NCCL rank: {rec} against {want}, "
+                             f"{per_solve} launches a solve")
+    bars = {"multi_gpu_nccl": _bar("multi_gpu_nccl", rec["converged_frac"],
+                                   rec["max_violation"])}
+
+    # 2-3. two gloo ranks sharing the card: the sharded refined solve, the
+    # sharded fleet
+    base = Path(__file__).resolve().parent / "build" / "dryrun"
+    base.mkdir(parents=True, exist_ok=True)
+    outdir = Path(tempfile.mkdtemp(dir=base))
+    fleet_b = FLEET_BATCH
+    _run_module("multi-gpu-gloo", [
+        "mmmpc_tpu_torch.dryrun_multiprocess", "--device", "cuda",
+        "--backend", "gloo", "--problem", "bench", "--refined", "--fleet-batch",
+        str(fleet_b), "--ticks", str(MULTI_GPU_TICKS), "--out", str(outdir),
+        "--timeout", str(MULTI_GPU_TIMEOUT_S - 20)])
+    ranks = [torch.load(outdir / f"rank{r}.pt", weights_only=False)
+             for r in range(dry.NPROC)]
+    fl_run, fx0, fgpt = dry.build_fleet("bench", fleet_b, MULTI_GPU_TICKS,
+                                        device, torch.float32)
+    launches = {"wholebody_fwd": nccl_launches["wholebody_fwd"],
+                "wholebody_bwd": nccl_launches["wholebody_bwd"],
+                FLEET[0]: 0, FLEET[1]: 0}
+    per_tick = iteration_count(FLEET_CFG)
+    for r, rk in enumerate(ranks):
+        rows = slice(rk["offset"], rk["offset"] + rk["local"])
+        twin = run(x0[rows], U0[rows], params)[0]
+        held = dry.hold(SolveResult(**{k: v.to(device) for k, v in
+                                       rk["res"].items()}), twin,
+                        f"rank {r} shard")
+        frows = slice(rk["fleet_offset"],
+                      rk["fleet_offset"] + rk["fleet_local"])
+        r1, rc1 = fl_run(fx0[frows], fgpt[frows])
+        r2, rc2 = fl_run(fx0[frows], fgpt[frows], rc1)
+        to_dev = lambda t: t.to(device) if torch.is_tensor(t) else t
+        logs = tuple(TaskRolloutLog(**tree_map(to_dev, lg))
+                     for lg in rk["fleet_logs"])
+        fheld = dry.hold_fleet(logs, tree_map(to_dev, rk["fleet_carry"]),
+                               (r1, r2), rc2, f"rank {r} fleet")
+        st = rk["stats"]
+        for k in ("wholebody_fwd", "wholebody_bwd"):
+            if rk["launches"][k] != per_solve:
+                raise AssertionError(f"rank {r}: {rk['launches'][k]} {k} "
+                                     f"launches, expected {per_solve}")
+            launches[k] += rk["launches"][k]
+        for k, name in zip(("wholebody_fwd", "wholebody_bwd"), FLEET):
+            if rk["fleet_launches"][k] != per_tick * 2 * MULTI_GPU_TICKS:
+                raise AssertionError(f"rank {r} fleet: "
+                                     f"{rk['fleet_launches'][k]} {k} launches")
+            launches[name] += rk["fleet_launches"][k]
+        done = float((logs[-1].phase[:, -1] == PHASE_DONE).float().mean())
+        _line("multi-gpu", part="gloo-2-ranks", rank=r,
+              backend=rk["backend"], host_staged=rk["host_staged"],
+              rows=f"{rows.start}:{rows.stop}", shard_held=held,
+              shard_held_in_rank=rk["held"]["shard"],
+              global_n_solved=int(float(st["n_solved"])),
+              global_converged_frac=f"{float(st['n_converged']) / B:.6f}",
+              global_max_violation=f"{float(st['max_violation']):.3e}",
+              global_mean_cost=f"{float(st['mean_cost']):.4f}",
+              solve_s=f"{rk['solve_s']:.3f}",
+              fleet_robots=f"{frows.start}:{frows.stop}",
+              fleet_ticks=2 * MULTI_GPU_TICKS, fleet_held=fheld,
+              fleet_held_in_rank=rk["held"]["fleet"],
+              fleet_done_share=f"{done:.4f}", fleet_s=f"{rk['fleet_s']:.3f}",
+              **{f"launches_{k}": v for k, v in rk["launches"].items()},
+              **{f"fleet_launches_{k}": v
+                 for k, v in rk["fleet_launches"].items()})
+        if rk["backend"] != "gloo" or float(st["n_solved"]) != B:
+            raise AssertionError(f"rank {r}: {rk['backend']}, n_solved "
+                                 f"{float(st['n_solved'])}")
+    st = ranks[0]["stats"]
+    bars["multi_gpu_gloo_global"] = _bar(
+        "multi_gpu_gloo_global", float(st["n_converged"]) / B,
+        float(st["max_violation"]))
+    _bars_met("multi-gpu", bars)
+    shutil.rmtree(outdir, ignore_errors=True)
+    return launches
+
+
+def run_profile(device):
+    """Phase 16: ``profile_solver`` and ``profile_generic`` at the bench
+    batch: one ``[component]`` line per component of each row (device ms
+    over 20 calls between CUDA events, the host's ms to issue them, busy
+    ms and device operations of one call in the profiler, PyTorch
+    operators), then ``[predicted]``, the predicted solve beside the
+    measured median of 5.  Fails on a non-finite time, or a kernel
+    component (the backward, the line search, E) with no device
+    operation in its profile."""
+    from mmmpc_tpu_torch import profile_generic, profile_solver
+    recs = {"wholebody_qref (profile_solver)":
+            profile_solver.main([str(BATCH)])}
+    recs.update(profile_generic.main([str(BATCH)]))
+    for row, rec in recs.items():
+        for name, c in rec["components"].items():
+            times = (c["device_ms"], c["host_ms"], c["busy_ms"])
+            if any(t is None or not np.isfinite(t) for t in times):
+                raise AssertionError(f"profile {row} {name}: {c}")
+            if name in ("bwd_fused", "line_search", "riccati") and not (
+                    c["device_ops"]):
+                raise AssertionError(f"profile {row} {name}: no device op")
+        if not np.isfinite(rec["measured_ms"]):
+            raise AssertionError(f"profile {row}: measured {rec}")
+
+
 def run_cuda_tests():
     """Phase 3b: the ``cuda``-marked tests of ``tests/test_torch_cuda.py``
     (no JAX there), in a pytest process of their own from the checkout's
@@ -2683,12 +2902,13 @@ def main(argv):
         return 1
     if not (argv in ([], ["--kernels"], ["--closed-loop"], ["--moving-obs"],
                      ["--fleet"], ["--controllers"], ["--fixed"],
-                     ["--long-horizon"])
+                     ["--long-horizon"], ["--multi-gpu"], ["--profile"])
             or (argv[:1] == ["--kernel"] and len(argv) == 2
                 and argv[1] in KINDS)):
         print(f"chip_smoke: usage: [--kernels | --closed-loop | --moving-obs "
               f"| --fleet | --controllers | --fixed | --long-horizon | "
-              f"--kernel one of {', '.join(KINDS)}]", file=sys.stderr)
+              f"--multi-gpu | --profile | --kernel one of "
+              f"{', '.join(KINDS)}]", file=sys.stderr)
         return 2
     from mmmpc_tpu_torch.bench import SOLVER_CFG, build_problem
     from mmmpc_tpu_torch.ops._cuda import LIBRARY
@@ -2728,6 +2948,12 @@ def main(argv):
         return 0
     if argv == ["--long-horizon"]:
         _phase("long-horizon", run_long_horizon, device, None)
+        return 0
+    if argv == ["--multi-gpu"]:
+        _phase("multi-gpu", run_multi_gpu, device)
+        return 0
+    if argv == ["--profile"]:
+        _phase("profile", run_profile, device)
         return 0
     timings, peak = {}, None
     kinds = set(argv[1:]) if argv[:1] == ["--kernel"] else set(KINDS)
@@ -2779,6 +3005,8 @@ def main(argv):
     launches.update(cart_launches)
     launches.update(_phase("fixed", run_fixed, device))
     long_launches = _phase("long-horizon", run_long_horizon, device, peak)
+    multi_launches = _phase("multi-gpu", run_multi_gpu, device)
+    _phase("profile", run_profile, device)
     # A and B launch their fleet instances in the fleet's ticks
     fleet_launches.update({name.split(".")[0]: n
                            for name, n in fleet_launches.items()})
@@ -2804,7 +3032,9 @@ def main(argv):
             **({"launches_single_robot": single_launches[name]}
                if name in single_launches else {}),
             **({"launches_long_horizon": long_launches[name]}
-               if name in long_launches else {})})
+               if name in long_launches else {}),
+            **({"launches_multi_gpu": multi_launches[name]}
+               if name in multi_launches else {})})
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -107,16 +107,18 @@ class ControllerBase:
         self.last_result = None
 
     def solve_fn(self):
-        """(x0 (nx,), U0 (N, nu), params, lam0) -> the batch-free
+        """(x0 (nx,), U0 (N, nu), params, lam0=None) -> the batch-free
         SolveResult of one scenario, solved at batch 1 on the tensors'
         device; ``lam0`` the multiplier warm start
-        (lam_stage (N, nc), lam_term (nct,), lam_eq (ne,))."""
+        (lam_stage (N, nc), lam_term (nct,), lam_eq (ne,)), zero when
+        omitted (the JAX package's ``solve_fn(x0, U0, params)``)."""
         from mmmpc_tpu_torch.solver.batched import al_ilqr_solve_batched
         ocp, cfg = self.ocp, self.solver_config
 
-        def solve(x0, U0, params, lam0):
+        def solve(x0, U0, params, lam0=None):
+            lam0_b = None if lam0 is None else tuple(v[None] for v in lam0)
             res = al_ilqr_solve_batched(ocp, x0[None], U0[None], params, cfg,
-                                        lam0_b=tuple(v[None] for v in lam0))
+                                        lam0_b=lam0_b)
             return SolveResult(*(f[0] for f in res))
 
         return solve

@@ -51,12 +51,45 @@ from mmmpc_tpu_torch.solver.al_ilqr import (
 from mmmpc_tpu_torch.utils.configs import SolverConfig
 
 
-
 def _pick(cand, best):
     """cand (..., n_alpha, d, B) at the step size ``best`` (B,) of each
     scenario -> (..., d, B)."""
     idx = best.expand(cand.shape[:-3] + (1,) + cand.shape[-2:])
     return torch.gather(cand, -3, idx).squeeze(-3)
+
+
+def accept_step(cfg: SolverConfig, candidates, X, U, cost, reg):
+    """The end of an iLQR iteration: each scenario's best step size of the
+    line search's ``candidates`` (Xc (N, n_alpha, nx, B), Uc, xlast
+    (n_alpha, nx, B), cc (n_alpha, B)), taken where it lowers the AL cost,
+    and the regularisation moved down where it did and up where not.
+    Returns the new (X, U, cost, reg)."""
+    Xc, Uc, xlast, cc = candidates
+    best = torch.argmin(cc, dim=0, keepdim=True)               # (1, B)
+    best_cost = torch.gather(cc, 0, best)[0]
+    X_best = torch.cat([_pick(Xc, best), _pick(xlast, best)[None]])
+    U_best = _pick(Uc, best)
+
+    improved = best_cost < cost - 1e-12                        # (B,)
+    X = torch.where(improved, X_best, X)
+    U = torch.where(improved, U_best, U)
+    cost = torch.where(improved, best_cost, cost)
+    reg = torch.where(improved,
+                      torch.clamp(reg / cfg.reg_scale, min=cfg.reg_init),
+                      torch.clamp(reg * cfg.reg_scale, max=cfg.reg_max))
+    return X, U, cost, reg
+
+
+def update_multipliers(core, X, U, lams, mu):
+    """The end of an AL round: the constraints at (X, U), the multipliers
+    moved by the penalty ``mu`` (inequalities clamped at 0) and each
+    scenario's worst violation: (lam_stage, lam_term, lam_eq, viol)."""
+    lam_stage, lam_term, lam_eq = lams
+    cs, ct, he = core.eval_constraints(X, U)
+    lam_stage = torch.clamp(lam_stage + mu * cs, min=0.0)
+    lam_term = torch.clamp(lam_term + mu * ct, min=0.0)
+    lam_eq = lam_eq + mu * he
+    return lam_stage, lam_term, lam_eq, core.violation(cs, ct, he)
 
 
 def al_ilqr_solve_batched(ocp: OCP, x0_b, U0_b, params,
@@ -112,21 +145,8 @@ def al_ilqr_solve_batched(ocp: OCP, x0_b, U0_b, params,
 
     def ilqr_iter(X, U, cost, reg, lams, mu):
         kffs, Ks = backward(X, U, lams, mu, reg)
-        Xc, Uc, xlast, cc = fwd_ls(X[:-1], U, kffs, Ks, *lams, mu)
-        # Xc (N, n_alpha, nx, B), xlast (n_alpha, nx, B), cc (n_alpha, B)
-        best = torch.argmin(cc, dim=0, keepdim=True)           # (1, B)
-        best_cost = torch.gather(cc, 0, best)[0]
-        X_best = torch.cat([_pick(Xc, best), _pick(xlast, best)[None]])
-        U_best = _pick(Uc, best)
-
-        improved = best_cost < cost - 1e-12                    # (B,)
-        X = torch.where(improved, X_best, X)
-        U = torch.where(improved, U_best, U)
-        cost = torch.where(improved, best_cost, cost)
-        reg = torch.where(improved,
-                          torch.clamp(reg / cfg.reg_scale, min=cfg.reg_init),
-                          torch.clamp(reg * cfg.reg_scale, max=cfg.reg_max))
-        return X, U, cost, reg
+        return accept_step(cfg, fwd_ls(X[:-1], U, kffs, Ks, *lams, mu),
+                           X, U, cost, reg)
 
     def al_round(carry, i, inner_iters):
         # X is U applied open-loop from x0 (every accepted candidate is a
@@ -138,11 +158,7 @@ def al_ilqr_solve_batched(ocp: OCP, x0_b, U0_b, params,
         reg = torch.full((B,), cfg.reg_init, dtype=dtype, device=device)
         for _ in range(inner_iters):
             X, U, cost, reg = ilqr_iter(X, U, cost, reg, lams, mu)
-        cs, ct, he = core.eval_constraints(X, U)
-        lam_stage = torch.clamp(lam_stage + mu * cs, min=0.0)
-        lam_term = torch.clamp(lam_term + mu * ct, min=0.0)
-        lam_eq = lam_eq + mu * he
-        return X, U, lam_stage, lam_term, lam_eq, core.violation(cs, ct, he)
+        return X, U, *update_multipliers(core, X, U, lams, mu)
 
     kw = dict(dtype=dtype, device=device)
     if lam0_b is None:

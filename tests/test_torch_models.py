@@ -138,8 +138,8 @@ def test_port_never_imports_jax(fresh_import):
     flags, modules = fresh_import
     assert flags[0] == "False"
     # the generic formulations', the closed loops', the moving obstacles',
-    # the fleet's, the oracle's and the long horizon's modules were among
-    # those imported, and no
+    # the fleet's, the oracle's, the long horizon's, the scale-out's and the
+    # profilers' modules were among those imported, and no
     # module of the JAX package was
     for name in ("bench_controllers", "controllers.demo", "controllers.base",
                  "controllers.manipulator", "controllers.wholebody_endpoint",
@@ -151,7 +151,10 @@ def test_port_never_imports_jax(fresh_import):
                  "demo_wholebody_separate", "sim.batch_engine",
                  "sim.batch_task_engine", "utils.debugging",
                  "bench_fleet_tasks", "verify.oracle", "fidelity_dossier",
-                 "ops.assoc_riccati", "bench_longhorizon"):
+                 "ops.assoc_riccati", "bench_longhorizon",
+                 "parallel.data_parallel", "parallel.multihost",
+                 "dryrun_multiprocess", "bench_multihost", "utils.profiling",
+                 "profile_solver", "profile_generic"):
         assert f"mmmpc_tpu_torch.{name}" in modules, name
     assert all(m.startswith("mmmpc_tpu_torch") for m in modules)
 
