@@ -13,6 +13,7 @@
     python3 chip_smoke.py --long-horizon  # phases 1-2, then phase 14 alone
     python3 chip_smoke.py --multi-gpu     # phases 1-2, then phase 15 alone
     python3 chip_smoke.py --profile       # phases 1-2, then phase 16 alone
+    python3 chip_smoke.py --tools         # phases 1-2, then phase 17 alone
     python3 chip_smoke.py --kernel wholebody_bwd   # phases 1-2, then the
         # [kernel] check of one kind of KINDS alone (no peak sweep: bounds
         # at the published 67 TFLOP/s; fma_peak runs phase 2b)
@@ -226,7 +227,21 @@ Phases, each reported on its own lines; any failure exits nonzero:
    between CUDA events over 20 calls, the host's ms to issue them, busy ms
    and device operations of one call in the profiler, PyTorch operators),
    then ``[predicted]`` (the JAX script's predicted solve beside the
-   measured median of 5 stage-1 solves).
+   measured median of 5 stage-1 solves);
+17. tools (also alone with ``--tools``): ``sweep_refine``'s ``CONFIGS_R2``
+   and ``sweep_schedule``'s ``SCHEDULES`` at batch 8192, 3 timed solves a
+   row (``[sweep-refine]``, ``[sweep-schedule]``: each row finite; the
+   bench's own row, ``5x(16,10,12)`` + ``3x12@1024``, must end with phase
+   4's statistics to the bit and converged 1.0, ``[sweep-refine-held]``;
+   alone, a refined solve's here); ``fleet_diag`` (128 robots, parity
+   mode, 400 ticks: its lines, the final phase histogram and the
+   completion, states finite, ``[fleet-diag]``); ``host_fleet_parity`` in a
+   process of its own (8 robots, 400 ticks, 8 worker processes on the card:
+   the completion and the flag histogram, states finite, A and B 60
+   launches a solve in every worker, ``[host-fleet]``); ``fidelity_analysis``
+   (both verdicts, ``[fidelity-analysis]``).  A, B, C.arm and D.arm must
+   launch exactly as the parts' solves and ticks say (``[tools]``), each
+   part's seconds in ``[tools-part]``.
 
 Every solve phase prints the reference's bar (converged fraction 1.0, max
 violation below 1e-3) or a closed-loop run's assertions as a ``[bar]``
@@ -246,7 +261,8 @@ instances of A and B with their launches in phase 13's fused warm-up
 solve; A, B and E, as ``launches_long_horizon``, in phase 14; A and B and
 their fleet instances, as ``launches_multi_gpu``, in phase 15's ranks: the
 NCCL rank's warm-up solve and the gloo ranks' sharded solves, and the gloo
-ranks' fleet ticks) and ``{"ok": true, "device": {...}}``.
+ranks' fleet ticks; A, B, their fleet instances, C.arm and D.arm, as
+``launches_tools``, in phase 17) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2870,6 +2886,221 @@ def run_profile(device):
             raise AssertionError(f"profile {row}: measured {rec}")
 
 
+# ---- the tools: the sweeps, the fleet diagnosis, the host loop, the
+# fidelity analysis
+
+# timed solves a sweep row here (the modules time 10 when run alone)
+TOOLS_REPS = 3
+FLEET_DIAG_BATCH = 128
+HOST_FLEET_ROBOTS = 8
+HOST_FLEET_TICKS = 400
+HOST_FLEET_PROCS = 8
+TOOLS_DIR = Path(__file__).resolve().parent / "build" / "tools"
+
+
+def _strs(rec):
+    """A record's values for ``_line``: strings quoted (they hold spaces)."""
+    return {k: repr(v) if isinstance(v, str) else v for k, v in rec.items()}
+
+
+def _stats_bits(stats):
+    return tuple(float(v) for v in (stats.n_solved, stats.n_converged,
+                                     stats.max_violation, stats.mean_cost))
+
+
+def bench_refined_stats(device):
+    """The BatchStats of phase 4's refined solve at the bench batch."""
+    from mmmpc_tpu_torch.bench import REFINE_CFG, build_problem
+    from mmmpc_tpu_torch.parallel.data_parallel import with_stats
+
+    mpc, x0, U0, params = build_problem(BATCH, device)
+    return with_stats(mpc.batch_solve_refined_fn(REFINE_CFG))(x0, U0,
+                                                              params)[1]
+
+
+def _finite(res):
+    return all(bool(torch.isfinite(t).all())
+               for t in (res.X, res.U, res.cost, res.max_violation))
+
+
+def run_sweeps(device, slice_stats):
+    """``sweep_refine``'s ``CONFIGS_R2`` and ``sweep_schedule``'s
+    ``SCHEDULES`` at the bench batch, ``TOOLS_REPS`` timed solves a row
+    after a warm-up (``[sweep-refine]``, ``[sweep-schedule]``).  Fails on a
+    row whose results are not finite, and unless the bench's own row
+    (``BENCH_ROW``) ends with the statistics of ``slice_stats`` to the bit
+    (the same kernels in the same order on the same problem) and converged
+    1.0 (``[sweep-refine-held]``); another row under 1.0 is a finding.
+    Returns A's and B's launches: each row's iterations times its solves."""
+    from mmmpc_tpu_torch import sweep_refine, sweep_schedule
+    from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
+
+    solves, launches = 1 + TOOLS_REPS, 0
+    for entry in sweep_refine.CONFIGS_R2:
+        rec, res, stats = sweep_refine.run_row(entry, BATCH, device,
+                                               TOOLS_REPS)
+        cfg, rcfg, _ = sweep_refine.configs(entry)
+        launches += solves * (iteration_count(cfg) + (
+            0 if rcfg is None else iteration_count(rcfg)))
+        _line("sweep-refine", batch=BATCH, reps=TOOLS_REPS, **_strs(rec),
+              finite=_finite(res))
+        if not _finite(res):
+            raise AssertionError(f"sweep-refine {rec}: not finite")
+        if entry is sweep_refine.BENCH_ROW:
+            held = _stats_bits(stats) == _stats_bits(slice_stats)
+            _line("sweep-refine-held", stage1=repr(rec["stage1"]),
+                  refine=repr(rec["refine"]),
+                  converged_frac=rec["converged_frac"],
+                  max_violation=f"{rec['max_violation']:.3e}",
+                  mean_cost=f"{float(stats.mean_cost):.4f}",
+                  slice_max_violation=f"{float(slice_stats.max_violation):.3e}",
+                  slice_mean_cost=f"{float(slice_stats.mean_cost):.4f}",
+                  held_to_the_bit=held)
+            if not held or rec["converged_frac"] != 1.0:
+                raise AssertionError("the bench's row of the sweep is not "
+                                     "[slice]'s solve")
+    for row in sweep_schedule.SCHEDULES:
+        rec, res, _ = sweep_schedule.run_row(row, BATCH, device, TOOLS_REPS)
+        launches += solves * rec["iters"]
+        _line("sweep-schedule", batch=BATCH, reps=TOOLS_REPS, **_strs(rec),
+              finite=_finite(res))
+        if not _finite(res):
+            raise AssertionError(f"sweep-schedule {rec}: not finite")
+    return launches
+
+
+def run_fleet_diag(device):
+    """``fleet_diag`` at its default batch, parity mode, 10 segments of 40
+    ticks: the JAX script's lines (``[fleet-diag-out]``), then the final
+    phase histogram and the completion (``[fleet-diag]``).  Fails when a
+    state is not finite.  Returns A's and B's launches: 72 a tick."""
+    from mmmpc_tpu_torch import fleet_diag
+    from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
+
+    phase, X = fleet_diag.run(FLEET_DIAG_BATCH, False, device,
+                              report=lambda line: None)
+    d = fleet_diag.diagnose(phase, X)
+    for ln in fleet_diag.report_lines(d, "parity", FLEET_DIAG_BATCH):
+        print("[fleet-diag-out] " + ln.replace("\n", " "), flush=True)
+    finite = bool(np.isfinite(X).all())
+    _line("fleet-diag", batch=FLEET_DIAG_BATCH, ticks=phase.shape[1],
+          mode="parity", completion=f"{d['completion']:.4f}",
+          histogram=repr(dict(sorted(d["histogram"].items()))),
+          failing=len(d["failing"]), states_finite=finite)
+    if not finite:
+        raise AssertionError("fleet-diag: a state is not finite")
+    return phase.shape[1] * iteration_count(fleet_diag.CFG)
+
+
+def run_host_fleet(device):
+    """``python -m mmmpc_tpu_torch.host_fleet_parity`` with
+    ``HOST_FLEET_ROBOTS`` robots, ``HOST_FLEET_TICKS`` ticks and
+    ``HOST_FLEET_PROCS`` worker processes on the card (``_run_module``; a
+    worker that raises fails it): its JSON line, then the completion and
+    the flag histogram (``[host-fleet]``).  Fails when a robot's states are
+    not finite, or its A and B launches are not 60 a solve (the host loop
+    solves every tick but the one that ends the task).  Returns A's and B's
+    launches in the workers."""
+    from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
+    from mmmpc_tpu_torch.utils.configs import SolverConfig
+
+    TOOLS_DIR.mkdir(parents=True, exist_ok=True)
+    dump = TOOLS_DIR / "host_fleet.json"
+    out = _run_module("host-fleet", [
+        "mmmpc_tpu_torch.host_fleet_parity", str(HOST_FLEET_ROBOTS), "1",
+        f"--ticks={HOST_FLEET_TICKS}", f"--procs={HOST_FLEET_PROCS}",
+        f"--dump={dump}", f"--device={device.type}"])
+    rec = json.loads(out.strip().splitlines()[-1])
+    rows = json.loads(dump.read_text())
+    per_solve = iteration_count(SolverConfig())
+    finite = all(r["finite"] for r in rows)
+    n = {k: sum(r["launches"][k] for r in rows)
+         for k in ("wholebody_fwd", "wholebody_bwd")}
+    counted = all(r["launches"][k] == per_solve * (r["steps"] - r["done"])
+                  for r in rows for k in n)
+    _line("host-fleet", robots=HOST_FLEET_ROBOTS, ticks=HOST_FLEET_TICKS,
+          procs=HOST_FLEET_PROCS,
+          completion=rec["host_completion_rate"],
+          median_done_steps=rec["median_done_steps"],
+          flags=repr(rec["final_flag_histogram"]), wall_s=rec["wall_s"],
+          states_finite=finite, launches_per_solve=per_solve,
+          **{f"launches_{k}": v for k, v in n.items()})
+    if not finite or len(rows) != HOST_FLEET_ROBOTS or not counted:
+        raise AssertionError(f"host-fleet: finite={finite}, {len(rows)} "
+                             f"rows, launches {n} counted={counted}")
+    return n["wholebody_fwd"]
+
+
+def run_fidelity_analysis(device):
+    """``fidelity_analysis``'s two cases on the card (float32 solves, the
+    float64 oracles on the host): each verdict as one JSON object
+    (``[fidelity-analysis]``).  Fails on a cost or violation that is not
+    finite.  Returns (A's and B's launches, C.arm's and D.arm's)."""
+    from mmmpc_tpu_torch import fidelity_analysis as fa
+    from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
+
+    outs = []
+    for case in (fa.arm_case, fa.qref_case):
+        t0 = time.perf_counter()
+        outs.append(case(device, torch.float32))
+        print("[fidelity-analysis] " + json.dumps(
+            dict(outs[-1], seconds=round(time.perf_counter() - t0, 1))),
+            flush=True)
+    arm, qref = outs
+    numbers = [arm["our_cost"], arm["our_viol"], arm["oracle_best_cost"],
+               qref["cost_prod"], qref["cost_tight"],
+               qref["cost_polish_of_prod"], *qref["viol"]]
+    if not np.isfinite(numbers).all():
+        raise AssertionError(f"fidelity-analysis: {numbers}")
+    return (iteration_count(fa.PROD) + 2 * iteration_count(fa.XTREME),
+            2 * iteration_count(fa.TIGHT))
+
+
+def run_tools(device, slice_stats=None):
+    """Phase 17: the sweeps, the fleet diagnosis, the host loop's fleet and
+    the fidelity analysis, each part with its ``[tools-part]`` seconds, the
+    counters reset just before them.  ``slice_stats``: phase 4's
+    statistics (with ``--tools``, a refined solve's here, before the
+    counters are reset).  Fails unless every kernel that a part runs
+    launched exactly as its solves and ticks say, and no plain version ran.
+    Returns the kernels' launches in the phase (A's and B's fleet instances
+    in the fleet diagnosis's ticks)."""
+    from mmmpc_tpu_torch.ops import (
+        generic_bwd, generic_fwd, wholebody_bwd, wholebody_fwd,
+    )
+
+    if slice_stats is None:
+        slice_stats = bench_refined_stats(device)
+    counters = {"wholebody_fwd": wholebody_fwd.LAUNCHES,
+                "wholebody_bwd": wholebody_bwd.LAUNCHES,
+                "generic_fwd.arm": generic_fwd.LAUNCHES["arm"],
+                "generic_bwd.arm": generic_bwd.LAUNCHES["arm"]}
+    for c in counters.values():
+        c.reset()
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(device, *args)
+        _line("tools-part", name=name,
+              seconds=f"{time.perf_counter() - t0:.1f}")
+        return out
+
+    n_sweep = part("sweeps", run_sweeps, slice_stats)
+    n_fleet = part("fleet-diag", run_fleet_diag)
+    n_host = part("host-fleet", run_host_fleet)
+    n_wb, n_arm = part("fidelity-analysis", run_fidelity_analysis)
+    wb, arm = ("wholebody_fwd", "wholebody_bwd"), ("generic_fwd.arm",
+                                                   "generic_bwd.arm")
+    # the host loop's launches are its workers', counted in their processes
+    count_launches({k: counters[k] for k in wb}, n_sweep + n_fleet + n_wb, 1)
+    count_launches({k: counters[k] for k in arm}, n_arm, 1)
+    launches = {**dict.fromkeys(wb, n_sweep + n_host + n_wb),
+                **dict.fromkeys((f"{k}.fleet" for k in wb), n_fleet),
+                **dict.fromkeys(arm, n_arm)}
+    _line("tools", **{f"launches_{k}": v for k, v in launches.items()})
+    return launches
+
+
 def run_cuda_tests():
     """Phase 3b: the ``cuda``-marked tests of ``tests/test_torch_cuda.py``
     (no JAX there), in a pytest process of their own from the checkout's
@@ -2902,12 +3133,13 @@ def main(argv):
         return 1
     if not (argv in ([], ["--kernels"], ["--closed-loop"], ["--moving-obs"],
                      ["--fleet"], ["--controllers"], ["--fixed"],
-                     ["--long-horizon"], ["--multi-gpu"], ["--profile"])
+                     ["--long-horizon"], ["--multi-gpu"], ["--profile"],
+                     ["--tools"])
             or (argv[:1] == ["--kernel"] and len(argv) == 2
                 and argv[1] in KINDS)):
         print(f"chip_smoke: usage: [--kernels | --closed-loop | --moving-obs "
               f"| --fleet | --controllers | --fixed | --long-horizon | "
-              f"--multi-gpu | --profile | --kernel one of "
+              f"--multi-gpu | --profile | --tools | --kernel one of "
               f"{', '.join(KINDS)}]", file=sys.stderr)
         return 2
     from mmmpc_tpu_torch.bench import SOLVER_CFG, build_problem
@@ -2954,6 +3186,9 @@ def main(argv):
         return 0
     if argv == ["--profile"]:
         _phase("profile", run_profile, device)
+        return 0
+    if argv == ["--tools"]:
+        _phase("tools", run_tools, device)
         return 0
     timings, peak = {}, None
     kinds = set(argv[1:]) if argv[:1] == ["--kernel"] else set(KINDS)
@@ -3007,6 +3242,7 @@ def main(argv):
     long_launches = _phase("long-horizon", run_long_horizon, device, peak)
     multi_launches = _phase("multi-gpu", run_multi_gpu, device)
     _phase("profile", run_profile, device)
+    tools_launches = _phase("tools", run_tools, device, fused[1])
     # A and B launch their fleet instances in the fleet's ticks
     fleet_launches.update({name.split(".")[0]: n
                            for name, n in fleet_launches.items()})
@@ -3034,7 +3270,9 @@ def main(argv):
             **({"launches_long_horizon": long_launches[name]}
                if name in long_launches else {}),
             **({"launches_multi_gpu": multi_launches[name]}
-               if name in multi_launches else {})})
+               if name in multi_launches else {}),
+            **({"launches_tools": tools_launches[name]}
+               if name in tools_launches else {})})
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -65,13 +65,13 @@ def build_problem_numpy(batch: int, N: int = N,
 
 def build_problem(batch: int, device,
                   solver_config: SolverConfig = SOLVER_CFG,
-                  replicate_terminal_selfcol_bug: bool = True):
+                  replicate_terminal_selfcol_bug: bool = True, N: int = N):
     """(mpc, x0_b (batch, 9), U0_b (batch, N, 5), params) in float32 on
     ``device``, the kernels' dtype; ``solver_config`` is the stage-1
     schedule (``dataclasses.replace(SOLVER_CFG, use_fused_backward=False)``
     for the unfused backward path)."""
     mpc, x0_b, params = build_problem_numpy(
-        batch, solver_config=solver_config,
+        batch, N=N, solver_config=solver_config,
         replicate_terminal_selfcol_bug=replicate_terminal_selfcol_bug)
     kw = dict(dtype=torch.float32, device=device)
     return (mpc, torch.as_tensor(x0_b, **kw), torch.zeros(batch, N, 5, **kw),

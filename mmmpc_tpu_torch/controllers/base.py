@@ -54,6 +54,7 @@ class MPCBase(ControllerBase):
                  solver_config: SolverConfig | None = None, device=None):
         self.dt = robot.dt
         self.base_radius = robot.base_radius()
+        self.obstacle_list = obstacle_list
         self.Q_value = as_weight_matrix(Q, self.NX)
         self.P_value = as_weight_matrix(P, self.NX)
         self.R_value = as_weight_matrix(R, self.NU)

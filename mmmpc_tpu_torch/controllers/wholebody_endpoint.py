@@ -59,6 +59,7 @@ class MPCWholeBodyEndpoint(ControllerBase):
                  solver_config: SolverConfig | None = None, device=None):
         self.dt = robot.dt
         self.base_radius = robot.base.base_radius()
+        self.obstacle_list = obstacle_list
         self.Q_value = as_weight_matrix(Q, 4)
         self.P_value = as_weight_matrix(P, 4)
         self.R_value = as_weight_matrix(R, self.NU)

@@ -9,6 +9,7 @@ theta = q1 - q2, beta = theta - q3; the arm moves in its local x-z plane
 
 import math
 
+import numpy as np
 import torch
 
 from mmmpc_tpu_torch.utils.convert import device_constant
@@ -49,6 +50,26 @@ def arm_fk(q: torch.Tensor):
     joint3 = torch.stack([x3, zero, z3], dim=-1)
     ee = torch.stack([xe, zero, ze], dim=-1)
     return ee, joint2, joint3
+
+
+def arm_fk_np(q):
+    """Numpy twin of :func:`arm_fk` for one (3,) q, for host-side consumers
+    (the 3-D scene) that must not touch the device per call: (ee, joint2,
+    joint3), each a (3,) float64 array."""
+    q1, q2, q3 = float(q[0]), float(q[1]), float(q[2])
+    s1, c1 = np.sin(q1), np.cos(q1)
+    theta = q1 - q2
+    st, ct = np.sin(theta), np.cos(theta)
+    beta = theta - q3
+    sb, cb = np.sin(beta), np.cos(beta)
+    x2 = A2 * s1 + A3 * c1
+    z2 = A2 * c1 - A3 * s1
+    x3 = x2 - A3 * ct + A5 * st
+    z3 = z2 + A3 * st + A5 * ct
+    xe = x3 + A6 * cb - A7 * sb
+    ze = z3 - A6 * sb - A7 * cb
+    return (np.array([xe, 0.0, ze]), np.array([x2, 0.0, z2]),
+            np.array([x3, 0.0, z3]))
 
 
 def arm_fk_partials(q: torch.Tensor):

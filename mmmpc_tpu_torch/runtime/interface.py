@@ -16,8 +16,8 @@ Everything here runs on the host in float64 numpy: the controller's
 replays the reference's model-only plant (current_state = f(x, u) through
 the robot model on the host); physical_sim=True steps the kinematic plant
 (``sim/kinematic_plant.py``) through the observation / actuation path.
-
-The JAX package's ``plot*`` methods (matplotlib) are not ported.
+The ``plot*`` methods draw the logs with matplotlib, imported only when a
+plot is drawn.
 """
 
 from __future__ import annotations
@@ -337,3 +337,119 @@ class Interface:
         action = np.zeros(self.env.n())
         action[sim.IDX_3DOF_ACTION] = np.asarray(self.command)
         self.ob = sim.run_step(self.env, action)
+
+    # ------------------------------------------------------------- plots
+    def _plt(self):
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        return plt
+
+    def plot1D(self, save_path=None):
+        """Reference interface:480-510 (the 1-D demo's p/v/a panels)."""
+        plt = self._plt()
+        x_log = np.asarray(self.x_log)
+        u_log = np.asarray(self.u_log)
+        t = np.arange(len(x_log))
+        fig, axes = plt.subplots(4, 1, figsize=(8, 9))
+        axes[0].plot(t, x_log[:, 0]); axes[0].set_ylabel("p")
+        axes[1].plot(t, x_log[:, 1]); axes[1].set_ylabel("v")
+        axes[2].plot(t[: len(u_log)], u_log[:, 0]); axes[2].set_ylabel("a")
+        axes[3].plot(np.arange(self.traj_ref.shape[0]), self.traj_ref[:, 0])
+        axes[3].set_ylabel("p ref")
+        for ax in axes:
+            ax.grid(True)
+        if save_path:
+            fig.savefig(save_path)
+        plt.close(fig)
+
+    def plot2D(self, save_path=None):
+        plt = self._plt()
+        x_log = np.asarray(self.x_log)
+        u_log = np.asarray(self.u_log)
+        t = np.arange(len(x_log))
+        fig, axes = plt.subplots(3, 2, figsize=(11, 8))
+        for i, (idx, name) in enumerate(
+                [(0, "x"), (1, "y"), (2, "psi"),
+                 (3, "dx"), (4, "dy"), (5, "dpsi")]):
+            ax = axes[i % 3, i // 3]
+            ax.plot(t, x_log[:, idx])
+            ax.set_ylabel(name)
+            ax.grid(True)
+        if save_path:
+            fig.savefig(save_path)
+        plt.close(fig)
+        fig2, ax = plt.subplots(figsize=(7, 7))
+        ax.plot(x_log[:, 0], x_log[:, 1], label="actual position")
+        ref_line = np.linspace(self.x_start[:2], self.x_target[:2])
+        ax.plot(ref_line[:, 0], ref_line[:, 1], label="reference position")
+        for obs in getattr(self.controller, "obstacle_list", []):
+            ax.add_artist(plt.Circle((obs.x, obs.y), obs.radius,
+                                     color="green", fill=False))
+        ax.set_aspect("equal", adjustable="box")
+        ax.legend()
+        ax.grid(True)
+        if save_path:
+            fig2.savefig(str(save_path).replace(".png", "_xy.png"))
+        plt.close(fig2)
+        return u_log
+
+    def plotManipulator(self, is_mobile=False, save_path=None):
+        plt = self._plt()
+        x_log = np.asarray(self.x_log)
+        pose_log = np.asarray(self.manipulator_pose_log)
+        t = np.arange(len(x_log))
+        off = 6 if is_mobile else 0
+        fig, axes = plt.subplots(1, 2, figsize=(11, 4))
+        for j, name in enumerate(["q1", "q2", "q3"]):
+            axes[0].plot(t, x_log[:, j + off], label=name)
+        axes[0].legend(); axes[0].grid(True)
+        axes[1].plot(t, pose_log[:, 0], label="ee x")
+        axes[1].plot(t, pose_log[:, 2], label="ee z")
+        axes[1].legend(); axes[1].grid(True)
+        if save_path:
+            fig.savefig(save_path)
+        plt.close(fig)
+
+    def plotEndpoint(self, save_path=None):
+        plt = self._plt()
+        xs = [p[0] for p in self.endpoint_relative_pos_log]
+        zs = [p[2] for p in self.endpoint_relative_pos_log]
+        fig, ax = plt.subplots(figsize=(7, 7))
+        ax.plot(xs, zs, marker="o", linewidth=2, label="endpoint trajectory")
+        if self.local_pose_target is not None:
+            ax.scatter([self.local_pose_target[0]],
+                       [self.local_pose_target[2]], color="red", marker="^",
+                       s=100, label="target")
+        ax.legend(); ax.grid(True)
+        if save_path:
+            fig.savefig(save_path)
+        plt.close(fig)
+
+    def plot3D(self, save_dir=None, animate=False):
+        """2-D panel family (reference interface:711-716) plus a genuine 3-D
+        scene rendering (``runtime/scene3d.py``) and, with ``animate``, the
+        GIF animation artifact the reference publishes."""
+        prefix = str(save_dir) + "/" if save_dir else ""
+        self.plot2D(save_path=f"{prefix}base.png" if save_dir else None)
+        self.plotManipulator(
+            is_mobile=True,
+            save_path=f"{prefix}manipulator.png" if save_dir else None)
+        self.plotEndpoint(
+            save_path=f"{prefix}endpoint.png" if save_dir else None)
+        if save_dir:
+            from mmmpc_tpu_torch.runtime.scene3d import (
+                scene3d_animation, scene3d_plot,
+            )
+            hp = getattr(self.controller, "obstacle_manipulation_list", [])
+            scene3d_plot(
+                np.asarray(self.x_log),
+                obstacles=getattr(self.controller, "obstacle_list", []),
+                halfplanes=hp, target=self.global_pose_target[:3],
+                save_path=f"{prefix}scene3d.png")
+            if animate:
+                scene3d_animation(
+                    np.asarray(self.x_log),
+                    obstacles=getattr(self.controller, "obstacle_list", []),
+                    halfplanes=hp, target=self.global_pose_target[:3],
+                    save_path=f"{prefix}scene3d.gif")

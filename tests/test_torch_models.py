@@ -120,27 +120,31 @@ for m in pkgutil.walk_packages(mmmpc_tpu_torch.__path__, "mmmpc_tpu_torch."):
 print("jax" in sys.modules, torch.backends.cuda.matmul.allow_tf32,
       torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
 print(*sorted(m for m in sys.modules if m.startswith("mmmpc_tpu")))
+print("matplotlib" in sys.modules)
 """
 
 
 @pytest.fixture(scope="module")
 def fresh_import():
     """Import every module of the port in a fresh interpreter (the test
-    process has JAX loaded by tests/conftest.py): the flags line, and the
-    names of the modules of both packages that the interpreter loaded."""
+    process has JAX loaded by tests/conftest.py): the flags line, the
+    names of the modules of both packages that the interpreter loaded, and
+    whether it loaded matplotlib."""
     out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
                          text=True, timeout=120, check=True)
-    flags, modules = out.stdout.splitlines()
-    return flags.split(), modules.split()
+    flags, modules, matplotlib = out.stdout.splitlines()
+    return flags.split(), modules.split(), matplotlib
 
 
 def test_port_never_imports_jax(fresh_import):
-    flags, modules = fresh_import
+    flags, modules, matplotlib = fresh_import
     assert flags[0] == "False"
+    # the plots import matplotlib when they draw, never at import
+    assert matplotlib == "False"
     # the generic formulations', the closed loops', the moving obstacles',
-    # the fleet's, the oracle's, the long horizon's, the scale-out's and the
-    # profilers' modules were among those imported, and no
-    # module of the JAX package was
+    # the fleet's, the oracle's, the long horizon's, the scale-out's, the
+    # profilers', the 3-D scene's and the tools' modules were among those
+    # imported, and no module of the JAX package was
     for name in ("bench_controllers", "controllers.demo", "controllers.base",
                  "controllers.manipulator", "controllers.wholebody_endpoint",
                  "models.point_mass", "ops.generic_fwd", "ops.generic_bwd",
@@ -154,7 +158,9 @@ def test_port_never_imports_jax(fresh_import):
                  "ops.assoc_riccati", "bench_longhorizon",
                  "parallel.data_parallel", "parallel.multihost",
                  "dryrun_multiprocess", "bench_multihost", "utils.profiling",
-                 "profile_solver", "profile_generic"):
+                 "profile_solver", "profile_generic", "sim.obstacles",
+                 "runtime.scene3d", "sweep_schedule", "sweep_refine",
+                 "fleet_diag", "host_fleet_parity", "fidelity_analysis"):
         assert f"mmmpc_tpu_torch.{name}" in modules, name
     assert all(m.startswith("mmmpc_tpu_torch") for m in modules)
 
