@@ -14,6 +14,7 @@
     python3 chip_smoke.py --multi-gpu     # phases 1-2, then phase 15 alone
     python3 chip_smoke.py --profile       # phases 1-2, then phase 16 alone
     python3 chip_smoke.py --tools         # phases 1-2, then phase 17 alone
+    python3 chip_smoke.py --bench         # phases 1-2, then phase 4c alone
     python3 chip_smoke.py --kernel wholebody_bwd   # phases 1-2, then the
         # [kernel] check of one kind of KINDS alone (no peak sweep: bounds
         # at the published 67 TFLOP/s; fma_peak runs phase 2b)
@@ -94,6 +95,19 @@ Phases, each reported on its own lines; any failure exits nonzero:
    fused backward kernel, which must not launch; launches, timing (2
    solves), profile, convergence, and the gate of phase 6 against phase 4's
    fused solve;
+4c. bench (also alone with ``--bench``): ``mmmpc_tpu_torch/bench.py``'s
+   ``run(8192, 10)``, the entry point of ``python -m mmmpc_tpu_torch.bench``:
+   one warm-up solve, then 10 solves back to back with one synchronise at
+   the end (``[bench]``: its statistics and metric, beside phase 4's
+   median solves/s and statistics); fails on a missed bar, on A's or B's
+   launches other than the schedule's 94 a solve in its 11 solves, and
+   unless its statistics are phase 4's to the bit (``held_to_the_bit``;
+   alone, not compared);
+4d. native: the host runtime ``mmmpc_tpu_torch/native`` built with ``g++``
+   from ``csrc/mmrt.cpp`` (a failed build fails the phase), each function
+   against the port's float64 torch function on seeded inputs at
+   ``tests/test_torch_native.py``'s tolerances (``[native]``: the max abs
+   error and the host microseconds a call of both);
 5. scaling: the same timing and profile at batch 1024;
 6. reference: the same solve at batch 64 on the card and, through the plain
    versions, on the CPU: relative mean cost within 5e-3, the same converged
@@ -250,7 +264,8 @@ line, and a line with ``met=False`` fails its phase.
 Each phase from 2b on prints its wall seconds (``[phase]``), and each
 profiled solve the seconds the profile took.  The last two lines are a
 JSON record of the kernels (E at (4, 2), on no solve path, with its
-launches in its own check; A and B with their launches in phase 4 and, as
+launches in its own check; A and B with their launches in phase 4, as
+``launches_bench`` in phase 4c, and, as
 ``launches_closed_loop``, in phase 9's runs; their moving instances with
 their launches in phase 10's fused row solve and, as ``launches_demo``, in
 its demo run; the fleet instances with their launches in phase 11's ticks,
@@ -1068,7 +1083,136 @@ def run_slice(device):
         raise AssertionError(f"converged_frac {conv} < 0.99")
     _bars_met("slice", {"wholebody_qref_refined":
                         _bar("wholebody_qref_refined", conv, maxv)})
-    return launches, (res, stats)
+    return launches, (res, stats), med
+
+
+def run_bench(device, slice_run=None):
+    """Phase 4c: ``bench.run(BATCH, REPS)``, the solve and the timing of
+    ``python -m mmmpc_tpu_torch.bench``, with A's and B's launches counted
+    over its warm-up and timed solves.  ``slice_run``: (median seconds,
+    BatchStats) of phase 4, printed beside and held to the bit."""
+    from mmmpc_tpu_torch import bench
+    from mmmpc_tpu_torch.ops import wholebody_bwd, wholebody_fwd
+    from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
+
+    per_solve = (iteration_count(bench.SOLVER_CFG)
+                 + iteration_count(bench.REFINE_CFG))
+    counters = {"wholebody_fwd": wholebody_fwd.LAUNCHES,
+                "wholebody_bwd": wholebody_bwd.LAUNCHES}
+    for c in counters.values():
+        c.reset()
+    stats, metric = bench.run(BATCH, REPS, device)
+    launches = count_launches(counters, per_solve, 1 + REPS)
+    beside = {}
+    if slice_run is not None:
+        med, slice_stats = slice_run
+        held = ((stats["converged_frac"], stats["max_violation"],
+                 stats["mean_cost"])
+                == (float(slice_stats.n_converged)
+                    / float(slice_stats.n_solved),
+                    float(slice_stats.max_violation),
+                    float(slice_stats.mean_cost)))
+        beside = dict(slice_solves_per_s_median=f"{BATCH / med:.1f}",
+                      slice_max_violation=(
+                          f"{float(slice_stats.max_violation):.3e}"),
+                      slice_mean_cost=f"{float(slice_stats.mean_cost):.4f}",
+                      held_to_the_bit=held)
+    _line("bench", **_strs(stats), **_strs(metric),
+          launches_per_solve=per_solve,
+          **{f"launches_{k}": v for k, v in launches.items()}, **beside)
+    _bars_met("bench", {"wholebody_qref_bench": _bar(
+        "wholebody_qref_bench", stats["converged_frac"],
+        stats["max_violation"])})
+    if not beside.get("held_to_the_bit", True):
+        raise AssertionError("bench: its statistics are not [slice]'s")
+    return launches
+
+
+NATIVE_SEED = 21
+
+
+def run_native():
+    """Phase 4d: the host runtime built with g++ and each function held
+    against the port's float64 torch function (numpy for the reference
+    windowing) on inputs from ``NATIVE_SEED``, at the tolerances of
+    ``tests/test_torch_native.py``; prints the max abs error and the host
+    microseconds a call of each side."""
+    from mmmpc_tpu_torch import native
+    from mmmpc_tpu_torch.models.arm import arm_fk
+    from mmmpc_tpu_torch.models.mobile_manipulator import (
+        wholebody_fk, wholebody_step,
+    )
+    from mmmpc_tpu_torch.native.bindings import RUNTIME
+    from mmmpc_tpu_torch.runtime.reference import local_ref_traj, nearest_index
+    from mmmpc_tpu_torch.sim.kinematic_plant import (
+        plant_observation, plant_step,
+    )
+
+    RUNTIME.get()                       # raises on a failed build
+    _line("native-build", library=RUNTIME.path.name,
+          seconds=f"{RUNTIME.seconds:.2f}")
+    rng = np.random.default_rng(NATIVE_SEED)
+    t = torch.as_tensor
+    tup = lambda v: v if isinstance(v, tuple) else (v,)
+    traj = rng.normal(size=(40, 9))
+    idx = np.array([0, 1])
+    # name: (calls, inputs, native, counterpart, tolerance)
+    cases = {
+        "arm_fk": (50, lambda: (rng.uniform([-1.5, -3.0, 0.0],
+                                            [1.5, 0.0, 4.5]),),
+                   native.arm_fk, lambda q: arm_fk(t(q)), 1e-14),
+        "wholebody_fk": (20, lambda: (rng.normal(size=9),),
+                         native.wholebody_fk, lambda x: wholebody_fk(t(x)),
+                         1e-13),
+        "wholebody_step": (20, lambda: (rng.normal(size=9),
+                                        rng.normal(size=5), 0.1),
+                           native.wholebody_step,
+                           lambda x, u, dt: wholebody_step(t(x), t(u), dt),
+                           1e-14),
+        "plant_step": (20, lambda: (rng.normal(size=12),
+                                    rng.normal(size=11), 0.01),
+                       native.plant_step,
+                       lambda s, a, dt: plant_step(t(s), t(a), dt), 1e-14),
+        "plant_observation": (20, lambda: (rng.normal(size=12),
+                                           rng.normal(size=11)),
+                              native.plant_observation,
+                              lambda s, a: plant_observation(t(s), t(a)),
+                              1e-14),
+        "nearest_index": (20, lambda: (traj, traj[rng.integers(40)]
+                                       + 0.01, idx),
+                          native.nearest_index, nearest_index, 0.0),
+        "local_ref_window": (20, lambda: (traj, int(rng.integers(40)), 9),
+                             native.local_ref_window,
+                             lambda tr, i, n: local_ref_traj(
+                                 tr, np.zeros((39, 5)), tr[i], idx,
+                                 n - 1)[0], 0.0),
+        "integrate_command": (20, lambda: (rng.normal(size=2),
+                                           rng.normal(size=2), 0.01),
+                              native.integrate_command,
+                              lambda v, c, dt: v + dt * c * [-1.0, 1.0],
+                              1e-15),
+    }
+    failed = []
+    for name, (n, inputs, fn_native, fn_port, tol) in cases.items():
+        err, s_native, s_port = 0.0, 0.0, 0.0
+        for _ in range(n):
+            args = inputs()
+            t0 = time.perf_counter()
+            got = tup(fn_native(*args))
+            t1 = time.perf_counter()
+            want = tup(fn_port(*args))
+            s_native += t1 - t0
+            s_port += time.perf_counter() - t1
+            for g, w in zip(got, want):
+                w = w.numpy() if torch.is_tensor(w) else np.asarray(w)
+                err = max(err, float(np.max(np.abs(np.asarray(g) - w))))
+        _line("native", name=name, calls=n, max_abs_err=f"{err:.3e}",
+              tol=tol, us_native=f"{1e6 * s_native / n:.2f}",
+              us_port=f"{1e6 * s_port / n:.2f}", met=err <= tol)
+        if not err <= tol:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"native: {failed} outside their tolerances")
 
 
 def run_unfused(device, fused):
@@ -2881,7 +3025,8 @@ def run_profile(device):
                 raise AssertionError(f"profile {row} {name}: {c}")
             if name in ("bwd_fused", "line_search", "riccati") and not (
                     c["device_ops"]):
-                raise AssertionError(f"profile {row} {name}: no device op")
+                raise AssertionError(f"profile {row} {name}: no device op "
+                                     f"({c})")
         if not np.isfinite(rec["measured_ms"]):
             raise AssertionError(f"profile {row}: measured {rec}")
 
@@ -3134,12 +3279,12 @@ def main(argv):
     if not (argv in ([], ["--kernels"], ["--closed-loop"], ["--moving-obs"],
                      ["--fleet"], ["--controllers"], ["--fixed"],
                      ["--long-horizon"], ["--multi-gpu"], ["--profile"],
-                     ["--tools"])
+                     ["--tools"], ["--bench"])
             or (argv[:1] == ["--kernel"] and len(argv) == 2
                 and argv[1] in KINDS)):
         print(f"chip_smoke: usage: [--kernels | --closed-loop | --moving-obs "
               f"| --fleet | --controllers | --fixed | --long-horizon | "
-              f"--multi-gpu | --profile | --tools | --kernel one of "
+              f"--multi-gpu | --profile | --tools | --bench | --kernel one of "
               f"{', '.join(KINDS)}]", file=sys.stderr)
         return 2
     from mmmpc_tpu_torch.bench import SOLVER_CFG, build_problem
@@ -3190,6 +3335,9 @@ def main(argv):
     if argv == ["--tools"]:
         _phase("tools", run_tools, device)
         return 0
+    if argv == ["--bench"]:
+        _phase("bench", run_bench, device)
+        return 0
     timings, peak = {}, None
     kinds = set(argv[1:]) if argv[:1] == ["--kernel"] else set(KINDS)
     if "fma_peak" in kinds:
@@ -3216,8 +3364,11 @@ def main(argv):
     _phase("cuda-tests", run_cuda_tests)
     if argv:
         return 0
-    launches, fused = _phase("slice", run_slice, device)
+    launches, fused, slice_med = _phase("slice", run_slice, device)
     launches.update(_phase("unfused", run_unfused, device, fused))
+    bench_launches = _phase("bench", run_bench, device,
+                            (slice_med, fused[1]))
+    _phase("native", run_native)
     launches["fma_peak"] = fma_launches
     # E at (4, 2) runs on no solve path: its launches in its own check
     launches["riccati_bwd.4x2"] = timings["riccati_bwd.4x2"]["launches"]
@@ -3259,6 +3410,8 @@ def main(argv):
             "bound_by": t["bound_by"],
             "bound_ms_measured_peak": t["bound_ms_measured_peak"],
             "library_ms": None,
+            **({"launches_bench": bench_launches[name]}
+               if name in bench_launches else {}),
             **({"launches_closed_loop": loop_launches[name]}
                if name in loop_launches else {}),
             **({"launches_demo": demo_launches[name]}

@@ -6,15 +6,33 @@ reference).  Module names mirror the JAX package so each module's counterpart
 is found by path.  The package imports torch and numpy, never jax.
 
 - ``models``       dynamics and kinematics on tensors with a trailing
-                   feature axis (``x[..., 0:9]``).
+                   feature axis (``x[..., 0:9]``), the robots and obstacles.
 - ``ocp``          the OCP bundle of callables and constraint blocks.
-- ``controllers``  ``MPCWholeBody`` (joint-space reference), the main
-                   controller.
+- ``controllers``  the controllers: ``MPCWholeBody`` (joint-space
+                   reference, the bench's), ``MPCWholeBodyMovingObs``,
+                   ``MPCWholeBodyEndpoint``, ``MPCManipulator3DoF``,
+                   ``MPCBase`` and ``MPC`` (the 1-D demo).
 - ``solver``       batched AL-iLQR with the batch on the last axis, straggler
-                   refinement.
-- ``ops``          the two fused iLQR kernels (CUDA C++ in ``csrc/``), each
-                   beside its plain PyTorch version.
-- ``parallel``     batch statistics.
+                   refinement, small dense linear algebra.
+- ``ops``          the kernel wrappers, each beside its plain PyTorch
+                   version: the whole-body line search and fused backward,
+                   the generic formulations' pair, the Riccati sweep (CUDA
+                   C++ in ``csrc/``), the associative-scan sweep.
+- ``parallel``     batch statistics and the data-parallel scale-out over
+                   ``torch.distributed``.
+- ``runtime``      the closed loop: the task state machine, the local
+                   references, metrics, checkpoints, the 3-D scene.
+- ``sim``          the kinematic plant, the batched closed loops (fleet),
+                   the simulation's obstacles.
+- ``native``       the host runtime in C++ (``csrc/mmrt.cpp``, built with
+                   g++ on first use), bound with ctypes.
+- ``verify``       the scipy oracles of the controllers' OCPs.
+- ``utils``        configs, conversions, failure reports, profiling, and
+                   the sympy DH derivation (``dh_codegen``, tests only).
+
+The entry modules at the package root (``bench``, ``bench_*``, the demos,
+the sweeps, the profilers, the tools) run as ``python -m
+mmmpc_tpu_torch.<name>``, on the card by default.
 
 Float32 matmuls are pinned to full precision here, on import: TF32 keeps
 about three decimal digits, and the JAX package measured that low-precision

@@ -1,4 +1,7 @@
-"""The benchmark problem of ``bench.py``, built for the port.
+"""The headline benchmark of the port: whole-body qref MPC solves/s on one
+GPU (counterpart of ``bench.py``).
+
+    python -m mmmpc_tpu_torch.bench [--device cpu]
 
 Whole-body qref MPC on scenario 1 (3 ground circles, 3 half-planes, the
 self-collision spheres, state / input / input-rate boxes), N=20, a batch of
@@ -7,9 +10,30 @@ manipulate-phase starts near the table jittered with numpy
 (16, 10, 10, 10, 12) sweeps, then the 1024 worst re-solved for 3 x 12 with
 the penalty continued.  Everything is built from numpy and moved onto the
 device in one dtype.
+
+- ``build_problem_numpy`` / ``build_problem``: the problem, as host data or
+  on a device in float32.
+- ``run``: one warm-up solve, then ``reps`` solves back to back with one
+  synchronise at the end (``time_run``, which the sweeps share); returns
+  the statistics and the metric.  When a
+  robot of the last solve failed, ``utils/debugging.py::report_unconverged``
+  prints the worst three on stderr.
+- ``main``: prints the statistics as one JSON line on stderr and the metric
+  line ``{"metric": "wholebody_qref_solves_per_s", "value", "unit",
+  "vs_baseline"}`` alone, last on stdout.  ``vs_baseline`` is solves/s over
+  10: the reference solves once a 0.1 s control period on the CPU.  On the
+  card unless ``--device cpu`` (the kernels' plain versions).
+
+One process on one card.  Several cards run ``bench_multihost --refined``
+under ``torchrun`` (each rank ``BATCH`` robots and its own refinement).
 """
 
 from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
 
 import numpy as np
 import torch
@@ -23,6 +47,8 @@ from mmmpc_tpu_torch.utils.convert import params_from_numpy
 
 N = 20
 BATCH = 8192
+# solves timed back to back after the warm-up
+REPS = 10
 SOLVER_CFG = SolverConfig(al_iters=5, ilqr_iters=16, ilqr_iters_later=10,
                           ilqr_iters_final=12,
                           cost_scale=1e5, constraint_tol=1e-3, n_alpha=3,
@@ -76,3 +102,73 @@ def build_problem(batch: int, device,
     kw = dict(dtype=torch.float32, device=device)
     return (mpc, torch.as_tensor(x0_b, **kw), torch.zeros(batch, N, 5, **kw),
             params_from_numpy(params, device, torch.float32))
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def time_run(run, args, reps, device):
+    """One warm-up call of ``run(*args)``, then ``reps`` calls back to back
+    with one synchronise after them (``bench.py:112-121``): (the last
+    result, seconds of the ``reps`` calls)."""
+    out = run(*args)
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = run(*args)
+    sync(device)
+    return out, time.perf_counter() - t0
+
+
+def run(batch: int = BATCH, reps: int = REPS, device="cuda"):
+    """(stats, metric) of ``reps`` refined solves of the bench problem at
+    ``batch`` on ``device`` (stage 1 ``SOLVER_CFG``, stage 2
+    ``REFINE_CFG``), timed back to back after one warm-up solve with one
+    synchronise at the end.  The statistics are those of the last
+    solve."""
+    from mmmpc_tpu_torch.parallel.data_parallel import with_stats
+    from mmmpc_tpu_torch.utils.debugging import report_unconverged
+
+    device = torch.device(device)
+    mpc, x0_b, U0_b, params = build_problem(batch, device,
+                                            solver_config=SOLVER_CFG)
+    solve = with_stats(mpc.batch_solve_refined_fn(REFINE_CFG))
+
+    (res, stats), dt = time_run(solve, (x0_b, U0_b, params), reps, device)
+    solves_per_s = batch * reps / dt
+
+    n_converged, n_solved = float(stats.n_converged), float(stats.n_solved)
+    stats_d = {
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else str(device)),
+        "n_devices": 1, "batch": batch, "reps": reps, "horizon": mpc.N,
+        "batch_latency_s": dt / reps,
+        "converged_frac": n_converged / n_solved,
+        "max_violation": float(stats.max_violation),
+        "mean_cost": float(stats.mean_cost),
+    }
+    if n_converged < n_solved:
+        report_unconverged(mpc.ocp, res, params, top_k=3)
+    metric = {"metric": "wholebody_qref_solves_per_s",
+              "value": round(solves_per_s, 1), "unit": "solves/s",
+              "vs_baseline": round(solves_per_s / 10.0, 1)}
+    return stats_d, metric
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m mmmpc_tpu_torch.bench",
+        description="Refined whole-body qref solves/s at batch "
+                    f"{BATCH} on one device.")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    stats, metric = run(BATCH, REPS, args.device)
+    print(json.dumps(stats), file=sys.stderr, flush=True)
+    print(json.dumps(metric), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

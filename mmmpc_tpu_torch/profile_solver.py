@@ -58,9 +58,10 @@ UNFUSED = ("stage_al_blocks", "terminal_al_blocks", "riccati",
 PER_ROUND = ("al_total", "update_multipliers")
 PER_SOLVE = ("setup", "rollout", "objective")
 # the marker kernel around a component's profile (torch.cuda._sleep), and
-# the markers before it: more than the records a run was seen to drop (39)
+# the markers before it in a profile's first run, doubled in each run after
+# a run that lost them all
 _MARKER = "spin_kernel"
-_PRELUDE = 128
+_PRELUDE = 256
 
 
 class _AtenCount(torch.utils._python_dispatch.TorchDispatchMode):
@@ -162,22 +163,25 @@ def _busy_ms(spans):
     return busy / 1e3
 
 
-def _profile(fn, attempts=6):
-    """(device_ops, busy_ms) of one call of ``fn``, each from a
-    ``torch.profiler`` run of its own (device activity only).  The
-    profiler drops device records now and then -- in a long process, the
-    first few dozen of a run -- so a run issues ``_PRELUDE`` marker kernels
-    first, then ``fn``, then one marker; it counts only when its last
-    operation is that marker and a prelude marker survives (the component
-    is what lies between them), and the result only when two runs agree on
-    the count.  None after ``attempts`` runs."""
+def _profile(fn, attempts=8):
+    """(device_ops, busy_ms, runs, prelude_lost) of one call of ``fn``, each
+    from a ``torch.profiler`` run of its own (device activity only).  A
+    profiler run drops the first records it should hold, a count that grows
+    with the age of the process and that no wait on the host keeps
+    (``profiler_drops.py`` at the root prints it).  So a run issues marker
+    kernels first, ``_PRELUDE`` in the first run and twice as many in each
+    run after one that lost them all, then ``fn``, then one marker; it
+    counts only when its last operation is that marker and a prelude marker
+    survives (the component is what lies between them), and the result
+    only when two runs agree on the count.  ``prelude_lost`` is the markers
+    the counted run lost.  None after ``attempts`` runs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    counts = set()
-    for _ in range(attempts):
+    counts, prelude = set(), _PRELUDE
+    for run in range(1, attempts + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(_PRELUDE):
+            for _ in range(prelude):
                 torch.cuda._sleep(1)
             torch.cuda.synchronize()
             fn()
@@ -188,27 +192,31 @@ def _profile(fn, attempts=6):
                        if e.device_type == DeviceType.CUDA)
         marks = [i for i, sp in enumerate(spans) if _MARKER in sp[2]]
         if len(marks) < 2 or marks[-1] != len(spans) - 1:
+            prelude *= 2
             continue
         ops = spans[marks[-2] + 1:-1]
         if len(ops) in counts:
-            return len(ops), _busy_ms(ops)
+            return len(ops), _busy_ms(ops), run, prelude + 1 - len(marks)
         counts.add(len(ops))
     return None
 
 
 def profile_components(mpc, x0_b, U0_b, params, cfg, reps=REPS):
-    """{component: {device_ms, host_ms, busy_ms, device_ops, aten_ops}}."""
+    """{component: {device_ms, host_ms, busy_ms, device_ops, profile_runs,
+    prelude_lost, aten_ops}}."""
     device = x0_b.device
     calls = components(mpc, x0_b, U0_b, params, cfg)
     rows = {}
     for name, fn in calls.items():
         dev_ms, host_ms = _time(fn, device, reps)
         rows[name] = dict(device_ms=dev_ms, host_ms=host_ms, busy_ms=None,
-                          device_ops=None, aten_ops=aten_ops(fn))
+                          device_ops=None, profile_runs=None,
+                          prelude_lost=None, aten_ops=aten_ops(fn))
         if device.type == "cuda":
             p = _profile(fn)
             if p is not None:
-                rows[name].update(device_ops=p[0], busy_ms=p[1])
+                rows[name].update(device_ops=p[0], busy_ms=p[1],
+                                  profile_runs=p[2], prelude_lost=p[3])
     return rows
 
 
@@ -261,7 +269,9 @@ def report(row, mpc, x0_b, U0_b, params, cfg, reps=REPS, solves=SOLVES):
         print(f"[component] row={row} batch={batch} name={name} per={per} "
               f"device_ms={_fmt(r['device_ms'])} host_ms={_fmt(r['host_ms'])} "
               f"busy_ms={_fmt(r['busy_ms'])} device_ops="
-              f"{_fmt(r['device_ops'], 'd')} aten_ops={r['aten_ops']}",
+              f"{_fmt(r['device_ops'], 'd')} profile_runs="
+              f"{_fmt(r['profile_runs'], 'd')} prelude_lost="
+              f"{_fmt(r['prelude_lost'], 'd')} aten_ops={r['aten_ops']}",
               flush=True)
     measured = (measured_solve_ms(mpc, x0_b, U0_b, params, solves)
                 if solves else None)

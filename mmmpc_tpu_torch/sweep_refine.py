@@ -29,7 +29,7 @@ from mmmpc_tpu_torch import bench
 from mmmpc_tpu_torch.parallel.data_parallel import with_stats
 from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
 from mmmpc_tpu_torch.solver.refine import DEFAULT_REFINE_SIZE, continue_mu
-from mmmpc_tpu_torch.sweep_schedule import REPS, time_run
+from mmmpc_tpu_torch.sweep_schedule import REPS
 
 # stage 1: (al, first, later, final); stage 2: (al_r, iters_r) or None;
 # optionally a third element: refine_size (default one tile of 1024)
@@ -98,8 +98,8 @@ def run_row(entry, batch, device, reps=REPS, N=bench.N):
     al, first, later, final = entry[0]
     mpc, x0_b, U0_b, params = bench.build_problem(batch, device,
                                                   solver_config=cfg, N=N)
-    (res, stats), dt = time_run(solve_fn(mpc, entry), (x0_b, U0_b, params),
-                                reps, device)
+    (res, stats), dt = bench.time_run(solve_fn(mpc, entry),
+                                      (x0_b, U0_b, params), reps, device)
     rec = {
         "stage1": f"{al}x({first},{later}"
                   f"{',' + str(final) if final else ''})",

@@ -22,9 +22,6 @@ import argparse
 import dataclasses
 import json
 import sys
-import time
-
-import torch
 
 from mmmpc_tpu_torch import bench
 from mmmpc_tpu_torch.parallel.data_parallel import controller_batched_fn
@@ -62,32 +59,14 @@ def label(row) -> str:
             f"a{n_alpha}@{decay}")
 
 
-def sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def time_run(run, args, reps, device):
-    """One warm-up call of ``run(*args)``, then ``reps`` calls back to back
-    with one synchronise after them: (the last result, seconds of the
-    ``reps`` calls)."""
-    out = run(*args)
-    sync(device)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        out = run(*args)
-    sync(device)
-    return out, time.perf_counter() - t0
-
-
 def run_row(row, batch, device, reps=REPS, N=bench.N):
     """One row on ``bench.build_problem(batch, device, N=N)``: (its JSON
     record, the last SolveResult, its BatchStats)."""
     cfg = config(row)
     mpc, x0_b, U0_b, params = bench.build_problem(batch, device,
                                                   solver_config=cfg, N=N)
-    (res, stats), dt = time_run(controller_batched_fn(mpc),
-                                (x0_b, U0_b, params), reps, device)
+    (res, stats), dt = bench.time_run(controller_batched_fn(mpc),
+                                      (x0_b, U0_b, params), reps, device)
     rec = {
         "schedule": label(row),
         "iters": iteration_count(cfg),
