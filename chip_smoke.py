@@ -15,6 +15,7 @@
     python3 chip_smoke.py --profile       # phases 1-2, then phase 16 alone
     python3 chip_smoke.py --tools         # phases 1-2, then phase 17 alone
     python3 chip_smoke.py --bench         # phases 1-2, then phase 4c alone
+    python3 chip_smoke.py --per-scenario  # phases 1-2, then phase 18 alone
     python3 chip_smoke.py --kernel wholebody_bwd   # phases 1-2, then the
         # [kernel] check of one kind of KINDS alone (no peak sweep: bounds
         # at the published 67 TFLOP/s; fma_peak runs phase 2b)
@@ -70,6 +71,16 @@ Phases, each reported on its own lines; any failure exits nonzero:
    8191, 1000 and 1, and on ``tests/torch_problems.py::selfcol_problem``
    (``inputs=selfcol``), where they must part from the bug-compatible
    kernels by at least ten tolerances (``differs_by_tolerances``);
+   kernel C's per-scenario instance (K5; ``generic_fwd.<row>.per_scenario``)
+   of each formulation at 8192, each robot its own X_ref, U_ref, Q, P and
+   (the arm's and the endpoint's) U_last
+   (``tests/torch_problems.py::generic_fleet_params``), at the C
+   tolerances, timed with its bound (the per-robot entries once a robot,
+   the shared ones once), the bytes of the column buffer it reads beside
+   it (``[kernel-columns]``), and at 8191, 1000 and 1; kernel E at (9, 5) on
+   the fleet's per-robot expansion blocks at batch 1024
+   (``riccati_bwd.9x5.fleet``, the host-parity solver's input; held as B's
+   fleet gains, ``[kernel-f64]``);
    kernel E also at (nx, nu) = (4, 2), which the
    kernel library does not hold: the pair's own library built on its first
    call (``[build-pair]``: seconds, the pair's launches in that call; ptxas
@@ -248,14 +259,32 @@ Phases, each reported on its own lines; any failure exits nonzero:
    bench's own row, ``5x(16,10,12)`` + ``3x12@1024``, must end with phase
    4's statistics to the bit and converged 1.0, ``[sweep-refine-held]``;
    alone, a refined solve's here); ``fleet_diag`` (128 robots, parity
-   mode, 400 ticks: its lines, the final phase histogram and the
-   completion, states finite, ``[fleet-diag]``); ``host_fleet_parity`` in a
-   process of its own (8 robots, 400 ticks, 8 worker processes on the card:
-   the completion and the flag histogram, states finite, A and B 60
-   launches a solve in every worker, ``[host-fleet]``); ``fidelity_analysis``
-   (both verdicts, ``[fidelity-analysis]``).  A, B, C.arm and D.arm must
-   launch exactly as the parts' solves and ticks say (``[tools]``), each
-   part's seconds in ``[tools-part]``.
+   mode on the fused route, ``--lanes``, 80 ticks: its lines, the final
+   phase histogram and the completion, states finite, ``[fleet-diag]``);
+   ``host_fleet_parity`` in a process of its own (2 robots, 400 ticks, 2
+   worker processes on the card: the completion and the flag histogram,
+   states finite, A and B 60 launches a solve in every worker,
+   ``[host-fleet]``); ``fidelity_analysis`` (both verdicts,
+   ``[fidelity-analysis]``).  A, B, C.arm and D.arm must launch exactly as
+   the parts' solves and ticks say (``[tools]``), each part's seconds in
+   ``[tools-part]``.  Cut to make room for phase 18: the fleet diagnosis
+   ran 400 ticks, the host loop 8 robots in 8 processes;
+18. per-scenario (also alone with ``--per-scenario``): per-scenario params
+   off the fused backward.  The qref bench problem at 8192 with all six
+   entries per robot (``tests/torch_problems.py::fleet_params``) on the
+   expansion route (``use_fused_backward=False``: A's fleet instance and E
+   once an iteration, B never) against the fused route on the same robots,
+   phase 4b's gate (``[per-scenario-qref]``); every generic row (and the
+   Cartesian arm) at 8192, each robot's terminal target moved by an offset
+   uniform in +-0.05 (``torch_problems.moved_targets``, ``default_rng(0)``):
+   K5 and E 104 launches a solve, D and the shared C never (alone, also 2
+   timed solves and one profiled: K5's ms in the solve), the reference's
+   bar (``[per-scenario-generic]``), and at batch 64 card against CPU,
+   phase 8's gate (``[per-scenario-reference]``); the fleet's host-parity
+   route (``bench_fleet_tasks`` parity mode, ``host_parity_solver=True``):
+   the first 64 robots, 12 ticks, A's fleet instance and E 72 launches a
+   tick, B never, every state finite, a tick's p50 / p99 ms
+   (``[per-scenario-fleet]``).
 
 Every solve phase prints the reference's bar (converged fraction 1.0, max
 violation below 1e-3) or a closed-loop run's assertions as a ``[bar]``
@@ -277,7 +306,9 @@ solve; A, B and E, as ``launches_long_horizon``, in phase 14; A and B and
 their fleet instances, as ``launches_multi_gpu``, in phase 15's ranks: the
 NCCL rank's warm-up solve and the gloo ranks' sharded solves, and the gloo
 ranks' fleet ticks; A, B, their fleet instances, C.arm and D.arm, as
-``launches_tools``, in phase 17) and ``{"ok": true, "device": {...}}``.
+``launches_tools``, in phase 17; K5's instances with their launches in
+phase 18's generic solves, E on the fleet's blocks with its launches in
+phase 18's fleet ticks) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -351,7 +382,17 @@ KERNEL_SYMBOLS = {"wholebody_fwd": "wb::fwd_kernel",
                      for f in BWD_TEAMS},
                   **{f"riccati_bwd.{nx}x{nu}":
                      f"ric::riccati_team_kernel<{nx}, {nu}>"
-                     for nx, nu in DIMS.values()}}
+                     for nx, nu in DIMS.values()},
+                  # kernel C's per-scenario instances (K5)
+                  **{f"generic_fwd.{f}.per_scenario":
+                     f"gen::generic_fwd_kernel<gen::PerScenario<{INSTANCE[f]}"
+                     for f in GENERIC},
+                  **{f"generic_fwd.{f}.per_scenario":
+                     f"gen::generic_fwd_team_kernel<gen::PerScenario<"
+                     f"{INSTANCE[f]}" for f in FWD_TEAMS}}
+# E on the fleet's per-robot blocks (the host-parity solver's), in the
+# record beside its qref instance
+KERNEL_SYMBOLS["riccati_bwd.9x5.fleet"] = KERNEL_SYMBOLS["riccati_bwd.9x5"]
 # the closed loop's runs (scenario, through the kinematic plant), and the
 # MPC steps in which the JAX package's float32 demo completes scenario 1
 # (README.md)
@@ -506,8 +547,9 @@ def _fwd_errors(name, got, ref):
             _close(f"{name} cost", got[3], ref[3], 2e-3, 2e-3))
 
 
-def _check_fwd(name, fwd, fargs, counts, peak):
-    """The forward half of ``check_pair``."""
+def _check_fwd(name, fwd, fargs, counts, peak, params=None):
+    """The forward half of ``check_pair``; ``params``: the params tensors
+    whose bytes the bound counts (default the packed buffer ``fwd.flat``)."""
     N, B, na, nx, nu, nc, nct = counts
     out = {}
     got, ref = fwd.cuda(*fargs), fwd.plain(*fargs)
@@ -518,7 +560,8 @@ def _check_fwd(name, fwd, fargs, counts, peak):
         ms=_kernel_ms(lambda: fwd.cuda(*fargs), 20),
         call_ms=_time_ms(lambda: fwd.cuda(*fargs), 20),
         plain_ms=_time_ms(lambda: fwd.plain(*fargs), 3),
-        **_bound([fwd.flat, *_operands(fwd),
+        **_bound([*(params if params is not None else (fwd.flat,)),
+                  *_operands(fwd),
                   *(a for a in fargs if torch.is_tensor(a))], got,
                  fwd_flops(N, B, na, nx, nu, nc, nct), peak))
     _line("kernel", name=name, max_abs_err_XU=f"{err:.3e}",
@@ -1964,7 +2007,12 @@ def _fleet_bwd_check(w, args, tag):
     2.9e-2 off (measured on an H100; PERF.md): the kernel is held to the
     truth where the float32 reference is no better.  Prints both errors;
     returns the max |kernel - plain|."""
-    truth = _plain_f64(w, args)
+    return _held_to_truth(tag, _plain_f64(w, args))
+
+
+def _held_to_truth(tag, truth):
+    """``_fleet_bwd_check``'s check(got, ref) of a pair of gains against
+    ``truth``, their float64 plain version."""
 
     def check(got, ref):
         worst = 0.0
@@ -2067,6 +2115,302 @@ def check_fleet_kernels(device, peak, kinds):
                 _line("kernel-batch", name=name, keys=tag, B=n,
                       max_abs_err=f"{err(got, ref):.4g}", **geometry)
     return out
+
+
+def _np_params(params):
+    """Device params -> float64 numpy, as tests/torch_problems.py takes them."""
+    return {k: v.double().cpu().numpy() for k, v in params.items()}
+
+
+PS_ROWS = (*ROWS, CART_ROW)
+RIC_FLEET = "riccati_bwd.9x5.fleet"
+
+
+def check_per_scenario_kernels(device, peak, kinds):
+    """Phase 3, kernel C's per-scenario instance (K5) and E on the fleet's
+    per-robot blocks, the kernels whose kind is in ``kinds``:
+
+    - K5 of each formulation on its bench row (and the Cartesian arm's) at
+      8192, each robot its own X_ref, U_ref, Q and P
+      (``torch_problems.generic_fleet_params``: every reference row moved,
+      full Q and P, the arm's and the endpoint's U_last), against its
+      plain version at phase 3's C tolerances, timed as ``check_pair``
+      with a bound that reads each per-robot entry once a robot and each
+      shared one once (``[kernel]``); the bytes of the packed column
+      buffer the kernel reads, the shared entries copied into every
+      column, beside those of the params in the bound
+      (``[kernel-columns]``); then at 8191, 1000 and 1 on wrappers of the
+      first robots' entries (``[kernel-batch]``, with the launch
+      geometry);
+    - E at (9, 5) on the expansion blocks of the fleet's shape (the bench
+      problem at 1024 with all six entries per robot, phase 3's fleet
+      inputs; the host-parity solver's blocks), held as B's fleet gains
+      (``_held_to_truth``: rtol = atol = 5e-3 of the float32 plain sweep,
+      or no farther from the float64 one than it), timed with its bound."""
+    from mmmpc_tpu_torch.ops._cuda import LIBRARY
+    from mmmpc_tpu_torch.ops.generic_fwd import (
+        launch_geometry as gen_fwd_geometry,
+    )
+    from mmmpc_tpu_torch.utils.convert import params_from_numpy
+    _test_problems_path()
+    from torch_problems import GENERIC_KEYS, generic_fleet_params, generic_keys
+    out = {}
+    if "generic_fwd" in kinds:
+        for row, f, mpc, x0, _, params in generic_problems(BATCH, device,
+                                                           PS_ROWS):
+            name = f"generic_fwd.{f}.per_scenario"
+            N, nx, nu, cfg = mpc.N, mpc.NX, mpc.NU, mpc.solver_config
+            p = params_from_numpy(generic_fleet_params(_np_params(params),
+                                                       BATCH),
+                                  device, torch.float32)
+            fwd = mpc.ocp.lanes_fwd_factory(cfg, p)
+            if fwd.ps_keys != generic_keys(p):
+                raise AssertionError(f"{name}: the line search took "
+                                     f"{fwd.ps_keys} per scenario")
+            fargs, _ = _generic_args(mpc, fwd.form, x0, p,
+                                     np.random.default_rng(SEED), device)
+            used = [p[k] for k in fwd.form.shapes]
+            out.update(_check_fwd(name, fwd, fargs,
+                                  (N, BATCH, cfg.n_alpha, nx, nu,
+                                   fwd.form.nc, fwd.form.nct), peak,
+                                  params=used))
+            column_bytes = fwd.flat.numel() * fwd.flat.element_size()
+            params_bytes = sum(t.numel() * t.element_size() for t in used)
+            _line("kernel-columns", name=name, row=row,
+                  column_bytes=column_bytes, params_bytes=params_bytes,
+                  copied_bytes=column_bytes - params_bytes)
+            for n in (BATCH - 1, 1000, 1):
+                sub = mpc.ocp.lanes_fwd_factory(cfg, {
+                    k: v[..., :n].contiguous() if k in GENERIC_KEYS else v
+                    for k, v in p.items()})
+                a = tuple(x[..., :n].contiguous() if torch.is_tensor(x)
+                          else x for x in fargs)
+                got, ref = sub.cuda(*a), sub.plain(*a)
+                torch.cuda.synchronize()
+                _line("kernel-batch", name=name, B=n,
+                      max_abs_err=f"{max(_fwd_errors(name, got, ref)):.4g}",
+                      **gen_fwd_geometry(LIBRARY.get(), f, N, fwd.form.n_obs,
+                                         fwd.form.n_hp, len(fwd.alphas), n,
+                                         per_scenario=True))
+    if "riccati_bwd" in kinds:
+        out[RIC_FLEET] = check_fleet_riccati(device, peak)
+    return out
+
+
+def check_fleet_riccati(device, peak):
+    """E at (9, 5) on the fleet's per-robot expansion blocks at batch 1024
+    (``check_per_scenario_kernels``)."""
+    from mmmpc_tpu_torch.bench import build_problem_numpy
+    from mmmpc_tpu_torch.ocp.spec import batch_first
+    from mmmpc_tpu_torch.ops.riccati import plain_riccati_bm
+    from mmmpc_tpu_torch.solver.al_ilqr import (
+        stage_al_blocks, terminal_al_blocks,
+    )
+    from mmmpc_tpu_torch.utils.convert import params_from_numpy
+    _test_problems_path()
+    from torch_problems import fleet_params
+
+    mpc, x0_b, params = build_problem_numpy(FLEET_BATCH)
+    x0 = torch.as_tensor(x0_b, dtype=torch.float32, device=device)
+    p = params_from_numpy(fleet_params(params, FLEET_BATCH), device,
+                          torch.float32)
+    _, bargs = _wholebody_args(mpc, x0, p, np.random.default_rng(SEED),
+                               device)
+    X, U, lam, lamt, lame, mu, reg = bargs
+    cp, inv = batch_first(p), 1.0 / mpc.solver_config.cost_scale
+    blocks = (*stage_al_blocks(mpc.ocp, cp, inv, X[:-1], U, lam, mu),
+              *terminal_al_blocks(mpc.ocp, cp, inv, X[-1], lamt, lame, mu))
+    truth = plain_riccati_bm(*(a.double() for a in (*blocks, reg)))
+    check = _held_to_truth(RIC_FLEET, truth)
+    return check_riccati("fleet", blocks, reg,
+                         lambda got, ref, args: check(got, ref), peak)
+
+
+# phase 18: the fleet's host-parity route, its robots and ticks
+PS_FLEET_ROBOTS = 64
+PS_FLEET_TICKS = 12
+
+
+def _ps_qref(device):
+    """Phase 18, qref: the bench problem at 8192 with all six entries per
+    robot (``torch_problems.fleet_params``) through the expansion route
+    (``use_fused_backward=False``: A's fleet instance and E once an
+    iteration, B never) against the fused route (A and B) on the same
+    robots, phase 4b's gate (``[per-scenario-qref]``)."""
+    from mmmpc_tpu_torch.bench import SOLVER_CFG, build_problem_numpy
+    from mmmpc_tpu_torch.ops import riccati, wholebody_bwd, wholebody_fwd
+    from mmmpc_tpu_torch.parallel.data_parallel import with_stats
+    from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
+    from mmmpc_tpu_torch.solver.batched import al_ilqr_solve_batched
+    from mmmpc_tpu_torch.utils.convert import params_from_numpy
+    _test_problems_path()
+    from torch_problems import fleet_params
+
+    mpc, x0_b, params = build_problem_numpy(BATCH)
+    kw = dict(dtype=torch.float32, device=device)
+    x0, U0 = torch.as_tensor(x0_b, **kw), torch.zeros(BATCH, mpc.N, 5, **kw)
+    p = params_from_numpy(fleet_params(params, BATCH), device, torch.float32)
+    A, Bk, E = (wholebody_fwd.LAUNCHES, wholebody_bwd.LAUNCHES,
+                riccati.LAUNCHES[(9, 5)])
+    per_solve = iteration_count(SOLVER_CFG)
+    out = {}
+    for route, fused in (("fused", True), ("expansion", False)):
+        cfg = dataclasses.replace(SOLVER_CFG, use_fused_backward=fused)
+        run = with_stats(lambda x0, U0, p, cfg=cfg: al_ilqr_solve_batched(
+            mpc.ocp, x0, U0, p, cfg))
+        for c in (A, Bk, E):
+            c.reset()
+        t0 = time.perf_counter()
+        out[route] = run(x0, U0, p)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        bwd, other = (("wholebody_bwd.fleet", Bk), (RIC_FLEET, E))
+        if not fused:
+            bwd, other = other, bwd
+        count_launches({"wholebody_fwd.fleet": A, bwd[0]: bwd[1]}, per_solve,
+                       1, {other[0]: other[1]})
+        res, stats = out[route]
+        check_result(res, mpc, BATCH, device)
+        _line("per-scenario-qref", route=route, batch=BATCH,
+              solve_s=f"{seconds:.4f}",
+              converged_frac=f"{float(stats.n_converged) / BATCH:.6f}",
+              max_violation=f"{float(stats.max_violation):.3e}",
+              mean_cost=f"{float(stats.mean_cost):.4f}",
+              launches_per_solve=per_solve)
+    _reference_gate("per-scenario-qref-vs-fused", out["expansion"],
+                    out["fused"], row="wholebody_qref")
+
+
+def _ps_generic_problems(batch, device):
+    """``generic_problems`` of PS_ROWS at ``batch`` with each robot's
+    reference moved (``torch_problems.moved_targets``: its terminal target
+    by an offset uniform in +-0.05, ``default_rng(0)``)."""
+    from mmmpc_tpu_torch.utils.convert import params_from_numpy
+    _test_problems_path()
+    from torch_problems import moved_targets
+    for row, f, mpc, x0, U0, params in generic_problems(batch, device,
+                                                        PS_ROWS):
+        np_p = _np_params(params)
+        np_p["X_ref"] = moved_targets(np_p["X_ref"], batch)
+        yield row, f, mpc, x0, U0, params_from_numpy(np_p, device,
+                                                     torch.float32)
+
+
+def _ps_generic(device, timed):
+    """Phase 18, the generic rows: each row of PS_ROWS at 8192, each
+    robot's terminal target its own, through K5 and E (104 launches a
+    solve each, D and the shared C never), with ``timed``
+    (``--per-scenario``) timed (2 solves) and profiled (one more: K5's and
+    E's calls and ms in the solve, ``[per-scenario-generic-timing-profile]``),
+    held to the reference's bar (``[per-scenario-generic]``); then at batch
+    64 on the card against the plain versions on the CPU (phase 8's gate,
+    ``[per-scenario-reference]``).  Returns K5's launches."""
+    from mmmpc_tpu_torch.ops import generic_bwd, generic_fwd, riccati
+    from mmmpc_tpu_torch.parallel.data_parallel import controller_batched_fn
+    from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
+
+    launches, bars = {}, {}
+    for row, f, mpc, x0, U0, params in _ps_generic_problems(BATCH, device):
+        name = f"generic_fwd.{f}.per_scenario"
+        ric = "riccati_bwd.{}x{}".format(*DIMS[f])
+        counters = {name: generic_fwd.LAUNCHES_PS[f],
+                    ric: riccati.LAUNCHES[DIMS[f]]}
+        absent = {f"generic_fwd.{f}": generic_fwd.LAUNCHES[f],
+                  f"generic_bwd.{f}": generic_bwd.LAUNCHES[f]}
+        for c in (*counters.values(), *absent.values()):
+            c.reset()
+        run = controller_batched_fn(mpc)
+        res, stats = run(x0, U0, params)
+        torch.cuda.synchronize()
+        per_solve = iteration_count(mpc.solver_config)
+        launches[name] = count_launches(counters, per_solve, 1,
+                                        absent)[name]
+        if timed:
+            _, solves = report_timing("per-scenario-generic-timing", run,
+                                      (x0, U0, params), BATCH, counters,
+                                      reps=UNFUSED_REPS, row=row)
+            count_launches(counters, per_solve, 1 + solves, absent)
+        check_result(res, mpc, BATCH, device)
+        conv = float(stats.n_converged) / float(stats.n_solved)
+        maxv = float(stats.max_violation)
+        _line("per-scenario-generic", row=row, batch=BATCH,
+              converged_frac=f"{conv:.6f}",
+              max_violation=f"{maxv:.3e}",
+              mean_cost=f"{float(stats.mean_cost):.6g}",
+              launches_per_solve=per_solve)
+        bars[f"{row}_per_scenario"] = _bar(f"{row}_per_scenario", conv, maxv)
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        for row, _, mpc, x0, U0, params in _ps_generic_problems(64, dev):
+            out.setdefault(row, {})[dev.type] = controller_batched_fn(
+                mpc)(x0, U0, params)
+    for row, o in out.items():
+        _reference_gate("per-scenario-reference", o["cuda"], o["cpu"],
+                        row=row)
+    _line("bar", row="all_per_scenario", met=all(bars.values()))
+    _bars_met("per-scenario", bars)
+    return launches
+
+
+def _ps_fleet(device):
+    """Phase 18, the fleet's host-parity route: the first PS_FLEET_ROBOTS
+    robots of ``bench_fleet_tasks.build_fleet`` in parity mode
+    (``host_parity_solver=True``) for PS_FLEET_TICKS ticks from the start:
+    A's fleet instance and E once an iteration of every tick, B never,
+    every state finite; a tick's p50 / p99 ms from CUDA events recorded as
+    the ticks are issued (``[per-scenario-fleet]``).  Returns E's
+    launches."""
+    from mmmpc_tpu_torch import bench_fleet_tasks as bft
+    from mmmpc_tpu_torch.ops import riccati, wholebody_bwd, wholebody_fwd
+    from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
+
+    fleet = bft.build_fleet(PS_FLEET_ROBOTS, 1, device=device,
+                            chunk=PS_FLEET_TICKS)
+    counters = {"wholebody_fwd.fleet": wholebody_fwd.LAUNCHES,
+                RIC_FLEET: riccati.LAUNCHES[(9, 5)]}
+    absent = {"wholebody_bwd.fleet": wholebody_bwd.LAUNCHES}
+    for c in (*counters.values(), *absent.values()):
+        c.reset()
+    start = torch.cuda.Event(enable_timing=True)
+    events = []
+
+    def hook():
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    start.record()
+    r = bft.run_fleet(fleet, PS_FLEET_TICKS, hook)
+    torch.cuda.synchronize()
+    per_tick = iteration_count(fleet.cfg)
+    launches = count_launches(counters, per_tick, PS_FLEET_TICKS, absent)
+    tick_ms = np.diff([0.0] + [start.elapsed_time(e) for e in events])
+    rec = bft.summary(fleet, 1, r)
+    _line("per-scenario-fleet", batch=PS_FLEET_ROBOTS, ticks=PS_FLEET_TICKS,
+          mode=rec["mode"],
+          fleet_tick_ms_p50=f"{np.percentile(tick_ms, 50):.3f}",
+          fleet_tick_ms_p99=f"{np.percentile(tick_ms, 99):.3f}",
+          wall_s=rec["wall_s"], completion_rate=rec["completion_rate"],
+          max_violation=f"{r['max_violation']:.3e}",
+          fallback_ticks=r["fallback_ticks"], states_finite=r["finite"],
+          launches_per_tick=per_tick,
+          **{f"launches_{k}": v for k, v in launches.items()})
+    if not r["finite"] or rec["mode"] != "parity":
+        raise AssertionError(f"per-scenario fleet: finite={r['finite']}, "
+                             f"mode {rec['mode']}")
+    return {RIC_FLEET: launches[RIC_FLEET]}
+
+
+def run_per_scenario(device, timed=False):
+    """Phase 18: per-scenario params off the fused backward -- the qref
+    bench problem's expansion route against its fused route, every generic
+    row with per-robot targets through K5 and E (``timed``: timed and
+    profiled), the fleet's host-parity route.  Returns K5's and E's
+    launches in it (the record's)."""
+    launches = {}
+    _ps_qref(device)
+    launches.update(_ps_generic(device, timed))
+    launches.update(_ps_fleet(device))
+    return launches
 
 
 # the fleet phase: ticks of the relaxed fleet, the least completion and the
@@ -3036,10 +3380,14 @@ def run_profile(device):
 
 # timed solves a sweep row here (the modules time 10 when run alone)
 TOOLS_REPS = 3
+# cut to make room for phase 18: the fleet diagnosis runs 2 of its 10
+# segments (80 ticks; it ran 400), the host loop 2 robots in 2 processes
+# (it ran 8 in 8)
 FLEET_DIAG_BATCH = 128
-HOST_FLEET_ROBOTS = 8
+FLEET_DIAG_CHUNKS = 2
+HOST_FLEET_ROBOTS = 2
 HOST_FLEET_TICKS = 400
-HOST_FLEET_PROCS = 8
+HOST_FLEET_PROCS = 2
 TOOLS_DIR = Path(__file__).resolve().parent / "build" / "tools"
 
 
@@ -3115,21 +3463,23 @@ def run_sweeps(device, slice_stats):
 
 
 def run_fleet_diag(device):
-    """``fleet_diag`` at its default batch, parity mode, 10 segments of 40
-    ticks: the JAX script's lines (``[fleet-diag-out]``), then the final
-    phase histogram and the completion (``[fleet-diag]``).  Fails when a
-    state is not finite.  Returns A's and B's launches: 72 a tick."""
+    """``fleet_diag`` at its default batch, parity mode on the fused route
+    (``--lanes``: A and B), ``FLEET_DIAG_CHUNKS`` segments of 40 ticks: the
+    JAX script's lines (``[fleet-diag-out]``), then the final phase
+    histogram and the completion (``[fleet-diag]``).  Fails when a state is
+    not finite.  Returns A's and B's launches: 72 a tick."""
     from mmmpc_tpu_torch import fleet_diag
     from mmmpc_tpu_torch.solver.al_ilqr import iteration_count
 
     phase, X = fleet_diag.run(FLEET_DIAG_BATCH, False, device,
-                              report=lambda line: None)
+                              chunks=FLEET_DIAG_CHUNKS,
+                              report=lambda line: None, lanes=True)
     d = fleet_diag.diagnose(phase, X)
-    for ln in fleet_diag.report_lines(d, "parity", FLEET_DIAG_BATCH):
+    for ln in fleet_diag.report_lines(d, "parity-lanes", FLEET_DIAG_BATCH):
         print("[fleet-diag-out] " + ln.replace("\n", " "), flush=True)
     finite = bool(np.isfinite(X).all())
     _line("fleet-diag", batch=FLEET_DIAG_BATCH, ticks=phase.shape[1],
-          mode="parity", completion=f"{d['completion']:.4f}",
+          mode="parity-lanes", completion=f"{d['completion']:.4f}",
           histogram=repr(dict(sorted(d["histogram"].items()))),
           failing=len(d["failing"]), states_finite=finite)
     if not finite:
@@ -3279,12 +3629,13 @@ def main(argv):
     if not (argv in ([], ["--kernels"], ["--closed-loop"], ["--moving-obs"],
                      ["--fleet"], ["--controllers"], ["--fixed"],
                      ["--long-horizon"], ["--multi-gpu"], ["--profile"],
-                     ["--tools"], ["--bench"])
+                     ["--tools"], ["--bench"], ["--per-scenario"])
             or (argv[:1] == ["--kernel"] and len(argv) == 2
                 and argv[1] in KINDS)):
         print(f"chip_smoke: usage: [--kernels | --closed-loop | --moving-obs "
               f"| --fleet | --controllers | --fixed | --long-horizon | "
-              f"--multi-gpu | --profile | --tools | --bench | --kernel one of "
+              f"--multi-gpu | --profile | --tools | --bench | --per-scenario "
+              f"| --kernel one of "
               f"{', '.join(KINDS)}]", file=sys.stderr)
         return 2
     from mmmpc_tpu_torch.bench import SOLVER_CFG, build_problem
@@ -3338,6 +3689,9 @@ def main(argv):
     if argv == ["--bench"]:
         _phase("bench", run_bench, device)
         return 0
+    if argv == ["--per-scenario"]:
+        _phase("per-scenario", run_per_scenario, device, True)
+        return 0
     timings, peak = {}, None
     kinds = set(argv[1:]) if argv[:1] == ["--kernel"] else set(KINDS)
     if "fma_peak" in kinds:
@@ -3358,6 +3712,10 @@ def main(argv):
                               peak, kinds))
     if kinds & {"generic_fwd", "generic_bwd", "riccati_bwd"}:
         timings.update(_phase("kernels-generic", check_generic, device, peak,
+                              kinds))
+    if kinds & {"generic_fwd", "riccati_bwd"}:
+        timings.update(_phase("kernels-per-scenario",
+                              check_per_scenario_kernels, device, peak,
                               kinds))
     if argv[:1] == ["--kernel"]:
         return 0
@@ -3394,6 +3752,7 @@ def main(argv):
     multi_launches = _phase("multi-gpu", run_multi_gpu, device)
     _phase("profile", run_profile, device)
     tools_launches = _phase("tools", run_tools, device, fused[1])
+    launches.update(_phase("per-scenario", run_per_scenario, device))
     # A and B launch their fleet instances in the fleet's ticks
     fleet_launches.update({name.split(".")[0]: n
                            for name, n in fleet_launches.items()})

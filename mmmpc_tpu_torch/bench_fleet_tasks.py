@@ -4,24 +4,31 @@ of ``scripts/bench_fleet_tasks.py``).
 
 The reference completes one task per process in host-driven control ticks,
 one IPOPT solve each (interface_wholebody_qref.py:65-143).  Here the whole
-fleet's state machines, solves (kernels A and B with per-robot references,
-weights, equality mask and previous inputs), IK and plant steps advance
-together a tick at a time; the metrics are the task completion rate and the
-fleet's ticks per second.
+fleet's state machines, solves (per-robot references, weights, equality
+mask and previous inputs), IK and plant steps advance together a tick at a
+time; the metrics are the task completion rate and the fleet's ticks per
+second.
 
     python -m mmmpc_tpu_torch.bench_fleet_tasks [batch] [scenario]
-        [--relax] [--al=N] [--ilqr=N] [--ilqr-later=N] [--ticks=N]
-        [--dump-done=FILE.npz] [--device=DEV]
+        [--relax] [--lanes] [--al=N] [--ilqr=N] [--ilqr-later=N]
+        [--ticks=N] [--dump-done=FILE.npz] [--device=DEV]
 
 It prints one JSON line (scenario, mode, budget, batch, n_ticks, horizon,
 wall_s, completion_rate, median_done_tick, robot_ticks_per_s,
-fleet_tick_ms, max_violation).  ``--relax`` is the straggler recovery
-(aim-at-button rotate target, 5 cm exit position tolerance, the stuck
-detectors; ``make_batch_task_loop``).  Without it the mode is the JAX
-script's ``parity-lanes``: the host loop's exit gates on the batched solve
-(the JAX script's default pins its vmapped per-scenario solve, which the
-port does not have).  ``--device`` defaults to the card; ``--device=cpu``
-runs the kernels' plain versions, for a small batch.
+fleet_tick_ms, max_violation).  The modes are the JAX script's:
+
+- ``parity`` (the default): the host loop's exit gates on the host-parity
+  solver (``make_batch_task_loop(host_parity_solver=True)``: the AL
+  expansion on each robot's entries, kernel E, kernel A's fleet
+  instance), the JAX script's vmapped per-scenario route;
+- ``parity-lanes`` (``--lanes``): the same gates on the fused route,
+  kernels A and B with per-robot entries;
+- ``relaxed-exit`` (``--relax``, on the fused route): the straggler
+  recovery (aim-at-button rotate target, 5 cm exit position tolerance, the
+  stuck detectors; ``make_batch_task_loop``).
+
+``--device`` defaults to the card; ``--device=cpu`` runs the kernels'
+plain versions, for a small batch.
 """
 
 from __future__ import annotations
@@ -70,11 +77,21 @@ class Fleet:
     mode: str
 
 
+def mode_of(relax=False, lanes=False):
+    """The JAX script's name of a run's mode: ``relaxed-exit`` (the
+    recovery, on the fused route), ``parity-lanes`` (the parity gates on
+    the fused route) or ``parity`` (on the host-parity solver)."""
+    return ("relaxed-exit" if relax else "parity-lanes" if lanes
+            else "parity")
+
+
 def build_fleet(batch=BATCH, scenario=1, relax=False, device="cuda",
-                cfg=CFG, chunk=CHUNK):
+                cfg=CFG, chunk=CHUNK, lanes=False):
     """The fleet of the JAX script: ``batch`` robots of ``scenario`` at
     N=20, their joints jittered by 0.05 rad (``default_rng(0)``), float32
-    on ``device``."""
+    on ``device``, in the mode ``mode_of(relax, lanes)``: parity mode runs
+    the host-parity solver unless ``lanes``."""
+    mode = mode_of(relax, lanes)
     sc = make_scenario(scenario, N=N)
     hp = [(sc.hp_points[j], sc.hp_normals[j][None, :])
           for j in range(int(sc.hp_mask.sum()))]
@@ -88,7 +105,7 @@ def build_fleet(batch=BATCH, scenario=1, relax=False, device="cuda",
     run = make_batch_task_loop(
         mpc.ocp, cfg, shared, t_move=sc.t_move, t_manipulate=sc.t_manipulate,
         dt=sc.dt, n_ticks=chunk, ik_iters=IK_ITERS,
-        **(RELAX if relax else {}))
+        host_parity_solver=mode == "parity", **(RELAX if relax else {}))
     rng = np.random.default_rng(0)
     x0 = np.tile(sc.x_start, (batch, 1)).astype(np.float32)
     # joint-space jitter (a base jitter strands the reference's 1 cm / 0.5
@@ -97,7 +114,7 @@ def build_fleet(batch=BATCH, scenario=1, relax=False, device="cuda",
     gpt = np.tile(np.asarray(sc.global_pose_target, np.float32), (batch, 1))
     kw = dict(dtype=torch.float32, device=device)
     return Fleet(run, torch.as_tensor(x0, **kw), torch.as_tensor(gpt, **kw),
-                 cfg, "relaxed-exit" if relax else "parity-lanes")
+                 cfg, mode)
 
 
 def run_fleet(fleet: Fleet, n_ticks=N_TICKS, tick_hook=None):
@@ -158,12 +175,12 @@ def _wait(device):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    relax = "--relax" in argv
+    relax, lanes = "--relax" in argv, "--lanes" in argv
     budget, n_ticks, dump_done, device = {}, N_TICKS, None, "cuda"
     flags = {"--al=": "al_iters", "--ilqr=": "ilqr_iters",
              "--ilqr-later=": "ilqr_iters_later"}
     for a in argv:
-        if not a.startswith("--") or a == "--relax":
+        if not a.startswith("--") or a in ("--relax", "--lanes"):
             continue
         key = a.split("=", 1)[0] + "="
         if key in flags:
@@ -186,7 +203,7 @@ def main(argv=None):
     args = [a for a in argv if not a.startswith("--")]
     batch = int(args[0]) if args else BATCH
     scenario = int(args[1]) if len(args) > 1 else 1
-    fleet = build_fleet(batch, scenario, relax, device, cfg)
+    fleet = build_fleet(batch, scenario, relax, device, cfg, lanes=lanes)
     fleet.run(fleet.x0, fleet.gpt)      # warm-up: one segment
     _wait(device)
     r = run_fleet(fleet, n_ticks)

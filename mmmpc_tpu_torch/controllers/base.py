@@ -19,7 +19,8 @@ import numpy as np
 import torch
 
 from mmmpc_tpu_torch.controllers.common import (
-    ControllerBase, as_weight_matrix, mv, no_rows, outer, quad, scalar_weight,
+    GENERIC_PER_SCENARIO_KEYS, ControllerBase, as_weight_matrix, mv, no_rows,
+    outer, quad, ref_rows, scalar_weight, weight, wmv, wquad,
 )
 from mmmpc_tpu_torch.models.base import base_jacobians, base_step
 from mmmpc_tpu_torch.models.obstacles import ground_obstacle_array
@@ -79,12 +80,14 @@ class MPCBase(ControllerBase):
                                    radius)
 
         def stage_cost(x, u, k, p):
-            return (quad(state_error(x, p["X_ref"][k]), p["Q"])
-                    + quad(u - p["U_ref"][k], p["R"])
+            return (wquad(state_error(x, ref_rows(p, "X_ref", k)),
+                          weight(p, "Q", k))
+                    + quad(u - ref_rows(p, "U_ref", k), p["R"])
                     + relu_max_penalty(slack(x, p), p["M"]))
 
         def terminal_cost(x, p):
-            return (quad(state_error(x, p["X_ref"][N]), p["P"])
+            return (wquad(state_error(x, ref_rows(p, "X_ref", N)),
+                          weight(p, "P"))
                     + relu_max_penalty(slack(x, p), p["M"]))
 
         def box6(x, *_):
@@ -101,7 +104,8 @@ class MPCBase(ControllerBase):
                                             p["obstacles"], radius)
             smax, sxy = relu_max_grad(vals, g2)
             sx = torch.nn.functional.pad(sxy, (0, 4))
-            return (mv(W, state_error(x, ref)) + (p["M"] * smax)[..., None] * sx,
+            return (wmv(W, state_error(x, ref))
+                    + (p["M"] * smax)[..., None] * sx,
                     W + p["M"] * outer(sx, sx))
 
         def box_rows(x, lam, mu):
@@ -115,16 +119,17 @@ class MPCBase(ControllerBase):
 
         def stage_al_expansion(x, u, k, p, lam_k, mu, inv_scale):
             two_s = 2.0 * inv_scale
-            gx, Hxx = tracking(x, p, p["X_ref"][k], p["Q"])
+            gx, Hxx = tracking(x, p, ref_rows(p, "X_ref", k),
+                               weight(p, "Q", k))
             g, H = box_rows(x, lam_k, mu)
-            gu = two_s * mv(p["R"], u - p["U_ref"][k])
+            gu = two_s * mv(p["R"], u - ref_rows(p, "U_ref", k))
             return (two_s * gx + g, gu, two_s * Hxx + H,
                     (two_s * p["R"]).expand(gu.shape + (2,)),
                     x.new_zeros(gu.shape + (6,)))
 
         def terminal_al_expansion(x, p, lam_t, lam_e, mu, inv_scale):
             two_s = 2.0 * inv_scale
-            gx, Hxx = tracking(x, p, p["X_ref"][N], p["P"])
+            gx, Hxx = tracking(x, p, ref_rows(p, "X_ref", N), weight(p, "P"))
             g, H = box_rows(x, lam_t, mu)
             return two_s * gx + g, two_s * Hxx + H
 
@@ -153,7 +158,8 @@ class MPCBase(ControllerBase):
             lanes_bwd_factory=lanes_bwd_factory,
             stage_al_expansion=stage_al_expansion,
             terminal_al_expansion=terminal_al_expansion,
-            dynamics_jacobians=lambda x, u: base_jacobians(x, u, dt))
+            dynamics_jacobians=lambda x, u: base_jacobians(x, u, dt),
+            per_scenario_keys=GENERIC_PER_SCENARIO_KEYS)
 
     def _packed_shapes(self, N):
         """The kernels' packed buffer (``csrc/generic_base.cu::Base::

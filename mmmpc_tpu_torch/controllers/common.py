@@ -70,6 +70,48 @@ def quad(e, M):
     return torch.sum(mv(M, e) * e, dim=-1)
 
 
+# Per-scenario params (``ocp/spec.py``): the callables take a reference
+# table or a weight either shared, or batch-first with one value a
+# scenario.  The helpers below read both; on a shared entry they are the
+# plain indexing, ``mv`` and ``quad`` above.
+
+# The entries a generic controller (demo, base, arm, endpoint) takes one
+# value a scenario: its callables and its line search (kernel C's
+# per-scenario instance) read them, its fused backward (D) does not.  The
+# arm and the endpoint, which penalise the change from U_last, take U_last
+# so too.
+GENERIC_PER_SCENARIO_KEYS = frozenset({"X_ref", "U_ref", "Q", "P"})
+
+
+def ref_rows(p, key, k):
+    """Row(s) k of the reference table ``key`` (X_ref, U_ref, U_last): of
+    the shared (rows, n), or of a per-scenario (B, rows, n) -> (B, *k.shape,
+    n), whose batch axis falls on x's."""
+    t = p[key]
+    return t[:, k] if t.dim() == 3 else t[k]
+
+
+def weight(p, key, k=None):
+    """Weight ``key`` (Q, P): the shared (n, n), or a per-scenario (B, n, n)
+    with a unit axis for each axis of the stage index ``k`` (none at the
+    terminal), so that it broadcasts against x's batch axis."""
+    t = p[key]
+    if t.dim() == 2:
+        return t
+    kd = k.dim() if torch.is_tensor(k) else 0
+    return t.reshape(t.shape[:1] + (1,) * kd + t.shape[1:])
+
+
+def wmv(M, v):
+    """M v for a shared or a per-scenario (``weight``) matrix M."""
+    return mv(M, v) if M.dim() == 2 else (M @ v[..., None])[..., 0]
+
+
+def wquad(e, M):
+    """e^T M e over the last axis, M shared or per scenario."""
+    return torch.sum(wmv(M, e) * e, dim=-1)
+
+
 def no_rows(x, *_):
     """An empty constraint group: (..., 0)."""
     return x.new_zeros(x.shape[:-1] + (0,))

@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from mmmpc_tpu_torch.controllers.common import (
-    ControllerBase, as_weight_matrix, mv, no_rows, quad,
+    GENERIC_PER_SCENARIO_KEYS, ControllerBase, as_weight_matrix, mv, no_rows,
+    quad, ref_rows, weight, wmv, wquad,
 )
 from mmmpc_tpu_torch.models.point_mass import point_mass_step
 from mmmpc_tpu_torch.ocp.spec import OCP
@@ -44,11 +45,11 @@ class MPC(ControllerBase):
         vlo, vhi = self.vlim
 
         def stage_cost(x, u, k, p):
-            return (quad(x - p["X_ref"][k], p["Q"])
-                    + quad(u - p["U_ref"][k], p["R"]))
+            return (wquad(x - ref_rows(p, "X_ref", k), weight(p, "Q", k))
+                    + quad(u - ref_rows(p, "U_ref", k), p["R"]))
 
         def terminal_cost(x, p):
-            return quad(x - p["X_ref"][N], p["P"])
+            return wquad(x - ref_rows(p, "X_ref", N), weight(p, "P"))
 
         def stage_ineq(x, u, k, p):
             return torch.stack([x[..., 1] - vhi, vlo - x[..., 1]], dim=-1)
@@ -59,10 +60,10 @@ class MPC(ControllerBase):
             t = torch.clamp(lam_k + mu * stage_ineq(x, u, k, p), min=0.0)
             act = (t > 0).to(x.dtype)
             zero = torch.zeros_like(t[..., 0])
-            gx = (two_s * mv(p["Q"], x - p["X_ref"][k])
+            gx = (two_s * wmv(weight(p, "Q", k), x - ref_rows(p, "X_ref", k))
                   + torch.stack([zero, t[..., 0] - t[..., 1]], dim=-1))
-            gu = two_s * mv(p["R"], u - p["U_ref"][k])
-            Hxx = two_s * p["Q"] + torch.diag_embed(torch.stack(
+            gu = two_s * mv(p["R"], u - ref_rows(p, "U_ref", k))
+            Hxx = two_s * weight(p, "Q", k) + torch.diag_embed(torch.stack(
                 [zero, mu * (act[..., 0] + act[..., 1])], dim=-1))
             Huu = (two_s * p["R"]).expand(gu.shape + (1,))
             Hux = x.new_zeros(gu.shape + (2,))
@@ -70,8 +71,9 @@ class MPC(ControllerBase):
 
         def terminal_al_expansion(x, p, lam_t, lam_e, mu, inv_scale):
             two_s = 2.0 * inv_scale
-            return (two_s * mv(p["P"], x - p["X_ref"][N]),
-                    (two_s * p["P"]).expand(x.shape + (2,)))
+            P = weight(p, "P")
+            return (two_s * wmv(P, x - ref_rows(p, "X_ref", N)),
+                    (two_s * P).expand(x.shape + (2,)))
 
         def dynamics_jacobians(x, u):
             kw = dict(dtype=x.dtype, device=x.device)
@@ -104,7 +106,8 @@ class MPC(ControllerBase):
             lanes_bwd_factory=lanes_bwd_factory,
             stage_al_expansion=stage_al_expansion,
             terminal_al_expansion=terminal_al_expansion,
-            dynamics_jacobians=dynamics_jacobians)
+            dynamics_jacobians=dynamics_jacobians,
+            per_scenario_keys=GENERIC_PER_SCENARIO_KEYS)
 
     def _packed_shapes(self, N):
         """The kernels' packed buffer (``csrc/generic_demo.cu::Demo::

@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from mmmpc_tpu_torch.controllers.common import (
-    ControllerBase, as_weight_matrix, mv, no_rows, outer, quad,
+    GENERIC_PER_SCENARIO_KEYS, ControllerBase, as_weight_matrix, mv, no_rows,
+    outer, quad, ref_rows, weight, wmv, wquad,
 )
 from mmmpc_tpu_torch.models.arm import (
     arm_fk, arm_fk_partials, arm_step, ee_jacobian,
@@ -118,13 +119,15 @@ class MPCManipulator3DoF(ControllerBase):
             return arm_fk(q)[0] - ref if cartesian else q - ref
 
         def stage_cost(q, dq, k, p):
-            c = (quad(state_error(q, p["X_ref"][k]), p["Q"])
-                 + quad(dq - p["U_ref"][k], p["R"])
-                 + quad(dq - p["U_last"][k], p["M"]))
+            c = (wquad(state_error(q, ref_rows(p, "X_ref", k)),
+                       weight(p, "Q", k))
+                 + quad(dq - ref_rows(p, "U_ref", k), p["R"])
+                 + quad(dq - ref_rows(p, "U_last", k), p["M"]))
             return c + relu_max_penalty(wedge(q, p), SLACK_WEIGHT)
 
         def terminal_cost(q, p):
-            return (quad(state_error(q, p["X_ref"][N]), p["P"])
+            return (wquad(state_error(q, ref_rows(p, "X_ref", N)),
+                          weight(p, "P"))
                     + relu_max_penalty(wedge(q, p), SLACK_WEIGHT))
 
         def box(v, lo, hi):
@@ -134,7 +137,7 @@ class MPCManipulator3DoF(ControllerBase):
 
         def stage_ineq(q, dq, k, p):
             return torch.cat([box(q, qlo, qhi),
-                              box(dq - p["U_last"][k], ddlo, ddhi),
+                              box(dq - ref_rows(p, "U_last", k), ddlo, ddhi),
                               selfcol(q)], dim=-1)
 
         def terminal_ineq(q, p):
@@ -148,9 +151,9 @@ class MPCManipulator3DoF(ControllerBase):
         def track(q, ref, W):
             """(Je^T W e, Je^T W Je) of the tracking error e."""
             if not cartesian:
-                return mv(W, q - ref), W
+                return wmv(W, q - ref), W
             Je = ee_jacobian(q)
-            return ((Je.mT @ mv(W, state_error(q, ref))[..., None])[..., 0],
+            return ((Je.mT @ wmv(W, state_error(q, ref))[..., None])[..., 0],
                     Je.mT @ W @ Je)
 
         def tracking(q, p, ref, W):
@@ -171,13 +174,14 @@ class MPCManipulator3DoF(ControllerBase):
 
         def stage_al_expansion(q, dq, k, p, lam_k, mu, inv_scale):
             two_s = 2.0 * inv_scale
-            gq, Hqq = tracking(q, p, p["X_ref"][k], p["Q"])
+            gq, Hqq = tracking(q, p, ref_rows(p, "X_ref", k),
+                               weight(p, "Q", k))
             t = torch.clamp(lam_k + mu * stage_ineq(q, dq, k, p), min=0.0)
             act = (t > 0).to(q.dtype)
             g, H = q_rows(q, torch.cat([t[..., :6], t[..., 12:]], -1),
                           torch.cat([act[..., :6], act[..., 12:]], -1), mu)
-            gu = (two_s * (mv(p["R"], dq - p["U_ref"][k])
-                           + mv(p["M"], dq - p["U_last"][k]))
+            gu = (two_s * (mv(p["R"], dq - ref_rows(p, "U_ref", k))
+                           + mv(p["M"], dq - ref_rows(p, "U_last", k)))
                   + t[..., 6:9] - t[..., 9:12])
             Huu = two_s * (p["R"] + p["M"]) + torch.diag_embed(
                 mu * (act[..., 6:9] + act[..., 9:12]))
@@ -186,7 +190,7 @@ class MPCManipulator3DoF(ControllerBase):
 
         def terminal_al_expansion(q, p, lam_t, lam_e, mu, inv_scale):
             two_s = 2.0 * inv_scale
-            gq, Hqq = tracking(q, p, p["X_ref"][N], p["P"])
+            gq, Hqq = tracking(q, p, ref_rows(p, "X_ref", N), weight(p, "P"))
             t = torch.clamp(lam_t + mu * terminal_ineq(q, p), min=0.0)
             g, H = q_rows(q, t, (t > 0).to(q.dtype), mu)
             return two_s * gq + g, two_s * Hqq + H
@@ -221,7 +225,8 @@ class MPCManipulator3DoF(ControllerBase):
             lanes_bwd_factory=lanes_bwd_factory,
             stage_al_expansion=stage_al_expansion,
             terminal_al_expansion=terminal_al_expansion,
-            dynamics_jacobians=dynamics_jacobians)
+            dynamics_jacobians=dynamics_jacobians,
+            per_scenario_keys=GENERIC_PER_SCENARIO_KEYS | {"U_last"})
 
     def _packed_shapes(self, N):
         """The kernels' packed buffer (``csrc/generic_arm.cu::Arm::layout``)."""

@@ -18,8 +18,9 @@ import numpy as np
 import torch
 
 from mmmpc_tpu_torch.controllers.common import (
-    ControllerBase, as_weight_matrix, finite_bound_masks, mv, no_rows, outer,
-    quad, scalar_weight,
+    GENERIC_PER_SCENARIO_KEYS, ControllerBase, as_weight_matrix,
+    finite_bound_masks, mv, no_rows, outer, quad, ref_rows, scalar_weight,
+    weight, wmv, wquad,
 )
 from mmmpc_tpu_torch.models.mobile_manipulator import (
     wholebody_fk, wholebody_jacobians, wholebody_pose_jacobian,
@@ -88,17 +89,21 @@ class MPCWholeBodyEndpoint(ControllerBase):
             return wholebody_fk(x)[0] - ref
 
         def stage_cost(x, u, k, p):
-            return (quad(pose_error(x, p["X_ref"][k]), p["Q"])
-                    + quad(u - p["U_ref"][k], p["R"])
-                    + quad(u - p["U_last"][k], p["W"]) + slack_pen(x, p))
+            return (wquad(pose_error(x, ref_rows(p, "X_ref", k)),
+                          weight(p, "Q", k))
+                    + quad(u - ref_rows(p, "U_ref", k), p["R"])
+                    + quad(u - ref_rows(p, "U_last", k), p["W"])
+                    + slack_pen(x, p))
 
         def terminal_cost(x, p):
-            return quad(pose_error(x, p["X_ref"][N]), p["P"]) + slack_pen(x, p)
+            return (wquad(pose_error(x, ref_rows(p, "X_ref", N)),
+                          weight(p, "P"))
+                    + slack_pen(x, p))
 
         def stage_ineq(x, u, k, p):
             return torch.cat([box_g(x, x_lo, x_hi, x_mlo, x_mhi),
-                              box_g(u - p["U_last"][k], du_lo, du_hi, du_mlo,
-                                    du_mhi)], dim=-1)
+                              box_g(u - ref_rows(p, "U_last", k), du_lo,
+                                    du_hi, du_mlo, du_mhi)], dim=-1)
 
         def terminal_ineq(x, p):
             return box_g(x, x_lo, x_hi, x_mlo, x_mhi)
@@ -114,7 +119,7 @@ class MPCWholeBodyEndpoint(ControllerBase):
             smax, sxy = relu_max_grad(vals, g2)
             sx = torch.nn.functional.pad(sxy, (0, nx - 2))
             S = p["S"]
-            gx = ((Jp.mT @ mv(Wt, pose_error(x, ref))[..., None])[..., 0]
+            gx = ((Jp.mT @ wmv(Wt, pose_error(x, ref))[..., None])[..., 0]
                   + (S * smax)[..., None] * sx)
             return gx, Jp.mT @ Wt @ Jp + S * outer(sx, sx)
 
@@ -125,19 +130,20 @@ class MPCWholeBodyEndpoint(ControllerBase):
 
         def stage_al_expansion(x, u, k, p, lam_k, mu, inv_scale):
             two_s = 2.0 * inv_scale
-            gx, Hxx = tracking(x, p, p["X_ref"][k], p["Q"])
+            gx, Hxx = tracking(x, p, ref_rows(p, "X_ref", k),
+                               weight(p, "Q", k))
             t = torch.clamp(lam_k + mu * stage_ineq(x, u, k, p), min=0.0)
             g, H = box_rows(t[..., :2 * nx], mu, nx)
             gdu, Hdu = box_rows(t[..., 2 * nx:], mu, nu)
-            gu = two_s * (mv(p["R"], u - p["U_ref"][k])
-                          + mv(p["W"], u - p["U_last"][k])) + gdu
+            gu = two_s * (mv(p["R"], u - ref_rows(p, "U_ref", k))
+                          + mv(p["W"], u - ref_rows(p, "U_last", k))) + gdu
             return (two_s * gx + g, gu, two_s * Hxx + H,
                     two_s * (p["R"] + p["W"]) + Hdu,
                     x.new_zeros(gu.shape + (nx,)))
 
         def terminal_al_expansion(x, p, lam_t, lam_e, mu, inv_scale):
             two_s = 2.0 * inv_scale
-            gx, Hxx = tracking(x, p, p["X_ref"][N], p["P"])
+            gx, Hxx = tracking(x, p, ref_rows(p, "X_ref", N), weight(p, "P"))
             t = torch.clamp(lam_t + mu * terminal_ineq(x, p), min=0.0)
             g, H = box_rows(t, mu, nx)
             return two_s * gx + g, two_s * Hxx + H
@@ -167,7 +173,8 @@ class MPCWholeBodyEndpoint(ControllerBase):
             lanes_bwd_factory=lanes_bwd_factory,
             stage_al_expansion=stage_al_expansion,
             terminal_al_expansion=terminal_al_expansion,
-            dynamics_jacobians=lambda x, u: wholebody_jacobians(x, u, dt))
+            dynamics_jacobians=lambda x, u: wholebody_jacobians(x, u, dt),
+            per_scenario_keys=GENERIC_PER_SCENARIO_KEYS | {"U_last"})
 
     def _packed_shapes(self, N):
         """The kernels' packed buffer (``csrc/generic_endpoint.cu::Endpoint::

@@ -30,9 +30,11 @@ row N, as in the JAX controller, and the fused kernels take the table
 (``controllers/moving_obs.py`` fills it with a prediction).
 
 The fleet (``sim/batch_task_engine.py``) solves with per-scenario U_last,
-X_ref, U_ref, Q, P and eq_mask (``OCP.per_scenario_keys``, the JAX
-controller's ``lanes_per_scenario_keys``): the callables take them
-batch-first (``ocp/spec.py``), and the fused kernels read them per scenario.
+X_ref, U_ref, Q, P and eq_mask (``OCP.per_scenario_keys``): the callables
+take them batch-first (``ocp/spec.py``), and both fused kernels read them
+per scenario (``OCP.fused_per_scenario_keys``, the JAX controller's
+``lanes_per_scenario_keys``).  Both kernels read the diagonals of a
+per-scenario Q and P (``OCP.diagonal_per_scenario_keys``).
 The Gauss-Newton residual forms read the square-root weights Q_s, P_s as
 given, shared.
 """
@@ -46,7 +48,7 @@ import torch
 
 from mmmpc_tpu_torch.controllers.common import (
     ControllerBase, as_weight_matrix, finite_bound_masks, mv, outer, quad,
-    scalar_weight, weight_sqrt,
+    ref_rows, scalar_weight, weight, weight_sqrt, wmv, wquad,
 )
 from mmmpc_tpu_torch.models.arm import arm_fk_partials
 from mmmpc_tpu_torch.models.mobile_manipulator import (
@@ -67,6 +69,10 @@ from mmmpc_tpu_torch.utils.configs import (
 from mmmpc_tpu_torch.utils.convert import device_constant
 
 PI = math.pi
+# the params entries that may carry one value per scenario: the callables,
+# the line search (A) and the fused backward (B) read them all per scenario
+PER_SCENARIO_KEYS = frozenset(
+    {"U_last", "X_ref", "U_ref", "Q", "P", "eq_mask"})
 
 _DEFAULT_Q = 5 * np.diag([5, 5, 0, 0, 0, 1, 1, 1, 1.0])
 _DEFAULT_R = np.diag([0.1, 0.1, 0.0, 0.0, 0.0])
@@ -140,34 +146,6 @@ def _slack_rows_with_grad(x, p, obs, base_radius,
                 p["hp_normals"], p["hp_mask"]))
     return (torch.cat([v for v, _ in rows], dim=-1),
             torch.cat([g for _, g in rows], dim=-2))
-
-
-def _rows(p, key, k):
-    """Row(s) k of the reference table ``key`` (X_ref, U_ref, U_last): of
-    the shared (rows, n), or of a per-scenario (B, rows, n) -> (B, *k.shape,
-    n), whose batch axis falls on x's."""
-    t = p[key]
-    return t[:, k] if t.dim() == 3 else t[k]
-
-
-def _weight(p, key, k=None):
-    """Weight ``key`` (Q, P): the shared (n, n), or a per-scenario (B, n, n)
-    with a unit axis for each axis of the stage index ``k`` (none at the
-    terminal), so that it broadcasts against x's batch axis."""
-    t = p[key]
-    if t.dim() == 2:
-        return t
-    kd = k.dim() if torch.is_tensor(k) else 0
-    return t.reshape(t.shape[:1] + (1,) * kd + t.shape[1:])
-
-
-def _mv(M, v):
-    """M v for a shared or a per-scenario (``_weight``) matrix M."""
-    return mv(M, v) if M.dim() == 2 else (M @ v[..., None])[..., 0]
-
-
-def _quad(e, M):
-    return torch.sum(_mv(M, e) * e, dim=-1)
 
 
 def _eq_mask(p, trailing):
@@ -308,19 +286,19 @@ class MPCWholeBody(ControllerBase):
             return relu_max_grad(vals, gx)
 
         def errors(x, u, k, p):
-            return (x - _rows(p, "X_ref", k), u - _rows(p, "U_ref", k),
-                    u - _rows(p, "U_last", k))
+            return (x - ref_rows(p, "X_ref", k), u - ref_rows(p, "U_ref", k),
+                    u - ref_rows(p, "U_last", k))
 
         def stage_cost(x, u, k, p):
             ex, eu, edu = errors(x, u, k, p)
             smax = relu_max(stage_slack_g(x, u, k, p))
-            return (_quad(ex, _weight(p, "Q", k)) + quad(eu, p["R"])
+            return (wquad(ex, weight(p, "Q", k)) + quad(eu, p["R"])
                     + quad(edu, p["W"]) + p["S"] * smax * smax)
 
         def terminal_cost(x, p):
-            ex = x - _rows(p, "X_ref", N)
+            ex = x - ref_rows(p, "X_ref", N)
             smax = relu_max(terminal_slack_g(x, p))
-            return _quad(ex, _weight(p, "P")) + p["S"] * smax * smax
+            return wquad(ex, weight(p, "P")) + p["S"] * smax * smax
 
         def stage_residuals(x, u, k, p):
             """cost == ||residuals||^2 exactly (Gauss-Newton factorisation)."""
@@ -331,14 +309,14 @@ class MPCWholeBody(ControllerBase):
                               (p["S_sqrt"] * smax)[..., None]], dim=-1)
 
         def terminal_residuals(x, p):
-            ex = x - _rows(p, "X_ref", N)
+            ex = x - ref_rows(p, "X_ref", N)
             smax = relu_max(terminal_slack_g(x, p))
             return torch.cat([mv(p["P_s"], ex),
                               (p["S_sqrt"] * smax)[..., None]], dim=-1)
 
         def stage_ineq(x, u, k, p):
             gx = box_g(x, x_lo, x_hi, x_mlo, x_mhi)
-            gdu = box_g(u - _rows(p, "U_last", k), du_lo, du_hi, du_mlo,
+            gdu = box_g(u - ref_rows(p, "U_last", k), du_lo, du_hi, du_mlo,
                         du_mhi)
             return torch.cat([gx, gdu], dim=-1)
 
@@ -346,7 +324,8 @@ class MPCWholeBody(ControllerBase):
             return box_g(x, x_lo, x_hi, x_mlo, x_mhi)
 
         def terminal_eq(x, p):
-            return _eq_mask(p, 1) * (x[..., :2] - _rows(p, "X_ref", N)[..., :2])
+            return _eq_mask(p, 1) * (x[..., :2]
+                                     - ref_rows(p, "X_ref", N)[..., :2])
 
         # ---- hand Jacobians: box rows are constant +-selection rows ----
         Jc_np = np.zeros((2 * nx + 2 * nu, nx + nu))
@@ -379,7 +358,7 @@ class MPCWholeBody(ControllerBase):
             return r, J
 
         def terminal_gn(x, p):
-            ex = x - _rows(p, "X_ref", N)
+            ex = x - ref_rows(p, "X_ref", N)
             smax, sx = terminal_slack_grad(x, p)
             r = torch.cat([mv(p["P_s"], ex),
                            (p["S_sqrt"] * smax)[..., None]], dim=-1)
@@ -413,8 +392,8 @@ class MPCWholeBody(ControllerBase):
             S = p["S"]
             two_s = 2.0 * inv_scale
             Ssm = (S * smax)[..., None]
-            Q = _weight(p, "Q", k)
-            gx = two_s * (_mv(Q, ex) + Ssm * sx)
+            Q = weight(p, "Q", k)
+            gx = two_s * (wmv(Q, ex) + Ssm * sx)
             gu = two_s * (mv(p["R"], eu) + mv(p["W"], edu) + Ssm * su)
             Hxx = two_s * (Q + S * outer(sx, sx))
             Huu = two_s * (p["R"] + p["W"] + S * outer(su, su))
@@ -432,12 +411,12 @@ class MPCWholeBody(ControllerBase):
             return gx, gu, Hxx, Huu, Hux
 
         def terminal_al_expansion(x, p, lam_t, lam_e, mu, inv_scale):
-            ex = x - _rows(p, "X_ref", N)
+            ex = x - ref_rows(p, "X_ref", N)
             smax, sx = terminal_slack_grad(x, p)
             S = p["S"]
             two_s = 2.0 * inv_scale
-            P = _weight(p, "P")
-            gx = two_s * (_mv(P, ex) + (S * smax)[..., None] * sx)
+            P = weight(p, "P")
+            gx = two_s * (wmv(P, ex) + (S * smax)[..., None] * sx)
             Hxx = two_s * (P + S * outer(sx, sx))
 
             z = lam_t + mu * terminal_ineq(x, p)
@@ -489,8 +468,9 @@ class MPCWholeBody(ControllerBase):
             stage_ineq_jac=stage_ineq_jac,
             terminal_ineq_jac=terminal_ineq_jac,
             terminal_eq_jac=terminal_eq_jac,
-            per_scenario_keys=frozenset(
-                {"U_last", "X_ref", "U_ref", "Q", "P", "eq_mask"}))
+            per_scenario_keys=PER_SCENARIO_KEYS,
+            fused_per_scenario_keys=PER_SCENARIO_KEYS,
+            diagonal_per_scenario_keys=frozenset({"Q", "P"}))
 
     # ------------------------------------------------------------------
     def reset(self):

@@ -99,6 +99,70 @@ __device__ __forceinline__ Ctx<F> make_ctx(const Statics<F>& st,
                 st.v[GST_INV_SCALE], N, n_obs, n_hp};
 }
 
+// ---- kernel C's per-scenario instance (K5): the line search of formulation
+// F with one packed params buffer a scenario, batch-last (size, B): a row
+// of the layout holds that element of every scenario.  Shared entries are
+// copied into every scenario's column on the host, so the hooks read every
+// element alike, through the contexts below, and F's hooks are the ones of
+// its shared instance.  The line search of generic_fwd.cuh instantiated
+// with PerScenario<F> is that instance.
+template <class F>
+struct PerScenario : F {};
+
+template <class F>
+constexpr bool per_scenario_v = false;
+template <class F>
+constexpr bool per_scenario_v<PerScenario<F>> = true;
+
+// The one-thread kernel's context in the per-scenario instance: pp at the
+// thread's scenario b of the (size, B) buffer, element i at pp[i * B].
+template <class F>
+struct PsCtx {
+  const Statics<F>& st;
+  const float* __restrict__ pp;
+  typename F::Layout L;
+  float dt, inv_scale;
+  int N, n_obs, n_hp;
+  long long stride;
+
+  __device__ __forceinline__ float p(int i) const { return __ldg(pp + i * stride); }
+  __device__ __forceinline__ float ex(int i) const {
+    return st.v[Statics<F>::EXTRA + i];
+  }
+};
+
+// The team kernel's context in the per-scenario instance: pp at the team's
+// scenario s of the block's buffer in shared memory, element-major with
+// the scenario fastest, element i at pp[i * SC].
+template <class F, int SC>
+struct PsSmemCtx {
+  const float* sv;
+  const float* pp;
+  typename F::Layout L;
+  float dt, inv_scale;
+  int N, n_obs, n_hp;
+
+  __device__ __forceinline__ float p(int i) const { return pp[i * SC]; }
+  __device__ __forceinline__ float ex(int i) const {
+    return sv[Statics<F>::EXTRA + i];
+  }
+};
+
+// The one-thread line search's context of scenario b of B: Ctx<F> on the
+// shared buffer, PsCtx<F> in the per-scenario instance.
+template <class F>
+__device__ __forceinline__ auto fwd_ctx(const Statics<F>& st, const float* pp,
+                                        int N, int b, int B) {
+  if constexpr (per_scenario_v<F>) {
+    const int n_obs = static_cast<int>(st.v[GST_N_OBS]);
+    const int n_hp = static_cast<int>(st.v[GST_N_HP]);
+    return PsCtx<F>{st, pp + b, F::layout(N, n_obs, n_hp), st.v[GST_DT],
+                    st.v[GST_INV_SCALE], N, n_obs, n_hp, B};
+  } else {
+    return make_ctx<F>(st, pp, N);
+  }
+}
+
 // e^T M e for a row-major n x n matrix in the packed buffer.
 template <int n, class C>
 __device__ __forceinline__ float qform(const C& c, int off, const float* e) {
@@ -232,7 +296,9 @@ __device__ __forceinline__ float ground_value_team(const C& c, int off, float px
 // other pointers are device memory; each returns cudaGetLastError() after
 // the launch), the forward's launch geometry at batch B with n_alpha step
 // sizes and the backward's at batch B (team, threads, blocks, shared-memory
-// bytes), and the two layout sizes for the wrappers' check.
+// bytes), the launch and the geometry of the forward's per-scenario
+// instance (gen_fwd_ps_*: params (size, B) batch-last), and the two layout
+// sizes for the wrappers' check.
 #define GEN_ENTRIES(name, F)                                                  \
   extern "C" int gen_fwd_##name(                                              \
       const float* statics, const float* params, const float* X,             \
@@ -263,6 +329,25 @@ __device__ __forceinline__ float ground_value_team(const C& c, int off, float px
   extern "C" int gen_bwd_geometry_##name(int N, int n_obs, int n_hp, int B,  \
                                          int* out) {                          \
     const gen::BwdGeometry g = gen::bwd_geometry<F>(N, n_obs, n_hp, B);      \
+    out[0] = g.team;                                                          \
+    out[1] = g.threads;                                                       \
+    out[2] = g.blocks;                                                        \
+    out[3] = g.smem;                                                          \
+    return 0;                                                                 \
+  }                                                                           \
+  extern "C" int gen_fwd_ps_##name(                                           \
+      const float* statics, const float* params, const float* X,             \
+      const float* U, const float* kff, const float* K, const float* lam,    \
+      const float* lamt, const float* lame, float* Xc, float* Uc,            \
+      float* xlast, float* cost, float mu, int N, int B, void* stream) {     \
+    return gen::launch_fwd<gen::PerScenario<F>>(                              \
+        statics, params, X, U, kff, K, lam, lamt, lame, Xc, Uc, xlast, cost,  \
+        mu, N, B, stream);                                                    \
+  }                                                                           \
+  extern "C" int gen_fwd_ps_geometry_##name(int N, int n_obs, int n_hp,      \
+                                            int n_alpha, int B, int* out) {   \
+    const gen::FwdGeometry g =                                                \
+        gen::fwd_geometry<gen::PerScenario<F>>(N, n_obs, n_hp, n_alpha, B);   \
     out[0] = g.team;                                                          \
     out[1] = g.threads;                                                       \
     out[2] = g.blocks;                                                        \

@@ -29,7 +29,20 @@
 // candidate, each scenario's inputs loaded once for its candidates; the
 // sweeps that chose the sizes are in the hooks' comments.  N=20, B=8192;
 // H100 80GB HBM3, 700.00 W; PERF.md.
+//
+// The per-scenario instance (K5: each robot its own X_ref, U_ref, Q, P, as
+// the JAX package's vmapped solve takes them) is either kernel instantiated
+// with PerScenario<F> (generic_common.cuh): the packed params are one
+// column a scenario, batch-last (size, B), the shared entries copied into
+// every column.  The one-thread kernel reads its scenario's column through
+// the read-only cache (coalesced over the threads of a step size); the
+// team kernel stages its scenarios' columns once a block into shared
+// memory, element-major with the scenario fastest, as its stage inputs,
+// so the full Q and P are loaded once and not per stage.  F's hooks are
+// the shared instance's, through a context whose p(i) reads the column.
 #pragma once
+
+#include <type_traits>
 
 #include "cp_async.cuh"
 #include "generic_common.cuh"
@@ -110,7 +123,7 @@ generic_fwd_kernel(const __grid_constant__ Statics<F> st,
 #pragma unroll
   for (int k = 0; k < FWD_RING - 1; ++k) issue_stage(k);
 
-  const Ctx<F> c = make_ctx<F>(st, pp, N);
+  const auto c = fwd_ctx<F>(st, pp, N, b, B);
   const float alpha = st.v[GST_ALPHAS + a];
   const float inv2mu = 0.5f / mu;
 
@@ -257,7 +270,8 @@ __host__ __device__ inline FwdTeamSmem fwd_team_smem(int N, int n_obs, int n_hp)
   m.term = o;  o += F::NCT * FWD_SCEN;
   m.vec = o;   o += 2 * F::FWD_NV * (FWD_TEAM_THREADS / F::FWD_TEAM);
   m.sv = o;    o += Statics<F>::SIZE;
-  m.ps = o;    o += F::layout(N, n_obs, n_hp).size;
+  // the packed params: one column a scenario in the per-scenario instance
+  m.ps = o;    o += F::layout(N, n_obs, n_hp).size * (per_scenario_v<F> ? FWD_SCEN : 1);
   m.size = o;
   return m;
 }
@@ -387,13 +401,19 @@ generic_fwd_team_kernel(const __grid_constant__ Statics<F> st,
 
   // ---- the params, the terminal multipliers and stage 0 in flight; the
   // statics and the row table meanwhile
-  for (int i = tid; i < L.size; i += FWD_TEAM_THREADS) wb::cp_async4(ps + i, pp + i);
+  if constexpr (per_scenario_v<F>) {
+    copy_rows(ps + cs, pp, 0, L.size);
+  } else {
+    for (int i = tid; i < L.size; i += FWD_TEAM_THREADS) wb::cp_async4(ps + i, pp + i);
+  }
   copy_rows(tb + cs, lamt, 0, NCT);
   issue_stage(0);
   wb::cp_async_commit();
   for (int i = tid; i < Statics<F>::SIZE; i += FWD_TEAM_THREADS) sv[i] = st.v[i];
   if (tid == 0) F::fwd_team_rows(st.v, rt);
-  const SmemCtx<F> c{sv, ps, L, st.v[GST_DT], st.v[GST_INV_SCALE], N, n_obs, n_hp};
+  using C = std::conditional_t<per_scenario_v<F>, PsSmemCtx<F, SC>, SmemCtx<F>>;
+  const C c{sv, per_scenario_v<F> ? ps + s : ps, L, st.v[GST_DT], st.v[GST_INV_SCALE],
+            N, n_obs, n_hp};
   const float alpha = st.v[GST_ALPHAS + a];
 
   float x[NX];

@@ -26,9 +26,19 @@ is a Python int or an integer tensor that broadcasts against the batch axes
   ``ops/generic_bwd.py``); without one the solver runs the structured AL
   expansion and the Riccati sweep kernel (``ops/riccati.py``)
 - ``per_scenario_keys``: the params entries that may carry one value per
-  scenario (the JAX package's ``lanes_per_scenario_keys``; the fleet's
-  references, weights, equality mask and previous inputs), which the
-  fused kernels then read per scenario
+  scenario, which the callables and the line search then read per scenario
+  (the entries the JAX package's vmapped solve maps: the qref controller's
+  references, weights, equality mask and previous inputs, the fleet's; the
+  generic controllers' references and weights, and the arm's and the
+  endpoint's previous inputs)
+- ``fused_per_scenario_keys``: those of them that the fused backward kernel
+  reads per scenario too (the JAX package's ``lanes_per_scenario_keys``):
+  a solve whose per-scenario entries are all among them may take the fused
+  backward; any other runs the structured expansion and the Riccati sweep
+- ``diagonal_per_scenario_keys``: the per-scenario weights of which the
+  line-search kernel reads the diagonal only (the qref controller's Q and
+  P: A's fleet instance).  Off the fused route the callables read them
+  whole, so the solver refuses one with an entry off its diagonal there
 
 Per-scenario params.  In a batched solve's params such an entry carries a
 trailing batch axis, the JAX package's convention: U_last / U_ref
@@ -36,7 +46,9 @@ trailing batch axis, the JAX package's convention: U_last / U_ref
 callables take them batch-first (``batch_first``): (B, N, nu), (B, N+1, nx),
 (B, nx, nx), (B,); the batch axis of x is then the one just before the
 stage index's axes (``x (B, N, nx)`` with ``k = arange(N)``, or
-``(n_alpha, B, nx)`` with an int ``k``).
+``(n_alpha, B, nx)`` with an int ``k``).  Q and P are full matrices there,
+as the JAX package's vmap keeps them; the kernels of the qref controller
+take their diagonals.
 """
 
 from __future__ import annotations
@@ -99,6 +111,8 @@ class OCP:
     terminal_ineq_jac: Callable | None = None
     terminal_eq_jac: Callable | None = None
     per_scenario_keys: frozenset = frozenset()
+    fused_per_scenario_keys: frozenset = frozenset()
+    diagonal_per_scenario_keys: frozenset = frozenset()
 
     def clamp_u(self, u: torch.Tensor) -> torch.Tensor:
         return torch.clamp(u, device_constant(self.u_lower, u.dtype, u.device),

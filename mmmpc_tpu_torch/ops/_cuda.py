@@ -90,7 +90,8 @@ _FLOAT = ctypes.c_float
 # statics' ``bug_compat``, no batch) write the blocks an SM holds.  The
 # whole-body launches take the six per-scenario operands (U_last, X_ref,
 # U_ref, the Q and P diagonals, eq_mask; null where the mask has no bit)
-# after the multipliers.
+# after the multipliers.  The generic line search's per-scenario instance
+# (``gen_fwd_ps_*``) takes the shared one's arguments, its params (size, B).
 _FWD = [_VOID] * 13 + [_FLOAT, _INT, _INT, _VOID]
 _BWD = [_VOID] * 10 + [_FLOAT, _INT, _INT, _VOID]
 _WB_FWD = [_VOID] * 19 + [_FLOAT, _INT, _INT, _VOID]
@@ -108,6 +109,8 @@ SIGNATURES = {
     **{k: v for name in FORMULATIONS for k, v in (
         (f"gen_fwd_{name}", _FWD), (f"gen_bwd_{name}", _BWD),
         (f"gen_fwd_geometry_{name}", [_INT] * 5 + [_VOID]),
+        (f"gen_fwd_ps_{name}", _FWD),
+        (f"gen_fwd_ps_geometry_{name}", [_INT] * 5 + [_VOID]),
         (f"gen_bwd_geometry_{name}", [_INT] * 4 + [_VOID]),
         (f"gen_statics_size_{name}", []),
         (f"gen_params_size_{name}", [_INT, _INT, _INT]))},

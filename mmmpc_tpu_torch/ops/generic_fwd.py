@@ -24,12 +24,21 @@ packed per-problem buffer's layout and the formulation's own statics (both
 written in the same order in the C struct), and the common statics.  Before
 every launch the wrapper holds the sizes of both blocks against the ones the
 compiled library reports.
+
+Per-scenario params (an entry of ``ocp.per_scenario_keys`` with a trailing
+batch axis: the generic controllers' X_ref, U_ref, Q, P and the arm's and
+the endpoint's U_last, each robot its own) select kernel C's per-scenario instance (K5), ``gen_fwd_ps_<name>``,
+counted in ``LAUNCHES_PS``: the packed buffer is one column a scenario,
+(size, B) batch-last (``Formulation.pack_columns``), the shared entries
+copied into every column.  Its plain version is ``plain_fwd`` on the
+params' batch-first view, the callables' (``ocp/spec.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -38,18 +47,26 @@ from mmmpc_tpu_torch.ops._cuda import (
     FORMULATIONS, LIBRARY, MAX_ALPHA, LaunchCounter, check_launch,
     check_layout, check_tensor, pack_buffer, unpack_buffer,
 )
+from mmmpc_tpu_torch.ocp.spec import batch_first, per_scenario_keys
 from mmmpc_tpu_torch.solver.al_ilqr import _al_penalty_eq, _al_penalty_ineq
 
 LAUNCHES = {name: LaunchCounter() for name in FORMULATIONS}
+# the per-scenario instance of each formulation (K5)
+LAUNCHES_PS = {name: LaunchCounter() for name in FORMULATIONS}
 
 
-def launch_geometry(lib, name, N, n_obs, n_hp, n_alpha, B):
+def launch_geometry(lib, name, N, n_obs, n_hp, n_alpha, B,
+                    per_scenario=False):
     """{team, threads, blocks, smem_bytes}: the lanes a candidate, threads a
     block, blocks and dynamic shared-memory bytes with which the library's
-    ``gen_fwd_<name>`` launches at batch ``B`` with ``n_alpha`` step sizes,
-    as its ``gen_fwd_geometry_<name>`` reports them."""
+    ``gen_fwd_<name>`` (``per_scenario``: ``gen_fwd_ps_<name>``) launches at
+    batch ``B`` with ``n_alpha`` step sizes, as its
+    ``gen_fwd_geometry_<name>`` (``gen_fwd_ps_geometry_<name>``) reports
+    them."""
     out = (ctypes.c_int * 4)()
-    getattr(lib, f"gen_fwd_geometry_{name}")(N, n_obs, n_hp, n_alpha, B, out)
+    ps = "ps_" if per_scenario else ""
+    getattr(lib, f"gen_fwd_{ps}geometry_{name}")(N, n_obs, n_hp, n_alpha, B,
+                                                 out)
     return dict(team=out[0], threads=out[1], blocks=out[2], smem_bytes=out[3])
 
 
@@ -92,12 +109,31 @@ class Formulation:
         """Views of ``flat`` under the keys of the controller's params."""
         return unpack_buffer(self.shapes, flat)
 
+    def pack_columns(self, params, batch) -> torch.Tensor:
+        """The per-problem tensors as one contiguous (size, batch) buffer,
+        one column a scenario (the per-scenario instance's): an entry of
+        shape ``shape + (batch,)`` as it is, a shared one of ``shape``
+        copied into every column.  Raises on an entry of another shape."""
+        parts = []
+        for k, shape in self.shapes.items():
+            t, shape, n = params[k], tuple(shape), math.prod(shape)
+            if tuple(t.shape) == shape + (batch,):
+                parts.append(t.reshape(n, batch))
+            elif tuple(t.shape) == shape:
+                parts.append(t.reshape(n, 1).expand(n, batch))
+            else:
+                raise ValueError(f"params[{k!r}]: expected shape {shape} or "
+                                 f"{shape + (batch,)}, got {tuple(t.shape)}")
+        return torch.cat(parts).contiguous()
+
 
 def plain_fwd(ocp, params, alphas, inv_scale, X, U, kff, K, lam, lamt, lame,
               mu):
     """The batched rollout of all step sizes with the AL cost, from the
-    OCP's callables (any device, any float dtype).  X (N, nx, B) stage
-    states, U / kff (N, nu, B), K (N, nu, nx, B), lam (N, nc, B), lamt
+    OCP's callables (any device, any float dtype), on ``params`` as the
+    callables take them: shared, or with per-scenario entries batch-first
+    (the plain version of kernel C's per-scenario instance).  X (N, nx, B)
+    stage states, U / kff (N, nu, B), K (N, nu, nx, B), lam (N, nc, B), lamt
     (nct, B), lame (ne, B) -> Xc (N, n_alpha, nx, B), Uc (N, n_alpha, nu, B),
     xlast (n_alpha, nx, B), cost (n_alpha, B)."""
     B = X.shape[-1]
@@ -125,15 +161,34 @@ def plain_fwd(ocp, params, alphas, inv_scale, X, U, kff, K, lam, lamt, lame,
 class GenericFwdLinesearch:
     """The fused rollout + line search of one problem: statics from the
     formulation, the step sizes and the cost scale; runtime data (weights,
-    references, geometry) from ``params``, packed once; multipliers and mu
-    are call arguments."""
+    references, geometry) from ``params``, packed once (one column a
+    scenario where an entry is per scenario); multipliers and mu are call
+    arguments."""
 
     def __init__(self, form: Formulation, ocp, params, *, alphas, inv_scale):
         self.form, self.ocp = form, ocp
         self.alphas = tuple(float(a) for a in alphas)
         self.inv_scale = float(inv_scale)
-        self.flat = form.pack(params)
+        self.ps_keys = per_scenario_keys(params)
+        unknown = set(self.ps_keys) - ocp.per_scenario_keys
+        if unknown:
+            raise ValueError(f"params {sorted(unknown)} carry a batch axis, "
+                             f"but the {form.name} line search takes them "
+                             f"shared only")
+        if self.ps_keys:
+            self.batch = params[self.ps_keys[0]].shape[-1]
+            self.flat = form.pack_columns(params, self.batch)
+            self.params = batch_first({k: params[k] for k in form.shapes})
+        else:
+            self.batch = None
+            self.flat = form.pack(params)
         self.statics = form.statics(self.alphas, self.inv_scale)
+
+    @property
+    def counter(self) -> LaunchCounter:
+        """This instance's launch counter: ``LAUNCHES_PS`` with
+        per-scenario params, else ``LAUNCHES``."""
+        return (LAUNCHES_PS if self.ps_keys else LAUNCHES)[self.form.name]
 
     def __call__(self, X, U, kff, K, lam, lamt, lame, mu):
         """X (N, nx, B) stage states, U (N, nu, B), kff (N, nu, B),
@@ -144,20 +199,26 @@ class GenericFwdLinesearch:
             return self.cuda(X, U, kff, K, lam, lamt, lame, mu)
         if X.device.type != "cpu":
             raise ValueError(f"no generic_fwd for device {X.device}")
-        LAUNCHES[self.form.name].plain += 1
+        self.counter.plain += 1
         return self.plain(X, U, kff, K, lam, lamt, lame, mu)
 
     def plain(self, X, U, kff, K, lam, lamt, lame, mu):
-        """``plain_fwd`` on the packed params (any device, any float dtype)."""
-        return plain_fwd(self.ocp, self.form.unpack(self.flat), self.alphas,
-                         self.inv_scale, X, U, kff, K, lam, lamt, lame, mu)
+        """``plain_fwd`` on the packed params, or on the batch-first view of
+        the per-scenario ones (any device, any float dtype)."""
+        params = self.params if self.ps_keys else self.form.unpack(self.flat)
+        return plain_fwd(self.ocp, params, self.alphas, self.inv_scale, X, U,
+                         kff, K, lam, lamt, lame, mu)
 
     def cuda(self, X, U, kff, K, lam, lamt, lame, mu):
-        """Launch ``gen_fwd_<name>`` on the current stream."""
+        """Launch ``gen_fwd_<name>`` (``gen_fwd_ps_<name>`` with
+        per-scenario params) on the current stream."""
         f, dev = self.form, X.device
         N, nx, nu = self.ocp.N, self.ocp.nx, self.ocp.nu
         B, na = X.shape[-1], len(self.alphas)
-        ptrs = [check_tensor("params", self.flat, (self.flat.numel(),), dev),
+        if self.ps_keys and B != self.batch:
+            raise ValueError(f"generic_fwd.{f.name}: per-scenario params of "
+                             f"batch {self.batch}, inputs of batch {B}")
+        ptrs = [check_tensor("params", self.flat, tuple(self.flat.shape), dev),
                 check_tensor("X", X, (N, nx, B), dev),
                 check_tensor("U", U, (N, nu, B), dev),
                 check_tensor("kff", kff, (N, nu, B), dev),
@@ -169,11 +230,14 @@ class GenericFwdLinesearch:
         outs = (torch.empty(N, na, nx, B, **kw), torch.empty(N, na, nu, B, **kw),
                 torch.empty(na, nx, B, **kw), torch.empty(na, B, **kw))
         lib = LIBRARY.get()
-        check_layout(lib, self.statics, self.flat, N, f.n_obs, f.n_hp, f.name)
+        check_layout(lib, self.statics, self.flat[:, 0] if self.ps_keys
+                     else self.flat, N, f.n_obs, f.n_hp, f.name)
+        entry = f"gen_fwd_{'ps_' if self.ps_keys else ''}{f.name}"
         with torch.cuda.device(dev):
-            err = getattr(lib, f"gen_fwd_{f.name}")(
+            err = getattr(lib, entry)(
                 self.statics.ctypes.data, *ptrs, *(o.data_ptr() for o in outs),
                 float(mu), N, B, torch.cuda.current_stream().cuda_stream)
-        check_launch(f"generic_fwd.{f.name}", err)
-        LAUNCHES[f.name].cuda += 1
+        check_launch(f"generic_fwd.{f.name}"
+                     f"{'.per_scenario' if self.ps_keys else ''}", err)
+        self.counter.cuda += 1
         return outs

@@ -15,8 +15,9 @@ the whole fleet's tasks advance together, a tick at a time:
   Levenberg-Marquardt (``models/arm.py::arm_ik``), run each tick for every
   robot and used only by those that switch;
 - one batched solve a tick, with per-robot X_ref, U_last, Q, P and eq_mask
-  (kernels A and B read them per scenario); the inputs and the multipliers
-  carry over from tick to tick, robot by robot.
+  (kernels A and B read them per scenario; with ``host_parity_solver`` the
+  expansion reads them and kernels E and A run); the inputs and the
+  multipliers carry over from tick to tick, robot by robot.
 
 Every tick is batched tensor ops on the device: no loop over robots, and
 nothing inside a tick waits for the device (no host data copied to it, no
@@ -27,6 +28,7 @@ Phases: 0 move, 1 approach, 2 rotate, 3 manipulate, 4 done.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -119,13 +121,19 @@ def make_batch_task_loop(ocp, cfg: SolverConfig, shared_params,
     effector stops closing in for that many ticks drops back to rotate (and
     one that circles in rotate for three times as many to approach).
 
-    ``host_parity_solver=True`` pinned the JAX solve to its vmapped
-    per-scenario lowering, which the port does not have: it raises.
+    ``host_parity_solver=True`` runs the fleet's solve with
+    ``use_fused_backward=False``, the route of the JAX flag (which sets
+    ``use_pallas_riccati=False`` and so drops its lanes kernels for its
+    vmapped per-scenario solve): the AL expansion in plain PyTorch on each
+    robot's entries and kernel E on its blocks, then A's fleet instance for
+    the line search; B never runs.  The rotate exit's 1 cm / 0.5 deg gates
+    sit on a knife edge of the solver's float32 rounding, and the JAX
+    package completes 89.55% of its bench fleet on its vmapped route
+    against 70.5% on its lanes kernels (BASELINE.md); this route's ticks
+    are host-bound, several times a fused tick.
     """
     if host_parity_solver:
-        raise ValueError("host_parity_solver: the port has no vmapped "
-                         "per-scenario solve; the fleet runs the batched "
-                         "solve on kernels A and B")
+        cfg = dataclasses.replace(cfg, use_fused_backward=False)
     N, nx, nu = ocp.N, ocp.nx, ocp.nu
     T_move = int(round(t_move / dt))
     T_man = int(round(t_manipulate / dt))

@@ -1,37 +1,45 @@
 """Natively batched AL-iLQR with the batch on the last axis (counterpart of
 ``mmmpc_tpu/solver/batched.py::_solve_batched_lanes``, the JAX package's
-fastest path; its batch-major and vmap fallbacks are not ported).
+fastest path, and of its vmapped per-scenario route; its batch-major
+kernel path is not ported).
 
 Every array of the inner loop is batch-last — X (N+1, nx, B), U (N, nu, B),
 multipliers (N, nc, B) — which is the layout the kernels read with coalesced
 loads.  Each iLQR iteration is one backward pass, one call of the fused
 rollout + line search over all step sizes (``ops/wholebody_fwd.py``,
 ``ops/generic_fwd.py``), then the per-scenario argmin over step sizes and
-the accept / reject merge.  The backward pass is one of two, as in the JAX
-solver:
+the accept / reject merge.  The backward pass takes one of two routes, as
+in the JAX solver (``mmmpc_tpu/solver/batched.py:98-119``):
 
-- fused (``cfg.use_fused_backward`` and an OCP with a ``lanes_bwd_factory``):
-  one call of the OCP's fused AL-expansion + Riccati kernel
-  (``ops/wholebody_bwd.py``, ``ops/generic_bwd.py``);
-- unfused (otherwise): the OCP's structured AL expansion and dynamics
+- fused: one call of the OCP's fused AL-expansion + Riccati kernel
+  (``ops/wholebody_bwd.py``, ``ops/generic_bwd.py``), when
+  ``cfg.use_fused_backward`` is set, the OCP has a ``lanes_bwd_factory``,
+  the assoc sweep is not picked, and every per-scenario entry of the params
+  is one the fused kernels read (``ocp.fused_per_scenario_keys``);
+- the expansion (otherwise): the OCP's structured AL expansion and dynamics
   Jacobians in plain PyTorch (``solver/al_ilqr.py::stage_al_blocks``,
   ``terminal_al_blocks``: the JAX ``core.stage_derivs`` /
-  ``core.terminal_derivs``), then the Riccati sweep kernel on those blocks
-  (``ops/riccati.py``).  It takes shared params only, as the JAX solver's;
-- and where ``resolve_assoc_scan`` picks it for the batch, the horizon
-  and the device (``cfg.use_assoc_scan``), the same expansion followed by the
-  parallel-prefix sweep of ``ops/assoc_riccati.py`` in place of either, as
-  the JAX solver's assoc sweep serves the routes that run no Riccati
-  kernel.  Per-scenario params take the fused backward: "auto" resolves to
-  the sequential sweep for them and True raises (the JAX solver would
-  vmap a per-scenario solve instead; the port's expansion takes shared
-  params only).
+  ``core.terminal_derivs``) on the batch-first view of the params, then the
+  Riccati sweep kernel on those blocks (``ops/riccati.py``), or, where
+  ``resolve_assoc_scan`` picks it for the batch, the horizon and the device
+  (``cfg.use_assoc_scan``), the parallel-prefix sweep of
+  ``ops/assoc_riccati.py``.  It takes per-scenario params as shared ones:
+  this is the route of the JAX package's vmapped per-scenario solve (the
+  fleet's ``host_parity_solver``, the generic controllers with per-robot
+  targets).  A per-scenario weight of which the line search reads the
+  diagonal only (``ocp.diagonal_per_scenario_keys``: the qref
+  controller's Q and P, which A's fleet instance takes as diagonals)
+  raises there when it has an entry off its diagonal: the callables would
+  score it whole and the line search without those entries.
 
-Per-scenario params (the fleet's: an entry of ``ocp.per_scenario_keys``
-with a trailing batch axis, ``ocp/spec.py``) need the fused backward: the
-kernels read them per scenario, and the AL objective, the constraints, the
-rollout and the final objective evaluate the OCP's callables on their
-batch-first view, as the JAX solver's ``al_total_p`` / ``eval_con_p`` do.
+Per-scenario params (an entry of ``ocp.per_scenario_keys`` with a trailing
+batch axis, ``ocp/spec.py``; any other entry with one raises) are read per
+scenario by the line search's kernel on every route (A's and C's
+per-scenario instances), by the fused backward on its route, and by the
+OCP's callables on their batch-first view everywhere else: the AL
+objective, the constraints, the rollout, the expansion and the final
+objective, as the JAX solver's ``al_total_p`` / ``eval_con_p`` and its
+vmap do.
 
 On CUDA tensors the calls launch the hand-written kernels; on CPU tensors
 they run their plain PyTorch versions.  Any batch size is taken.
@@ -56,6 +64,20 @@ def _pick(cand, best):
     scenario -> (..., d, B)."""
     idx = best.expand(cand.shape[:-3] + (1,) + cand.shape[-2:])
     return torch.gather(cand, -3, idx).squeeze(-3)
+
+
+def _refuse_off_diagonal(params, keys):
+    """Raise where a per-scenario weight of ``keys`` ((n, n, B)) has an
+    entry off its diagonal."""
+    for k in sorted(keys):
+        W = params[k]
+        off = ~torch.eye(W.shape[0], dtype=torch.bool, device=W.device)
+        if bool(torch.any(W[off] != 0)):
+            raise ValueError(
+                f"params[{k!r}] carries entries off the diagonal, but the "
+                f"line search reads the diagonal of a per-scenario {k} "
+                f"only: take the fused backward, or give each scenario a "
+                f"diagonal {k}")
 
 
 def accept_step(cfg: SolverConfig, candidates, X, U, cost, reg):
@@ -96,7 +118,8 @@ def al_ilqr_solve_batched(ocp: OCP, x0_b, U0_b, params,
                           cfg: SolverConfig = SolverConfig(),
                           lam0_b=None) -> SolveResult:
     """Solve a batch of scenarios sharing ``params`` (but for its
-    per-scenario entries, batch-last).
+    per-scenario entries, batch-last), on the route the module's docstring
+    names.
 
     x0_b (B, nx), U0_b (B, N, nu); lam0_b: optional batch-major multiplier
     warm start (lam_stage (B, N, nc), lam_term (B, nct), lam_eq (B, ne)).
@@ -104,26 +127,17 @@ def al_ilqr_solve_batched(ocp: OCP, x0_b, U0_b, params,
     """
     B = x0_b.shape[0]
     dtype, device = x0_b.dtype, x0_b.device
-    per_scenario = per_scenario_keys(params)
-    assoc = resolve_assoc_scan(cfg, B, ocp.N, warn=not per_scenario,
-                               device=device)
-    if per_scenario and assoc:
-        if cfg.use_assoc_scan != "auto":
-            raise ValueError(f"per-scenario params {list(per_scenario)} "
-                             f"need the fused backward: use_assoc_scan="
-                             f"{cfg.use_assoc_scan!r} runs the expansion, "
-                             f"which takes shared params only")
-        assoc = False
-    fused = (cfg.use_fused_backward and ocp.lanes_bwd_factory is not None
-             and not assoc)
-    if per_scenario and not fused:
-        raise ValueError(f"per-scenario params {list(per_scenario)} need the "
-                         f"fused backward: the unfused path's expansion takes "
-                         f"shared params only")
-    unknown = set(per_scenario) - ocp.per_scenario_keys
+    per_scenario = set(per_scenario_keys(params))
+    unknown = per_scenario - ocp.per_scenario_keys
     if unknown:
         raise ValueError(f"params {sorted(unknown)} carry a batch axis, but "
                          f"the OCP takes them shared only")
+    assoc = resolve_assoc_scan(cfg, B, ocp.N, device=device)
+    fused = (cfg.use_fused_backward and ocp.lanes_bwd_factory is not None
+             and not assoc and per_scenario <= ocp.fused_per_scenario_keys)
+    if not fused:
+        _refuse_off_diagonal(params, per_scenario
+                             & ocp.diagonal_per_scenario_keys)
     # the OCP callables' view (per-scenario entries batch-first); the
     # kernels' factories take the params as given
     cparams = batch_first(params)
@@ -139,8 +153,8 @@ def al_ilqr_solve_batched(ocp: OCP, x0_b, U0_b, params,
         if bwd_fused is not None:
             return bwd_fused(X, U, *lams, mu, reg)
         return sweep(
-            *stage_al_blocks(ocp, params, inv_scale, X[:-1], U, lams[0], mu),
-            *terminal_al_blocks(ocp, params, inv_scale, X[-1], lams[1],
+            *stage_al_blocks(ocp, cparams, inv_scale, X[:-1], U, lams[0], mu),
+            *terminal_al_blocks(ocp, cparams, inv_scale, X[-1], lams[1],
                                 lams[2], mu), reg)
 
     def ilqr_iter(X, U, cost, reg, lams, mu):

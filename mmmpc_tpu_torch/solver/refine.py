@@ -2,7 +2,8 @@
 ``mmmpc_tpu/solver/refine.py``).
 
 Stage 1 solves the whole batch at a cheap schedule; stage 2 gathers the
-``refine_size`` worst scenarios by hard-constraint violation, re-solves them
+``refine_size`` worst scenarios by hard-constraint violation (with their
+per-scenario params entries), re-solves them
 warm-started from their stage-1 primal / dual state with the AL penalty
 schedule continued where stage 1 stopped, and keeps each re-solve only where
 it strictly lowered the violation.  A NaN violation ranks as +inf both in the
@@ -17,7 +18,7 @@ import dataclasses
 
 import torch
 
-from mmmpc_tpu_torch.ocp.spec import OCP
+from mmmpc_tpu_torch.ocp.spec import OCP, per_scenario_keys
 from mmmpc_tpu_torch.solver.al_ilqr import SolveResult
 from mmmpc_tpu_torch.solver.batched import al_ilqr_solve_batched
 from mmmpc_tpu_torch.utils.configs import SolverConfig
@@ -66,8 +67,13 @@ def al_ilqr_solve_refined(ocp: OCP, x0_b, U0_b, params,
     viol1 = _nan_as_inf(res1.max_violation)
     idx = torch.sort(viol1, descending=True, stable=True).indices[:refine_size]
 
+    # the re-solved scenarios' own per-scenario entries (batch-last)
+    params_r = dict(params)
+    for k in per_scenario_keys(params):
+        params_r[k] = params[k][..., idx]
+
     res2 = al_ilqr_solve_batched(
-        ocp, x0_b[idx], res1.U[idx], params, refine_cfg,
+        ocp, x0_b[idx], res1.U[idx], params_r, refine_cfg,
         lam0_b=(res1.lam_stage[idx], res1.lam_term[idx], res1.lam_eq[idx]))
 
     # violation-monotone merge

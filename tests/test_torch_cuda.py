@@ -35,8 +35,13 @@ tests:
   or, where the float32 plain version drifts, no farther from its float64
   twin than twice it; and a horizon past the card's shared memory refused
   with a ValueError before any launch;
+- the generic line search's per-scenario instance (K5) of each
+  formulation, each robot its own X_ref, U_ref, Q and P, at batches 64, 37
+  and 1: X / U atol 2e-5, cost rtol = atol = 2e-3;
 - the Riccati sweep E at each (nx, nu) of the kernel library and at (4, 2),
   which builds its own library on first use, on random SPD blocks at 2e-4;
+  and at (9, 5) on the fleet's per-robot blocks (the host-parity solver's)
+  at batches 64 and 37, at rtol = atol = 5e-3;
 - the parallel-prefix sweep (``ops/assoc_riccati.py``, plain torch) on the
   card against the plain sequential sweep in float64 on SPD blocks at
   N = 64, at tests/test_assoc_riccati.py's 1e-6 / 1e-7;
@@ -52,7 +57,7 @@ from mmmpc_tpu_torch import roofline
 from mmmpc_tpu_torch.demo_wholebody_separate import build_world
 from mmmpc_tpu_torch.ocp.spec import per_scenario_keys
 from mmmpc_tpu_torch.ops import assoc_riccati, riccati, wholebody_bwd
-from mmmpc_tpu_torch.ops import wholebody_fwd
+from mmmpc_tpu_torch.ops import generic_fwd, wholebody_fwd
 from mmmpc_tpu_torch.ops._cuda import FMA_NACC, RICCATI_INSTANCES
 from mmmpc_tpu_torch.ops.generic_bwd import plain_bwd
 from mmmpc_tpu_torch.ops.generic_fwd import plain_fwd
@@ -60,8 +65,10 @@ from mmmpc_tpu_torch.solver.al_ilqr import rollout
 from mmmpc_tpu_torch.utils.convert import params_from_numpy
 
 from torch_problems import (
-    ARM_BATCH, ARMS, B, BWD_ATOL, FLEET_KEYS, FORMULATIONS, N, batch_last,
-    drift_gate, fleet_params, generic_problem, long_problem, qref_problem,
+    ARM_BATCH, ARMS, B, BWD_ATOL, FLEET_KEYS, FORMULATIONS, GENERIC_KEYS, N,
+    batch_last, drift_gate, fleet_params, fleet_riccati_blocks,
+    generic_fleet_params, generic_keys, generic_problem, long_problem,
+    qref_problem,
     selfcol_problem, spd_blocks,
 )
 
@@ -321,6 +328,56 @@ def test_cuda_generic_kernel_matches_plain(device, name, kernel, part):
         e_kernel = (g.double() - tr).abs().max()
         assert e_kernel <= max(2.0 * (r.double() - tr).abs().max(), 1e-3)
         assert e_kernel < 0.15
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", (B, 37, 1))
+@pytest.mark.parametrize("name", FORMULATIONS)
+def test_cuda_per_scenario_line_search_matches_plain(device, name, batch):
+    """Kernel C's per-scenario instance (K5) of each formulation against
+    its plain version on the card: each robot its own X_ref, U_ref, Q, P
+    and U_last where it has one (``generic_fleet_params``: every reference
+    row moved, full Q and P), on
+    the whole batch, a partial block and one robot, the wrapper built from
+    the first robots' entries: X / U atol 2e-5, cost rtol = atol = 2e-3."""
+    mpc, x0_b, U0_b, params = generic_problem(name)
+    p = params_from_numpy(generic_fleet_params(params, B), device,
+                          torch.float32)
+    rng = np.random.default_rng(5)
+    nx, nu = mpc.NX, mpc.NU
+    X, U = rollout(mpc.ocp, _t(x0_b, device).T,
+                   _t(U0_b, device).permute(1, 2, 0), p)
+    f = mpc.ocp.lanes_fwd_factory(mpc.solver_config, {
+        k: v[..., :batch].contiguous() if k in GENERIC_KEYS else v
+        for k, v in p.items()})
+    assert f.ps_keys == generic_keys(params)
+    args = _first((
+        X[:-1], U, _t(0.05 * rng.standard_normal((N, nu, B)), device),
+        _t(0.05 * rng.standard_normal((N, nu, nx, B)), device),
+        _t(np.abs(rng.standard_normal((N, f.form.nc, B))), device),
+        _t(np.abs(rng.standard_normal((f.form.nct, B))), device),
+        _t(np.zeros((0, B)), device), 10.0), batch)
+    before = generic_fwd.LAUNCHES_PS[name].cuda
+    got, ref = f.cuda(*args), f.plain(*args)
+    torch.cuda.synchronize()
+    assert generic_fwd.LAUNCHES_PS[name].cuda == before + 1
+    for g, r, tol in zip(got, ref, [(0.0, 2e-5)] * 3 + [(2e-3, 2e-3)]):
+        torch.testing.assert_close(g, r, rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", (B, 37))
+def test_cuda_riccati_on_fleet_blocks_matches_plain(device, batch):
+    """Kernel E at (9, 5) on the fleet's per-robot blocks (the expansion of
+    the qref problem with all six entries per robot, the host-parity
+    solver's input) against the plain sweep on the card, at B's gains
+    tolerance rtol = atol = 5e-3."""
+    blocks, reg = fleet_riccati_blocks(batch, device)
+    got = riccati.riccati_backward_bm(*blocks, reg)
+    ref = riccati.plain_riccati_bm(*blocks, reg)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=5e-3, atol=5e-3)
 
 
 @pytest.mark.cuda

@@ -7,7 +7,12 @@
   vmapped references with per-scenario in_axes, at the JAX kernel tests'
   tolerances: X / U atol 2e-5, cost rtol = atol = 2e-3; gains rtol = atol =
   5e-3.
-- A per-scenario solve equals the robots solved one by one (port only).
+- A per-scenario solve equals the robots solved one by one (port only);
+  so do the expansion route (E) and the assoc route, which equal the fused
+  route too (float64, at cost_scale 1.0); the refine stage re-solves its
+  robots with their own entries; an entry the OCP takes shared only
+  raises with a batch axis, and so does a per-robot Q or P with an entry
+  off its diagonal off the fused route (A reads their diagonals).
 - The task loop (scenario 1, N=10, 8 robots, 3 ticks, a small budget,
   ``aim_at_button=True``, float64) against ``make_batch_task_loop`` from a
   carry whose robots sit just before each transition (move -> approach,
@@ -16,7 +21,9 @@
   done ticks exactly, states at atol 1e-4, costs at a relative 1e-6 and
   violations at 1e-6.  The JAX loop solves each robot with its
   single-scenario solver (its batched solve's fallback on a CPU), the
-  port with the batched solve on the plain kernels.
+  port with the batched solve on the plain kernels, on the fused route
+  and, from the same carry, on the host-parity solver
+  (``host_parity_solver=True``: the expansion and E, B never).
 - Segments threaded by the carry (a legacy 5-tuple too) equal one run bit
   for bit; the float64 weight table leaves a float32 solve float32; the
   helpers (``stand_off_target``, the batched ``arm_ik`` in float64 at 1e-6,
@@ -29,6 +36,7 @@ Two JAX programs are compiled, both at XLA's lowest CPU optimisation level
 
 import dataclasses
 import io
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -55,8 +63,12 @@ from mmmpc_tpu_torch.sim.batch_task_engine import (
     PHASE_APPROACH, PHASE_DONE, PHASE_MANIP, PHASE_MOVE, PHASE_ROTATE,
     W_TABLE, make_batch_task_loop, stand_off_target,
 )
-from mmmpc_tpu_torch.solver.al_ilqr import rollout
+from mmmpc_tpu_torch.ops import assoc_riccati, riccati, wholebody_bwd
+from mmmpc_tpu_torch.solver.al_ilqr import iteration_count, rollout
 from mmmpc_tpu_torch.solver.batched import al_ilqr_solve_batched
+from mmmpc_tpu_torch.solver.refine import (
+    al_ilqr_solve_refined, default_refine_config,
+)
 from mmmpc_tpu_torch.utils import debugging
 from mmmpc_tpu_torch.utils.configs import (
     BASELINK2JOINT1_X, BASELINK2JOINT1_Z, WORKING_RADIUS, SolverConfig,
@@ -181,9 +193,20 @@ def cases():
             t_move=sc.t_move, t_manipulate=sc.t_manipulate, dt=sc.dt,
             n_ticks=LOOP_TICKS, ik_iters=IK_ITERS, aim_at_button=True,
             stuck_ticks=STUCK)
+        run_hp = make_batch_task_loop(
+            mpc_t.ocp, SolverConfig(**LOOP_CFG),
+            params_from_numpy(shared, "cpu", torch.float64),
+            t_move=sc.t_move, t_manipulate=sc.t_manipulate, dt=sc.dt,
+            n_ticks=LOOP_TICKS, ik_iters=IK_ITERS, aim_at_button=True,
+            stuck_ticks=STUCK, host_parity_solver=True)
         t = torch.as_tensor
         with torch.inference_mode():
             log, carry_t = run(t(x0), t(gpts), _to(carry, t))
+            counters = (wholebody_bwd.LAUNCHES, riccati.LAUNCHES[(9, 5)])
+            for c in counters:
+                c.reset()
+            log_hp, _ = run_hp(t(x0), t(gpts), _to(carry, t))
+            hp_calls = [c.plain for c in counters]
             q, tgt, traj, u_ref, xw = (t(h) for h in helpers)
             port_helpers = (
                 arm_ik(q, tgt, iters=IK_ITERS),
@@ -193,6 +216,7 @@ def cases():
         refs = jax_refs.result()
     return dict(kernel={k: (*v, refs[k]) for k, v in kernel.items()},
                 log=log, carry=carry_t, log_j=log_j, carry_j=carry_j,
+                log_hp=log_hp, hp_calls=hp_calls,
                 helpers=port_helpers, helpers_j=jax_helpers)
 
 
@@ -271,16 +295,109 @@ def test_per_scenario_solve_equals_separate_solves():
             float(one.max_violation[0]), abs=1e-9)
 
 
-def test_per_scenario_needs_the_fused_backward_and_a_supporting_ocp():
+def test_per_scenario_keys_outside_the_ocps_are_shared_only():
+    """An entry with a batch axis that the OCP does not take per scenario
+    raises, on every route."""
     mpc, x0_b, U0_b, base = tp.qref_problem(0.0)
     p = params_from_numpy(tp.fleet_params(base, B), "cpu", torch.float32)
     x0, U0 = (torch.as_tensor(v, dtype=torch.float32) for v in (x0_b, U0_b))
-    cfg = dataclasses.replace(mpc.solver_config, use_fused_backward=False)
-    with pytest.raises(ValueError, match="fused backward"):
-        al_ilqr_solve_batched(mpc.ocp, x0, U0, p, cfg)
     ocp = dataclasses.replace(mpc.ocp, per_scenario_keys=frozenset())
-    with pytest.raises(ValueError, match="shared only"):
-        al_ilqr_solve_batched(ocp, x0, U0, p, mpc.solver_config)
+    for cfg in (mpc.solver_config, dataclasses.replace(
+            mpc.solver_config, use_fused_backward=False)):
+        with pytest.raises(ValueError, match="shared only"):
+            al_ilqr_solve_batched(ocp, x0, U0, p, cfg)
+
+
+# the qref problem at the closed loop's cost scale, where the assoc sweep's
+# reg in the input elimination is negligible: at cost_scale 1e5 the input
+# Hessian is of the order of reg and the two sweeps part (ROADMAP queue 3,
+# in the JAX package too)
+ROUTE_CFG = dict(tp.QREF_CFG, cost_scale=1.0)
+ROUTES = {"unfused": dict(use_fused_backward=False),
+          "assoc": dict(use_assoc_scan=True)}
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_per_scenario_routes_match_fused_and_separate_solves(route):
+    """All six entries per robot at B=4, float64: the expansion route (E)
+    and the assoc route each against the fused route (B) on the same
+    robots, and against the robots solved one by one on that route with
+    their entries shared, at relative cost 1e-6; the counters show the
+    route."""
+    cfg = SolverConfig(**ROUTE_CFG)
+    mpc, x0_b, U0_b, base = tp.qref_problem(0.0, cfg)
+    p = params_from_numpy(tp.fleet_params(base, 4), "cpu", torch.float64)
+    x0, U0 = torch.as_tensor(x0_b[:4]), torch.as_tensor(U0_b[:4])
+    fused = al_ilqr_solve_batched(mpc.ocp, x0, U0, p, cfg)
+    rcfg = dataclasses.replace(cfg, **ROUTES[route])
+    counters = (wholebody_bwd.LAUNCHES, riccati.LAUNCHES[(9, 5)],
+                assoc_riccati.CALLS)
+    for c in counters:
+        c.reset()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)     # assoc at B=4, N=5
+        res = al_ilqr_solve_batched(mpc.ocp, x0, U0, p, rcfg)
+        n = iteration_count(cfg)
+        assert [c.plain for c in counters] == (
+            [0, n, 0] if route == "unfused" else [0, 0, n])
+        alone = [al_ilqr_solve_batched(
+            mpc.ocp, x0[b:b + 1], U0[b:b + 1],
+            debugging.scenario_params(p, b), rcfg) for b in range(4)]
+    for b in range(4):
+        for ref in (fused.cost[b], alone[b].cost[0]):
+            rel = abs(float(res.cost[b] - ref)) / abs(float(ref))
+            assert rel <= 1e-6, (b, rel)
+        assert float(res.max_violation[b]) == pytest.approx(
+            float(alone[b].max_violation[0]), abs=1e-9)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_off_diagonal_per_robot_weights_raise_off_the_fused_route(route):
+    """A's fleet instance reads the diagonal of a per-robot Q and P; off
+    the fused route the callables read them whole, so there a per-robot Q
+    or P with an entry off its diagonal raises before any work (the
+    diagonal ones of ``fleet_params`` are taken, above)."""
+    mpc, x0_b, U0_b, base = tp.qref_problem(0.0)
+    p = params_from_numpy(tp.fleet_params(base, 4), "cpu", torch.float64)
+    x0, U0 = torch.as_tensor(x0_b[:4]), torch.as_tensor(U0_b[:4])
+    cfg = dataclasses.replace(mpc.solver_config, **ROUTES[route])
+    for key in ("Q", "P"):
+        q = dict(p, **{key: p[key].clone()})
+        q[key][0, 1, 2] = q[key][1, 0, 2] = 0.5
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # assoc at B=4
+            with pytest.raises(ValueError, match="off the diagonal"):
+                al_ilqr_solve_batched(mpc.ocp, x0, U0, q, cfg)
+
+
+def test_refined_per_scenario_solve_gathers_the_entries():
+    """The refine stage re-solves its robots with their own entries (the
+    JAX package gathers the per-scenario entries, ``mmmpc_tpu/solver/
+    refine.py:89-91``): at B=4 with a refine size of 2, each re-solved
+    robot's result is its stage-2 solve alone, from its stage-1 state."""
+    mpc, x0_b, U0_b, base = tp.qref_problem(0.0)
+    cfg = mpc.solver_config
+    p = params_from_numpy(tp.fleet_params(base, 4), "cpu", torch.float64)
+    x0, U0 = torch.as_tensor(x0_b[:4]), torch.as_tensor(U0_b[:4])
+    # one AL round of the default stage 2 keeps the re-solves short
+    refine_cfg = dataclasses.replace(default_refine_config(cfg), al_iters=1)
+    res = al_ilqr_solve_refined(mpc.ocp, x0, U0, p, cfg,
+                                refine_cfg=refine_cfg, refine_size=2)
+    res1 = al_ilqr_solve_batched(mpc.ocp, x0, U0, p, cfg)
+    idx = torch.sort(res1.max_violation, descending=True,
+                     stable=True).indices[:2]
+    assert float(res1.max_violation[idx].min()) > 0.0
+    for b in idx.tolist():
+        lam = (res1.lam_stage[b:b + 1], res1.lam_term[b:b + 1],
+               res1.lam_eq[b:b + 1])
+        two = al_ilqr_solve_batched(
+            mpc.ocp, x0[b:b + 1], res1.U[b:b + 1],
+            debugging.scenario_params(p, b), refine_cfg, lam0_b=lam)
+        want = (two if float(two.max_violation[0])
+                < float(res1.max_violation[b]) else
+                type(two)(*(f[b:b + 1] for f in res1)))
+        rel = abs(float(res.cost[b] - want.cost[0])) / abs(float(want.cost[0]))
+        assert rel <= 1e-9, (b, rel)
 
 
 # ----------------------------------------------------- the task loop
@@ -411,6 +528,31 @@ def test_task_loop_states_costs_match_jax(cases):
     assert not log.fallback.any()
 
 
+def test_host_parity_task_loop_matches_jax(cases):
+    """The port's loop with ``host_parity_solver=True`` (the expansion and
+    E in place of B) from the same seeded carry against JAX's log, which on
+    a CPU is its vmapped per-scenario route (``mmmpc_tpu/solver/
+    batched.py:96-97``), at ``test_task_loop_states_costs_match_jax``'s
+    tolerances."""
+    log, log_j = cases["log_hp"], cases["log_j"]
+    # B never, E once an iteration of each tick's solve
+    assert cases["hp_calls"] == [
+        0, LOOP_TICKS * iteration_count(SolverConfig(**LOOP_CFG))]
+    np.testing.assert_array_equal(log.phase.numpy(), np.asarray(log_j.phase))
+    np.testing.assert_allclose(log.X.numpy(), np.asarray(log_j.X), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(log.U.numpy(), np.asarray(log_j.U), rtol=0,
+                               atol=1e-4)
+    cost, cost_j = log.cost.numpy(), np.asarray(log_j.cost)
+    rel = np.abs(cost - cost_j) / np.maximum(np.abs(cost_j), 1e-12)
+    viol, viol_j = log.violation.numpy(), np.asarray(log_j.violation)
+    print(f"rel cost median {np.median(rel):.3e} max {rel.max():.3e}, "
+          f"|dviol| max {np.abs(viol - viol_j).max():.3e}")
+    assert rel.max() <= 1e-6
+    assert np.abs(viol - viol_j).max() <= 1e-6
+    assert not log.fallback.any()
+
+
 def test_task_loop_carry_matches_jax(cases):
     """The carry's phases, manipulate plans (the IK tick's) and stuck
     detectors."""
@@ -485,14 +627,6 @@ def test_float64_weight_table_keeps_a_float32_solve_float32(monkeypatch):
     assert {d for p in seen for d in p.values()} == {torch.float32}
     for v in (log.X, log.U, log.cost, log.violation, out[0], out[1]):
         assert v.dtype == torch.float32
-
-
-def test_host_parity_solver_raises():
-    sc, mpc, shared = _loop_controller(tp.PORT, SolverConfig(**LOOP_CFG))
-    with pytest.raises(ValueError, match="host_parity_solver"):
-        make_batch_task_loop(mpc.ocp, mpc.solver_config, shared,
-                             t_move=sc.t_move, t_manipulate=sc.t_manipulate,
-                             dt=sc.dt, n_ticks=1, host_parity_solver=True)
 
 
 # ------------------------------------------- the closed-loop engine

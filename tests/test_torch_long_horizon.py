@@ -18,8 +18,8 @@ solver, and ``bench_longhorizon``.  No JAX solve is compiled here.
   at N = 40 (the assertions of tests/test_assoc_riccati.py::
   test_solver_switch_end_to_end: converged, U within 1e-6, cost within
   1e-8), float64;
-- per-scenario params: ``use_assoc_scan=True`` raises, "auto" runs the
-  fused backward;
+- per-scenario params: the route picked as for shared params (the fused
+  backward on the sequential sweep, the assoc sweep where it is picked);
 - the benchmark's problem against the JAX script's, and its rows at a
   small size.
 """
@@ -232,9 +232,12 @@ def test_assoc_solve_matches_sequential(demo_solves):
 
 
 def test_per_scenario_params_take_the_fused_backward():
-    """With per-scenario params (the fleet's U_last) ``use_assoc_scan=True``
-    raises; "auto" at a batch and horizon where it would pick assoc runs
-    the fused backward instead."""
+    """With per-scenario params (the fleet's U_last) the route is picked as
+    for shared ones: the sequential sweep (``use_assoc_scan=False``) takes
+    the fused backward, and ``True`` or "auto" at a batch and horizon where
+    it picks assoc run the assoc sweep on the expansion of each robot's
+    entries (the JAX solver's vmapped per-scenario route), no backward
+    kernel."""
     from mmmpc_tpu_torch.ops import wholebody_bwd
     horizon = ASSOC_SCAN_MIN_HORIZON
     mpc, x0_b, U0_b, params = tp.selfcol_problem(
@@ -243,14 +246,14 @@ def test_per_scenario_params_take_the_fused_backward():
                                "cpu", torch.float32)
     args = (mpc.ocp, torch.as_tensor(x0_b, dtype=torch.float32),
             torch.as_tensor(U0_b, dtype=torch.float32), params)
-    with pytest.raises(ValueError, match="per-scenario"):
-        al_ilqr_solve_batched(*args, dataclasses.replace(
-            mpc.solver_config, use_assoc_scan=True))
-    assoc_riccati.CALLS.reset()
-    wholebody_bwd.LAUNCHES.reset()
-    res = al_ilqr_solve_batched(*args, mpc.solver_config)
-    assert (assoc_riccati.CALLS.plain, wholebody_bwd.LAUNCHES.plain) == (0, 1)
-    assert torch.isfinite(res.cost).all()
+    for mode, calls in ((False, (0, 1)), (True, (1, 0)), ("auto", (1, 0))):
+        assoc_riccati.CALLS.reset()
+        wholebody_bwd.LAUNCHES.reset()
+        res = al_ilqr_solve_batched(*args, dataclasses.replace(
+            mpc.solver_config, use_assoc_scan=mode))
+        assert (assoc_riccati.CALLS.plain,
+                wholebody_bwd.LAUNCHES.plain) == calls, mode
+        assert torch.isfinite(res.cost).all()
 
 
 # ------------------------------------------------------------ the bench

@@ -11,7 +11,7 @@ plain version on the CPU), selected by ``use_fused_backward=False``.
   iteration and the fused backward never;
 - the port's unfused and fused solves of the same problem agree to 1e-6
   relative in cost and U (they share the expansion and the sweep code);
-- the unfused path refuses per-scenario params, as the JAX solver does;
+- the unfused path refuses a per-scenario entry its OCP does not take;
 - ``bench_controllers --unfused`` and ``bench.build_problem``'s solver
   config.
 """
@@ -102,12 +102,16 @@ def test_unfused_solve_matches_fused(name):
 
 
 def test_unfused_path_refuses_per_scenario_params():
-    _, mpc_t, x0_b, U0_b, _, p_t, _ = _problem("qref")
+    """The unfused path takes each robot's entries where the OCP reads them
+    per scenario (the JAX solver's vmapped route; tests/test_torch_fleet.py,
+    tests/test_torch_per_scenario.py) and refuses one its OCP does not
+    take per scenario: an eq_mask with a batch axis, which the endpoint
+    does not have."""
+    _, mpc_t, x0_b, U0_b, _, p_t, _ = _problem("endpoint")
     params = params_from_numpy(p_t, "cpu", torch.float64)
-    B, N, nu = U0_b.shape
-    params["U_last"] = torch.zeros(N, nu, B, dtype=torch.float64)
+    params["eq_mask"] = torch.ones(U0_b.shape[0], dtype=torch.float64)
     cfg = dataclasses.replace(mpc_t.solver_config, use_fused_backward=False)
-    with pytest.raises(ValueError, match="per-scenario params"):
+    with pytest.raises(ValueError, match="shared only"):
         al_ilqr_solve_batched(mpc_t.ocp, torch.as_tensor(x0_b),
                               torch.as_tensor(U0_b), params, cfg)
 

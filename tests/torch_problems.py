@@ -239,6 +239,87 @@ def fleet_params(params, batch, keys=FLEET_KEYS, seed=9):
     return dict(params, **{k: drawn[k] for k in keys})
 
 
+# the entries a generic controller takes one value a robot (kernel C's
+# per-scenario instance, K5), in the order of ``ocp/spec.py``'s
+# per_scenario_keys: U_last where the controller has one (the arm, the
+# endpoint)
+GENERIC_KEYS = ("U_last", "X_ref", "U_ref", "Q", "P")
+
+
+def generic_keys(params):
+    """The entries of GENERIC_KEYS that ``params`` holds."""
+    return tuple(k for k in GENERIC_KEYS if k in params)
+
+
+def generic_fleet_params(params, batch, seed=12):
+    """``params`` (a generic problem's, float64 numpy) with X_ref, U_ref, Q,
+    P and U_last (where it has one) one value a robot, batch-last, as
+    kernel C's per-scenario instance reads them: every X_ref row moved by
+    noise of 0.05 (N+1, nx, batch), U_ref and U_last small random (N, nu,
+    batch), Q and P full matrices S W S^T with S = I + 0.1 noise (nx, nx,
+    batch), so that their entries off the diagonal are read too."""
+    rng = np.random.default_rng(seed)
+    X, U = params["X_ref"], params["U_ref"]
+
+    def full(W):
+        n = W.shape[0]
+        S = np.eye(n) + 0.1 * rng.standard_normal((batch, n, n))
+        return np.moveaxis(S @ W @ np.swapaxes(S, -1, -2), 0, -1)
+
+    out = dict(params,
+               X_ref=X[..., None] + 0.05 * rng.standard_normal(
+                   X.shape + (batch,)),
+               U_ref=U[..., None] + 0.05 * rng.standard_normal(
+                   U.shape + (batch,)),
+               Q=full(params["Q"]), P=full(params["P"]))
+    if "U_last" in params:
+        UL = params["U_last"]
+        out["U_last"] = UL[..., None] + 0.05 * rng.standard_normal(
+            UL.shape + (batch,))
+    return out
+
+
+def moved_targets(X_ref, batch, seed=0, reach=0.05):
+    """Each robot's reference (N+1, nx, batch): the shared ``X_ref`` (N+1,
+    nx) with its terminal target moved by an offset uniform in +-``reach``
+    (``default_rng(seed)``), the rows before it moved in proportion, as a
+    line from the start to the moved target."""
+    rng = np.random.default_rng(seed)
+    X_ref = np.asarray(X_ref, np.float64)
+    off = rng.uniform(-reach, reach, (X_ref.shape[1], batch))
+    frac = np.linspace(0.0, 1.0, X_ref.shape[0])[:, None, None]
+    return X_ref[..., None] + frac * off[None]
+
+
+def fleet_riccati_blocks(batch=B, device=None, dtype=torch.float32):
+    """Kernel E's arguments on the fleet's per-robot blocks: the qref
+    problem's expansion (``solver/al_ilqr.py::stage_al_blocks`` /
+    ``terminal_al_blocks``) with all six entries per robot
+    (``fleet_params``), at the rollout of its inputs, random multipliers
+    (``default_rng(5)``) and mu 10, with reg 1e-6: (nine blocks, reg (B,)),
+    batch-last on ``device``."""
+    from mmmpc_tpu_torch.ocp.spec import batch_first
+    from mmmpc_tpu_torch.solver.al_ilqr import (
+        rollout, stage_al_blocks, terminal_al_blocks,
+    )
+    from mmmpc_tpu_torch.utils.convert import params_from_numpy
+    mpc, x0_b, U0_b, base = qref_problem(1.0)
+    params = params_from_numpy(fleet_params(base, B), device, dtype)
+    kw = dict(dtype=dtype, device=device)
+    rng = np.random.default_rng(5)
+    X, U = rollout(mpc.ocp, torch.as_tensor(x0_b, **kw).T,
+                   torch.as_tensor(U0_b, **kw).permute(1, 2, 0), params)
+    lam = torch.as_tensor(np.abs(rng.standard_normal((N, 28, B))), **kw)
+    lamt = torch.as_tensor(np.abs(rng.standard_normal((18, B))), **kw)
+    lame = torch.as_tensor(0.1 * rng.standard_normal((2, B)), **kw)
+    cp = batch_first(params)
+    inv = 1.0 / mpc.solver_config.cost_scale
+    blocks = (*stage_al_blocks(mpc.ocp, cp, inv, X[:-1], U, lam, 10.0),
+              *terminal_al_blocks(mpc.ocp, cp, inv, X[-1], lamt, lame, 10.0))
+    blocks = tuple(t[..., :batch].contiguous() for t in blocks)
+    return blocks, torch.full((batch,), 1e-6, **kw)
+
+
 def spd_blocks(nx, nu, batch=B, horizon=4):
     """The random blocks of tests/test_pallas_riccati.py (seed 3), batch-major
     float32 numpy: (lx, lu, lxx, luu, lux, A, Bm, term_g, term_H)."""
