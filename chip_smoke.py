@@ -76,8 +76,10 @@ Phases, each reported on its own lines; any failure exits nonzero:
    (the arm's and the endpoint's) U_last
    (``tests/torch_problems.py::generic_fleet_params``), at the C
    tolerances, timed with its bound (the per-robot entries once a robot,
-   the shared ones once), the bytes of the column buffer it reads beside
-   it (``[kernel-columns]``), and at 8191, 1000 and 1; kernel E at (9, 5) on
+   the shared ones once), its registers, spills, shared bytes and blocks
+   an SM beside its shared twin's (``[kernel-occupancy]``), the bytes a
+   block reads of its params, a robot owns and the wrapper copied
+   (``[kernel-columns]``), and at 8191, 1000 and 1; kernel E at (9, 5) on
    the fleet's per-robot expansion blocks at batch 1024
    (``riccati_bwd.9x5.fleet``, the host-parity solver's input; held as B's
    fleet gains, ``[kernel-f64]``);
@@ -351,6 +353,9 @@ GENERIC = (*ROWS.values(), "arm_cart")
 INSTANCE = {"demo": "gen::Demo", "base": "gen::Base",
             "arm": "gen::Arm<false>", "arm_cart": "gen::Arm<true>",
             "endpoint": "gen::Endpoint"}
+# each formulation's struct as a mangled kernel name holds it (ptxas)
+MANGLED = {"demo": "4Demo", "base": "4Base", "arm": "3ArmILb0E",
+           "arm_cart": "3ArmILb1E", "endpoint": "8Endpoint"}
 # the formulations whose line search (C) and fused backward (D) run on the
 # team kernels of generic_fwd.cuh / generic_bwd.cuh; the others (C.demo,
 # D.demo, D.base) run one thread a candidate or a scenario
@@ -677,6 +682,39 @@ def _riccati_batches(inputs, blocks, reg, check):
     check_batches(f"riccati_bwd.{nx}x{nu}", riccati_backward_bm,
                   plain_riccati_bm, (*blocks, reg), check,
                   lambda n: launch_geometry(nx, nu, n), inputs=inputs)
+
+
+def ptxas_report(log):
+    """{mangled kernel name: [registers, spill store bytes, spill load
+    bytes]} of an ``nvcc -Xptxas -v`` log."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = out.setdefault(m.group(1), [None, 0, 0])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur[1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur[0] = int(m.group(1))
+    return out
+
+
+def fwd_ptxas(report, f, per_scenario):
+    """{registers, spill_stores, spill_loads} of kernel C's instance of
+    formulation ``f`` (``per_scenario``: K5's) in ``ptxas_report``'s
+    ``report``; raises unless exactly one kernel matches."""
+    kernel = ("18generic_fwd_kernelI" if f not in FWD_TEAMS
+              else "23generic_fwd_team_kernelI")
+    found = [v for k, v in report.items()
+             if kernel in k and MANGLED[f] in k
+             and ("11PerScenario" in k) == per_scenario]
+    if len(found) != 1:
+        raise AssertionError(f"generic_fwd.{f}: {len(found)} ptxas entries "
+                             f"(per_scenario={per_scenario})")
+    return dict(zip(("registers", "spill_stores", "spill_loads"), found[0]))
 
 
 def _test_problems_path():
@@ -2136,12 +2174,14 @@ def check_per_scenario_kernels(device, peak, kinds):
       full Q and P, the arm's and the endpoint's U_last), against its
       plain version at phase 3's C tolerances, timed as ``check_pair``
       with a bound that reads each per-robot entry once a robot and each
-      shared one once (``[kernel]``); the bytes of the packed column
-      buffer the kernel reads, the shared entries copied into every
-      column, beside those of the params in the bound
-      (``[kernel-columns]``); then at 8191, 1000 and 1 on wrappers of the
-      first robots' entries (``[kernel-batch]``, with the launch
-      geometry);
+      shared one once (``[kernel]``); its registers, spills, dynamic
+      shared bytes and blocks an SM beside its shared twin's
+      (``[kernel-occupancy]``); the bytes of its params that a block
+      reads (the packed shared entries once, each of its robots' own
+      entries), the bytes a robot owns and the bytes the wrapper copied
+      for them (``[kernel-columns]``); then at 8191, 1000 and 1 on
+      wrappers of the first robots' entries (``[kernel-batch]``, with the
+      launch geometry);
     - E at (9, 5) on the expansion blocks of the fleet's shape (the bench
       problem at 1024 with all six entries per robot, phase 3's fleet
       inputs; the host-parity solver's blocks), held as B's fleet gains
@@ -2149,12 +2189,13 @@ def check_per_scenario_kernels(device, peak, kinds):
       or no farther from the float64 one than it), timed with its bound."""
     from mmmpc_tpu_torch.ops._cuda import LIBRARY
     from mmmpc_tpu_torch.ops.generic_fwd import (
-        launch_geometry as gen_fwd_geometry,
+        blocks_per_sm, launch_geometry as gen_fwd_geometry,
     )
     from mmmpc_tpu_torch.utils.convert import params_from_numpy
     _test_problems_path()
     from torch_problems import GENERIC_KEYS, generic_fleet_params, generic_keys
     out = {}
+    report = ptxas_report(LIBRARY.info.log) if "generic_fwd" in kinds else {}
     if "generic_fwd" in kinds:
         for row, f, mpc, x0, _, params in generic_problems(BATCH, device,
                                                            PS_ROWS):
@@ -2174,11 +2215,33 @@ def check_per_scenario_kernels(device, peak, kinds):
                                   (N, BATCH, cfg.n_alpha, nx, nu,
                                    fwd.form.nc, fwd.form.nct), peak,
                                   params=used))
-            column_bytes = fwd.flat.numel() * fwd.flat.element_size()
-            params_bytes = sum(t.numel() * t.element_size() for t in used)
+            shape = (N, fwd.form.n_obs, fwd.form.n_hp, len(fwd.alphas))
+            side = {}
+            for ps, tag in ((True, ""), (False, "twin_")):
+                g = gen_fwd_geometry(LIBRARY.get(), f, *shape, BATCH,
+                                     per_scenario=ps)
+                side.update({f"{tag}{k}": v for k, v in (
+                    *fwd_ptxas(report, f, ps).items(),
+                    ("smem_bytes", g["smem_bytes"]),
+                    ("blocks_per_sm", blocks_per_sm(LIBRARY.get(), f, *shape,
+                                                    per_scenario=ps)))})
+            _line("kernel-occupancy", name=name, twin=f"generic_fwd.{f}",
+                  **side)
+            g = gen_fwd_geometry(LIBRARY.get(), f, *shape, BATCH,
+                                 per_scenario=True)
+            robots = (-(-BATCH // g["blocks"]) if f in FWD_TEAMS
+                      else min(g["threads"], BATCH))
+            shared_bytes = fwd.flat.numel() * fwd.flat.element_size()
+            robot_bytes = sum(t[..., 0].numel() * t.element_size()
+                              for t in fwd.operands.values())
             _line("kernel-columns", name=name, row=row,
-                  column_bytes=column_bytes, params_bytes=params_bytes,
-                  copied_bytes=column_bytes - params_bytes)
+                  shared_bytes=shared_bytes, robot_bytes=robot_bytes,
+                  robots_a_block=robots,
+                  block_bytes=shared_bytes + robots * robot_bytes,
+                  host_copied_bytes=sum(
+                      t.numel() * t.element_size()
+                      for k, t in fwd.operands.items()
+                      if t.data_ptr() != p[k].data_ptr()))
             for n in (BATCH - 1, 1000, 1):
                 sub = mpc.ocp.lanes_fwd_factory(cfg, {
                     k: v[..., :n].contiguous() if k in GENERIC_KEYS else v

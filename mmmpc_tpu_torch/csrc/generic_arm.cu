@@ -23,6 +23,10 @@ namespace gen {
 template <bool CART>
 struct Arm {
   static constexpr int NX = 3, NU = 3, NC = 16, NCT = 10, NE = 0;
+  // the reference: q, or the end point (CART); U_last for the input-rate
+  // cost
+  static constexpr int NREF = 3;
+  static constexpr bool HAS_ULAST = true;
   // extra statics (the Formulation's `extra` in controllers/manipulator.py)
   enum : int {
     S_W = 0,                // slack weight
@@ -55,10 +59,9 @@ struct Arm {
   template <class C>
   __device__ __forceinline__ static void ee_error(const wb::ArmFK& a, const C& c, int row,
                                                   float* e) {
-    const int r = c.L.xref + row * 3;
-    e[0] = a.ax[2] - c.p(r);
-    e[1] = 0.f - c.p(r + 1);
-    e[2] = a.az[2] - c.p(r + 2);
+    e[0] = a.ax[2] - c.xref(row, 0);
+    e[1] = 0.f - c.xref(row, 1);
+    e[2] = a.az[2] - c.xref(row, 2);
   }
 
   // ---- backward hooks: A = I, B = dt I
@@ -576,12 +579,12 @@ struct Arm {
 
   // The FK of x, the self rows into the team's vector (then __syncwarp:
   // the vector is complete) and the lane's share of W relu(max)^2 (lane 0)
-  // and of the form e^T W e, e at v[FV_E].  CART: e is the end point minus
-  // reference row `row`, written here into e and v[FV_E]; else the caller
-  // wrote q minus it.
-  template <int T, class C>
-  __device__ static float track_team(const float* x, float* e, int row, int W, const C& c,
-                                     float* v, int lane) {
+  // and of the form e^T W e (W the context's wq or wp), e at v[FV_E].
+  // CART: e is the end point minus reference row `row`, written here into
+  // e and v[FV_E]; else the caller wrote q minus it.
+  template <int T, class C, class M>
+  __device__ static float track_team(const float* x, float* e, int row, const M& W,
+                                     const C& c, float* v, int lane) {
     wb::ArmFK a;
     fk_team<T>(x, lane, a);
     if constexpr (CART) {
@@ -593,7 +596,7 @@ struct Arm {
     __syncwarp();
     const float sm = wedge_value_team<T>(a, c, lane);
     const float tr = lane == 0 ? c.ex(S_W) * sm * sm : 0.f;
-    return tr + qform_rows<T, 3>(c, W, e, v + FV_E, lane);
+    return tr + qform_rows<T, 3>(W, e, v + FV_E, lane);
   }
 
   template <int T, class C>
@@ -603,17 +606,17 @@ struct Arm {
     float e[3], eu[3], ed[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      if constexpr (!CART) e[i] = x[i] - c.p(c.L.xref + k * 3 + i);
-      eu[i] = u[i] - c.p(c.L.uref + k * 3 + i);
-      ed[i] = u[i] - c.p(c.L.ulast + k * 3 + i);
+      if constexpr (!CART) e[i] = x[i] - c.xref(k, i);
+      eu[i] = u[i] - c.uref(k, i);
+      ed[i] = u[i] - c.ulast(k, i);
       if constexpr (!CART) v[FV_E + i] = e[i];
       v[FV_EU + i] = eu[i];
       v[FV_ED + i] = ed[i];
       xn[i] = x[i] + c.dt * u[i];
     }
-    float tr = track_team<T>(x, e, k, c.L.Q, c, v, lane);
-    tr += qform_rows<T, 3>(c, c.L.R, eu, v + FV_EU, lane);
-    tr += qform_rows<T, 3>(c, c.L.M, ed, v + FV_ED, lane);
+    float tr = track_team<T>(x, e, k, c.wq(), c, v, lane);
+    tr += qform_rows<T, 3>(c.mat(c.L.R), eu, v + FV_EU, lane);
+    tr += qform_rows<T, 3>(c.mat(c.L.M), ed, v + FV_ED, lane);
     const float pen = phr_rows<T, NC>(rt, v, lam, SC, mu, lane);
     return c.inv_scale * tr + pen * (0.5f / mu);
   }
@@ -625,11 +628,11 @@ struct Arm {
     if constexpr (!CART) {
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
-        e[i] = x[i] - c.p(c.L.xref + c.N * 3 + i);
+        e[i] = x[i] - c.xref(c.N, i);
         v[FV_E + i] = e[i];
       }
     }
-    const float tr = track_team<T>(x, e, c.N, c.L.P, c, v, lane);
+    const float tr = track_team<T>(x, e, c.N, c.wp(), c, v, lane);
     const float pen = phr_rows<T, NCT>(rt + 4 * NC, v, lamt, SC, mu, lane);
     return c.inv_scale * tr + pen * (0.5f / mu);
   }

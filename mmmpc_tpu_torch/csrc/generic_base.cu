@@ -21,6 +21,9 @@ namespace gen {
 
 struct Base {
   static constexpr int NX = 6, NU = 2, NC = 10, NCT = 10, NE = 0;
+  // the state reference; no U_last
+  static constexpr int NREF = NX;
+  static constexpr bool HAS_ULAST = false;
   // state index of box row r: (px, py, dx, dy, dpsi); the yaw is unbounded
   __host__ __device__ static constexpr int box(int r) { return r < 2 ? r : r + 1; }
   // extra statics (the Formulation's `extra` in controllers/base.py)
@@ -44,7 +47,7 @@ struct Base {
   template <class C>
   __device__ static void state_err(const float* x, const C& c, int row, float* e) {
 #pragma unroll
-    for (int i = 0; i < NX; ++i) e[i] = x[i] - c.p(c.L.xref + row * NX + i);
+    for (int i = 0; i < NX; ++i) e[i] = x[i] - c.xref(row, i);
     e[2] = wrap_pi(e[2]);
   }
 
@@ -157,9 +160,10 @@ struct Base {
   }
 
   // The error of x against reference row `row` into the team's vector and
-  // the lane's share of M relu(max g)^2 (lane 0) and of the form e^T W e.
-  template <int T, class C>
-  __device__ static float track_team(const float* x, int row, int W, const C& c, float* v,
+  // the lane's share of M relu(max g)^2 (lane 0) and of the form e^T W e
+  // (W the context's wq or wp).
+  template <int T, class C, class M>
+  __device__ static float track_team(const float* x, int row, const M& W, const C& c, float* v,
                                      int lane) {
     float e[NX];
     state_err(x, c, row, e);
@@ -167,7 +171,7 @@ struct Base {
     for (int i = 0; i < NX; ++i) v[FV_E + i] = e[i];
     const float sm = ground_value_team<T>(c, c.L.obs, x[0], x[1], c.ex(S_RADIUS), lane);
     const float tr = lane == 0 ? c.p(c.L.M) * sm * sm : 0.f;
-    return tr + qform_rows<T, NX>(c, W, e, v + FV_E, lane);
+    return tr + qform_rows<T, NX>(W, e, v + FV_E, lane);
   }
 
   template <int T, class C>
@@ -185,11 +189,11 @@ struct Base {
     float eu[NU];
 #pragma unroll
     for (int i = 0; i < NU; ++i) {
-      eu[i] = u[i] - c.p(c.L.uref + k * NU + i);
+      eu[i] = u[i] - c.uref(k, i);
       v[FV_EU + i] = eu[i];
     }
-    float tr = track_team<T>(x, k, c.L.Q, c, v, lane);
-    tr += qform_rows<T, NU>(c, c.L.R, eu, v + FV_EU, lane);
+    float tr = track_team<T>(x, k, c.wq(), c, v, lane);
+    tr += qform_rows<T, NU>(c.mat(c.L.R), eu, v + FV_EU, lane);
     const float pen = phr_rows<T, NC>(rt, v, lam, SC, mu, lane);
     return c.inv_scale * tr + pen * (0.5f / mu);
   }
@@ -197,7 +201,7 @@ struct Base {
   template <int T, class C>
   __device__ static float fwd_team_terminal(const float* x, const C& c, float* v, const float* rt,
                                             const float* lamt, int SC, float mu, int lane) {
-    const float tr = track_team<T>(x, c.N, c.L.P, c, v, lane);
+    const float tr = track_team<T>(x, c.N, c.wp(), c, v, lane);
     const float pen = phr_rows<T, NCT>(rt + 4 * NC, v, lamt, SC, mu, lane);
     return c.inv_scale * tr + pen * (0.5f / mu);
   }

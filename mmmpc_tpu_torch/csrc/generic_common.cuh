@@ -5,6 +5,9 @@
 //
 // A formulation is a struct F with
 //   static constexpr int NX, NU, NC, NCT, NE;   // NE (terminal equalities) = 0
+//   static constexpr int NREF;                  // width of an X_ref row; Q, P
+//                                               // are NREF x NREF
+//   static constexpr bool HAS_ULAST;            // it takes U_last
 //   enum { ..., N_EXTRA };                      // its own statics
 //   struct Layout { ..., size; };               // offsets in the packed buffer
 //   __host__ __device__ static Layout layout(int N, int n_obs, int n_hp);
@@ -57,8 +60,38 @@ struct Statics {
   float v[SIZE];
 };
 
+// A row-major matrix as the hooks read it, element i by m(i): in the
+// packed params through the read-only cache (LdgMat) or in shared memory
+// (SmemMat), at a stride (SrcMat: a per-robot operand of the per-scenario
+// instance, or its slot in the packed params), or in a per-robot column of
+// shared memory, scenario fastest (ColMat).
+struct LdgMat {
+  const float* __restrict__ p;
+  __device__ __forceinline__ float operator()(int i) const { return __ldg(p + i); }
+};
+struct SmemMat {
+  const float* p;
+  __device__ __forceinline__ float operator()(int i) const { return p[i]; }
+};
+struct SrcMat {
+  const float* __restrict__ p;
+  long long row;
+  __device__ __forceinline__ float operator()(int i) const { return __ldg(p + i * row); }
+};
+template <int SC>
+struct ColMat {
+  const float* p;
+  __device__ __forceinline__ float operator()(int i) const { return p[i * SC]; }
+};
+
 // What the hooks read: the statics, the packed per-problem buffer and its
-// layout, and the horizon.
+// layout, and the horizon.  Every context has the same readers: p(i), the
+// packed buffer's element i; ex(i), the formulation's own static i; the
+// references xref(row, i), uref(k, i), ulast(k, i); the matrices mat(off)
+// of the packed buffer, and wq(), wp(), the weights Q and P.  Those of the
+// shared instances (Ctx, SmemCtx) read all of them in the packed buffer;
+// those of kernel C's per-scenario instance (generic_fwd.cuh) read the
+// references and the weights where that instance stages them.
 template <class F>
 struct Ctx {
   const Statics<F>& st;
@@ -72,10 +105,23 @@ struct Ctx {
   __device__ __forceinline__ float ex(int i) const {
     return st.v[Statics<F>::EXTRA + i];
   }
+  __device__ __forceinline__ float xref(int row, int i) const {
+    return p(L.xref + row * F::NREF + i);
+  }
+  __device__ __forceinline__ float uref(int k, int i) const {
+    return p(L.uref + k * F::NU + i);
+  }
+  __device__ __forceinline__ float ulast(int k, int i) const {
+    return p(L.ulast + k * F::NU + i);
+  }
+  __device__ __forceinline__ LdgMat mat(int off) const { return LdgMat{pp + off}; }
+  __device__ __forceinline__ LdgMat wq() const { return mat(L.Q); }
+  __device__ __forceinline__ LdgMat wp() const { return mat(L.P); }
 };
 
 // What the team kernels' hooks read: the statics and the packed params in
-// shared memory, their layout, and the horizon (the members of Ctx).
+// shared memory, their layout, and the horizon (the members and readers of
+// Ctx).
 template <class F>
 struct SmemCtx {
   const float* sv;
@@ -88,6 +134,18 @@ struct SmemCtx {
   __device__ __forceinline__ float ex(int i) const {
     return sv[Statics<F>::EXTRA + i];
   }
+  __device__ __forceinline__ float xref(int row, int i) const {
+    return p(L.xref + row * F::NREF + i);
+  }
+  __device__ __forceinline__ float uref(int k, int i) const {
+    return p(L.uref + k * F::NU + i);
+  }
+  __device__ __forceinline__ float ulast(int k, int i) const {
+    return p(L.ulast + k * F::NU + i);
+  }
+  __device__ __forceinline__ SmemMat mat(int off) const { return SmemMat{pp + off}; }
+  __device__ __forceinline__ SmemMat wq() const { return mat(L.Q); }
+  __device__ __forceinline__ SmemMat wp() const { return mat(L.P); }
 };
 
 template <class F>
@@ -100,12 +158,11 @@ __device__ __forceinline__ Ctx<F> make_ctx(const Statics<F>& st,
 }
 
 // ---- kernel C's per-scenario instance (K5): the line search of formulation
-// F with one packed params buffer a scenario, batch-last (size, B): a row
-// of the layout holds that element of every scenario.  Shared entries are
-// copied into every scenario's column on the host, so the hooks read every
-// element alike, through the contexts below, and F's hooks are the ones of
-// its shared instance.  The line search of generic_fwd.cuh instantiated
-// with PerScenario<F> is that instance.
+// F with the entries a robot may own (U_last where F has it, X_ref, U_ref,
+// Q, P) read from operands of their own, batch-last, or shared.  The line
+// search of generic_fwd.cuh instantiated with PerScenario<F> is that
+// instance; F's hooks are the ones of its shared instance, through a
+// context whose readers go where the instance stages each entry.
 template <class F>
 struct PerScenario : F {};
 
@@ -114,64 +171,49 @@ constexpr bool per_scenario_v = false;
 template <class F>
 constexpr bool per_scenario_v<PerScenario<F>> = true;
 
-// The one-thread kernel's context in the per-scenario instance: pp at the
-// thread's scenario b of the (size, B) buffer, element i at pp[i * B].
-template <class F>
-struct PsCtx {
-  const Statics<F>& st;
-  const float* __restrict__ pp;
-  typename F::Layout L;
-  float dt, inv_scale;
-  int N, n_obs, n_hp;
-  long long stride;
-
-  __device__ __forceinline__ float p(int i) const { return __ldg(pp + i * stride); }
-  __device__ __forceinline__ float ex(int i) const {
-    return st.v[Statics<F>::EXTRA + i];
-  }
+// Where the per-scenario instance reads an entry a robot may own: element
+// i of scenario b at p[i * row + b * scen], which is the entry's operand,
+// batch-last (row = B, scen = 1), or its slot in the packed params, the
+// same for every scenario (row = 1, scen = 0).
+struct PsSrc {
+  const float* p;
+  long long row, scen;
+};
+struct PsOps {
+  PsSrc ulast, xref, uref, q, pw;
 };
 
-// The team kernel's context in the per-scenario instance: pp at the team's
-// scenario s of the block's buffer in shared memory, element-major with
-// the scenario fastest, element i at pp[i * SC].
-template <class F, int SC>
-struct PsSmemCtx {
-  const float* sv;
-  const float* pp;
-  typename F::Layout L;
-  float dt, inv_scale;
-  int N, n_obs, n_hp;
-
-  __device__ __forceinline__ float p(int i) const { return pp[i * SC]; }
-  __device__ __forceinline__ float ex(int i) const {
-    return sv[Statics<F>::EXTRA + i];
-  }
-};
-
-// The one-thread line search's context of scenario b of B: Ctx<F> on the
-// shared buffer, PsCtx<F> in the per-scenario instance.
+// The sources of one launch at batch B: op = {U_last, X_ref, U_ref, Q, P},
+// each a device pointer, or null where the entry is shared (its slot in
+// params).  False if F takes no U_last and one is given.
 template <class F>
-__device__ __forceinline__ auto fwd_ctx(const Statics<F>& st, const float* pp,
-                                        int N, int b, int B) {
-  if constexpr (per_scenario_v<F>) {
-    const int n_obs = static_cast<int>(st.v[GST_N_OBS]);
-    const int n_hp = static_cast<int>(st.v[GST_N_HP]);
-    return PsCtx<F>{st, pp + b, F::layout(N, n_obs, n_hp), st.v[GST_DT],
-                    st.v[GST_INV_SCALE], N, n_obs, n_hp, B};
-  } else {
-    return make_ctx<F>(st, pp, N);
+bool ps_sources(const float* params, const float* const* op, int N, int n_obs,
+                int n_hp, int B, PsOps& o) {
+  const typename F::Layout L = F::layout(N, n_obs, n_hp);
+  auto src = [&](const float* p, int slot) {
+    return p ? PsSrc{p, B, 1} : PsSrc{params + slot, 1, 0};
+  };
+  if constexpr (F::HAS_ULAST) {
+    o.ulast = src(op[0], L.ulast);
+  } else if (op[0] != nullptr) {
+    return false;
   }
+  o.xref = src(op[1], L.xref);
+  o.uref = src(op[2], L.uref);
+  o.q = src(op[3], L.Q);
+  o.pw = src(op[4], L.P);
+  return true;
 }
 
-// e^T M e for a row-major n x n matrix in the packed buffer.
-template <int n, class C>
-__device__ __forceinline__ float qform(const C& c, int off, const float* e) {
+// e^T M e for a row-major n x n matrix m (a context's mat, wq or wp).
+template <int n, class M>
+__device__ __forceinline__ float qform(const M& m, const float* e) {
   float acc = 0.f;
 #pragma unroll
   for (int i = 0; i < n; ++i) {
     float row = 0.f;
 #pragma unroll
-    for (int j = 0; j < n; ++j) row += c.p(off + i * n + j) * e[j];
+    for (int j = 0; j < n; ++j) row += m(i * n + j) * e[j];
     acc += e[i] * row;
   }
   return acc;
@@ -297,16 +339,20 @@ __device__ __forceinline__ float ground_value_team(const C& c, int off, float px
 // the launch), the forward's launch geometry at batch B with n_alpha step
 // sizes and the backward's at batch B (team, threads, blocks, shared-memory
 // bytes), the launch and the geometry of the forward's per-scenario
-// instance (gen_fwd_ps_*: params (size, B) batch-last), and the two layout
-// sizes for the wrappers' check.
+// instance (gen_fwd_ps_*: the packed params with the shared entries, then
+// U_last, X_ref, U_ref, Q, P, each batch-last or null where shared), the
+// blocks an SM holds of either forward instance (gen_fwd_occupancy_*:
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor, out[0]), and the two
+// layout sizes for the wrappers' check.
 #define GEN_ENTRIES(name, F)                                                  \
   extern "C" int gen_fwd_##name(                                              \
       const float* statics, const float* params, const float* X,             \
       const float* U, const float* kff, const float* K, const float* lam,    \
       const float* lamt, const float* lame, float* Xc, float* Uc,            \
       float* xlast, float* cost, float mu, int N, int B, void* stream) {     \
-    return gen::launch_fwd<F>(statics, params, X, U, kff, K, lam, lamt,      \
-                              lame, Xc, Uc, xlast, cost, mu, N, B, stream);  \
+    return gen::launch_fwd<F>(statics, params, nullptr, X, U, kff, K, lam,   \
+                              lamt, lame, Xc, Uc, xlast, cost, mu, N, B,     \
+                              stream);                                        \
   }                                                                           \
   extern "C" int gen_bwd_##name(                                              \
       const float* statics, const float* params, const float* X,             \
@@ -336,13 +382,16 @@ __device__ __forceinline__ float ground_value_team(const C& c, int off, float px
     return 0;                                                                 \
   }                                                                           \
   extern "C" int gen_fwd_ps_##name(                                           \
-      const float* statics, const float* params, const float* X,             \
-      const float* U, const float* kff, const float* K, const float* lam,    \
-      const float* lamt, const float* lame, float* Xc, float* Uc,            \
-      float* xlast, float* cost, float mu, int N, int B, void* stream) {     \
+      const float* statics, const float* params, const float* ulast,         \
+      const float* xref, const float* uref, const float* q, const float* p,  \
+      const float* X, const float* U, const float* kff, const float* K,      \
+      const float* lam, const float* lamt, const float* lame, float* Xc,     \
+      float* Uc, float* xlast, float* cost, float mu, int N, int B,          \
+      void* stream) {                                                         \
+    const float* const ops[5] = {ulast, xref, uref, q, p};                    \
     return gen::launch_fwd<gen::PerScenario<F>>(                              \
-        statics, params, X, U, kff, K, lam, lamt, lame, Xc, Uc, xlast, cost,  \
-        mu, N, B, stream);                                                    \
+        statics, params, ops, X, U, kff, K, lam, lamt, lame, Xc, Uc, xlast,   \
+        cost, mu, N, B, stream);                                              \
   }                                                                           \
   extern "C" int gen_fwd_ps_geometry_##name(int N, int n_obs, int n_hp,      \
                                             int n_alpha, int B, int* out) {   \
@@ -353,6 +402,14 @@ __device__ __forceinline__ float ground_value_team(const C& c, int off, float px
     out[2] = g.blocks;                                                        \
     out[3] = g.smem;                                                          \
     return 0;                                                                 \
+  }                                                                           \
+  extern "C" int gen_fwd_occupancy_##name(int N, int n_obs, int n_hp,        \
+                                          int n_alpha, int per_scenario,      \
+                                          int* out) {                         \
+    return per_scenario                                                       \
+               ? gen::fwd_occupancy<gen::PerScenario<F>>(N, n_obs, n_hp,      \
+                                                         n_alpha, out)        \
+               : gen::fwd_occupancy<F>(N, n_obs, n_hp, n_alpha, out);         \
   }                                                                           \
   extern "C" int gen_statics_size_##name() { return gen::Statics<F>::SIZE; } \
   extern "C" int gen_params_size_##name(int N, int n_obs, int n_hp) {        \

@@ -16,6 +16,9 @@ namespace gen {
 
 struct Demo {
   static constexpr int NX = 2, NU = 1, NC = 2, NCT = 0, NE = 0;
+  // the state reference; no U_last
+  static constexpr int NREF = NX;
+  static constexpr bool HAS_ULAST = false;
   // extra statics (the Formulation's `extra` in controllers/demo.py)
   enum : int { S_VLO = 0, S_VHI, N_EXTRA };
   // packed buffer (controllers/demo.py::MPC._packed_shapes), row-major
@@ -47,16 +50,16 @@ struct Demo {
   }
   template <class C>
   __device__ static float stage(const float* x, const float* u, int k, const C& c, float* g) {
-    const float ex[2] = {x[0] - c.p(c.L.xref + k * NX), x[1] - c.p(c.L.xref + k * NX + 1)};
-    const float eu[1] = {u[0] - c.p(c.L.uref + k)};
+    const float ex[2] = {x[0] - c.xref(k, 0), x[1] - c.xref(k, 1)};
+    const float eu[1] = {u[0] - c.uref(k, 0)};
     g[0] = x[1] - c.ex(S_VHI);
     g[1] = c.ex(S_VLO) - x[1];
-    return qform<2>(c, c.L.Q, ex) + qform<1>(c, c.L.R, eu);
+    return qform<2>(c.wq(), ex) + qform<1>(c.mat(c.L.R), eu);
   }
   template <class C>
   __device__ static float terminal(const float* x, const C& c, float*) {
-    const float ex[2] = {x[0] - c.p(c.L.xref + c.N * NX), x[1] - c.p(c.L.xref + c.N * NX + 1)};
-    return qform<2>(c, c.L.P, ex);
+    const float ex[2] = {x[0] - c.xref(c.N, 0), x[1] - c.xref(c.N, 1)};
+    return qform<2>(c.wp(), ex);
   }
 
   // ---- backward hooks: A = [[1, dt], [0, 1]], B = [[0], [dt]]

@@ -14,6 +14,9 @@ namespace gen {
 
 struct Endpoint {
   static constexpr int NX = 9, NU = 5, NC = 2 * NX + 2 * NU, NCT = 2 * NX, NE = 0;
+  // the pose reference [x, y, z, psi]; U_last for the input-rate cost
+  static constexpr int NREF = 4;
+  static constexpr bool HAS_ULAST = true;
   // extra statics (the Formulation's `extra` in
   // controllers/wholebody_endpoint.py); masks are 0 / 1
   enum : int {
@@ -56,8 +59,8 @@ struct Endpoint {
   template <class C>
   __device__ static void pose_err(const float* x, const wb::FK& f, const C& c, int row, float* e) {
 #pragma unroll
-    for (int i = 0; i < 3; ++i) e[i] = f.pt[2][i] - c.p(c.L.xref + row * 4 + i);
-    e[3] = x[2] - c.p(c.L.xref + row * 4 + 3);
+    for (int i = 0; i < 3; ++i) e[i] = f.pt[2][i] - c.xref(row, i);
+    e[3] = x[2] - c.xref(row, 3);
   }
   template <class C>
   __device__ static bool xlive(const C& c, int i, bool hi) {
@@ -436,24 +439,24 @@ struct Endpoint {
 
   // The pose error of x against reference row `row` into the team's vector
   // (then __syncwarp: the vector is complete); the cost share of
-  // S relu(max)^2 (lane 0) and of the pose form with weights W; with u,
-  // x_{k+1} into xn.
-  template <int T, class C>
-  __device__ static float pose_team(const float* x, const float* u, int row, int W, const C& c,
-                                    float* v, int lane, float* xn) {
+  // S relu(max)^2 (lane 0) and of the pose form with weights W (the
+  // context's wq or wp); with u, x_{k+1} into xn.
+  template <int T, class C, class M>
+  __device__ static float pose_team(const float* x, const float* u, int row, const M& W,
+                                    const C& c, float* v, int lane, float* xn) {
     float cp, sp, pe[3];
     fk_ee_team<T>(x, lane, cp, sp, pe);
     if (u != nullptr) wb::step(x, u, c.dt, cp, sp, xn);
     float e[4];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) e[i] = pe[i] - c.p(c.L.xref + row * 4 + i);
-    e[3] = x[2] - c.p(c.L.xref + row * 4 + 3);
+    for (int i = 0; i < 3; ++i) e[i] = pe[i] - c.xref(row, i);
+    e[3] = x[2] - c.xref(row, 3);
 #pragma unroll
     for (int i = 0; i < 4; ++i) v[FV_E + i] = e[i];
     __syncwarp();
     const float sm = ground_value_team<T>(c, c.L.obs, x[0], x[1], c.ex(S_RADIUS), lane);
     const float tr = lane == 0 ? c.p(c.L.S) * sm * sm : 0.f;
-    return tr + qform_rows<T, 4>(c, W, e, v + FV_E, lane);
+    return tr + qform_rows<T, 4>(W, e, v + FV_E, lane);
   }
 
   template <int T, class C>
@@ -463,14 +466,14 @@ struct Endpoint {
     float eu[NU], ed[NU];
 #pragma unroll
     for (int i = 0; i < NU; ++i) {
-      eu[i] = u[i] - c.p(c.L.uref + k * NU + i);
-      ed[i] = u[i] - c.p(c.L.ulast + k * NU + i);
+      eu[i] = u[i] - c.uref(k, i);
+      ed[i] = u[i] - c.ulast(k, i);
       v[FV_EU + i] = eu[i];
       v[FV_ED + i] = ed[i];
     }
-    float tr = pose_team<T>(x, u, k, c.L.Q, c, v, lane, xn);
-    tr += qform_rows<T, NU>(c, c.L.R, eu, v + FV_EU, lane);
-    tr += qform_rows<T, NU>(c, c.L.W, ed, v + FV_ED, lane);
+    float tr = pose_team<T>(x, u, k, c.wq(), c, v, lane, xn);
+    tr += qform_rows<T, NU>(c.mat(c.L.R), eu, v + FV_EU, lane);
+    tr += qform_rows<T, NU>(c.mat(c.L.W), ed, v + FV_ED, lane);
     const float pen = phr_rows<T, NC>(rt, v, lam, SC, mu, lane);
     return c.inv_scale * tr + pen * (0.5f / mu);
   }
@@ -478,7 +481,7 @@ struct Endpoint {
   template <int T, class C>
   __device__ static float fwd_team_terminal(const float* x, const C& c, float* v, const float* rt,
                                             const float* lamt, int SC, float mu, int lane) {
-    const float tr = pose_team<T>(x, nullptr, c.N, c.L.P, c, v, lane, nullptr);
+    const float tr = pose_team<T>(x, nullptr, c.N, c.wp(), c, v, lane, nullptr);
     const float pen = phr_rows<T, NCT>(rt, v, lamt, SC, mu, lane);
     return c.inv_scale * tr + pen * (0.5f / mu);
   }

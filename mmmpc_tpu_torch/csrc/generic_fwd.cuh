@@ -30,26 +30,39 @@
 // sweeps that chose the sizes are in the hooks' comments.  N=20, B=8192;
 // H100 80GB HBM3, 700.00 W; PERF.md.
 //
-// The per-scenario instance (K5: each robot its own X_ref, U_ref, Q, P, as
-// the JAX package's vmapped solve takes them) is either kernel instantiated
-// with PerScenario<F> (generic_common.cuh): the packed params are one
-// column a scenario, batch-last (size, B), the shared entries copied into
-// every column.  The one-thread kernel reads its scenario's column through
-// the read-only cache (coalesced over the threads of a step size); the
-// team kernel stages its scenarios' columns once a block into shared
-// memory, element-major with the scenario fastest, as its stage inputs,
-// so the full Q and P are loaded once and not per stage.  F's hooks are
-// the shared instance's, through a context whose p(i) reads the column.
+// The per-scenario instance (K5: each robot its own X_ref, U_ref, Q, P and
+// U_last, as the JAX package's vmapped solve takes them) is either kernel
+// instantiated with PerScenario<F> (generic_common.cuh).  It reads the
+// shared entries from the packed params as the shared instance does, and
+// each entry a robot may own from its source (PsSrc: the robot's operand,
+// batch-last, or the entry's slot in the packed params where it is
+// shared), so the host copies nothing a robot.  The references are read
+// one stage at a time: X_ref_k, U_ref_k and U_last_k are stage inputs of
+// the ring, loaded ahead with X_k, U_k, kff_k, K_k, lam_k (X_ref_N as the
+// ring's stage N).  Q and P are read at every stage: the team kernel
+// stages each of its scenarios' Q and P once a block into a column of
+// shared memory, the one-thread kernel reads its robot's through the
+// read-only cache.  A block of the team kernel thus holds its packed
+// params once and 2 NREF^2 floats a scenario beside its stage ring, not
+// the whole packed buffer a scenario: 50,656 B for the endpoint (N=20,
+// three obstacles), so 4 blocks an SM, as for its shared twin, which its
+// 128 registers allow (0.0866 ms a launch against 0.1249-0.1262 for the
+// column design; the demo's one-thread K5 ran 1.2x slower on this split;
+// N=20, B=8192; H100 80GB HBM3, 700.00 W; PERF.md).  The buffers keep the
+// stride FWD_SCEN: a block copies only its scen scenarios, and the idle
+// columns cost shared bytes that no longer bound the blocks an SM.  F's
+// hooks are the shared instance's, through a context whose readers go to
+// the ring, the column or the packed params.
 #pragma once
-
-#include <type_traits>
 
 #include "cp_async.cuh"
 #include "generic_common.cuh"
 
 namespace gen {
 
-// One scenario's inputs of a stage, in the stage buffers' element order.
+// One scenario's inputs of a stage, in the stage buffers' element order;
+// in the per-scenario instance also the stage's reference rows X_ref_k,
+// U_ref_k and (where F takes it) U_last_k.
 template <class F>
 struct FwdIn {
   static constexpr int X = 0;
@@ -57,7 +70,11 @@ struct FwdIn {
   static constexpr int KFF = U + F::NU;
   static constexpr int K = KFF + F::NU;
   static constexpr int LAM = K + F::NU * F::NX;
-  static constexpr int SIZE = LAM + F::NC;
+  static constexpr int XREF = LAM + F::NC;
+  static constexpr int UREF = XREF + F::NREF;
+  static constexpr int ULAST = UREF + F::NU;
+  static constexpr int SIZE =
+      per_scenario_v<F> ? ULAST + (F::HAS_ULAST ? F::NU : 0) : XREF;
 };
 
 // ---------------- the one-thread kernel (FWD_TEAM = 0) ----------------
@@ -80,6 +97,54 @@ struct FwdIn {
 constexpr int FWD_THREADS = 128;
 constexpr int FWD_RING = 8;
 
+// The one-thread kernel's context in the per-scenario instance: the
+// readers of Ctx, the references from the thread's column of the ring
+// (stage row's slot), Q and P from the robot's sources.
+template <class F>
+struct PsCtx {
+  using In = FwdIn<F>;
+  const Statics<F>& st;
+  const float* __restrict__ pp;
+  typename F::Layout L;
+  float dt, inv_scale;
+  int N, n_obs, n_hp;
+  const float* ring;   // the thread's column of the ring
+  SrcMat q, pw;
+
+  __device__ __forceinline__ float p(int i) const { return __ldg(pp + i); }
+  __device__ __forceinline__ float ex(int i) const {
+    return st.v[Statics<F>::EXTRA + i];
+  }
+  __device__ __forceinline__ float in(int row, int e) const {
+    return ring[((row % FWD_RING) * In::SIZE + e) * FWD_THREADS];
+  }
+  __device__ __forceinline__ float xref(int row, int i) const { return in(row, In::XREF + i); }
+  __device__ __forceinline__ float uref(int k, int i) const { return in(k, In::UREF + i); }
+  __device__ __forceinline__ float ulast(int k, int i) const { return in(k, In::ULAST + i); }
+  __device__ __forceinline__ LdgMat mat(int off) const { return LdgMat{pp + off}; }
+  __device__ __forceinline__ SrcMat wq() const { return q; }
+  __device__ __forceinline__ SrcMat wp() const { return pw; }
+};
+
+// The one-thread line search's context of scenario b: Ctx<F> on the
+// packed buffer, PsCtx<F> in the per-scenario instance (ring: the thread's
+// column of the stage ring).
+template <class F>
+__device__ __forceinline__ auto fwd_ctx(const Statics<F>& st, const float* pp,
+                                        int N, int b, const PsOps& ops,
+                                        const float* ring) {
+  if constexpr (per_scenario_v<F>) {
+    const int n_obs = static_cast<int>(st.v[GST_N_OBS]);
+    const int n_hp = static_cast<int>(st.v[GST_N_HP]);
+    return PsCtx<F>{st, pp, F::layout(N, n_obs, n_hp), st.v[GST_DT],
+                    st.v[GST_INV_SCALE], N, n_obs, n_hp, ring,
+                    SrcMat{ops.q.p + b * ops.q.scen, ops.q.row},
+                    SrcMat{ops.pw.p + b * ops.pw.scen, ops.pw.row}};
+  } else {
+    return make_ctx<F>(st, pp, N);
+  }
+}
+
 template <class F>
 __global__ void __launch_bounds__(FWD_THREADS)
 generic_fwd_kernel(const __grid_constant__ Statics<F> st,
@@ -88,12 +153,15 @@ generic_fwd_kernel(const __grid_constant__ Statics<F> st,
                    const float* __restrict__ K, const float* __restrict__ lam,
                    const float* __restrict__ lamt, float* __restrict__ Xc,
                    float* __restrict__ Uc, float* __restrict__ xlast,
-                   float* __restrict__ cost, float mu, int N, int B) {
+                   float* __restrict__ cost, float mu, int N, int B,
+                   const __grid_constant__ PsOps ops) {
   constexpr int NX = F::NX, NU = F::NU, NC = F::NC, NCT = F::NCT;
   constexpr int S = FWD_THREADS;   // the ring's stride
   using In = FwdIn<F>;
   static_assert(F::NE == 0, "the generic kernels take no terminal equality");
   static_assert(FWD_RING >= 2, "the ring holds the stage read and the next");
+  static_assert(FWD_RING * In::SIZE * S * 4 <= 48 * 1024,
+                "the ring fits the static shared memory of a block");
   __shared__ float ring[FWD_RING * In::SIZE * S];
   const int n_alpha = static_cast<int>(st.v[GST_N_ALPHA]);
   const long long t = blockIdx.x * static_cast<long long>(S) + threadIdx.x;
@@ -108,7 +176,14 @@ generic_fwd_kernel(const __grid_constant__ Statics<F> st,
     for (int i = 0; i < n; ++i)
       wb::cp_async4(dst + i * S, src + static_cast<long long>(first + i) * B + b);
   };
-  // stage k's inputs into slot k % FWD_RING, one commit group a stage
+  // per-scenario: rows [0, n) of source src from row `first` on
+  auto copy_src = [&](float* dst, const PsSrc& src, int first, int n) {
+#pragma unroll
+    for (int i = 0; i < n; ++i)
+      wb::cp_async4(dst + i * S, src.p + (first + i) * src.row + b * src.scen);
+  };
+  // stage k's inputs into slot k % FWD_RING, one commit group a stage;
+  // per-scenario with the stage's reference rows, and X_ref_N as stage N
   auto issue_stage = [&](int k) {
     if (k < N) {
       float* dst = ring + (k % FWD_RING) * In::SIZE * S + threadIdx.x;
@@ -117,13 +192,22 @@ generic_fwd_kernel(const __grid_constant__ Statics<F> st,
       copy_rows(dst + In::KFF * S, kff, k * NU, NU);
       copy_rows(dst + In::K * S, K, k * NU * NX, NU * NX);
       copy_rows(dst + In::LAM * S, lam, k * NC, NC);
+      if constexpr (per_scenario_v<F>) {
+        copy_src(dst + In::XREF * S, ops.xref, k * F::NREF, F::NREF);
+        copy_src(dst + In::UREF * S, ops.uref, k * NU, NU);
+        if constexpr (F::HAS_ULAST) copy_src(dst + In::ULAST * S, ops.ulast, k * NU, NU);
+      }
+    } else if constexpr (per_scenario_v<F>) {
+      if (k == N)
+        copy_src(ring + ((k % FWD_RING) * In::SIZE + In::XREF) * S + threadIdx.x,
+                 ops.xref, k * F::NREF, F::NREF);
     }
     wb::cp_async_commit();
   };
 #pragma unroll
   for (int k = 0; k < FWD_RING - 1; ++k) issue_stage(k);
 
-  const auto c = fwd_ctx<F>(st, pp, N, b, B);
+  const auto c = fwd_ctx<F>(st, pp, N, b, ops, ring + threadIdx.x);
   const float alpha = st.v[GST_ALPHAS + a];
   const float inv2mu = 0.5f / mu;
 
@@ -178,7 +262,8 @@ generic_fwd_kernel(const __grid_constant__ Statics<F> st,
     for (int i = 0; i < NX; ++i) x[i] = xn[i];
   }
 
-  // ---- terminal AL cost
+  // ---- terminal AL cost (per-scenario: X_ref_N has landed)
+  if constexpr (per_scenario_v<F>) wb::cp_async_wait<0>();
   float gt[NCT > 0 ? NCT : 1];
   const float rawN = F::terminal(x, c, gt);
   float pen = 0.f;
@@ -214,7 +299,9 @@ generic_fwd_kernel(const __grid_constant__ Statics<F> st,
 //   the terminal multipliers; the teams' vectors of the stage, two
 //   parities, whose first NX + NU entries are x_k and u_k, the stage's
 //   outputs, stored coalesced from there at the next stage; the statics;
-//   the packed params.  One __syncthreads a stage.
+//   the packed params; in the per-scenario instance each scenario's Q and
+//   P (its reference rows ride in the stage buffer).  One __syncthreads a
+//   stage.
 // - The chain: the NU rows of U + alpha kff + K dx on the lanes, clamped,
 //   u exchanged by shuffles; then F's stage hook takes the step in every
 //   lane, so every lane holds the same x.
@@ -258,7 +345,7 @@ __host__ __device__ constexpr int fwd_scen(int team, int n_alpha) {
 // Offsets (floats) of the parts of a block's shared memory; the row table
 // first, so that its float4 reads are aligned.
 struct FwdTeamSmem {
-  int rows, in, term, vec, sv, ps, size;
+  int rows, in, term, vec, sv, ps, col, size;
 };
 
 template <class F>
@@ -270,17 +357,49 @@ __host__ __device__ inline FwdTeamSmem fwd_team_smem(int N, int n_obs, int n_hp)
   m.term = o;  o += F::NCT * FWD_SCEN;
   m.vec = o;   o += 2 * F::FWD_NV * (FWD_TEAM_THREADS / F::FWD_TEAM);
   m.sv = o;    o += Statics<F>::SIZE;
-  // the packed params: one column a scenario in the per-scenario instance
-  m.ps = o;    o += F::layout(N, n_obs, n_hp).size * (per_scenario_v<F> ? FWD_SCEN : 1);
+  m.ps = o;    o += F::layout(N, n_obs, n_hp).size;
+  // the per-scenario instance: Q, then P, of each scenario
+  m.col = o;   o += per_scenario_v<F> ? 2 * F::NREF * F::NREF * FWD_SCEN : 0;
   m.size = o;
   return m;
 }
 
+// The team kernel's context in the per-scenario instance: the readers of
+// SmemCtx, the references from the stage buffer of the row's parity at the
+// team's scenario (ring), Q and P from the scenario's column (col).
+template <class F, int SC>
+struct PsSmemCtx {
+  using In = FwdIn<F>;
+  const float* sv;
+  const float* pp;
+  typename F::Layout L;
+  float dt, inv_scale;
+  int N, n_obs, n_hp;
+  const float* ring;
+  const float* col;
+
+  __device__ __forceinline__ float p(int i) const { return pp[i]; }
+  __device__ __forceinline__ float ex(int i) const {
+    return sv[Statics<F>::EXTRA + i];
+  }
+  __device__ __forceinline__ float in(int row, int e) const {
+    return ring[(row & 1) * In::SIZE * SC + e * SC];
+  }
+  __device__ __forceinline__ float xref(int row, int i) const { return in(row, In::XREF + i); }
+  __device__ __forceinline__ float uref(int k, int i) const { return in(k, In::UREF + i); }
+  __device__ __forceinline__ float ulast(int k, int i) const { return in(k, In::ULAST + i); }
+  __device__ __forceinline__ SmemMat mat(int off) const { return SmemMat{pp + off}; }
+  __device__ __forceinline__ ColMat<SC> wq() const { return ColMat<SC>{col}; }
+  __device__ __forceinline__ ColMat<SC> wp() const {
+    return ColMat<SC>{col + F::NREF * F::NREF * SC};
+  }
+};
+
 // The lane's share of e^T M e over the rows r = lane, lane + T, ... of the
-// n x n matrix M at offset off of the packed params: the full error e in
+// n x n matrix m (a context's mat, wq or wp): the full error e in
 // registers, e[r] of the lane's rows from the team's vector ev.
-template <int T, int n, class C>
-__device__ __forceinline__ float qform_rows(const C& c, int off, const float* e,
+template <int T, int n, class M>
+__device__ __forceinline__ float qform_rows(const M& m, const float* e,
                                             const float* ev, int lane) {
   float acc = 0.f;
 #pragma unroll
@@ -288,7 +407,7 @@ __device__ __forceinline__ float qform_rows(const C& c, int off, const float* e,
     const int r = min(lane + q * T, n - 1);   // past n: a copy, not added
     float row = 0.f;
 #pragma unroll
-    for (int j = 0; j < n; ++j) row += c.p(off + r * n + j) * e[j];
+    for (int j = 0; j < n; ++j) row += m(r * n + j) * e[j];
     const float t = ev[r] * row;
     acc += lane + q * T < n ? t : 0.f;
   }
@@ -329,7 +448,8 @@ generic_fwd_team_kernel(const __grid_constant__ Statics<F> st,
                         const float* __restrict__ lamt,
                         float* __restrict__ Xc, float* __restrict__ Uc,
                         float* __restrict__ xlast, float* __restrict__ cost,
-                        float mu, int N, int B) {
+                        float mu, int N, int B,
+                        const __grid_constant__ PsOps ops) {
   constexpr int NX = F::NX, NU = F::NU, NC = F::NC, NCT = F::NCT;
   constexpr int T = F::FWD_TEAM, TEAMS = FWD_TEAM_THREADS / T;
   constexpr int SC = FWD_SCEN;             // the stage buffer's stride
@@ -351,6 +471,7 @@ generic_fwd_team_kernel(const __grid_constant__ Statics<F> st,
   float* vec = smem + M.vec;      // the teams' vectors, two parities
   float* sv = smem + M.sv;        // statics
   float* ps = smem + M.ps;        // packed params
+  float* col = smem + M.col;      // per-scenario: Q, P of each scenario
 
   const int tid = threadIdx.x;
   const int team = tid / T, lane = tid % T;
@@ -375,6 +496,25 @@ generic_fwd_team_kernel(const __grid_constant__ Statics<F> st,
 #pragma unroll 4
     for (int i = ci; i < n; i += per, p += step) wb::cp_async4(dst + i * SC, p);
   };
+  // per-scenario: rows [0, n) of source src from row `first` on, into
+  // the buffer's rows 0, 1, ... at dst
+  auto copy_src = [&](float* dst, const PsSrc& src, int first, int n) {
+    if (!copier) return;
+    const float* p = src.p + (first + ci) * src.row + cb * src.scen;
+    const long long step = per * src.row;
+#pragma unroll 4
+    for (int i = ci; i < n; i += per, p += step) wb::cp_async4(dst + i * SC, p);
+  };
+  // per-scenario: stage k's reference rows into buffer k & 1 (at k = N,
+  // X_ref_N alone)
+  auto issue_refs = [&](int k) {
+    float* dst = inbuf + (k & 1) * In::SIZE * SC + cs;
+    copy_src(dst + In::XREF * SC, ops.xref, k * F::NREF, F::NREF);
+    if (k < N) {
+      copy_src(dst + In::UREF * SC, ops.uref, k * NU, NU);
+      if constexpr (F::HAS_ULAST) copy_src(dst + In::ULAST * SC, ops.ulast, k * NU, NU);
+    }
+  };
   // stage k's inputs into buffer k & 1
   auto issue_stage = [&](int k) {
     float* dst = inbuf + (k & 1) * In::SIZE * SC + cs;
@@ -383,6 +523,7 @@ generic_fwd_team_kernel(const __grid_constant__ Statics<F> st,
     copy_rows(dst + In::KFF * SC, kff, k * NU, NU);
     copy_rows(dst + In::K * SC, K, k * NU * NX, NU * NX);
     copy_rows(dst + In::LAM * SC, lam, k * NC, NC);
+    if constexpr (per_scenario_v<F>) issue_refs(k);
   };
   // stage k's outputs x_k, u_k from the vectors of its parity
   auto store_out = [&](int k) {
@@ -399,21 +540,28 @@ generic_fwd_team_kernel(const __grid_constant__ Statics<F> st,
     }
   };
 
-  // ---- the params, the terminal multipliers and stage 0 in flight; the
-  // statics and the row table meanwhile
+  // ---- the params (per-scenario: and each scenario's Q and P), the
+  // terminal multipliers and stage 0 in flight; the statics and the row
+  // table meanwhile
+  for (int i = tid; i < L.size; i += FWD_TEAM_THREADS) wb::cp_async4(ps + i, pp + i);
   if constexpr (per_scenario_v<F>) {
-    copy_rows(ps + cs, pp, 0, L.size);
-  } else {
-    for (int i = tid; i < L.size; i += FWD_TEAM_THREADS) wb::cp_async4(ps + i, pp + i);
+    constexpr int NQ = F::NREF * F::NREF;
+    copy_src(col + cs, ops.q, 0, NQ);
+    copy_src(col + NQ * SC + cs, ops.pw, 0, NQ);
   }
   copy_rows(tb + cs, lamt, 0, NCT);
   issue_stage(0);
   wb::cp_async_commit();
   for (int i = tid; i < Statics<F>::SIZE; i += FWD_TEAM_THREADS) sv[i] = st.v[i];
   if (tid == 0) F::fwd_team_rows(st.v, rt);
-  using C = std::conditional_t<per_scenario_v<F>, PsSmemCtx<F, SC>, SmemCtx<F>>;
-  const C c{sv, per_scenario_v<F> ? ps + s : ps, L, st.v[GST_DT], st.v[GST_INV_SCALE],
-            N, n_obs, n_hp};
+  const auto c = [&] {
+    if constexpr (per_scenario_v<F>) {
+      return PsSmemCtx<F, SC>{sv, ps, L, st.v[GST_DT], st.v[GST_INV_SCALE], N, n_obs,
+                              n_hp, inbuf + s, col + s};
+    } else {
+      return SmemCtx<F>{sv, ps, L, st.v[GST_DT], st.v[GST_INV_SCALE], N, n_obs, n_hp};
+    }
+  }();
   const float alpha = st.v[GST_ALPHAS + a];
 
   float x[NX];
@@ -422,6 +570,9 @@ generic_fwd_team_kernel(const __grid_constant__ Statics<F> st,
     wb::cp_async_wait<0>();
     __syncthreads();
     if (k + 1 < N) issue_stage(k + 1);
+    if constexpr (per_scenario_v<F>) {
+      if (k + 1 == N) issue_refs(N);   // X_ref_N, into the buffer of N's parity
+    }
     wb::cp_async_commit();
     if (k > 0) store_out(k - 1);
     const float* in = inbuf + (k & 1) * In::SIZE * SC + s;
@@ -506,9 +657,12 @@ FwdGeometry fwd_geometry(int N, int n_obs, int n_hp, int n_alpha, int B) {
   }
 }
 
+// The launch of the line search of F; ps: the per-scenario instance's
+// operands {U_last, X_ref, U_ref, Q, P} (ps_sources; null in the shared
+// instance, whose kernel reads no PsOps).
 template <class F>
-int launch_fwd(const float* statics, const float* params, const float* X,
-               const float* U, const float* kff, const float* K,
+int launch_fwd(const float* statics, const float* params, const float* const* ps,
+               const float* X, const float* U, const float* kff, const float* K,
                const float* lam, const float* lamt, const float* /*lame*/,
                float* Xc, float* Uc, float* xlast, float* cost, float mu,
                int N, int B, void* stream) {
@@ -517,8 +671,14 @@ int launch_fwd(const float* statics, const float* params, const float* X,
   const int na = static_cast<int>(st.v[GST_N_ALPHA]);
   if (na <= 0 || B <= 0 || N <= 0) return 0;
   if (na > MAX_ALPHA) return static_cast<int>(cudaErrorInvalidValue);
-  const FwdGeometry g = fwd_geometry<F>(
-      N, static_cast<int>(st.v[GST_N_OBS]), static_cast<int>(st.v[GST_N_HP]), na, B);
+  const int n_obs = static_cast<int>(st.v[GST_N_OBS]);
+  const int n_hp = static_cast<int>(st.v[GST_N_HP]);
+  PsOps ops{};
+  if constexpr (per_scenario_v<F>) {
+    if (!ps_sources<F>(params, ps, N, n_obs, n_hp, B, ops))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const FwdGeometry g = fwd_geometry<F>(N, n_obs, n_hp, na, B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (F::FWD_TEAM > 0) {
     if (g.smem > 48 * 1024) {
@@ -527,12 +687,33 @@ int launch_fwd(const float* statics, const float* params, const float* X,
       if (e != cudaSuccess) return static_cast<int>(e);
     }
     generic_fwd_team_kernel<F><<<g.blocks, g.threads, g.smem, s>>>(
-        st, params, X, U, kff, K, lam, lamt, Xc, Uc, xlast, cost, mu, N, B);
+        st, params, X, U, kff, K, lam, lamt, Xc, Uc, xlast, cost, mu, N, B, ops);
   } else {
     generic_fwd_kernel<F><<<g.blocks, g.threads, 0, s>>>(
-        st, params, X, U, kff, K, lam, lamt, Xc, Uc, xlast, cost, mu, N, B);
+        st, params, X, U, kff, K, lam, lamt, Xc, Uc, xlast, cost, mu, N, B, ops);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The blocks of the launch of fwd_geometry that one SM holds, as the CUDA
+// runtime reports them (out[0]); the error of raising the kernel's
+// shared-memory limit past the device's.
+template <class F>
+int fwd_occupancy(int N, int n_obs, int n_hp, int n_alpha, int* out) {
+  const FwdGeometry g = fwd_geometry<F>(N, n_obs, n_hp, n_alpha, 1);
+  cudaError_t e = cudaSuccess;
+  if constexpr (F::FWD_TEAM > 0) {
+    if (g.smem > 48 * 1024)
+      e = cudaFuncSetAttribute(generic_fwd_team_kernel<F>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, generic_fwd_team_kernel<F>,
+                                                        g.threads, g.smem);
+  } else {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, generic_fwd_kernel<F>,
+                                                      g.threads, 0);
+  }
+  return static_cast<int>(e);
 }
 
 }  // namespace gen

@@ -91,8 +91,12 @@ _FLOAT = ctypes.c_float
 # whole-body launches take the six per-scenario operands (U_last, X_ref,
 # U_ref, the Q and P diagonals, eq_mask; null where the mask has no bit)
 # after the multipliers.  The generic line search's per-scenario instance
-# (``gen_fwd_ps_*``) takes the shared one's arguments, its params (size, B).
+# (``gen_fwd_ps_*``) takes the shared one's arguments with the five operands
+# U_last, X_ref, U_ref, Q, P (null where shared) after the params; the
+# generic forwards' occupancy (``gen_fwd_occupancy_*``: N, n_obs, n_hp,
+# n_alpha, per_scenario) writes the blocks an SM holds.
 _FWD = [_VOID] * 13 + [_FLOAT, _INT, _INT, _VOID]
+_FWD_PS = [_VOID] * 18 + [_FLOAT, _INT, _INT, _VOID]
 _BWD = [_VOID] * 10 + [_FLOAT, _INT, _INT, _VOID]
 _WB_FWD = [_VOID] * 19 + [_FLOAT, _INT, _INT, _VOID]
 _WB_BWD = [_VOID] * 16 + [_FLOAT, _INT, _INT, _VOID]
@@ -109,8 +113,9 @@ SIGNATURES = {
     **{k: v for name in FORMULATIONS for k, v in (
         (f"gen_fwd_{name}", _FWD), (f"gen_bwd_{name}", _BWD),
         (f"gen_fwd_geometry_{name}", [_INT] * 5 + [_VOID]),
-        (f"gen_fwd_ps_{name}", _FWD),
+        (f"gen_fwd_ps_{name}", _FWD_PS),
         (f"gen_fwd_ps_geometry_{name}", [_INT] * 5 + [_VOID]),
+        (f"gen_fwd_occupancy_{name}", [_INT] * 5 + [_VOID]),
         (f"gen_bwd_geometry_{name}", [_INT] * 4 + [_VOID]),
         (f"gen_statics_size_{name}", []),
         (f"gen_params_size_{name}", [_INT, _INT, _INT]))},

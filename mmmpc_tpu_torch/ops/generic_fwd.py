@@ -27,18 +27,21 @@ compiled library reports.
 
 Per-scenario params (an entry of ``ocp.per_scenario_keys`` with a trailing
 batch axis: the generic controllers' X_ref, U_ref, Q, P and the arm's and
-the endpoint's U_last, each robot its own) select kernel C's per-scenario instance (K5), ``gen_fwd_ps_<name>``,
-counted in ``LAUNCHES_PS``: the packed buffer is one column a scenario,
-(size, B) batch-last (``Formulation.pack_columns``), the shared entries
-copied into every column.  Its plain version is ``plain_fwd`` on the
-params' batch-first view, the callables' (``ocp/spec.py``).
+the endpoint's U_last, each robot its own) select kernel C's per-scenario
+instance (K5), ``gen_fwd_ps_<name>``, counted in ``LAUNCHES_PS``.  It takes
+the packed buffer of the shared entries, once (a per-scenario entry's slot
+kept, zero-filled), and each per-scenario entry as an operand of its own,
+batch-last (``PS_OPERANDS``): the params' own tensor where it is
+contiguous, so the wrapper copies nothing a robot.  The kernel streams each
+robot's reference rows through its stage ring and holds its Q and P beside
+it.  Its plain version is ``plain_fwd`` on the params' batch-first view,
+the callables' (``ocp/spec.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import math
 
 import numpy as np
 import torch
@@ -53,6 +56,9 @@ from mmmpc_tpu_torch.solver.al_ilqr import _al_penalty_eq, _al_penalty_ineq
 LAUNCHES = {name: LaunchCounter() for name in FORMULATIONS}
 # the per-scenario instance of each formulation (K5)
 LAUNCHES_PS = {name: LaunchCounter() for name in FORMULATIONS}
+# the entries a robot may own, in the order of gen_fwd_ps_<name>'s operands
+# (null where shared)
+PS_OPERANDS = ("U_last", "X_ref", "U_ref", "Q", "P")
 
 
 def launch_geometry(lib, name, N, n_obs, n_hp, n_alpha, B,
@@ -68,6 +74,17 @@ def launch_geometry(lib, name, N, n_obs, n_hp, n_alpha, B,
     getattr(lib, f"gen_fwd_{ps}geometry_{name}")(N, n_obs, n_hp, n_alpha, B,
                                                  out)
     return dict(team=out[0], threads=out[1], blocks=out[2], smem_bytes=out[3])
+
+
+def blocks_per_sm(lib, name, N, n_obs, n_hp, n_alpha, per_scenario=False):
+    """The blocks of the launch of ``launch_geometry`` that one SM of the
+    current card holds, as the library's ``gen_fwd_occupancy_<name>`` asks
+    the CUDA runtime."""
+    out = (ctypes.c_int * 1)()
+    check_launch(f"generic_fwd.{name} occupancy",
+                 getattr(lib, f"gen_fwd_occupancy_{name}")(
+                     N, n_obs, n_hp, n_alpha, int(per_scenario), out))
+    return out[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,31 +117,15 @@ class Formulation:
             np.pad(np.asarray(alphas, float), (0, MAX_ALPHA - len(alphas))),
             self.u_clamp[0], self.u_clamp[1], self.extra]).astype(np.float32)
 
-    def pack(self, params) -> torch.Tensor:
+    def pack(self, params, per_scenario=()) -> torch.Tensor:
         """The per-problem tensors as one contiguous buffer (dtype and
-        device of ``params``)."""
-        return pack_buffer(self.shapes, params)
+        device of ``params``); the slot of an entry named in
+        ``per_scenario`` (shape + (B,)) kept, zero-filled."""
+        return pack_buffer(self.shapes, params, per_scenario)
 
     def unpack(self, flat) -> dict[str, torch.Tensor]:
         """Views of ``flat`` under the keys of the controller's params."""
         return unpack_buffer(self.shapes, flat)
-
-    def pack_columns(self, params, batch) -> torch.Tensor:
-        """The per-problem tensors as one contiguous (size, batch) buffer,
-        one column a scenario (the per-scenario instance's): an entry of
-        shape ``shape + (batch,)`` as it is, a shared one of ``shape``
-        copied into every column.  Raises on an entry of another shape."""
-        parts = []
-        for k, shape in self.shapes.items():
-            t, shape, n = params[k], tuple(shape), math.prod(shape)
-            if tuple(t.shape) == shape + (batch,):
-                parts.append(t.reshape(n, batch))
-            elif tuple(t.shape) == shape:
-                parts.append(t.reshape(n, 1).expand(n, batch))
-            else:
-                raise ValueError(f"params[{k!r}]: expected shape {shape} or "
-                                 f"{shape + (batch,)}, got {tuple(t.shape)}")
-        return torch.cat(parts).contiguous()
 
 
 def plain_fwd(ocp, params, alphas, inv_scale, X, U, kff, K, lam, lamt, lame,
@@ -161,9 +162,9 @@ def plain_fwd(ocp, params, alphas, inv_scale, X, U, kff, K, lam, lamt, lame,
 class GenericFwdLinesearch:
     """The fused rollout + line search of one problem: statics from the
     formulation, the step sizes and the cost scale; runtime data (weights,
-    references, geometry) from ``params``, packed once (one column a
-    scenario where an entry is per scenario); multipliers and mu are call
-    arguments."""
+    references, geometry) from ``params``, the shared entries packed once
+    and each per-scenario entry an operand (``operands``, batch-last);
+    multipliers and mu are call arguments."""
 
     def __init__(self, form: Formulation, ocp, params, *, alphas, inv_scale):
         self.form, self.ocp = form, ocp
@@ -175,13 +176,13 @@ class GenericFwdLinesearch:
             raise ValueError(f"params {sorted(unknown)} carry a batch axis, "
                              f"but the {form.name} line search takes them "
                              f"shared only")
+        self.flat = form.pack(params, self.ps_keys)
+        self.operands = {k: params[k].contiguous() for k in self.ps_keys}
         if self.ps_keys:
             self.batch = params[self.ps_keys[0]].shape[-1]
-            self.flat = form.pack_columns(params, self.batch)
             self.params = batch_first({k: params[k] for k in form.shapes})
         else:
             self.batch = None
-            self.flat = form.pack(params)
         self.statics = form.statics(self.alphas, self.inv_scale)
 
     @property
@@ -218,20 +219,23 @@ class GenericFwdLinesearch:
         if self.ps_keys and B != self.batch:
             raise ValueError(f"generic_fwd.{f.name}: per-scenario params of "
                              f"batch {self.batch}, inputs of batch {B}")
-        ptrs = [check_tensor("params", self.flat, tuple(self.flat.shape), dev),
-                check_tensor("X", X, (N, nx, B), dev),
-                check_tensor("U", U, (N, nu, B), dev),
-                check_tensor("kff", kff, (N, nu, B), dev),
-                check_tensor("K", K, (N, nu, nx, B), dev),
-                check_tensor("lam", lam, (N, f.nc, B), dev),
-                check_tensor("lam_term", lamt, (f.nct, B), dev),
-                check_tensor("lam_eq", lame, (0, B), dev)]
+        ptrs = [check_tensor("params", self.flat, (self.flat.numel(),), dev)]
+        if self.ps_keys:
+            ptrs += [check_tensor(k, self.operands[k],
+                                  (*f.shapes[k], B), dev)
+                     if k in self.operands else 0 for k in PS_OPERANDS]
+        ptrs += [check_tensor("X", X, (N, nx, B), dev),
+                 check_tensor("U", U, (N, nu, B), dev),
+                 check_tensor("kff", kff, (N, nu, B), dev),
+                 check_tensor("K", K, (N, nu, nx, B), dev),
+                 check_tensor("lam", lam, (N, f.nc, B), dev),
+                 check_tensor("lam_term", lamt, (f.nct, B), dev),
+                 check_tensor("lam_eq", lame, (0, B), dev)]
         kw = dict(dtype=torch.float32, device=dev)
         outs = (torch.empty(N, na, nx, B, **kw), torch.empty(N, na, nu, B, **kw),
                 torch.empty(na, nx, B, **kw), torch.empty(na, B, **kw))
         lib = LIBRARY.get()
-        check_layout(lib, self.statics, self.flat[:, 0] if self.ps_keys
-                     else self.flat, N, f.n_obs, f.n_hp, f.name)
+        check_layout(lib, self.statics, self.flat, N, f.n_obs, f.n_hp, f.name)
         entry = f"gen_fwd_{'ps_' if self.ps_keys else ''}{f.name}"
         with torch.cuda.device(dev):
             err = getattr(lib, entry)(

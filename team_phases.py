@@ -112,7 +112,7 @@ GUARDS = (
      "    const float sm = ground_value_team<T>(c, c.L.obs, x[0], x[1], "
      "c.ex(S_RADIUS), lane);\n", None, "NO_GROUND", "    const float sm = 0.f;\n"),
     ("generic_endpoint.cu",
-     "    tr += qform_rows<T, NU>(c, c.L.R, eu, v + FV_EU, lane);\n",
+     "    tr += qform_rows<T, NU>(c.mat(c.L.R), eu, v + FV_EU, lane);\n",
      "    const float pen = phr_rows<T, NC>", "NO_FORMS"),
     ("generic_endpoint.cu",
      "    const float pen = phr_rows<T, NC>(rt, v, lam, SC, mu, lane);\n",
@@ -134,16 +134,18 @@ GUARDS = (
      "    const float sm = ground_value_team<T>(c, c.L.obs, x[0], x[1], "
      "c.ex(S_RADIUS), lane);\n", None, "NO_GROUND", "    const float sm = 0.f;\n"),
     ("generic_base.cu",
-     "    return tr + qform_rows<T, NX>(c, W, e, v + FV_E, lane);\n", None,
+     "    return tr + qform_rows<T, NX>(W, e, v + FV_E, lane);\n", None,
      "NO_FORMS", "    return tr;\n"),
     ("generic_base.cu",
-     "    tr += qform_rows<T, NU>(c, c.L.R, eu, v + FV_EU, lane);\n", None,
+     "    tr += qform_rows<T, NU>(c.mat(c.L.R), eu, v + FV_EU, lane);\n",
+     None,
      "NO_FORMS"),
     ("generic_base.cu",
      "    const float pen = phr_rows<T, NC>(rt, v, lam, SC, mu, lane);\n",
      None, "NO_PHR", "    const float pen = 0.f;\n"),
     ("generic_demo.cu",
-     "    return qform<2>(c, c.L.Q, ex) + qform<1>(c, c.L.R, eu);\n", None,
+     "    return qform<2>(c.wq(), ex) + qform<1>(c.mat(c.L.R), eu);\n",
+     None,
      "NO_FORMS", "    return 0.f;\n"),
     ("generic_fwd.cuh",
      "    for (int r = 0; r < NC; ++r) {\n"

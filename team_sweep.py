@@ -30,7 +30,8 @@ only when ``--only`` names them, on the sources of ``--csrc DIR`` (the
 parent's ``csrc``, from ``git archive``) where the kernel is no longer one
 thread a scenario.  ``demo_fwd_ring``, run only when ``--only`` names it,
 builds C.demo, one thread a candidate, with a ring of T stages (its
-``FWD_RING``; at most 12 fit the 48 KB of static shared memory).
+``FWD_RING``; at most 8 fit the 48 KB of static shared memory, since the
+same source holds K5.demo, whose ring carries its reference rows too).
 
 Needs a CUDA card and ``nvcc``:
 

@@ -36,8 +36,11 @@ tests:
   twin than twice it; and a horizon past the card's shared memory refused
   with a ValueError before any launch;
 - the generic line search's per-scenario instance (K5) of each
-  formulation, each robot its own X_ref, U_ref, Q and P, at batches 64, 37
-  and 1: X / U atol 2e-5, cost rtol = atol = 2e-3;
+  formulation, each robot its own X_ref, U_ref, Q, P and U_last, at batches
+  64, 37, 1, 21 and 22 (one block of 21 scenarios at 3 step sizes and one
+  over) and 8191, at N = 100, at the tick's 8 step sizes at batch 1, and
+  with the references alone, the weights alone or U_last alone per robot:
+  X / U atol 2e-5, cost rtol = atol = 2e-3;
 - the Riccati sweep E at each (nx, nu) of the kernel library and at (4, 2),
   which builds its own library on first use, on random SPD blocks at 2e-4;
   and at (9, 5) on the fleet's per-robot blocks (the host-parity solver's)
@@ -62,14 +65,14 @@ from mmmpc_tpu_torch.ops._cuda import FMA_NACC, RICCATI_INSTANCES
 from mmmpc_tpu_torch.ops.generic_bwd import plain_bwd
 from mmmpc_tpu_torch.ops.generic_fwd import plain_fwd
 from mmmpc_tpu_torch.solver.al_ilqr import rollout
+from mmmpc_tpu_torch.utils.configs import SolverConfig
 from mmmpc_tpu_torch.utils.convert import params_from_numpy
 
 from torch_problems import (
-    ARM_BATCH, ARMS, B, BWD_ATOL, FLEET_KEYS, FORMULATIONS, GENERIC_KEYS, N,
-    batch_last, drift_gate, fleet_params, fleet_riccati_blocks,
-    generic_fleet_params, generic_keys, generic_problem, long_problem,
-    qref_problem,
-    selfcol_problem, spd_blocks,
+    ARM_BATCH, ARMS, B, BWD_ATOL, FLEET_KEYS, FORMULATIONS, GENERIC_CFG,
+    GENERIC_KEYS, N, PS_MIXES, batch_last, drift_gate, fleet_params,
+    fleet_riccati_blocks, generic_keys, generic_mix_params, generic_problem,
+    long_problem, qref_problem, selfcol_problem, spd_blocks,
 )
 
 # at 64 scenarios the arm's ill-conditioned ones pass the 1% of entries of
@@ -330,39 +333,78 @@ def test_cuda_generic_kernel_matches_plain(device, name, kernel, part):
         assert e_kernel < 0.15
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("batch", (B, 37, 1))
-@pytest.mark.parametrize("name", FORMULATIONS)
-def test_cuda_per_scenario_line_search_matches_plain(device, name, batch):
-    """Kernel C's per-scenario instance (K5) of each formulation against
-    its plain version on the card: each robot its own X_ref, U_ref, Q, P
-    and U_last where it has one (``generic_fleet_params``: every reference
-    row moved, full Q and P), on
-    the whole batch, a partial block and one robot, the wrapper built from
-    the first robots' entries: X / U atol 2e-5, cost rtol = atol = 2e-3."""
-    mpc, x0_b, U0_b, params = generic_problem(name)
-    p = params_from_numpy(generic_fleet_params(params, B), device,
+def _check_per_scenario(device, name, batch, keys=GENERIC_KEYS, horizon=N,
+                        n_alpha=GENERIC_CFG["n_alpha"]):
+    """Kernel C's per-scenario instance (K5) of formulation ``name``
+    against its plain version on the card: the problem at max(batch, B)
+    robots with ``horizon`` stages and ``n_alpha`` step sizes, the entries
+    ``keys`` one value a robot (``generic_mix_params``: every reference row
+    moved, full Q and P, U_last where it has one), the others shared; the
+    wrapper built from the first ``batch`` robots' entries, on their
+    inputs: X / U atol 2e-5, cost rtol = atol = 2e-3."""
+    full = max(batch, B)
+    cfg = SolverConfig(**dict(GENERIC_CFG, n_alpha=n_alpha))
+    mpc, x0_b, U0_b, params = generic_problem(name, full, cfg, horizon)
+    p = params_from_numpy(generic_mix_params(params, full, keys), device,
                           torch.float32)
     rng = np.random.default_rng(5)
     nx, nu = mpc.NX, mpc.NU
     X, U = rollout(mpc.ocp, _t(x0_b, device).T,
                    _t(U0_b, device).permute(1, 2, 0), p)
+    own = [k for k in keys if k in params]
     f = mpc.ocp.lanes_fwd_factory(mpc.solver_config, {
-        k: v[..., :batch].contiguous() if k in GENERIC_KEYS else v
+        k: v[..., :batch].contiguous() if k in own else v
         for k, v in p.items()})
-    assert f.ps_keys == generic_keys(params)
+    assert f.ps_keys == generic_keys({k: 0 for k in own})
     args = _first((
-        X[:-1], U, _t(0.05 * rng.standard_normal((N, nu, B)), device),
-        _t(0.05 * rng.standard_normal((N, nu, nx, B)), device),
-        _t(np.abs(rng.standard_normal((N, f.form.nc, B))), device),
-        _t(np.abs(rng.standard_normal((f.form.nct, B))), device),
-        _t(np.zeros((0, B)), device), 10.0), batch)
+        X[:-1], U, _t(0.05 * rng.standard_normal((horizon, nu, full)), device),
+        _t(0.05 * rng.standard_normal((horizon, nu, nx, full)), device),
+        _t(np.abs(rng.standard_normal((horizon, f.form.nc, full))), device),
+        _t(np.abs(rng.standard_normal((f.form.nct, full))), device),
+        _t(np.zeros((0, full)), device), 10.0), batch)
     before = generic_fwd.LAUNCHES_PS[name].cuda
     got, ref = f.cuda(*args), f.plain(*args)
     torch.cuda.synchronize()
     assert generic_fwd.LAUNCHES_PS[name].cuda == before + 1
     for g, r, tol in zip(got, ref, [(0.0, 2e-5)] * 3 + [(2e-3, 2e-3)]):
         torch.testing.assert_close(g, r, rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", (B, 37, 1, 21, 22, 8191))
+@pytest.mark.parametrize("name", FORMULATIONS)
+def test_cuda_per_scenario_line_search_matches_plain(device, name, batch):
+    """K5 of each formulation, each robot its own X_ref, U_ref, Q, P and
+    U_last where it has one, on the whole batch, partial blocks (37, and
+    21 and 22: one block of the team kernel's 21 scenarios at 3 step sizes
+    and one over), one robot and 8191 (``_check_per_scenario``)."""
+    _check_per_scenario(device, name, batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FORMULATIONS)
+def test_cuda_per_scenario_line_search_long_horizon(device, name):
+    """K5 at N = 100, so that the stage ring turns over many times and the
+    terminal reference row rides in it after them."""
+    _check_per_scenario(device, name, B, horizon=100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FORMULATIONS)
+def test_cuda_per_scenario_line_search_tick_shape(device, name):
+    """K5 at a single-robot tick's shape: batch 1, 8 step sizes."""
+    _check_per_scenario(device, name, 1, n_alpha=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, mix", [
+    (name, mix) for mix in PS_MIXES for name in FORMULATIONS
+    if mix != "U_last" or name in (*ARMS, "endpoint")])
+def test_cuda_per_scenario_line_search_mix(device, name, mix):
+    """K5 with only some entries per robot (``PS_MIXES``): the references
+    with shared Q and P, Q and P with shared references, U_last alone; the
+    shared ones read from the packed params."""
+    _check_per_scenario(device, name, B, keys=PS_MIXES[mix])
 
 
 @pytest.mark.cuda

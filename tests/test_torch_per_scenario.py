@@ -12,8 +12,11 @@ vmapped solve takes them, against the JAX package.
   those entries mapped, the five formulations in one program compiled at
   XLA's lowest CPU optimisation level: X / U atol 2e-5, cost rtol = atol
   = 2e-3 (tests/test_generic_fwd.py).
-- The line search packs one column a robot, the shared entries copied
-  into each.
+- The line search's buffers: the shared entries packed once, each
+  per-robot entry an operand of its own, batch-last, passed through
+  without a copy where it is contiguous, so that they unpack back to each
+  robot's params exactly, for every formulation and every mix of per-robot
+  and shared entries (``torch_problems.PS_MIXES``).
 - Each formulation's per-scenario solve takes the expansion route (D
   never runs: it reads no per-robot entry) and equals its robots solved
   one by one with their entries shared, float64, B=4: relative cost and
@@ -49,7 +52,7 @@ from mmmpc_tpu_torch.utils import debugging
 from mmmpc_tpu_torch.utils.convert import params_from_numpy
 
 import torch_problems as tp
-from torch_problems import B, FORMULATIONS, GENERIC_KEYS, N
+from torch_problems import B, FORMULATIONS, GENERIC_KEYS, N, PS_MIXES
 
 F32 = jnp.float32
 JAX_MODULES = (ctl_j, obs_j, robots_j)
@@ -181,22 +184,63 @@ def test_per_scenario_fwd_plain_matches_jax(cases, name):
                                atol=2e-3)
 
 
+def _robot_params(fwd, b):
+    """What kernel C's per-scenario instance reads for robot ``b``: the
+    packed shared buffer, each per-robot entry from its operand."""
+    return dict(fwd.form.unpack(fwd.flat),
+                **{k: v[..., b] for k, v in fwd.operands.items()})
+
+
 @pytest.mark.parametrize("name", ["demo", "endpoint"])
 def test_line_search_packs_one_column_a_robot(name):
-    """The per-scenario buffer is (size, B): a robot's column is the shared
-    buffer of its own entries."""
+    """The per-scenario line search packs the shared entries once, at the
+    shared instance's layout, a per-robot entry's slot zero-filled, and
+    takes each per-robot entry as an operand (shape + (B,)): a robot's
+    params are the shared buffer with its own column of each operand."""
     mpc, _, _, params = tp.generic_problem(name)
     ps = tp.generic_fleet_params(params, 3)
     fwd = mpc.ocp.lanes_fwd_factory(
         mpc.solver_config, params_from_numpy(ps, "cpu", torch.float64))
     size = fwd.form.pack(params_from_numpy(params, "cpu",
                                            torch.float64)).numel()
-    assert tuple(fwd.flat.shape) == (size, 3) and fwd.flat.is_contiguous()
+    assert tuple(fwd.flat.shape) == (size,)
+    assert tuple(fwd.operands) == tp.generic_keys(params)
+    shared = fwd.form.unpack(fwd.flat)
+    for k, v in fwd.operands.items():
+        assert tuple(v.shape) == tuple(fwd.form.shapes[k]) + (3,)
+        assert not shared[k].any(), k
     for b in range(3):
         one = {k: (v[..., b] if k in GENERIC_KEYS else v)
                for k, v in ps.items()}
-        want = fwd.form.pack(params_from_numpy(one, "cpu", torch.float64))
-        assert torch.equal(fwd.flat[:, b], want), b
+        want = fwd.form.unpack(fwd.form.pack(
+            params_from_numpy(one, "cpu", torch.float64)))
+        got = _robot_params(fwd, b)
+        for k in fwd.form.shapes:
+            assert torch.equal(got[k], want[k]), (b, k)
+
+
+@pytest.mark.parametrize("name", FORMULATIONS)
+def test_line_search_buffers_unpack_to_each_robot(name):
+    """For each mix of per-robot and shared entries (all of them, and each
+    of ``PS_MIXES`` the formulation has), the wrapper's buffers unpack back
+    to each robot's params exactly; a contiguous batch-last entry is the
+    operand itself (same ``data_ptr``, no copy), and only the per-robot
+    entries are operands."""
+    mpc, _, _, params = tp.generic_problem(name)
+    mixes = [GENERIC_KEYS, *(k for k in PS_MIXES.values()
+                             if set(k) <= set(params))]
+    for keys in mixes:
+        ps = params_from_numpy(tp.generic_mix_params(params, 5, keys), "cpu",
+                               torch.float32)
+        fwd = mpc.ocp.lanes_fwd_factory(mpc.solver_config, ps)
+        assert set(fwd.operands) == set(keys) & set(params), keys
+        for k, v in fwd.operands.items():
+            assert v.data_ptr() == ps[k].data_ptr(), (keys, k)
+        for b in range(5):
+            got = _robot_params(fwd, b)
+            for k in fwd.form.shapes:
+                want = ps[k][..., b] if k in fwd.operands else ps[k]
+                assert torch.equal(got[k], want), (keys, b, k)
 
 
 @pytest.mark.parametrize("name", FORMULATIONS)

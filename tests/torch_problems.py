@@ -46,33 +46,34 @@ QREF_CFG = dict(GENERIC_CFG, cost_scale=1e5)
 PORT = (_ctl, _obstacles, _robots)
 
 
-def generic_controller(name, cfg=None, modules=PORT):
+def generic_controller(name, cfg=None, modules=PORT, horizon=N):
     """The controller of formulation ``name`` (demo, base with two ground
     obstacles, arm with WEDGE, joint-space or Cartesian (the problem of
     tests/test_generic_bwd.py::_arm_problem), whole-body endpoint with one
     ground obstacle), built from ``modules`` with solver config ``cfg``
-    (default: the port's of GENERIC_CFG)."""
+    (default: the port's of GENERIC_CFG), at ``horizon`` stages."""
     ctl, obs, robots = modules
     cfg = SolverConfig(**GENERIC_CFG) if cfg is None else cfg
     if name == "demo":
-        return ctl.MPC(robots.RobotDemo(0.1), N=N, solver_config=cfg)
+        return ctl.MPC(robots.RobotDemo(0.1), N=horizon, solver_config=cfg)
     if name == "base":
         return ctl.MPCBase(robots.Base(0.1),
                            [obs.Obstacles(1.2, 0.15, 0.3),
                             obs.Obstacles(0.4, -0.4, 0.25)],
-                           N=N, solver_config=cfg)
+                           N=horizon, solver_config=cfg)
     if name in ARMS:
         return ctl.MPCManipulator3DoF(robots.ManipulatorPanda3DoF(0.1),
-                                      *WEDGE, N=N, solver_config=cfg,
+                                      *WEDGE, N=horizon, solver_config=cfg,
                                       is_cartesian_ref=name == "arm_cart")
     return ctl.MPCWholeBodyEndpoint(robots.MobileManipulator(0.1),
-                                    [obs.Obstacles(1.0, 0.2, 0.3)], N=N,
+                                    [obs.Obstacles(1.0, 0.2, 0.3)], N=horizon,
                                     solver_config=cfg)
 
 
-def generic_params(mpc, name):
-    """``mpc``'s params for formulation ``name``'s reference, as float64
-    numpy."""
+def generic_params(mpc, name, horizon=N):
+    """``mpc``'s params for formulation ``name``'s reference at ``horizon``
+    stages, as float64 numpy."""
+    N = horizon
     if name == "demo":
         traj, nu = np.linspace([0.0, 0.0], [3.0, 0.0], N + 1), 1
     elif name == "base":
@@ -93,11 +94,11 @@ def generic_params(mpc, name):
         mpc.make_params(traj, np.zeros((N, nu))), **extra).items()}
 
 
-def generic_problem(name, batch=B, cfg=None):
-    """The port's problem of formulation ``name``: (controller, starts
-    x0_b (batch, nx), inputs U0_b (batch, N, nu), params as float64
-    numpy)."""
-    mpc = generic_controller(name, cfg)
+def generic_problem(name, batch=B, cfg=None, horizon=N):
+    """The port's problem of formulation ``name`` at ``horizon`` stages:
+    (controller, starts x0_b (batch, nx), inputs U0_b (batch, horizon, nu),
+    params as float64 numpy)."""
+    mpc = generic_controller(name, cfg, horizon=horizon)
     rng = np.random.default_rng(0)
     if name == "demo":
         x0_b = np.stack([rng.uniform(-2, 2, batch),
@@ -114,8 +115,8 @@ def generic_problem(name, batch=B, cfg=None):
         x0[6:] = [-np.pi / 4, -np.pi / 2, np.pi / 2]
         x0_b = x0[None] + 0.05 * rng.standard_normal((batch, 9)) * np.array(
             [1, 1, 0.5, 0.2, 0.2, 0.2, 0.3, 0.3, 0.3])
-    U0_b = 0.3 * rng.standard_normal((batch, N, mpc.NU))
-    return mpc, x0_b, U0_b, generic_params(mpc, name)
+    U0_b = 0.3 * rng.standard_normal((batch, horizon, mpc.NU))
+    return mpc, x0_b, U0_b, generic_params(mpc, name, horizon)
 
 
 def moving_table(horizon=N):
@@ -277,6 +278,20 @@ def generic_fleet_params(params, batch, seed=12):
         out["U_last"] = UL[..., None] + 0.05 * rng.standard_normal(
             UL.shape + (batch,))
     return out
+
+
+# the mixes of per-robot and shared entries that kernel C's per-scenario
+# instance routes apart: the references alone per robot, the weights alone,
+# U_last alone (the arm's and the endpoint's)
+PS_MIXES = {"references": ("X_ref", "U_ref"), "weights": ("Q", "P"),
+            "U_last": ("U_last",)}
+
+
+def generic_mix_params(params, batch, keys=GENERIC_KEYS):
+    """``generic_fleet_params(params, batch)`` with only the entries
+    ``keys`` one value a robot, the others shared as in ``params``."""
+    fleet = generic_fleet_params(params, batch)
+    return {k: fleet[k] if k in keys else v for k, v in params.items()}
 
 
 def moved_targets(X_ref, batch, seed=0, reach=0.05):
